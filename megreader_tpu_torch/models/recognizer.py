@@ -1,0 +1,67 @@
+"""CTC word recognizer: ResNet (rec) -> height mean -> BiLSTM -> classifier.
+
+Shape trace (config #1, NHWC in): (B, 32, 100, 3) -> resnet18-rec ->
+(B, 512, 2, 25) -> mean over height -> (B, 25, 512) -> StackedBiLSTM(256) x2
+-> (B, 25, 512) -> Linear(num_classes) -> (B, 25, 37).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from ..ops.ctc import ctc_greedy_decode
+from .resnet import resnet_variant
+from .sequence import StackedBiLSTM
+
+
+class CTCRecognizerNet(nn.Module):
+    """CNN + BiLSTM encoder + per-timestep classifier; NHWC crops in,
+    (B, T, num_classes) float32 logits out."""
+
+    def __init__(self, num_classes: int, backbone: str = "resnet18", encoder: str = "bilstm",
+                 hidden: int = 256, num_encoder_layers: int = 2,
+                 height_collapse: str = "mean"):
+        super().__init__()
+        if encoder != "bilstm":
+            raise NotImplementedError(
+                f"encoder={encoder!r}: only the BiLSTM encoder is ported (ROADMAP Queue 1)"
+            )
+        if height_collapse != "mean":
+            raise NotImplementedError(
+                f"height_collapse={height_collapse!r}: only 'mean' is ported (ROADMAP Queue 1)"
+            )
+        self.backbone = resnet_variant(backbone, "rec")
+        self.encoder = StackedBiLSTM(self.backbone.out_channels[-1], hidden, num_encoder_layers)
+        self.classifier = nn.Linear(2 * hidden, num_classes)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        feat = self.backbone(images.permute(0, 3, 1, 2))  # (B, C, H', W')
+        seq = feat.mean(2).transpose(1, 2)  # (B, W', C)
+        return self.classifier(self.encoder(seq)).float()
+
+
+class CTCRecognizer:
+    """Serving wrapper: the net on ``device`` in eval mode, greedy decode."""
+
+    def __init__(self, num_classes: int = 37, backbone: str = "resnet18",
+                 encoder: str = "bilstm", hidden: int = 256, num_encoder_layers: int = 2,
+                 blank: int = 0, height_collapse: str = "mean", device="cuda"):
+        self.net = CTCRecognizerNet(
+            num_classes, backbone, encoder, hidden, num_encoder_layers, height_collapse
+        ).to(device).eval()
+        self.num_classes = num_classes
+        self.blank = blank
+
+    @torch.no_grad()
+    def decode(self, images: torch.Tensor, mode: str = "greedy", net: nn.Module = None):
+        """NHWC crops -> (ids (B, T) int32, lengths (B,) int32). ``net``
+        overrides the wrapper's own module (same architecture)."""
+        if mode != "greedy":
+            raise NotImplementedError(
+                f"decode mode {mode!r}: prefix beam search is not ported yet (ROADMAP Queue 1)"
+            )
+        logits = (self.net if net is None else net)(images).float()
+        B, T, _ = logits.shape
+        lengths = torch.full((B,), T, dtype=torch.int32, device=logits.device)
+        return ctc_greedy_decode(logits, lengths, blank=self.blank)

@@ -1,0 +1,101 @@
+"""ResNet trunks (BasicBlock: ResNet-18/34), detection and recognition flavors.
+
+Modules take and return NCHW tensors. Padding follows the JAX package's
+explicit torch-style padding, and BatchNorm runs on stored statistics
+(eps 1e-5, flax's default), so weights carried from the flax tree
+(``compat.weights``) reproduce its activations.
+
+variant='det': 7x7/s2 stem + 3x3/s2 max pool (pad 1), stage strides
+(1, 2, 2, 2); returns (C2, C3, C4, C5) at strides 4/8/16/32.
+variant='rec': 3x3/s1 stem + 2x2/s2 max pool, stage strides
+(1, (2, 2), (2, 1), (2, 1)), so a 32x100 crop ends at H=2, W=25; returns the
+last feature map.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+STAGE_SIZES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
+
+
+def _pair(s):
+    return s if isinstance(s, tuple) else (s, s)
+
+
+class BasicBlock(nn.Module):
+    """2x(3x3 conv) residual block with a 1x1 projection where the shape changes."""
+
+    def __init__(self, in_ch: int, features: int, stride=(1, 1)):
+        super().__init__()
+        stride = _pair(stride)
+        self.conv1 = nn.Conv2d(in_ch, features, 3, stride, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(features, eps=1e-5)
+        self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(features, eps=1e-5)
+        if in_ch != features or stride != (1, 1):
+            self.downsample_conv = nn.Conv2d(in_ch, features, 1, stride, bias=False)
+            self.downsample_bn = nn.BatchNorm2d(features, eps=1e-5)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        r = x if self.downsample_conv is None else self.downsample_bn(self.downsample_conv(x))
+        return F.relu(y + r)
+
+
+class ResNet(nn.Module):
+    """Configurable BasicBlock trunk (see the module docstring)."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2), variant: str = "det",
+                 width: int = 64, in_ch: int = 3):
+        super().__init__()
+        if variant == "det":
+            self.stem_conv = nn.Conv2d(in_ch, width, 7, 2, 3, bias=False)
+            self.pool = nn.MaxPool2d(3, 2, 1)
+            strides = [(1, 1), (2, 2), (2, 2), (2, 2)]
+        elif variant == "rec":
+            self.stem_conv = nn.Conv2d(in_ch, width, 3, 1, 1, bias=False)
+            self.pool = nn.MaxPool2d(2, 2)
+            strides = [(1, 1), (2, 2), (2, 1), (2, 1)]
+        else:
+            raise NotImplementedError(
+                f"ResNet variant {variant!r}: only 'det' and 'rec' are ported"
+            )
+        self.stem_bn = nn.BatchNorm2d(width, eps=1e-5)
+        self.variant = variant
+        self.stages = []
+        ch = width
+        for i, (n, stride) in enumerate(zip(stage_sizes, strides)):
+            names = []
+            for j in range(n):
+                name = f"layer{i + 1}_block{j}"
+                self.add_module(name, BasicBlock(ch, width * 2**i, stride if j == 0 else (1, 1)))
+                ch = width * 2**i
+                names.append(name)
+            self.stages.append(names)
+        self.out_channels = [width * 2**i for i in range(len(stage_sizes))]
+
+    def forward(self, x):
+        y = self.pool(F.relu(self.stem_bn(self.stem_conv(x))))
+        feats = []
+        for names in self.stages:
+            for name in names:
+                y = getattr(self, name)(y)
+            feats.append(y)
+        return tuple(feats) if self.variant == "det" else y
+
+
+def resnet_variant(name: str, variant: str = "det", width: int = 64) -> ResNet:
+    if name not in STAGE_SIZES:
+        raise NotImplementedError(
+            f"backbone {name!r}: only the BasicBlock trunks {sorted(STAGE_SIZES)} are ported"
+        )
+    return ResNet(STAGE_SIZES[name], variant, width)
+

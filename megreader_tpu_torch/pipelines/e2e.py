@@ -1,0 +1,195 @@
+"""End-to-end page pipeline: detect -> label -> extract -> rectify -> recognize.
+
+    pages (B, H, W, 3) float32 [0, 255]
+      -> SegDetectorNet prob map (B, H, W)
+      -> binarize + connected components (CUDA kernel on the card)
+      -> K fixed region slots per page -> word quads (B, K, 4, 2)
+      -> perspective (or box) crops (B*K, 32, 100, 3) -> CTC recognizer
+      -> greedy ids/lengths; ``predict`` looks the strings up on the host.
+
+Shapes are static: K is a fixed region budget, and slots without a region are
+masked by ``valid``, not dropped. Each stage is a method, so a caller can time
+the stages one by one; ``run`` chains them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from ..core.charset import Charset
+from ..models.recognizer import CTCRecognizer
+from ..ops.ccl import (
+    connected_components,
+    extract_regions,
+    regions_to_quads,
+    unclip_distance_for,
+    unclip_distance_inverse,
+)
+from ..ops.image import crop_resize_boxes, normalize, rectify_quads_mxu
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, {item})")
+
+
+class E2EPipeline:
+    """detect -> crop -> recognize, batched over pages, on one device."""
+
+    def __init__(
+        self,
+        detector,
+        recognizer,
+        charset: Optional[Charset] = None,
+        max_regions: int = 32,
+        bin_thresh: float = 0.3,
+        box_thresh: float = 0.6,
+        unclip_ratio: float = 1.5,
+        unclip: str = "inverse",
+        shrink_ratio: float = 0.4,
+        crop_hw=(32, 100),
+        box_margin: float = 4.0,
+        deskew: bool = False,
+        rectify: str = "perspective",
+        ccl_iters: int = 24,
+        ccl_multigrid: bool = False,
+        bf16: bool = False,
+        extract_impl: str = "auto",
+        rec_mode: str = "greedy",
+        device="cuda",
+    ):
+        if not isinstance(recognizer, CTCRecognizer):
+            raise _not_ported("the attention and 2D-CTC recognizer families",
+                              "items 9-10")
+        if deskew or rectify == "deskew":
+            raise _not_ported("rectify='deskew'", "item 6, page-pipeline variants")
+        if rectify == "chain":
+            raise _not_ported("rectify='chain'", "item 11, curved-text serving")
+        if rectify not in ("perspective", "box"):
+            raise ValueError(f"unknown rectify mode {rectify!r}")
+        if bf16:
+            raise _not_ported("bf16 serving", "item 6, page-pipeline variants")
+        if rec_mode != "greedy":
+            raise _not_ported(f"rec_mode={rec_mode!r}", "item 3, prefix beam search")
+        if ccl_multigrid:
+            raise _not_ported("ccl_multigrid", "item 6, page-pipeline variants")
+        if extract_impl not in ("auto", "xla"):
+            raise _not_ported(f"extract_impl={extract_impl!r}",
+                              "Queue 2 item 3, region-extraction kernels")
+        if unclip not in ("inverse", "ratio"):
+            raise ValueError(f"unknown unclip mode {unclip!r}")
+        self.detector = detector
+        self.recognizer = recognizer
+        self.charset = charset or Charset()
+        self.max_regions = max_regions
+        self.bin_thresh = bin_thresh
+        self.box_thresh = box_thresh
+        self.unclip_ratio = unclip_ratio
+        self.unclip = unclip
+        self.shrink_ratio = shrink_ratio
+        self.crop_hw = tuple(crop_hw)
+        self.box_margin = box_margin
+        self.rectify = rectify
+        self.ccl_iters = ccl_iters
+        self.rec_mode = rec_mode
+        self.device = torch.device(device)
+
+    # --- stages -------------------------------------------------------------
+
+    def detect(self, det_module, pages: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) pages -> (B, H, W) float32 prob map."""
+        return det_module(normalize(pages), heads=("prob",))["prob"].float()
+
+    def label(self, prob: torch.Tensor) -> torch.Tensor:
+        """Binarize and label components: (B, H, W) int32."""
+        return connected_components(prob > self.bin_thresh, max_iters=self.ccl_iters)
+
+    def regions(self, labels: torch.Tensor, prob: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Labels + prob -> stats, word quads (B, K, 4, 2), boxes, valid."""
+        H, W = prob.shape[1:]
+        stats = extract_regions(labels, prob, max_regions=self.max_regions)
+        if self.unclip == "inverse":
+            d = unclip_distance_inverse(stats, shrink_ratio=self.shrink_ratio)
+        else:
+            d = unclip_distance_for(stats, ratio=self.unclip_ratio)
+        quads = regions_to_quads(stats, d)
+        valid = stats["valid"] & (stats["score"] >= self.box_thresh) & (stats["area"] >= 8.0)
+        m = self.box_margin
+        boxes = torch.stack([
+            torch.clamp(quads[..., 0].amin(-1) - m, 0, W - 1),
+            torch.clamp(quads[..., 1].amin(-1) - m, 0, H - 1),
+            torch.clamp(quads[..., 0].amax(-1) + m, 1, W),
+            torch.clamp(quads[..., 1].amax(-1) + m, 1, H),
+        ], -1)
+        return {"stats": stats, "quads": quads, "boxes": boxes, "valid": valid}
+
+    def crops(self, pages: torch.Tensor, regions: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Word crops (B*K, Ho, Wo, 3), normalized for the recognizer."""
+        B, K = regions["quads"].shape[:2]
+        Ho, Wo = self.crop_hw
+        if self.rectify == "perspective":
+            quads = regions["quads"]
+            # margin along the quad's own axes (same role as box_margin)
+            c = quads.mean(-2, keepdim=True)
+            qm = quads + torch.sign(quads - c) * (self.box_margin * 0.5)
+            crops = rectify_quads_mxu(pages, qm, (Ho, Wo), aspect="preserve_h")
+        else:
+            crops = crop_resize_boxes(pages, regions["boxes"], (Ho, Wo), aspect="preserve_h")
+        return normalize(crops.reshape(B * K, Ho, Wo, 3))
+
+    def recognize(self, rec_module, crops: torch.Tensor):
+        """Crops -> (ids (B*K, T) int32, lengths (B*K,) int32)."""
+        return self.recognizer.decode(crops, mode=self.rec_mode, net=rec_module)
+
+    # --- whole path -----------------------------------------------------------
+
+    def _pages(self, pages) -> torch.Tensor:
+        return torch.as_tensor(pages, dtype=torch.float32).to(self.device)
+
+    @torch.no_grad()
+    def run(self, det_module, rec_module, pages) -> Dict[str, torch.Tensor]:
+        """The page program: modules (``None``: the wrappers' own) and
+        (B, H, W, 3) pages -> dict of ids (B, K, T), lengths, quads, boxes,
+        scores, valid, as the JAX pipeline's ``build()`` program returns."""
+        det_module = self.detector.net if det_module is None else det_module
+        rec_module = self.recognizer.net if rec_module is None else rec_module
+        pages = self._pages(pages)
+        B = pages.shape[0]
+        K = self.max_regions
+        prob = self.detect(det_module, pages)
+        labels = self.label(prob)
+        reg = self.regions(labels, prob)
+        ids, lens = self.recognize(rec_module, self.crops(pages, reg))
+        return {
+            "ids": ids.reshape(B, K, -1),
+            "lengths": lens.reshape(B, K),
+            "quads": reg["quads"],
+            "boxes": reg["boxes"],
+            "scores": reg["stats"]["score"],
+            "valid": reg["valid"],
+        }
+
+    def build(self, mesh=None):
+        """The JAX pipeline's ``build()`` surface: returns ``run``."""
+        if mesh is not None:
+            raise _not_ported("sharded serving over a mesh", "item 14, multi-GPU")
+        return self.run
+
+    def predict(self, det_module, rec_module, pages) -> List[List[Dict]]:
+        """pages (B, H, W, 3) float32 [0, 255] -> per-page detection dicts."""
+        out = {k: v.cpu().numpy() for k, v in self.run(det_module, rec_module, pages).items()}
+        results: List[List[Dict]] = []
+        for b in range(out["ids"].shape[0]):
+            page = []
+            for k in range(out["ids"].shape[1]):
+                if not out["valid"][b, k]:
+                    continue
+                page.append({
+                    "polygon": out["quads"][b, k],
+                    "quad": out["quads"][b, k],
+                    "text": self.charset.decode(out["ids"][b, k][: out["lengths"][b, k]]),
+                    "score": float(out["scores"][b, k]),
+                })
+            results.append(page)
+        return results

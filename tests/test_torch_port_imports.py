@@ -1,0 +1,57 @@
+"""The port stands alone: no module of ``megreader_tpu_torch`` and not
+``chip_smoke.py`` imports JAX, flax or the JAX package (checked on the AST of
+every file), and ``chip_smoke.py`` refuses to run without a CUDA device or
+outside the repository."""
+
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "megreader_tpu")
+FILES = sorted((ROOT / "megreader_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax(path):
+    for name in _imported(ast.parse(path.read_text(), str(path))):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_every_port_module_is_checked():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for sub in ("core", "ops", "models", "compat", "pipelines"):
+        assert any(n.startswith(f"megreader_tpu_torch/{sub}/") for n in names), sub
+    assert "chip_smoke.py" in names
+
+
+def test_chip_smoke_fails_without_cuda():
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
