@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port's page-serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the page-serving
+path and the training of the config-#1 recognizer.
 
     python3 chip_smoke.py
 
@@ -14,7 +15,13 @@ Phases (any failure exits non-zero):
    empty page), then unaligned 641x637 pages and an empty/full pair. Times
    the kernel and the plain version with CUDA events, and computes the
    kernel's bound for this run's masks.
-3. e2e: the full-width serving path (ResNet-18 det + FPN 256 + head 64;
+3. ctc: the CUDA CTC kernels (alpha forward, beta backward) against the plain
+   PyTorch version on the card at config #1's training shape (B 64, T 25,
+   C 37, labels padded to 32): varied logit lengths, repeated labels, an
+   empty label and rows without an alignment. Times the kernels, the plain
+   version and ``torch.nn.functional.ctc_loss`` with CUDA events, and computes
+   the kernels' bounds for this run's lengths.
+4. e2e: the full-width serving path (ResNet-18 det + FPN 256 + head 64;
    ResNet-18 rec + 2x BiLSTM 256, 37 classes) on seeded random weights, 8
    numpy-made pages of 640x640, through ``E2EPipeline.predict``. Checks finite
    outputs and shapes, that the CCL kernel ran once per batch, times each
@@ -22,6 +29,14 @@ Phases (any failure exits non-zero):
    (and the whole batch's device idle share), and holds every stage of the
    card's path against the same stage on the CPU (plain versions), on two
    128x128 crops and on one full 640x640 page with K = 32 slots.
+5. train: config #1 at full width (ResNet-18 rec + 2x BiLSTM 256, 37
+   classes, batch 64, Adam at lr 1e-3 with 200 warm-up steps of a 20 000-step
+   cosine) through ``Experiment``/``Trainer`` on a numpy-made dataset of 4
+   batches for 24 steps: finite, falling losses, one launch of each CTC
+   kernel per step, a checkpoint that resumes at its step. Then one step's
+   loss and gradients through the kernels against the plain loss, and the
+   time of a step split into prepare, forward, CTC forward, backward and
+   optimizer (CUDA events), with the device idle share (``torch.profiler``).
 
 Prints a JSON line of per-kernel numbers, then, as the last line,
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; exits 1 without one.
@@ -31,9 +46,11 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,6 +62,9 @@ import torch
 # paper) x 1.98 GHz boost clock, one instruction per lane per cycle
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# float32 outside the tensor cores (the guide's table), for the CTC kernels'
+# logsumexp arithmetic
+FP32_OPS_PER_S = 67e12
 SEED = 0
 
 
@@ -188,6 +208,178 @@ def phase_ccl():
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
     }
+
+
+def ctc_inputs(rng, B: int = 64, T: int = 25, C: int = 37, L: int = 32):
+    """Config #1's training shape with every case the kernels must cover:
+    word-like label lengths 1-12, varied logit lengths, repeated labels, an
+    empty label, and rows without an alignment (a label of 32, and 14 copies
+    of one class, which need 27 steps). Returns numpy (logits, logit_lengths,
+    labels, label_lengths) and the rows that have an alignment."""
+    logits = (2.0 * rng.standard_normal((B, T, C))).astype(np.float32)
+    logit_lengths = np.full(B, T, np.int32)
+    logit_lengths[::5] = rng.integers(13, T, size=len(logit_lengths[::5]))
+    label_lengths = rng.integers(1, 13, size=B).astype(np.int32)
+    labels = np.zeros((B, L), np.int32)
+    for b in range(B):
+        labels[b, :label_lengths[b]] = rng.integers(1, C, size=label_lengths[b])
+    labels[1, :6] = [5, 5, 5, 7, 7, 5]  # repeats: no skip between equal labels
+    label_lengths[1] = 6
+    labels[2], label_lengths[2] = 0, 0  # empty label: all blanks
+    labels[3] = rng.integers(1, C, size=L)  # 32 labels in 25 steps
+    label_lengths[3] = L
+    labels[4] = 0
+    labels[4, :14] = 9  # 14 repeats need 27 steps
+    label_lengths[4] = 14
+    logit_lengths[1:5] = T
+    # a row has an alignment iff its labels and the blanks forced between
+    # equal neighbours fit in its steps
+    words = [labels[b, :label_lengths[b]] for b in range(B)]
+    repeats = np.array([int((w[1:] == w[:-1]).sum()) for w in words])
+    possible = label_lengths + repeats <= logit_lengths
+    assert not possible[3] and not possible[4] and possible.sum() > B // 2
+    return logits, logit_lengths, labels, label_lengths, possible
+
+
+def ctc_bounds(logit_lengths, label_lengths, T: int, C: int, L: int):
+    """(forward, backward) least times in ms and what bounds each: every input
+    read once and every output written once at the HBM rate, against the
+    logsumexp arithmetic of the states this run's lengths make live at the
+    float32 rate (about 10 operations a state and step forward, 15 backward:
+    three exps, a log, maxes, sums; the gradient's exp and add)."""
+    B = len(logit_lengths)
+    S = 2 * L + 1
+    lens = np.clip(logit_lengths, 1, T).astype(np.int64)
+    states = (2 * label_lengths.astype(np.int64) + 1)
+    inputs = B * T * C * 4 + B * L * 4 + 2 * B * 4
+    fwd_bytes = inputs + B * T * S * 4 + B * 4  # + alpha and nll written
+    bwd_bytes = inputs + B * T * S * 4 + 2 * B * 4 + B * T * C * 4  # alpha, nll, grad_nll in; grad out
+    fwd_ops = 10 * int(((lens - 1) * states).sum())
+    bwd_ops = 15 * int((lens * states).sum())
+    out = []
+    for nbytes, ops in ((fwd_bytes, fwd_ops), (bwd_bytes, bwd_ops)):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        out.append((max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+                    nbytes, ops))
+    return out
+
+
+def phase_ctc():
+    import torch.nn.functional as F
+
+    from megreader_tpu_torch.ops.ctc import (
+        ctc_alpha_cuda,
+        ctc_beta_cuda,
+        ctc_loss,
+        ctc_loss_reference,
+        ctc_nll_reference,
+    )
+
+    rng = np.random.default_rng(SEED + 4)
+    B, T, C, L = 64, 25, 37, 32
+    logits_np, ll_np, lb_np, lbl_np, possible = ctc_inputs(rng, B, T, C, L)
+    logits = torch.from_numpy(logits_np).cuda()
+    ll, lb, lbl = (torch.from_numpy(a).cuda() for a in (ll_np, lb_np, lbl_np))
+    lp = F.log_softmax(logits, -1).contiguous()
+    ok = torch.from_numpy(possible).cuda()
+
+    # forward: the alpha kernel against the plain DP (loss rtol 1e-4 / atol
+    # 1e-4: a log-space DP summed in another order)
+    nll, alpha = ctc_alpha_cuda(lp, ll, lb, lbl)
+    ref = ctc_nll_reference(lp, ll, lb, lbl)
+    torch.cuda.synchronize()
+    fwd_err = float((nll - ref)[ok].abs().max())
+    log(f"ctc forward: max |kernel - plain| on rows with an alignment {fwd_err:.3g}; "
+        f"rows without one: kernel {nll[~ok].tolist()}, plain {ref[~ok].tolist()}")
+    if not torch.allclose(nll, ref, rtol=1e-4, atol=1e-4):
+        raise AssertionError("ctc alpha kernel disagrees with the plain version")
+    if not (torch.isfinite(nll).all() and bool((nll[~ok] > 1e29).all())):
+        raise AssertionError("ctc: a row without an alignment must give a finite ~1e30 loss")
+
+    # backward: the beta kernel against autograd through the plain DP
+    # (gradient rtol 1e-3 / atol 1e-4), for d(sum nll)/d log_probs
+    ones = torch.ones(B, device="cuda")
+    grad = ctc_beta_cuda(lp, ll, lb, lbl, alpha, nll, ones)
+    lp_ref = lp.detach().clone().requires_grad_()
+    ctc_nll_reference(lp_ref, ll, lb, lbl).sum().backward()
+    torch.cuda.synchronize()
+    bwd_err = float((grad - lp_ref.grad).abs().max())
+    log(f"ctc backward: max |kernel - plain| of d nll / d log_probs {bwd_err:.3g}")
+    if not torch.allclose(grad, lp_ref.grad, rtol=1e-3, atol=1e-4):
+        raise AssertionError("ctc beta kernel disagrees with the plain version")
+
+    # the whole loss from logits, kernels under autograd, mean reduction
+    x = logits.clone().requires_grad_()
+    loss = ctc_loss(x, ll, lb, lbl)
+    loss.backward()
+    x_ref = logits.clone().requires_grad_()
+    loss_ref = ctc_loss_reference(x_ref, ll, lb, lbl)
+    loss_ref.backward()
+    log(f"ctc_loss (mean): kernels {loss.item()}, plain {loss_ref.item()}; d/d logits max "
+        f"|diff| {float((x.grad - x_ref.grad).abs().max()):.3g}")
+    if not (torch.allclose(loss, loss_ref, rtol=1e-4, atol=1e-4)
+            and torch.allclose(x.grad, x_ref.grad, rtol=1e-3, atol=1e-4)):
+        raise AssertionError("ctc_loss through the kernels disagrees with the plain version")
+
+    # times, CUDA events, median of 100 (plain: 20)
+    ms_fwd = cuda_ms(lambda: ctc_alpha_cuda(lp, ll, lb, lbl), reps=100)
+    ms_bwd = cuda_ms(lambda: ctc_beta_cuda(lp, ll, lb, lbl, alpha, nll, ones), reps=100)
+    def kernels_both():
+        n, a = ctc_alpha_cuda(lp, ll, lb, lbl)
+        ctc_beta_cuda(lp, ll, lb, lbl, a, n, ones)
+
+    ms_both = cuda_ms(kernels_both, reps=100)
+    with torch.no_grad():
+        plain_fwd = cuda_ms(lambda: ctc_nll_reference(lp, ll, lb, lbl), reps=20)
+    out_ref = ctc_nll_reference(lp_ref, ll, lb, lbl).sum()
+    plain_bwd = cuda_ms(lambda: torch.autograd.grad(out_ref, lp_ref, retain_graph=True), reps=20)
+
+    def plain_both():
+        torch.autograd.grad(ctc_nll_reference(lp_ref, ll, lb, lbl).sum(), lp_ref)
+
+    plain_ms_both = cuda_ms(plain_both, reps=20)
+    # torch.nn.functional.ctc_loss: (T, B, C) log-probs, padded targets;
+    # rows without an alignment give inf there (zeroed, with their gradient)
+    lp_lib = lp.detach().transpose(0, 1).requires_grad_()
+    tl, il = lbl.long(), ll.long()
+
+    def lib_loss():
+        return F.ctc_loss(lp_lib, lb.long(), il, tl, blank=0, reduction="sum", zero_infinity=True)
+
+    with torch.no_grad():
+        lib_fwd = cuda_ms(lib_loss, reps=100)
+    out_lib = lib_loss()
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(out_lib, lp_lib, retain_graph=True), reps=100)
+    lib_both = cuda_ms(lambda: torch.autograd.grad(lib_loss(), lp_lib), reps=100)
+    lib_nll = F.ctc_loss(lp_lib.detach(), lb.long(), il, tl, blank=0, reduction="none")
+    log(f"F.ctc_loss on the rows with an alignment: max |kernel - F.ctc_loss| "
+        f"{float((nll - lib_nll)[ok].abs().max()):.3g}")
+
+    # the kernels' own device time, without the wrapper's host time that
+    # the events above also see when the card waits for the launch
+    busy_fwd = device_busy_ms(lambda: ctc_alpha_cuda(lp, ll, lb, lbl), reps=20)
+    busy_bwd = device_busy_ms(lambda: ctc_beta_cuda(lp, ll, lb, lbl, alpha, nll, ones), reps=20)
+    log(f"ctc kernel-busy ms per launch (torch.profiler device time): forward {busy_fwd}, "
+        f"backward {busy_bwd}")
+    (fwd_bound, fwd_by, fwd_bytes, fwd_ops), (bwd_bound, bwd_by, bwd_bytes, bwd_ops) = ctc_bounds(
+        ll_np, lbl_np, T, C, L)
+    log(f"ctc time (ms, median, CUDA events): kernels forward {ms_fwd}, backward {ms_bwd}, "
+        f"forward+backward {ms_both}; plain forward {plain_fwd}, backward {plain_bwd}, "
+        f"forward+backward {plain_ms_both}; F.ctc_loss forward {lib_fwd}, backward {lib_bwd}, "
+        f"forward+backward {lib_both}")
+    log(f"ctc bound: forward {fwd_bytes} B, {fwd_ops} ops -> {fwd_bound:.6f} ms by {fwd_by}; "
+        f"backward {bwd_bytes} B, {bwd_ops} ops -> {bwd_bound:.6f} ms by {bwd_by}; "
+        f"dependent steps per launch: {int(ll_np.max()) - 1} forward, {int(ll_np.max())} backward")
+    common = {"route": "cuda", "source": "megreader_tpu_torch/csrc/ctc.cu", "launches": 0}
+    return [
+        {"name": "ctc_alpha", **common, "replaces": "megreader_tpu/ops/pallas_ctc.py:69",
+         "max_abs_err": fwd_err, "ms": ms_fwd, "plain_ms": plain_fwd, "bound_ms": fwd_bound,
+         "bound_by": fwd_by, "library_ms": lib_fwd},
+        {"name": "ctc_beta", **common, "replaces": "megreader_tpu/ops/pallas_ctc.py:95",
+         "max_abs_err": bwd_err, "ms": ms_bwd, "plain_ms": plain_bwd, "bound_ms": bwd_bound,
+         "bound_by": bwd_by, "library_ms": lib_bwd},
+    ]
 
 
 def seeded_weights(module: torch.nn.Module, seed: int) -> None:
@@ -362,14 +554,177 @@ def phase_e2e():
     return launches
 
 
+class WordCrops:
+    """Numpy-made word crops with the item contract of the port's
+    ``SyntheticRecognitionDataset``: {"image": (64, 256, 3) uint8 canvas with
+    the crop at its top left, "size": (h, w) int32, "text": 3-10 characters}.
+    Each character is a fixed random 20x10 glyph, bright on dark noise."""
+
+    ALPHABET = "0123456789abcdefghijklmnopqrstuvwxyz"
+
+    def __init__(self, n: int, seed: int, canvas_hw=(64, 256)):
+        self.n = n
+        self.seed = seed
+        self.canvas_hw = canvas_hw
+        self.glyphs = np.random.default_rng(seed).random((len(self.ALPHABET), 20, 10)) < 0.45
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i: int):
+        rng = np.random.default_rng(self.seed * 1_000_003 + i)
+        ids = rng.integers(0, len(self.ALPHABET), int(rng.integers(3, 11)))
+        left, top, right, bottom = (int(v) for v in rng.integers(0, 6, 4))
+        h, w = 20 + top + bottom, 10 * len(ids) + left + right
+        crop = rng.integers(0, 50, (h, w, 3), dtype=np.uint8)
+        for j, c in enumerate(ids):
+            crop[top:top + 20, left + 10 * j:left + 10 * j + 10][self.glyphs[c]] = 235
+        canvas = np.zeros((*self.canvas_hw, 3), np.uint8)
+        canvas[:h, :w] = crop
+        return {"image": canvas, "size": np.array([h, w], np.int32),
+                "text": "".join(self.ALPHABET[c] for c in ids)}
+
+
+def phase_train():
+    from megreader_tpu_torch.experiment import Experiment
+    from megreader_tpu_torch.models.recognizer import CTCRecognizer
+    from megreader_tpu_torch.ops.ctc import (
+        ctc_alpha_cuda,
+        ctc_beta_cuda,
+        ctc_loss,
+        ctc_loss_reference,
+    )
+    from megreader_tpu_torch.train.checkpoint import CheckpointManager
+    from megreader_tpu_torch.train.train_step import (
+        OptimizerConfig,
+        create_train_state,
+        make_train_step,
+    )
+
+    B, per_epoch, epochs = 64, 4, 6
+    steps = per_epoch * epochs
+    opt = OptimizerConfig(name="adam", lr=1e-3, schedule="warmup_cosine", warmup_steps=200,
+                          total_steps=20_000)
+    data = WordCrops(B * per_epoch, SEED + 5)
+    rec = CTCRecognizer(num_classes=37, device="cuda")
+    seeded_weights(rec.net, SEED + 6)
+
+    with tempfile.TemporaryDirectory() as ws:
+        def experiment(model, n_epochs):
+            return Experiment(model, data, optimizer=opt, workspace=ws, batch_size=B,
+                              epochs=n_epochs, log_every=1)
+
+        exp = experiment(rec, epochs)
+        ctc_alpha_cuda.launches = 0
+        ctc_beta_cuda.launches = 0
+        t0 = time.perf_counter()
+        state = exp.make_trainer().train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (ctc_alpha_cuda.launches, ctc_beta_cuda.launches)
+        with open(os.path.join(ws, "train_metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        log(f"train: {state.step} steps of {B} crops in {wall:.2f} s (host clock, loader, "
+            f"logging and checkpoint included); CTC kernel launches {launches}; loss mean "
+            f"of the first 5 steps {first:.4f}, of the last 5 {last:.4f}; losses {losses}")
+        if state.step != steps or len(losses) != steps:
+            raise AssertionError(f"train ran {state.step} steps and logged {len(losses)}, not {steps}")
+        if not all(np.isfinite(losses)) or not last < first:
+            raise AssertionError("train: losses must be finite and fall")
+        if launches != (steps, steps):
+            raise AssertionError(f"CTC kernels launched {launches} times in {steps} steps")
+
+        # a fresh model restores the checkpoint at the last step and trains on
+        rec2 = CTCRecognizer(num_classes=37, device="cuda")
+        seeded_weights(rec2.net, SEED + 7)
+        restored = CheckpointManager(ws).restore(create_train_state(rec2, opt))
+        same = all(torch.equal(a, b) for a, b in zip(rec.net.state_dict().values(),
+                                                    rec2.net.state_dict().values()))
+        if restored.step != steps or restored.optimizer.count != steps or not same:
+            raise AssertionError("train: the checkpoint did not restore the trained state")
+        resumed = experiment(rec2, epochs + 1).make_trainer().train(resume=True)
+        if resumed.step != steps + per_epoch or ctc_alpha_cuda.launches != launches[0] + per_epoch:
+            raise AssertionError(f"train: resume ended at step {resumed.step}")
+        log(f"train: restored step {restored.step} into a fresh model, resumed to {resumed.step}")
+
+    raw = exp.collate([data[i] for i in range(B)])
+    batch = exp.prepare(raw)
+
+    # one step's loss and gradients through the kernels against the plain loss,
+    # the same weights and batch, TF32 off, deterministic cuDNN
+    torch.backends.cudnn.deterministic = True
+    net = rec.net
+
+    def loss_and_grads(loss_fn):
+        net.zero_grad(set_to_none=True)
+        net.train()
+        logits = net(batch["image"])
+        lengths = torch.full((B,), logits.shape[1], dtype=torch.int32, device="cuda")
+        loss = loss_fn(logits, lengths, batch["label"], batch["label_length"])
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in net.named_parameters()}
+
+    loss_k, grads_k = loss_and_grads(ctc_loss)
+    loss_r, grads_r = loss_and_grads(ctc_loss_reference)
+    torch.backends.cudnn.deterministic = False
+    rel = max(float((grads_k[n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+              for n, g in grads_r.items())
+    log(f"train one-step parity: loss kernels {loss_k}, plain {loss_r}; worst gradient leaf "
+        f"max |diff| / max |plain| {rel:.3g} over {len(grads_r)} leaves")
+    if abs(loss_k - loss_r) > 1e-4:
+        raise AssertionError("train: the kernel loss disagrees with the plain loss")
+    for n, g in grads_r.items():
+        if not torch.allclose(grads_k[n], g, rtol=1e-3, atol=1e-6):
+            raise AssertionError(f"train: gradient of {n} disagrees with the plain loss's")
+
+    # time of a step and its parts (CUDA events, median of 10 after 3 warm-up)
+    state = create_train_state(rec, opt)
+    parts = ("prepare", "forward", "ctc_forward", "backward", "optimizer")
+    times = {k: [] for k in parts + ("step",)}
+    for rep in range(13):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        b = exp.prepare(raw)
+        ev[1].record()
+        net.train()
+        logits = net(b["image"])
+        ev[2].record()
+        lengths = torch.full((B,), logits.shape[1], dtype=torch.int32, device="cuda")
+        loss = ctc_loss(logits, lengths, b["label"], b["label_length"])
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        state.optimizer.step()
+        state.optimizer.zero_grad()
+        ev[5].record()
+        ev[5].synchronize()
+        if rep >= 3:
+            for k, (a, e) in zip(parts, zip(ev[:-1], ev[1:])):
+                times[k].append(a.elapsed_time(e))
+            times["step"].append(ev[0].elapsed_time(ev[5]))
+    split = {k: statistics.median(v) for k, v in times.items()}
+    step_fn = make_train_step(rec, prepare=exp.prepare)
+    busy = device_busy_ms(lambda: step_fn(state, raw))
+    step_ms = cuda_ms(lambda: step_fn(state, raw), reps=10)
+    idle = "not measured" if busy is None else f"{1.0 - busy / step_ms:.4f}"
+    log("train step split (ms, median of 10, CUDA events): " + json.dumps(split)
+        + f"; {B / split['step'] * 1e3:.1f} crops/s")
+    log(f"train step (make_train_step, CUDA events, median of 10): {step_ms} ms = "
+        f"{B / step_ms * 1e3:.1f} crops/s; kernel-busy {busy} ms; device idle share {idle}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 1
     phase_setup()
     ccl_row = phase_ccl()
+    alpha_row, beta_row = phase_ctc()
     ccl_row["launches"] = phase_e2e()
-    log(json.dumps({"kernels": [ccl_row]}))
+    alpha_row["launches"], beta_row["launches"] = phase_train()
+    log(json.dumps({"kernels": [ccl_row, alpha_row, beta_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

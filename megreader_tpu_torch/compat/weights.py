@@ -12,12 +12,14 @@ arrays) maps onto a port module's parameters and buffers by name:
 * LSTM ``w_ih``/``w_hh``/``b_ih``/``b_hh`` as they are.
 
 Every port entry must be found and every flax entry used: a missing or
-leftover key, or a shape that differs, raises.
+leftover key, or a shape that differs, raises. ``export_flax_variables`` maps
+the other way (parameters, buffers or gradients -> a flax tree of numpy
+arrays), so tests can compare the two packages tree against tree.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,27 +44,38 @@ def _flax_module_path(name: str) -> Path:
     return tuple("ResNet_0" if p == "backbone" else p for p in name.split(".") if p)
 
 
+#: flax layout -> port layout, and back
+_TO_PORT = {"conv": lambda a: a.transpose(3, 2, 0, 1), "linear": lambda a: a.T}
+_TO_FLAX = {"conv": lambda a: a.transpose(2, 3, 1, 0), "linear": lambda a: a.T}
+
+
 def _entries(module: nn.Module):
-    """(port tensor, collection, flax path, numpy transform) for every weight."""
+    """(port name, collection, flax path, layout) for every weight; layout
+    is "conv" (HWIO <-> OIHW), "linear" ((in, out) <-> (out, in)) or None."""
     for name, m in module.named_modules():
         path = _flax_module_path(name)
+        pre = f"{name}." if name else ""
         if isinstance(m, nn.Conv2d):
-            yield m.weight, "params", path + ("kernel",), lambda a: a.transpose(3, 2, 0, 1)
+            yield pre + "weight", "params", path + ("kernel",), "conv"
             if m.bias is not None:
-                yield m.bias, "params", path + ("bias",), None
+                yield pre + "bias", "params", path + ("bias",), None
         elif isinstance(m, nn.Linear):
-            yield m.weight, "params", path + ("kernel",), lambda a: a.T
-            yield m.bias, "params", path + ("bias",), None
+            yield pre + "weight", "params", path + ("kernel",), "linear"
+            yield pre + "bias", "params", path + ("bias",), None
         elif isinstance(m, nn.BatchNorm2d):
-            yield m.weight, "params", path + ("scale",), None
-            yield m.bias, "params", path + ("bias",), None
-            yield m.running_mean, "batch_stats", path + ("mean",), None
-            yield m.running_var, "batch_stats", path + ("var",), None
+            yield pre + "weight", "params", path + ("scale",), None
+            yield pre + "bias", "params", path + ("bias",), None
+            yield pre + "running_mean", "batch_stats", path + ("mean",), None
+            yield pre + "running_var", "batch_stats", path + ("var",), None
         elif isinstance(m, LSTM):
             for p in ("w_ih", "w_hh", "b_ih", "b_hh"):
-                yield getattr(m, p), "params", path + (p,), None
+                yield pre + p, "params", path + (p,), None
         elif any(True for _ in m.parameters(recurse=False)):
             raise TypeError(f"no flax mapping for module {name!r} ({type(m).__name__})")
+
+
+def _named_tensors(module: nn.Module) -> Dict[str, torch.Tensor]:
+    return {**dict(module.named_parameters()), **dict(module.named_buffers())}
 
 
 @torch.no_grad()
@@ -73,14 +86,16 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
         for col in variables
         for path, arr in _flatten(variables[col]).items()
     }
+    tensors = _named_tensors(module)
     used = set()
     missing = []
-    for tensor, col, path, fn in _entries(module):
+    for name, col, path, layout in _entries(module):
         key = (col,) + path
         if key not in flat:
             missing.append("/".join(key))
             continue
-        arr = flat[key] if fn is None else fn(flat[key])
+        tensor = tensors[name]
+        arr = flat[key] if layout is None else _TO_PORT[layout](flat[key])
         if tuple(arr.shape) != tuple(tensor.shape):
             raise ValueError(
                 f"{'/'.join(key)}: flax array of shape {flat[key].shape} "
@@ -93,6 +108,35 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
         raise KeyError(f"flax variables do not match the module: missing {missing}, "
                        f"leftover {leftover}")
     return module
+
+
+def export_flax_variables(module: nn.Module,
+                          tensors: Optional[Mapping[str, torch.Tensor]] = None) -> Dict:
+    """The inverse of ``load_flax_variables``: a flax variables tree
+    ``{collection: nested dict of numpy arrays}`` in flax layouts.
+
+    ``tensors`` maps port names (as ``named_parameters``/``named_buffers``
+    give them) to the tensors to export, e.g. ``{n: p.grad for n, p in
+    module.named_parameters()}`` for the gradients; entries that are None are
+    left out. Default: the module's own parameters and buffers. A name the
+    module does not map raises."""
+    src = _named_tensors(module) if tensors is None else dict(tensors)
+    out: Dict = {}
+    known = set()
+    for name, col, path, layout in _entries(module):
+        known.add(name)
+        t = src.get(name)
+        if t is None:
+            continue
+        arr = t.detach().cpu().numpy()
+        node = out.setdefault(col, {})
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(arr if layout is None else _TO_FLAX[layout](arr))
+    unknown = sorted(n for n in src if n not in known and not n.endswith("num_batches_tracked"))
+    if unknown:
+        raise KeyError(f"no flax mapping for {unknown}")
+    return out
 
 
 def seeded_flax_variables(variables: Mapping, seed: int) -> Dict:

@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .resnet import resnet_variant
+from .resnet import BatchNorm2d, resnet_variant
 
 
 def _resize_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -62,9 +62,9 @@ class MapHead(nn.Module):
     def __init__(self, in_ch: int, dim: int = 64):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, dim, 3, 1, 1, bias=False)
-        self.bn = nn.BatchNorm2d(dim, eps=1e-5)
+        self.bn = BatchNorm2d(dim)
         self.up1 = nn.Conv2d(dim, dim // 2, 3, 1, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(dim // 2, eps=1e-5)
+        self.bn1 = BatchNorm2d(dim // 2)
         self.up2 = nn.Conv2d(dim // 2, 1, 3, 1, 1)
 
     def forward(self, x):

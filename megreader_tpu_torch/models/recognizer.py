@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ..ops.ctc import ctc_greedy_decode
+from ..ops.ctc import ctc_greedy_decode, ctc_loss
 from .resnet import resnet_variant
 from .sequence import StackedBiLSTM
 
@@ -42,7 +42,9 @@ class CTCRecognizerNet(nn.Module):
 
 
 class CTCRecognizer:
-    """Serving wrapper: the net on ``device`` in eval mode, greedy decode."""
+    """Task wrapper: the net on ``device``, the CTC training loss, greedy
+    decode. ``loss`` and ``decode`` put the net in train or eval mode
+    themselves."""
 
     def __init__(self, num_classes: int = 37, backbone: str = "resnet18",
                  encoder: str = "bilstm", hidden: int = 256, num_encoder_layers: int = 2,
@@ -53,6 +55,20 @@ class CTCRecognizer:
         self.num_classes = num_classes
         self.blank = blank
 
+    def loss(self, batch, train: bool = True):
+        """batch: {image (B, H, W, 3), label (B, L) int32, label_length (B,)
+        int32} on the net's device -> (mean CTC loss, {"loss": detached}).
+
+        ``train`` runs BatchNorm on batch statistics and updates its running
+        statistics; every row's logit length is T."""
+        self.net.train(train)
+        logits = self.net(batch["image"])
+        B, T, _ = logits.shape
+        logit_lengths = torch.full((B,), T, dtype=torch.int32, device=logits.device)
+        loss = ctc_loss(logits, logit_lengths, batch["label"], batch["label_length"],
+                        blank=self.blank)
+        return loss, {"loss": loss.detach()}
+
     @torch.no_grad()
     def decode(self, images: torch.Tensor, mode: str = "greedy", net: nn.Module = None):
         """NHWC crops -> (ids (B, T) int32, lengths (B,) int32). ``net``
@@ -61,7 +77,8 @@ class CTCRecognizer:
             raise NotImplementedError(
                 f"decode mode {mode!r}: prefix beam search is not ported yet (ROADMAP Queue 1)"
             )
-        logits = (self.net if net is None else net)(images).float()
+        net = self.net if net is None else net
+        logits = net.eval()(images).float()
         B, T, _ = logits.shape
         lengths = torch.full((B,), T, dtype=torch.int32, device=logits.device)
         return ctc_greedy_decode(logits, lengths, blank=self.blank)

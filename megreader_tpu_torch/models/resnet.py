@@ -1,9 +1,10 @@
 """ResNet trunks (BasicBlock: ResNet-18/34), detection and recognition flavors.
 
 Modules take and return NCHW tensors. Padding follows the JAX package's
-explicit torch-style padding, and BatchNorm runs on stored statistics
-(eps 1e-5, flax's default), so weights carried from the flax tree
-(``compat.weights``) reproduce its activations.
+explicit torch-style padding, and BatchNorm (``BatchNorm2d`` below) has
+flax's semantics in both modes, so weights carried from the flax tree
+(``compat.weights``) reproduce its activations and its train-mode updates of
+the running statistics.
 
 variant='det': 7x7/s2 stem + 3x3/s2 max pool (pad 1), stage strides
 (1, 2, 2, 2); returns (C2, C3, C4, C5) at strides 4/8/16/32.
@@ -23,6 +24,30 @@ import torch.nn.functional as F
 STAGE_SIZES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``flax.linen.BatchNorm`` (epsilon 1e-5, momentum 0.99) as a torch module.
+
+    Eval mode normalizes with the running statistics, as torch does. Train
+    mode normalizes with the batch mean and the biased batch variance, and
+    moves the running statistics toward those same values:
+    ``running = 0.99 * running + 0.01 * batch``. torch's own train mode
+    differs twice: its ``momentum`` is the weight of the batch value (so
+    flax's 0.99 is torch's 0.01, not torch's default 0.1), and it moves
+    ``running_var`` toward the unbiased variance."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.99):
+        super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 def _pair(s):
     return s if isinstance(s, tuple) else (s, s)
 
@@ -34,12 +59,12 @@ class BasicBlock(nn.Module):
         super().__init__()
         stride = _pair(stride)
         self.conv1 = nn.Conv2d(in_ch, features, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(features, eps=1e-5)
+        self.bn1 = BatchNorm2d(features)
         self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(features, eps=1e-5)
+        self.bn2 = BatchNorm2d(features)
         if in_ch != features or stride != (1, 1):
             self.downsample_conv = nn.Conv2d(in_ch, features, 1, stride, bias=False)
-            self.downsample_bn = nn.BatchNorm2d(features, eps=1e-5)
+            self.downsample_bn = BatchNorm2d(features)
         else:
             self.downsample_conv = None
 
@@ -68,7 +93,7 @@ class ResNet(nn.Module):
             raise NotImplementedError(
                 f"ResNet variant {variant!r}: only 'det' and 'rec' are ported"
             )
-        self.stem_bn = nn.BatchNorm2d(width, eps=1e-5)
+        self.stem_bn = BatchNorm2d(width)
         self.variant = variant
         self.stages = []
         ch = width

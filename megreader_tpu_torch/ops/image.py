@@ -31,6 +31,38 @@ def _tent(src: torch.Tensor, n_in: int) -> torch.Tensor:
     return torch.clamp(1.0 - torch.abs(src[..., None] - idx), min=0.0)
 
 
+def resize_with_aspect_pad(images: torch.Tensor, sizes: torch.Tensor,
+                           out_hw: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Aspect-preserving resize of each image's valid region onto a canvas.
+
+    images (B, H, W, C) canvases whose top-left ``sizes[b] = (h, w)`` region
+    holds the pixels; the height fits ``Ho`` exactly, the width follows the
+    aspect ratio (``round`` halves to even, as ``jnp.round``; at most ``Wo``)
+    and the rest of each row is zero. Source coordinates are clamped to the
+    valid region. Returns (out (B, Ho, Wo, C), valid widths (B,) int32)."""
+    B, Hi, Wi, C = images.shape
+    Ho, Wo = out_hw
+    dev, dt = images.device, images.dtype
+    h = sizes[:, 0].to(dt)
+    w = sizes[:, 1].to(dt)
+    scale = h / Ho
+    out_w = torch.clamp(torch.round(w / scale), max=float(Wo))
+    sx = w / torch.clamp(out_w, min=1.0)
+    oy = torch.arange(Ho, dtype=dt, device=dev).view(1, Ho)
+    ox = torch.arange(Wo, dtype=dt, device=dev).view(1, Wo)
+    src_y = (oy + 0.5) * scale.view(B, 1) - 0.5
+    src_x = (ox + 0.5) * sx.view(B, 1) - 0.5
+    Wy = _tent(torch.minimum(torch.clamp(src_y, min=0.0),
+                             torch.clamp(h - 1.0, min=0.0).view(B, 1)), Hi)  # (B, Ho, Hi)
+    Wx = _tent(torch.minimum(torch.clamp(src_x, min=0.0),
+                             torch.clamp(w - 1.0, min=0.0).view(B, 1)), Wi)  # (B, Wo, Wi)
+    tmp = torch.einsum("boi,biwc->bowc", Wy, images)
+    out = torch.einsum("bpw,bowc->bopc", Wx, tmp)
+    col = torch.arange(Wo, device=dev).view(1, 1, Wo)
+    valid = col < out_w.to(torch.int32).view(B, 1, 1)
+    return out * valid[..., None], out_w.to(torch.int32)
+
+
 def crop_resize_boxes(images: torch.Tensor, boxes: torch.Tensor,
                       out_hw: Tuple[int, int], aspect: str = "stretch") -> torch.Tensor:
     """Axis-aligned crop + bilinear resize of K boxes per page.

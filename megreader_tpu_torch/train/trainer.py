@@ -1,0 +1,114 @@
+"""Trainer: the epoch loop on one device.
+
+restore -> for epoch: for batch: train step (prepare on the card, forward,
+backward, update) -> log every ``log_every`` steps -> validate hook ->
+checkpoint through the manager (which saves every ``save_every_steps``) -> a
+final forced save. ``epochs`` is a total budget: a resumed run trains on
+toward ``epochs * len(loader)`` steps and does nothing once there.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..utils.signal_monitor import SignalMonitor
+from .checkpoint import CheckpointManager
+from .logger import Logger
+from .train_step import OptimizerConfig, TrainState, create_train_state, make_train_step
+
+
+class Trainer:
+    def __init__(
+        self,
+        model,
+        loader,
+        optimizer: Optional[OptimizerConfig] = None,
+        workspace: str = "/tmp/megreader_tpu_exp",
+        epochs: int = 10,
+        log_every: int = 50,
+        validate_every_steps: int = 0,
+        validate_fn: Optional[Callable] = None,
+        checkpoint: Optional[CheckpointManager] = None,
+        signal_monitor: Optional[SignalMonitor] = None,
+        use_mesh: bool = False,
+        prepare_batch: Optional[Callable[[Dict], Dict]] = None,
+        debug_nans: bool = False,
+    ):
+        if use_mesh:
+            raise NotImplementedError(
+                "use_mesh=True: multi-GPU data parallelism is not ported (ROADMAP Queue 1 item 14)"
+            )
+        self.model = model
+        self.loader = loader
+        self.optimizer = optimizer or OptimizerConfig()
+        self.epochs = epochs
+        self.log_every = log_every
+        self.validate_every_steps = validate_every_steps
+        self.validate_fn = validate_fn
+        self.workspace = workspace
+        self.logger = Logger(workspace)
+        self.checkpoint = checkpoint or CheckpointManager(workspace)
+        self.signal_monitor = signal_monitor or SignalMonitor()
+        self.prepare_batch = prepare_batch
+        #: anomaly detection in autograd: raises where a backward makes a NaN.
+        #: Costly; for debugging runs only.
+        self.debug_nans = debug_nans
+
+    def train(self, resume: bool = True) -> TrainState:
+        sched = self.optimizer.make_schedule()
+        state = create_train_state(self.model, self.optimizer)
+        if resume:
+            state = self.checkpoint.restore(state)
+            if state.step > 0:
+                self.logger.info(f"resumed at step {state.step}")
+        # the module is built with its weights, so no batch is drawn to
+        # initialize it: the first epoch shuffles with seed + 1 (the JAX
+        # trainer's init probe takes one loader pass, so its first epoch
+        # shuffles with seed + 2)
+        step_fn = make_train_step(self.model, prepare=self.prepare_batch)
+        step = state.step
+        target_steps = self.epochs * len(self.loader)
+        if step >= target_steps:
+            self.logger.info(f"already at step {step} >= target {target_steps}: no training")
+            return state
+
+        with torch.autograd.set_detect_anomaly(self.debug_nans):
+            step = self._loop(state, step_fn, sched, target_steps)
+        self.checkpoint.save(state, step, force=True)
+        self.checkpoint.wait()
+        self.logger.info(f"training done at step {step}")
+        return state
+
+    def _loop(self, state: TrainState, step_fn, sched, target_steps: int) -> int:
+        step = state.step
+        t_log = time.time()
+        n_since = 0
+        for epoch in range(self.epochs):
+            if step >= target_steps:
+                break
+            for batch in self.loader:
+                state, metrics = step_fn(state, batch)
+                step += 1
+                n_since += len(batch["image"])
+                stop = step >= target_steps
+
+                if step % self.log_every == 0:
+                    self.logger.add_scalars(step, {k: float(v) for k, v in metrics.items()})
+                    dt = time.time() - t_log
+                    self.logger.report(epoch, step, sched(step), n_since / max(dt, 1e-6))
+                    t_log, n_since = time.time(), 0
+                    if self.signal_monitor.should_stop():
+                        self.logger.info("signal file detected: saving and stopping")
+                        stop = True
+
+                if (self.validate_every_steps and self.validate_fn
+                        and step % self.validate_every_steps == 0):
+                    self.logger.metrics(step, self.validate_fn(self.model, state))
+
+                self.checkpoint.save(state, step)
+                if stop:
+                    return step
+        return step
