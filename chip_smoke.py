@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the page-serving
-path and the training of the config-#1 recognizer.
+path, the training of the config-#1 recognizer, and the training and batched
+decode of the config-#2 2D-CTC recognizer.
 
     python3 chip_smoke.py
 
@@ -37,6 +38,26 @@ Phases (any failure exits non-zero):
    loss and gradients through the kernels against the plain loss, and the
    time of a step split into prepare, forward, CTC forward, backward and
    optimizer (CUDA events), with the device idle share (``torch.profiler``).
+6. ctc2d: the CUDA 2D-CTC kernels (alpha forward; beta backward with the
+   emission, transition and initial-height gradients) against the plain
+   PyTorch version on the card at config #2's shape (B 64, T 25, H 4, C 37,
+   labels padded to 32) and the curved A/B shape (T 40, H 6), with the label
+   cases of phase 3 (loss rtol 1e-4, gradients rtol 1e-3). Times the kernels
+   (CUDA events and kernel-busy time) and the plain version, and computes the
+   kernels' bounds for this run's lengths. Runs before phase 4.
+7. train2d: config #2 with Markov heights at full width (ResNet-18 rec2d,
+   37 classes, batch 64 of 32x100 crops, the optimizer of phase 5) through
+   ``Experiment``/``Trainer`` for 24 steps: finite, falling losses, one
+   launch of each 2D-CTC kernel per step and none of the 1-D ones, one
+   validation through ``evaluate_recognition``, a checkpoint that resumes.
+   Then 4 steps with independent heights, which launch the 1-D CTC kernels
+   once per step; one Markov step's loss and gradients through the kernels
+   against the plain loss; the step split into prepare, forward, loss,
+   backward and optimizer, and the device idle share.
+8. decode2d: config #2's batched decode of 64 crops through
+   ``RecognizerPredictor``, greedy (independent heights) and Viterbi (Markov
+   heights), with ids equal to the same weights' on the CPU; then one
+   ``E2EPipeline`` batch of 8 pages with the Markov recognizer.
 
 Prints a JSON line of per-kernel numbers, then, as the last line,
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; exits 1 without one.
@@ -382,6 +403,176 @@ def phase_ctc():
     ]
 
 
+def ctc2d_inputs(rng, B: int, T: int, H: int, C: int = 37, L: int = 32):
+    """Log-softmaxed emissions (B, T, H, C), transitions (B, T, H, H) and
+    initial heights (B, H) with the label cases of ``ctc_inputs``: word-like
+    label lengths, varied logit lengths, repeats, an empty label and rows
+    without an alignment (32 labels in fewer steps; a run of one class that
+    needs more than T steps). Returns numpy arrays and the aligned rows."""
+    def log_softmax(x):
+        x = x - x.max(-1, keepdims=True)
+        return (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+
+    emit = log_softmax(2.0 * rng.standard_normal((B, T, H, C)))
+    trans = log_softmax(rng.standard_normal((B, T, H, H)))
+    init = log_softmax(rng.standard_normal((B, H)))
+    logit_lengths = np.full(B, T, np.int32)
+    logit_lengths[::5] = rng.integers(13, T, size=len(logit_lengths[::5]))
+    label_lengths = rng.integers(1, 13, size=B).astype(np.int32)
+    labels = np.zeros((B, L), np.int32)
+    for b in range(B):
+        labels[b, :label_lengths[b]] = rng.integers(1, C, size=label_lengths[b])
+    labels[1, :6] = [5, 5, 5, 7, 7, 5]
+    label_lengths[1] = 6
+    labels[2], label_lengths[2] = 0, 0
+    labels[3] = rng.integers(1, C, size=L)  # 32 labels in 24 steps
+    label_lengths[3], logit_lengths[3] = L, 24
+    run = (T + 1) // 2 + 1  # one class repeated: needs 2 * run - 1 > T steps
+    labels[4] = 0
+    labels[4, :run] = 9
+    label_lengths[4], logit_lengths[4] = run, T
+    logit_lengths[1:3] = T
+    words = [labels[b, :label_lengths[b]] for b in range(B)]
+    repeats = np.array([int((w[1:] == w[:-1]).sum()) for w in words])
+    possible = label_lengths + repeats <= logit_lengths
+    assert not possible[3] and not possible[4] and possible.sum() > B // 2
+    return emit, trans, init, logit_lengths, labels, label_lengths, possible
+
+
+def ctc2d_bounds(logit_lengths, label_lengths, T: int, H: int, C: int, L: int):
+    """(forward, backward) least times in ms and what bounds each: every input
+    read once and every output written once at the HBM rate, against the
+    arithmetic of the (h, s) cells this run's lengths make live at the
+    float32 rate. Per live cell and step, forward: the label move (about 10
+    operations: three exps, a log, maxes, sums) and the contraction over H
+    previous heights (about 4 H: adds, maxes, exps, sums) and the emission;
+    backward: the backward label move and contraction, the alpha label move
+    the transition gradient needs, the emission gradient's exp and add, and
+    H transition terms (about 27 + 7 H)."""
+    B = len(logit_lengths)
+    S = 2 * L + 1
+    lens = np.clip(logit_lengths, 1, T).astype(np.int64)
+    states = 2 * label_lengths.astype(np.int64) + 1
+    emit_b, trans_b, alpha_b = B * T * H * C * 4, B * T * H * H * 4, B * T * H * S * 4
+    ints = B * L * 4 + 2 * B * 4
+    fwd_bytes = emit_b + trans_b + B * H * 4 + ints + alpha_b + B * 4
+    bwd_bytes = emit_b + trans_b + ints + alpha_b + 2 * B * 4 + emit_b + trans_b
+    fwd_ops = (12 + 4 * H) * H * int(((lens - 1) * states).sum())
+    bwd_ops = (27 + 7 * H) * H * int((lens * states).sum())
+    out = []
+    for nbytes, ops in ((fwd_bytes, fwd_ops), (bwd_bytes, bwd_ops)):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        out.append((max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+                    nbytes, ops))
+    return out
+
+
+def phase_ctc2d():
+    """Both 2D-CTC kernels against the plain version on the card, at config
+    #2's shape (H 4, T 25) and the curved A/B shape (H 6, T 40); times and
+    bounds at config #2's shape."""
+    from megreader_tpu_torch.ops.ctc2d import (
+        ctc2d_alpha_cuda,
+        ctc2d_beta_cuda,
+        ctc2d_loss_markov,
+        ctc2d_nll_markov_reference,
+    )
+    from megreader_tpu_torch.ops.ctc import _reduce
+
+    B, C, L = 64, 37, 32
+    errs = {}
+    timed = None
+    for name, T, H in (("config #2", 25, 4), ("curved", 40, 6)):
+        rng = np.random.default_rng(SEED + 8 + T)
+        *floats, ll_np, lb_np, lbl_np, possible = ctc2d_inputs(rng, B, T, H, C, L)
+        emit, trans, init = (torch.from_numpy(a).cuda() for a in floats)
+        ll, lb, lbl = (torch.from_numpy(a).cuda() for a in (ll_np, lb_np, lbl_np))
+        ok = torch.from_numpy(possible).cuda()
+
+        # forward: loss rtol 1e-4 / atol 1e-4 (a log-space DP summed in
+        # another order)
+        nll, alpha = ctc2d_alpha_cuda(emit, trans, init, ll, lb, lbl)
+        ref = ctc2d_nll_markov_reference(emit, trans, init, ll, lb, lbl)
+        torch.cuda.synchronize()
+        fwd_err = float((nll - ref)[ok].abs().max())
+        log(f"ctc2d {name} (B {B}, T {T}, H {H}, C {C}, L {L}) forward: max |kernel - plain| "
+            f"on rows with an alignment {fwd_err:.3g}; rows without one: kernel "
+            f"{nll[~ok].tolist()}, plain {ref[~ok].tolist()}")
+        if not torch.allclose(nll, ref, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"ctc2d alpha kernel disagrees with the plain version ({name})")
+        if not (torch.isfinite(nll).all() and bool((nll[~ok] > 1e29).all())):
+            raise AssertionError("ctc2d: a row without an alignment must give a finite ~1e30 loss")
+
+        # backward: emission, transition and initial-height gradients against
+        # autograd through the plain DP, rtol 1e-3 / atol 1e-4, for a
+        # weighted sum of the rows' losses
+        gw = torch.from_numpy(rng.uniform(0.5, 2.0, B).astype(np.float32)).cuda()
+        grad_emit, grad_trans = ctc2d_beta_cuda(emit, trans, ll, lb, lbl, alpha, nll, gw)
+        grad_init = grad_emit[:, 0].sum(-1)
+        leaves = [t.detach().clone().requires_grad_() for t in (emit, trans, init)]
+        (ctc2d_nll_markov_reference(*leaves, ll, lb, lbl) * gw).sum().backward()
+        torch.cuda.synchronize()
+        bwd_err = 0.0
+        for what, got, leaf in (("emit", grad_emit, leaves[0]), ("trans", grad_trans, leaves[1]),
+                                ("init", grad_init, leaves[2])):
+            err = float((got - leaf.grad).abs().max())
+            bwd_err = max(bwd_err, err)
+            log(f"ctc2d {name} backward: max |kernel - plain| of d nll / d {what} {err:.3g}")
+            if not torch.allclose(got, leaf.grad, rtol=1e-3, atol=1e-4):
+                raise AssertionError(f"ctc2d beta kernel: {what} gradient disagrees ({name})")
+
+        # the loss through the autograd Function, mean reduction
+        x = [t.clone().requires_grad_() for t in (emit, trans, init)]
+        loss = ctc2d_loss_markov(*x, ll, lb, lbl)
+        loss.backward()
+        x_ref = [t.clone().requires_grad_() for t in (emit, trans, init)]
+        loss_ref = _reduce(ctc2d_nll_markov_reference(*x_ref, ll, lb, lbl), lbl, "mean")
+        loss_ref.backward()
+        diff = max(float((a.grad - r.grad).abs().max()) for a, r in zip(x, x_ref))
+        log(f"ctc2d {name} loss (mean): kernels {loss.item()}, plain {loss_ref.item()}; "
+            f"gradient max |diff| {diff:.3g}")
+        if not (torch.allclose(loss, loss_ref, rtol=1e-4, atol=1e-4) and all(
+                torch.allclose(a.grad, r.grad, rtol=1e-3, atol=1e-4) for a, r in zip(x, x_ref))):
+            raise AssertionError(f"ctc2d loss through the kernels disagrees ({name})")
+        errs[name] = (fwd_err, bwd_err)
+        if timed is None:
+            timed = (emit, trans, init, ll, lb, lbl, alpha, nll, leaves, T, H, ll_np, lbl_np)
+
+    emit, trans, init, ll, lb, lbl, alpha, nll, leaves, T, H, ll_np, lbl_np = timed
+    ones = torch.ones(B, device="cuda")
+    ms_fwd = cuda_ms(lambda: ctc2d_alpha_cuda(emit, trans, init, ll, lb, lbl), reps=100)
+    ms_bwd = cuda_ms(lambda: ctc2d_beta_cuda(emit, trans, ll, lb, lbl, alpha, nll, ones),
+                     reps=100)
+    with torch.no_grad():
+        plain_fwd = cuda_ms(lambda: ctc2d_nll_markov_reference(emit, trans, init, ll, lb, lbl),
+                            reps=20)
+    out_ref = ctc2d_nll_markov_reference(*leaves, ll, lb, lbl).sum()
+    plain_bwd = cuda_ms(lambda: torch.autograd.grad(out_ref, leaves, retain_graph=True), reps=20)
+    busy_fwd = device_busy_ms(lambda: ctc2d_alpha_cuda(emit, trans, init, ll, lb, lbl), reps=20)
+    busy_bwd = device_busy_ms(
+        lambda: ctc2d_beta_cuda(emit, trans, ll, lb, lbl, alpha, nll, ones), reps=20)
+    (fwd_bound, fwd_by, fwd_bytes, fwd_ops), (bwd_bound, bwd_by, bwd_bytes, bwd_ops) = \
+        ctc2d_bounds(ll_np, lbl_np, T, H, C, L)
+    log(f"ctc2d time at config #2's shape (ms, median, CUDA events): kernels forward {ms_fwd}, "
+        f"backward {ms_bwd}; plain forward {plain_fwd}, backward {plain_bwd}; kernel-busy "
+        f"(torch.profiler device time) forward {busy_fwd}, backward {busy_bwd}")
+    log(f"ctc2d bound: forward {fwd_bytes} B, {fwd_ops} ops -> {fwd_bound:.6f} ms by {fwd_by}; "
+        f"backward {bwd_bytes} B, {bwd_ops} ops -> {bwd_bound:.6f} ms by {bwd_by}; "
+        f"dependent steps per launch: {int(ll_np.max()) - 1} forward, {int(ll_np.max())} "
+        f"backward; library: none (no single PyTorch call computes the Markov 2D-CTC)")
+    common = {"route": "cuda", "source": "megreader_tpu_torch/csrc/ctc2d.cu", "launches": 0,
+              "library_ms": None}
+    return [
+        {"name": "ctc2d_alpha", **common, "replaces": "megreader_tpu/ops/pallas_ctc2d.py:58",
+         "max_abs_err": max(e[0] for e in errs.values()), "ms": ms_fwd, "plain_ms": plain_fwd,
+         "bound_ms": fwd_bound, "bound_by": fwd_by},
+        {"name": "ctc2d_beta", **common, "replaces": "megreader_tpu/ops/pallas_ctc2d.py:94",
+         "max_abs_err": max(e[1] for e in errs.values()), "ms": ms_bwd, "plain_ms": plain_bwd,
+         "bound_ms": bwd_bound, "bound_by": bwd_by},
+    ]
+
+
 def seeded_weights(module: torch.nn.Module, seed: int) -> None:
     """Fill every parameter and BN statistic from a numpy generator."""
     rng = np.random.default_rng(seed)
@@ -585,6 +776,15 @@ class WordCrops:
                 "text": "".join(self.ALPHABET[c] for c in ids)}
 
 
+def adam_warmup_cosine():
+    """The optimizer of configs #1 and #2: Adam at lr 1e-3, 200 warm-up steps
+    of a 20 000-step cosine."""
+    from megreader_tpu_torch.train.train_step import OptimizerConfig
+
+    return OptimizerConfig(name="adam", lr=1e-3, schedule="warmup_cosine", warmup_steps=200,
+                           total_steps=20_000)
+
+
 def phase_train():
     from megreader_tpu_torch.experiment import Experiment
     from megreader_tpu_torch.models.recognizer import CTCRecognizer
@@ -595,16 +795,11 @@ def phase_train():
         ctc_loss_reference,
     )
     from megreader_tpu_torch.train.checkpoint import CheckpointManager
-    from megreader_tpu_torch.train.train_step import (
-        OptimizerConfig,
-        create_train_state,
-        make_train_step,
-    )
+    from megreader_tpu_torch.train.train_step import create_train_state, make_train_step
 
     B, per_epoch, epochs = 64, 4, 6
     steps = per_epoch * epochs
-    opt = OptimizerConfig(name="adam", lr=1e-3, schedule="warmup_cosine", warmup_steps=200,
-                          total_steps=20_000)
+    opt = adam_warmup_cosine()
     data = WordCrops(B * per_epoch, SEED + 5)
     rec = CTCRecognizer(num_classes=37, device="cuda")
     seeded_weights(rec.net, SEED + 6)
@@ -680,30 +875,13 @@ def phase_train():
 
     # time of a step and its parts (CUDA events, median of 10 after 3 warm-up)
     state = create_train_state(rec, opt)
-    parts = ("prepare", "forward", "ctc_forward", "backward", "optimizer")
-    times = {k: [] for k in parts + ("step",)}
-    for rep in range(13):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-        ev[0].record()
-        b = exp.prepare(raw)
-        ev[1].record()
-        net.train()
-        logits = net(b["image"])
-        ev[2].record()
+
+    def loss_fn(logits, b):
         lengths = torch.full((B,), logits.shape[1], dtype=torch.int32, device="cuda")
-        loss = ctc_loss(logits, lengths, b["label"], b["label_length"])
-        ev[3].record()
-        loss.backward()
-        ev[4].record()
-        state.optimizer.step()
-        state.optimizer.zero_grad()
-        ev[5].record()
-        ev[5].synchronize()
-        if rep >= 3:
-            for k, (a, e) in zip(parts, zip(ev[:-1], ev[1:])):
-                times[k].append(a.elapsed_time(e))
-            times["step"].append(ev[0].elapsed_time(ev[5]))
-    split = {k: statistics.median(v) for k, v in times.items()}
+        return ctc_loss(logits, lengths, b["label"], b["label_length"])
+
+    split = step_split(exp, raw, net, loss_fn, state.optimizer,
+                       ("prepare", "forward", "ctc_forward", "backward", "optimizer"))
     step_fn = make_train_step(rec, prepare=exp.prepare)
     busy = device_busy_ms(lambda: step_fn(state, raw))
     step_ms = cuda_ms(lambda: step_fn(state, raw), reps=10)
@@ -715,6 +893,246 @@ def phase_train():
     return launches
 
 
+def step_split(exp, raw, net, loss_fn, optimizer, parts):
+    """Median ms of each part of a train step (CUDA events, 10 after 3
+    warm-up): prepare, forward, loss, backward, optimizer; plus the step."""
+    times = {k: [] for k in parts + ("step",)}
+    for rep in range(13):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        b = exp.prepare(raw)
+        ev[1].record()
+        net.train()
+        out = net(b["image"])
+        ev[2].record()
+        loss = loss_fn(out, b)
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        optimizer.step()
+        optimizer.zero_grad()
+        ev[5].record()
+        ev[5].synchronize()
+        if rep >= 3:
+            for k, (a, e) in zip(parts, zip(ev[:-1], ev[1:])):
+                times[k].append(a.elapsed_time(e))
+            times["step"].append(ev[0].elapsed_time(ev[5]))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def phase_train2d():
+    """Config #2 with Markov heights at full width through Experiment/Trainer,
+    then independent heights for a few steps; returns the 2D kernels'
+    launches in the Markov run."""
+    from megreader_tpu_torch.experiment import Experiment
+    from megreader_tpu_torch.models.recognizer2d import Ctc2dRecognizer
+    from megreader_tpu_torch.ops import ctc, ctc2d
+    from megreader_tpu_torch.train.checkpoint import CheckpointManager
+    from megreader_tpu_torch.train.train_step import create_train_state, make_train_step
+
+    B, per_epoch, epochs = 64, 4, 6
+    steps = per_epoch * epochs
+    opt = adam_warmup_cosine()
+    data = WordCrops(B * per_epoch, SEED + 9)
+    eval_data = WordCrops(B, SEED + 10)
+    rec = Ctc2dRecognizer(num_classes=37, transition="markov", device="cuda")
+    seeded_weights(rec.net, SEED + 11)
+    kernels_1d = (ctc.ctc_alpha_cuda, ctc.ctc_beta_cuda)
+    kernels_2d = (ctc2d.ctc2d_alpha_cuda, ctc2d.ctc2d_beta_cuda)
+
+    def zero_counts():
+        for k in kernels_1d + kernels_2d:
+            k.launches = 0
+
+    def counts(ks):
+        return tuple(k.launches for k in ks)
+
+    with tempfile.TemporaryDirectory() as ws:
+        def experiment(model, n_epochs, **kw):
+            return Experiment(model, data, optimizer=opt, workspace=ws, batch_size=B,
+                              epochs=n_epochs, log_every=1, **kw)
+
+        exp = experiment(rec, epochs, eval_dataset=eval_data, validate_every_steps=steps)
+        zero_counts()
+        t0 = time.perf_counter()
+        state = exp.make_trainer().train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, launches_1d = counts(kernels_2d), counts(kernels_1d)
+        with open(os.path.join(ws, "train_metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in lines if "loss" in r]
+        evals = [r for r in lines if "eval/accuracy" in r]
+        first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        log(f"train2d (config #2, Markov heights): {state.step} steps of {B} crops in {wall:.2f} s "
+            f"(host clock, loader, logging, checkpoint and one validation included); 2D-CTC "
+            f"kernel launches {launches}, 1-D CTC kernel launches {launches_1d}; loss mean of "
+            f"the first 5 steps {first:.4f}, of the last 5 {last:.4f}; losses {losses}")
+        if state.step != steps or len(losses) != steps:
+            raise AssertionError(f"train2d ran {state.step} steps and logged {len(losses)}")
+        if not all(np.isfinite(losses)) or not last < first:
+            raise AssertionError("train2d: losses must be finite and fall")
+        if launches != (steps, steps) or launches_1d != (0, 0):
+            raise AssertionError(f"train2d: 2D kernels launched {launches}, 1-D {launches_1d} "
+                                 f"times in {steps} steps")
+        if len(evals) != 1 or evals[0]["step"] != steps or evals[0]["eval/n"] != B:
+            raise AssertionError(f"train2d: expected one validation at step {steps}: {evals}")
+        log(f"train2d validation (evaluate_recognition, Viterbi decode, {B} crops) at step "
+            f"{steps}: accuracy {evals[0]['eval/accuracy']}, ned {evals[0]['eval/ned']}")
+
+        rec2 = Ctc2dRecognizer(num_classes=37, transition="markov", device="cuda")
+        seeded_weights(rec2.net, SEED + 12)
+        restored = CheckpointManager(ws).restore(create_train_state(rec2, opt))
+        same = all(torch.equal(a, b) for a, b in zip(rec.net.state_dict().values(),
+                                                    rec2.net.state_dict().values()))
+        if restored.step != steps or restored.optimizer.count != steps or not same:
+            raise AssertionError("train2d: the checkpoint did not restore the trained state")
+        resumed = experiment(rec2, epochs + 1).make_trainer().train(resume=True)
+        if resumed.step != steps + per_epoch or kernels_2d[0].launches != steps + per_epoch:
+            raise AssertionError(f"train2d: resume ended at step {resumed.step}")
+        log(f"train2d: restored step {restored.step} into a fresh model, resumed to "
+            f"{resumed.step}")
+
+    with tempfile.TemporaryDirectory() as ws:
+        ind = Ctc2dRecognizer(num_classes=37, transition="independent", device="cuda")
+        seeded_weights(ind.net, SEED + 13)
+        zero_counts()
+        st = Experiment(ind, data, optimizer=opt, workspace=ws, batch_size=B, epochs=1,
+                        log_every=1).make_trainer().train()
+        got = (counts(kernels_1d), counts(kernels_2d))
+        log(f"train2d (independent heights): {st.step} steps; 1-D CTC kernel launches "
+            f"{got[0]}, 2D-CTC {got[1]}")
+        if st.step != per_epoch or got != ((per_epoch, per_epoch), (0, 0)):
+            raise AssertionError("train2d: independent heights must launch the 1-D CTC kernels "
+                                 "once per step and no 2D kernel")
+
+    raw = exp.collate([data[i] for i in range(B)])
+    batch = exp.prepare(raw)
+    net = rec.net
+
+    # one step's loss and gradients through the kernels against the plain
+    # loss, the same weights and batch, TF32 off, deterministic cuDNN: the
+    # gradient with respect to the heads element by element (rtol 1e-3 /
+    # atol 1e-6), then each leaf on its own scale (max |diff| <= 1e-3 max
+    # |plain| + 1e-6). The plain path's backward is not deterministic on the
+    # card (its gathers add with atomics): two plain runs differ by up to
+    # 1.1e-5 of a leaf's largest entry in the first convs, more than an
+    # element-wise rtol allows on their small entries; the kernel path
+    # repeats bit for bit.
+    torch.backends.cudnn.deterministic = True
+
+    def loss_and_grads(nll_fn):
+        net.zero_grad(set_to_none=True)
+        net.train()
+        heads = net(batch["image"])
+        leaves = [h.detach().requires_grad_() for h in heads]
+        lengths = torch.full((B,), heads[0].shape[1], dtype=torch.int32, device="cuda")
+        nll = nll_fn(*leaves, lengths, batch["label"], batch["label_length"])
+        loss = ctc._reduce(nll, batch["label_length"], "mean")
+        head_grads = torch.autograd.grad(loss, leaves)
+        torch.autograd.backward(heads, head_grads)
+        return (loss.item(), head_grads,
+                {n: p.grad.clone() for n, p in net.named_parameters()})
+
+    loss_k, heads_k, grads_k = loss_and_grads(ctc2d.ctc2d_nll_markov)
+    loss_r, heads_r, grads_r = loss_and_grads(ctc2d.ctc2d_nll_markov_reference)
+    torch.backends.cudnn.deterministic = False
+    head_diff = max(float((a - b).abs().max()) for a, b in zip(heads_k, heads_r))
+    leaf = {n: (float((grads_k[n] - g).abs().max()), float(g.abs().max()))
+            for n, g in grads_r.items()}
+    worst = max(leaf, key=lambda n: leaf[n][0] / (1e-3 * leaf[n][1] + 1e-6))
+    log(f"train2d one-step parity: loss kernels {loss_k}, plain {loss_r}; d loss / d heads "
+        f"max |diff| {head_diff:.3g}; worst leaf {worst}: max |diff| {leaf[worst][0]:.3g}, "
+        f"max |plain| {leaf[worst][1]:.3g} ({len(leaf)} leaves)")
+    if abs(loss_k - loss_r) > 1e-4:
+        raise AssertionError("train2d: the kernel loss disagrees with the plain loss")
+    for what, a, b in zip(("emit", "trans", "init"), heads_k, heads_r):
+        if not torch.allclose(a, b, rtol=1e-3, atol=1e-6):
+            raise AssertionError(f"train2d: d loss / d {what} disagrees with the plain loss's")
+    for n, (diff, scale) in leaf.items():
+        if diff > 1e-3 * scale + 1e-6:
+            raise AssertionError(f"train2d: gradient of {n} disagrees with the plain loss's")
+
+    state = create_train_state(rec, opt)
+
+    def markov_loss(heads, b):
+        lengths = torch.full((B,), heads[0].shape[1], dtype=torch.int32, device="cuda")
+        return ctc2d.ctc2d_loss_markov(*heads, lengths, b["label"], b["label_length"])
+
+    split = step_split(exp, raw, net, markov_loss, state.optimizer,
+                       ("prepare", "forward", "loss", "backward", "optimizer"))
+    step_fn = make_train_step(rec, prepare=exp.prepare)
+    busy = device_busy_ms(lambda: step_fn(state, raw))
+    step_ms = cuda_ms(lambda: step_fn(state, raw), reps=10)
+    idle = "not measured" if busy is None else f"{1.0 - busy / step_ms:.4f}"
+    log("train2d step split (ms, median of 10, CUDA events): " + json.dumps(split)
+        + f"; {B / split['step'] * 1e3:.1f} crops/s")
+    log(f"train2d step (make_train_step, CUDA events, median of 10): {step_ms} ms = "
+        f"{B / step_ms * 1e3:.1f} crops/s; kernel-busy {busy} ms; device idle share {idle}")
+    return launches
+
+
+def phase_decode2d():
+    """Config #2's batched decode on the card through RecognizerPredictor,
+    greedy (independent heights) and Viterbi (Markov heights), against the
+    same weights on the CPU; then one E2EPipeline batch with the Markov
+    recognizer."""
+    from megreader_tpu_torch.data.loader import recognition_collate
+    from megreader_tpu_torch.core.charset import Charset
+    from megreader_tpu_torch.models.detector import SegDetector
+    from megreader_tpu_torch.models.recognizer2d import Ctc2dRecognizer
+    from megreader_tpu_torch.pipelines.e2e import E2EPipeline
+    from megreader_tpu_torch.pipelines.predictors import RecognizerPredictor
+
+    B = 64
+    words = WordCrops(B, SEED + 14)
+    raw = recognition_collate([words[i] for i in range(B)], Charset())
+    markov = None
+    for transition, mode in (("independent", "greedy"), ("markov", "Viterbi")):
+        rec = Ctc2dRecognizer(num_classes=37, transition=transition, device="cuda")
+        seeded_weights(rec.net, SEED + 15)
+        with torch.no_grad():  # class logits as sharp as a trained net's
+            rec.net.class_head.weight.mul_(8.0)
+        rec_cpu = copy.deepcopy(rec)
+        rec_cpu.net.cpu()
+        pred, pred_cpu = RecognizerPredictor(rec), RecognizerPredictor(rec_cpu)
+        texts = pred.predict(None, raw["image"], raw["size"])
+        texts_cpu = pred_cpu.predict(None, raw["image"], raw["size"])
+        ids, lengths = rec.decode(pred.prepare(raw["image"], raw["size"]))
+        ids_cpu, lengths_cpu = rec_cpu.decode(pred_cpu.prepare(raw["image"], raw["size"]))
+        same = torch.equal(ids.cpu(), ids_cpu) and torch.equal(lengths.cpu(), lengths_cpu)
+        ms = cuda_ms(lambda: pred.predict(None, raw["image"], raw["size"]), reps=10)
+        log(f"decode2d {mode} ({transition} heights), {B} crops: ids equal to the CPU's: {same}; "
+            f"strings equal: {texts == texts_cpu}; {ms} ms per batch by CUDA events around "
+            f"RecognizerPredictor.predict = {B / ms * 1e3:.1f} crops/s; first strings "
+            f"{texts[:6]}")
+        if not same or texts != texts_cpu:
+            raise AssertionError(f"decode2d: {mode} ids on the card differ from the CPU's")
+        if tuple(ids.shape) != (B, 25) or not any(texts):
+            raise AssertionError(f"decode2d: {mode} gave ids of shape {tuple(ids.shape)}")
+        markov = rec
+
+    rng = np.random.default_rng(SEED + 16)
+    det = SegDetector(device="cuda")
+    seeded_weights(det.net, SEED + 2)
+    pages = torch.from_numpy(make_pages(rng, 8, 640, 640)).cuda()
+    pipe = E2EPipeline(det, markov, max_regions=32, rectify="perspective", ccl_iters=24,
+                       box_thresh=0.3, device="cuda")
+    calibrate_prob_head(pipe, det.net, pages)
+    results = pipe.predict(None, None, pages)
+    out = pipe.run(None, None, pages)
+    valid = out["valid"]
+    if tuple(out["ids"].shape) != (8, 32, 25) or not bool(valid.any()):
+        raise AssertionError(f"decode2d e2e: ids {tuple(out['ids'].shape)}, "
+                             f"{int(valid.sum())} valid slots")
+    if not torch.isfinite(out["quads"][valid]).all():
+        raise AssertionError("decode2d e2e: quads not finite on valid slots")
+    run_ms = cuda_ms(lambda: pipe.run(None, None, pages), reps=5)
+    log(f"decode2d e2e (Markov 2D-CTC recognizer): {int(valid.sum())} valid regions on 8 "
+        f"pages, first page texts {[r['text'] for r in results[0]][:8]}; {run_ms} ms per "
+        f"batch of 8 (CUDA events) = {8 / run_ms * 1e3:.2f} pages/s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -722,9 +1140,12 @@ def main() -> int:
     phase_setup()
     ccl_row = phase_ccl()
     alpha_row, beta_row = phase_ctc()
+    alpha2d_row, beta2d_row = phase_ctc2d()
     ccl_row["launches"] = phase_e2e()
     alpha_row["launches"], beta_row["launches"] = phase_train()
-    log(json.dumps({"kernels": [ccl_row, alpha_row, beta_row]}))
+    alpha2d_row["launches"], beta2d_row["launches"] = phase_train2d()
+    phase_decode2d()
+    log(json.dumps({"kernels": [ccl_row, alpha_row, beta_row, alpha2d_row, beta2d_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@ The recognition branch of ``megreader_tpu/experiment.py``, built from Python
 objects: ``recognition_collate`` on the host (uint8 canvases, encoded
 labels), and a prepare function that moves each batch to the model's device,
 casts it there, resizes each crop to ``crop_hw`` with its aspect kept
-(``resize_with_aspect_pad``) and normalizes it.
+(``resize_with_aspect_pad``) and normalizes it. With ``validate_every_steps``
+and an eval dataset, the trainer runs ``evaluation.evaluate_recognition``
+(greedy, or Viterbi for Markov heights) every so many steps.
 """
 
 from __future__ import annotations
@@ -17,11 +19,12 @@ import torch
 
 from .core.charset import Charset
 from .data.loader import Loader, recognition_collate
+from .evaluation import evaluate_recognition
 from .ops.image import normalize, resize_with_aspect_pad
 from .train.train_step import OptimizerConfig
 from .train.trainer import Trainer
 
-RECOGNITION_TASKS = {"CTCRecognizer"}
+RECOGNITION_TASKS = {"CTCRecognizer", "Ctc2dRecognizer"}
 
 
 def _recognition_prepare(batch: Dict, crop_hw=(32, 100), device="cuda") -> Dict:
@@ -38,7 +41,8 @@ def _recognition_prepare(batch: Dict, crop_hw=(32, 100), device="cuda") -> Dict:
 
 
 class Experiment:
-    """Model + dataset + optimizer + trainer wiring, for ``CTCRecognizer``."""
+    """Model + dataset + optimizer + trainer wiring, for ``CTCRecognizer`` and
+    ``Ctc2dRecognizer`` (whose net must be built for the same ``crop_hw``)."""
 
     def __init__(
         self,
@@ -63,16 +67,12 @@ class Experiment:
         self.task = model.__class__.__name__
         if self.task not in RECOGNITION_TASKS:
             raise NotImplementedError(
-                f"task {self.task}: only the CTC recognizer's training is ported "
-                "(ROADMAP Queue 1 items 7, 9, 10, 13)"
+                f"task {self.task}: only the CTC and 2D-CTC recognizers' training is "
+                "ported (ROADMAP Queue 1 items 7, 10, 13)"
             )
         if augment:
             raise NotImplementedError(
                 "augment=True: device augmentation is not ported (ROADMAP Queue 1 item 7)"
-            )
-        if validate_every_steps and eval_dataset is not None:
-            raise NotImplementedError(
-                "validation needs evaluation.py, which is not ported (ROADMAP Queue 1 item 7)"
             )
         self.workspace = workspace
         self.crop_hw = tuple(crop_hw)
@@ -102,6 +102,11 @@ class Experiment:
     def make_trainer(self) -> Trainer:
         if self.train_loader is None:
             raise ValueError("experiment has no train dataset")
+        validate_fn = None
+        if self.validate_every_steps and self.eval_loader is not None:
+            def validate_fn(model, state):
+                return evaluate_recognition(self, state.module)
+
         return Trainer(
             model=self.model,
             loader=self.train_loader,
@@ -112,6 +117,7 @@ class Experiment:
             use_mesh=self.use_mesh,
             prepare_batch=self.prepare,
             validate_every_steps=self.validate_every_steps,
+            validate_fn=validate_fn,
         )
 
     @staticmethod

@@ -75,7 +75,8 @@ class CTCRecognizer:
         overrides the wrapper's own module (same architecture)."""
         if mode != "greedy":
             raise NotImplementedError(
-                f"decode mode {mode!r}: prefix beam search is not ported yet (ROADMAP Queue 1)"
+                f"decode mode {mode!r}: prefix beam search is not ported yet "
+                "(ROADMAP Queue 1 item 3)"
             )
         net = self.net if net is None else net
         logits = net.eval()(images).float()

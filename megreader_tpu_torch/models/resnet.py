@@ -11,6 +11,8 @@ variant='det': 7x7/s2 stem + 3x3/s2 max pool (pad 1), stage strides
 variant='rec': 3x3/s1 stem + 2x2/s2 max pool, stage strides
 (1, (2, 2), (2, 1), (2, 1)), so a 32x100 crop ends at H=2, W=25; returns the
 last feature map.
+variant='rec2d': the 'rec' stem with stage strides (1, (2, 2), (2, 1), (1, 1)),
+keeping height for the 2D-CTC heads: 32x100 -> H=4, W=25; 48x160 -> 6x40.
 """
 
 from __future__ import annotations
@@ -85,14 +87,13 @@ class ResNet(nn.Module):
             self.stem_conv = nn.Conv2d(in_ch, width, 7, 2, 3, bias=False)
             self.pool = nn.MaxPool2d(3, 2, 1)
             strides = [(1, 1), (2, 2), (2, 2), (2, 2)]
-        elif variant == "rec":
+        elif variant in ("rec", "rec2d"):
             self.stem_conv = nn.Conv2d(in_ch, width, 3, 1, 1, bias=False)
             self.pool = nn.MaxPool2d(2, 2)
-            strides = [(1, 1), (2, 2), (2, 1), (2, 1)]
+            last = (2, 1) if variant == "rec" else (1, 1)
+            strides = [(1, 1), (2, 2), (2, 1), last]
         else:
-            raise NotImplementedError(
-                f"ResNet variant {variant!r}: only 'det' and 'rec' are ported"
-            )
+            raise ValueError(f"unknown ResNet variant {variant!r}")
         self.stem_bn = BatchNorm2d(width)
         self.variant = variant
         self.stages = []

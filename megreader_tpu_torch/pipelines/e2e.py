@@ -4,8 +4,9 @@
       -> SegDetectorNet prob map (B, H, W)
       -> binarize + connected components (CUDA kernel on the card)
       -> K fixed region slots per page -> word quads (B, K, 4, 2)
-      -> perspective (or box) crops (B*K, 32, 100, 3) -> CTC recognizer
-      -> greedy ids/lengths; ``predict`` looks the strings up on the host.
+      -> perspective (or box) crops (B*K, 32, 100, 3) -> CTC or 2D-CTC
+         recognizer -> its decode (greedy; Viterbi for Markov heights)
+      -> ids/lengths; ``predict`` looks the strings up on the host.
 
 Shapes are static: K is a fixed region budget, and slots without a region are
 masked by ``valid``, not dropped. Each stage is a method, so a caller can time
@@ -20,6 +21,7 @@ import torch
 
 from ..core.charset import Charset
 from ..models.recognizer import CTCRecognizer
+from ..models.recognizer2d import Ctc2dRecognizer
 from ..ops.ccl import (
     connected_components,
     extract_regions,
@@ -59,9 +61,8 @@ class E2EPipeline:
         rec_mode: str = "greedy",
         device="cuda",
     ):
-        if not isinstance(recognizer, CTCRecognizer):
-            raise _not_ported("the attention and 2D-CTC recognizer families",
-                              "items 9-10")
+        if not isinstance(recognizer, (CTCRecognizer, Ctc2dRecognizer)):
+            raise _not_ported("the attention recognizer family", "item 10")
         if deskew or rectify == "deskew":
             raise _not_ported("rectify='deskew'", "item 6, page-pipeline variants")
         if rectify == "chain":

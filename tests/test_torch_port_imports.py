@@ -36,7 +36,8 @@ def test_port_file_imports_no_jax(path):
 
 def test_every_port_module_is_checked():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
-    for sub in ("core", "ops", "models", "compat", "pipelines", "data", "train", "utils"):
+    for sub in ("core", "ops", "models", "compat", "pipelines", "data", "train", "utils",
+                "postproc"):
         assert any(n.startswith(f"megreader_tpu_torch/{sub}/") for n in names), sub
     assert "chip_smoke.py" in names
 

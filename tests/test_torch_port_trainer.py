@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from megreader_tpu_torch.data.datasets import SyntheticRecognitionDataset
+from megreader_tpu_torch.evaluation import evaluate_recognition
 from megreader_tpu_torch.experiment import Experiment
 from megreader_tpu_torch.models.detector import SegDetector
 from megreader_tpu_torch.models.recognizer import CTCRecognizer
@@ -156,9 +157,10 @@ def test_left_out_options_raise(tmp_path, what):
             Experiment(SegDetector(device="cpu"), SyntheticRecognitionDataset(n=8))
         elif what == "process_workers":
             _experiment(tmp_path, loader_worker_mode="process")
-        else:
-            _experiment(tmp_path, eval_dataset=SyntheticRecognitionDataset(n=8),
-                        validate_every_steps=2)
+        else:  # validation runs; its beam-search decode is left out
+            exp = _experiment(tmp_path, eval_dataset=SyntheticRecognitionDataset(n=8),
+                              validate_every_steps=2)
+            evaluate_recognition(exp, mode="beam")
 
 
 def test_average_meter():
