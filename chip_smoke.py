@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the page-serving
-path, the training of the config-#1 recognizer, and the training and batched
-decode of the config-#2 2D-CTC recognizer.
+path with each region-extraction path, the training of the config-#1
+recognizer, the training and batched decode of the config-#2 2D-CTC
+recognizer, and the training and detection evaluation of the config-#4
+detector.
 
     python3 chip_smoke.py
 
@@ -16,21 +18,45 @@ Phases (any failure exits non-zero):
    empty page), then unaligned 641x637 pages and an empty/full pair. Times
    the kernel and the plain version with CUDA events, and computes the
    kernel's bound for this run's masks.
-3. ctc: the CUDA CTC kernels (alpha forward, beta backward) against the plain
+3. extract: the three CUDA extraction kernels (candidates, moments, extents)
+   against their plain versions on the card at the serving shape (8x640x640
+   labels of the CCL kernel with cap 24, K 32, K2 256; text-like rectangles,
+   a component rooted at pixel 0, 20% noise with more components than K2,
+   rotated bars, an empty page), again at K 20 (K2 rounded to 256 where the
+   XLA candidate phase keeps 160) and on unaligned 641x637 pages: candidates
+   and selected roots bit-exact, moment counts exact and sums within rtol
+   1e-6, extents within 1e-4 px; then ``extract_regions`` with
+   ``impl='pallas'`` and ``'pallas_full'`` on the card against the same call
+   on the CPU (valid and area exact, centre and extents 1e-3 px and angle
+   1e-5 rad on elongated regions). Times each kernel (CUDA events and
+   kernel-busy), its plain version and the three impls, and computes each
+   kernel's bound for these labels.
+4. ctc: the CUDA CTC kernels (alpha forward, beta backward) against the plain
    PyTorch version on the card at config #1's training shape (B 64, T 25,
    C 37, labels padded to 32): varied logit lengths, repeated labels, an
    empty label and rows without an alignment. Times the kernels, the plain
    version and ``torch.nn.functional.ctc_loss`` with CUDA events, and computes
    the kernels' bounds for this run's lengths.
-4. e2e: the full-width serving path (ResNet-18 det + FPN 256 + head 64;
+5. ctc2d: the CUDA 2D-CTC kernels (alpha forward; beta backward with the
+   emission, transition and initial-height gradients) against the plain
+   PyTorch version on the card at config #2's shape (B 64, T 25, H 4, C 37,
+   labels padded to 32) and the curved A/B shape (T 40, H 6), with the label
+   cases of phase 4 (loss rtol 1e-4, gradients rtol 1e-3). Times the kernels
+   (CUDA events and kernel-busy time) and the plain version, and computes the
+   kernels' bounds for this run's lengths.
+6. e2e: the full-width serving path (ResNet-18 det + FPN 256 + head 64;
    ResNet-18 rec + 2x BiLSTM 256, 37 classes) on seeded random weights, 8
    numpy-made pages of 640x640, through ``E2EPipeline.predict``. Checks finite
    outputs and shapes, that the CCL kernel ran once per batch, times each
    stage with CUDA events and its kernel-busy time with ``torch.profiler``
    (and the whole batch's device idle share), and holds every stage of the
    card's path against the same stage on the CPU (plain versions), on two
-   128x128 crops and on one full 640x640 page with K = 32 slots.
-5. train: config #1 at full width (ResNet-18 rec + 2x BiLSTM 256, 37
+   128x128 crops and on one full 640x640 page with K = 32 slots. Then one
+   batch each with ``extract_impl='pallas'`` and ``'pallas_full'``: one
+   launch of each extraction kernel the impl runs, valid slots equal to the
+   'xla' batch's and quads within 1e-2 px of them; the extract stage's
+   times and pages/s for the three impls.
+7. train: config #1 at full width (ResNet-18 rec + 2x BiLSTM 256, 37
    classes, batch 64, Adam at lr 1e-3 with 200 warm-up steps of a 20 000-step
    cosine) through ``Experiment``/``Trainer`` on a numpy-made dataset of 4
    batches for 24 steps: finite, falling losses, one launch of each CTC
@@ -38,15 +64,8 @@ Phases (any failure exits non-zero):
    loss and gradients through the kernels against the plain loss, and the
    time of a step split into prepare, forward, CTC forward, backward and
    optimizer (CUDA events), with the device idle share (``torch.profiler``).
-6. ctc2d: the CUDA 2D-CTC kernels (alpha forward; beta backward with the
-   emission, transition and initial-height gradients) against the plain
-   PyTorch version on the card at config #2's shape (B 64, T 25, H 4, C 37,
-   labels padded to 32) and the curved A/B shape (T 40, H 6), with the label
-   cases of phase 3 (loss rtol 1e-4, gradients rtol 1e-3). Times the kernels
-   (CUDA events and kernel-busy time) and the plain version, and computes the
-   kernels' bounds for this run's lengths. Runs before phase 4.
-7. train2d: config #2 with Markov heights at full width (ResNet-18 rec2d,
-   37 classes, batch 64 of 32x100 crops, the optimizer of phase 5) through
+8. train2d: config #2 with Markov heights at full width (ResNet-18 rec2d,
+   37 classes, batch 64 of 32x100 crops, the optimizer of phase 7) through
    ``Experiment``/``Trainer`` for 24 steps: finite, falling losses, one
    launch of each 2D-CTC kernel per step and none of the 1-D ones, one
    validation through ``evaluate_recognition``, a checkpoint that resumes.
@@ -54,13 +73,23 @@ Phases (any failure exits non-zero):
    once per step; one Markov step's loss and gradients through the kernels
    against the plain loss; the step split into prepare, forward, loss,
    backward and optimizer, and the device idle share.
-8. decode2d: config #2's batched decode of 64 crops through
+9. decode2d: config #2's batched decode of 64 crops through
    ``RecognizerPredictor``, greedy (independent heights) and Viterbi (Markov
    heights), with ids equal to the same weights' on the CPU; then one
    ``E2EPipeline`` batch of 8 pages with the Markov recognizer.
+10. traindet: config #4 at full width (ResNet-18 det + FPN 256 + heads 64,
+    k 50, batch 8 of 640x640, SGD lr 0.007 momentum 0.9 decay 1e-4, ``poly``
+    over 20 000 steps, GT maps rasterized on the card, polygon buffers of 16)
+    through ``Experiment``/``Trainer`` on numpy-made pages with exact quads
+    for 24 steps: finite, falling losses, one validation through
+    ``evaluate_detection`` on 16 pages (finite P/R/H), a checkpoint that
+    resumes. Then ``make_detection_gt`` on the card against the CPU, and the
+    step split into prepare (GT maps), forward, loss, backward and
+    optimizer, with the device idle share.
 
-Prints a JSON line of per-kernel numbers, then, as the last line,
-``{"ok": true, "device": {...}}``. Needs a CUDA device; exits 1 without one.
+Prints a JSON line of per-kernel numbers (all eight kernels), then, as the
+last line, ``{"ok": true, "device": {...}}``. Needs a CUDA device; exits 1
+without one.
 """
 
 from __future__ import annotations
@@ -86,6 +115,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # float32 outside the tensor cores (the guide's table), for the CTC kernels'
 # logsumexp arithmetic
 FP32_OPS_PER_S = 67e12
+# float64 outside the tensor cores (NVIDIA H100 SXM data sheet), for the
+# extraction kernels' float64 sums and projections
+FP64_OPS_PER_S = 34e12
 SEED = 0
 
 
@@ -229,6 +261,187 @@ def phase_ccl():
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
     }
+
+
+def bars(H: int, W: int) -> np.ndarray:
+    """Long thin bars at eight angles from 0 to 7 pi / 8, plus a blob."""
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    m = np.zeros((H, W), bool)
+    for k in range(8):
+        th = k * np.pi / 8
+        cx, cy = W * (0.2 + 0.2 * (k % 4)), H * (0.25 + 0.5 * (k // 4))
+        u = (xx - cx) * np.cos(th) + (yy - cy) * np.sin(th)
+        v = -(xx - cx) * np.sin(th) + (yy - cy) * np.cos(th)
+        m |= (np.abs(u) <= 0.08 * W) & (np.abs(v) <= 3 + k)
+    m |= (xx - 0.5 * W) ** 2 + (yy - 0.5 * H) ** 2 < 400
+    return m
+
+
+def extract_masks(rng, B: int, H: int, W: int) -> np.ndarray:
+    """The extract phase's pages: text-like rectangles with a component
+    rooted at pixel 0, 20% noise (more components than K2 slots), rotated
+    bars, text-like rectangles again, and, from 5 pages on, a serpentine
+    whose labels stay capped (labels that name no root) and an empty last
+    page."""
+    m = text_masks(rng, B, H, W)
+    m[0, :8, :60] = True
+    if B > 1:
+        m[1] = rng.random((H, W)) < 0.2
+    if B > 2:
+        m[2] = bars(H, W)
+    if B > 4:
+        m[B - 2] = serpentine(H, W)
+        m[B - 1] = False
+    return m
+
+
+def extract_bounds(labels_np: np.ndarray, K: int, K2: int):
+    """Least times (ms) of the three extraction functions on these labels, and
+    what bounds each: every input read once and every output written once at
+    the HBM rate, against the work these labels need (candidates: a root test
+    and a count per pixel, INT32; moments: 12 float64 operations per member
+    pixel, two passes; extents: 12 per member pixel) at the H100's rates."""
+    B = labels_np.shape[0]
+    n = labels_np.size
+    fg = int((labels_np >= 0).sum())
+    rows = {
+        "candidates": (n * 4 + B * K2 * 8, 3 * n / INT32_OPS_PER_S),
+        "moments": (2 * n * 4 + B * K * 4 + B * K * 8 * 4, 12 * fg / FP64_OPS_PER_S),
+        "extents": (n * 4 + B * K * 4 + 2 * B * K * 4 * 4, 12 * fg / FP64_OPS_PER_S),
+    }
+    out = {}
+    for name, (nbytes, op_s) in rows.items():
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, op_s * 1e3
+        out[name] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+                     nbytes)
+    return out
+
+
+def phase_extract(B: int = 8, H: int = 640, W: int = 640):
+    """The three extraction kernels against their plain versions on the card
+    at the serving shape (K 32, and K 20 for the K2 rounding; then unaligned
+    pages), and the whole Pallas-path extraction on the card against the
+    plain versions on the CPU; times and bounds at the serving shape."""
+    from megreader_tpu_torch.ops import ccl
+    from megreader_tpu_torch.ops import extract as ex
+
+    rng = np.random.default_rng(SEED + 17)
+    K, cap = 32, 24
+    serving = (f"serving {B}x{H}x{W}", extract_masks(rng, B, H, W))
+    unaligned = (f"unaligned 2x{H + 1}x{W - 3}", extract_masks(rng, 2, H + 1, W - 3))
+    errs = {"candidates": 0.0, "moments": 0.0, "extents": 0.0}
+    timed = None
+    for (name, m), k in ((serving, K), (serving, 20), (unaligned, K)):
+        labels = ccl.connected_components_cuda(torch.from_numpy(m).cuda(), cap)
+        scores = torch.from_numpy(rng.random(m.shape, dtype=np.float32)).cuda()
+        K2 = ex.pallas_k2(k)
+        what = f"extract {name}, K {k} (K2 {K2})"
+
+        # candidates: roots and areas bit-exact
+        cand = ex.candidates_cuda(labels, K2)
+        cand_ref = ex.candidates_reference(labels, K2)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(cand, cand_ref)):
+            raise AssertionError(f"{what}: the candidates kernel disagrees with the plain one")
+        top_area, roots, valid = ccl._top_k_slots(*cand_ref, k)
+        roots = roots.to(torch.int32).contiguous()
+        if not torch.equal(ccl._top_k_slots(*cand, k)[1].to(torch.int32), roots):
+            raise AssertionError(f"{what}: the selected roots differ")
+
+        # moments: counts exact; float64 sums in another order, then float32
+        # (rtol 1e-6 / atol 1e-6)
+        M = ex.moments_cuda(labels, scores, roots)
+        M_ref = ex.moments_reference(labels, scores, roots)
+        torch.cuda.synchronize()
+        m_err = float(((M - M_ref).abs() / M_ref.abs().clamp(min=1.0)).max())
+        if not (torch.equal(M[..., 0], M_ref[..., 0])
+                and torch.allclose(M, M_ref, rtol=1e-6, atol=1e-6)):
+            raise AssertionError(f"{what}: the moments kernels disagree ({m_err:.3g})")
+        m_abs = float((M - M_ref).abs().max())
+
+        # extents on the same parameters: float64 rounded once per operation
+        # on both sides (atol 1e-4 px; expected bit-exact)
+        a = top_area.clamp(min=1.0)
+        theta = 0.5 * torch.atan2(2.0 * M_ref[..., 6] / a, (M_ref[..., 4] - M_ref[..., 5]) / a)
+        params = torch.stack([M_ref[..., 2] / a, M_ref[..., 3] / a, theta.cos(), theta.sin()],
+                             2).contiguous()
+        ext = ex.extents_cuda(labels, roots, params)
+        ext_ref = ex.extents_reference(labels, roots, params)
+        torch.cuda.synchronize()
+        e_err = float((ext - ext_ref).abs().max())
+        if e_err > 1e-4:
+            raise AssertionError(f"{what}: the extents kernel disagrees ({e_err})")
+        errs["moments"] = max(errs["moments"], m_abs)
+        errs["extents"] = max(errs["extents"], e_err)
+        log(f"{what}: candidates bit-exact ({int((cand_ref[1] > 0).sum())} live slots), "
+            f"moments max rel err {m_err:.3g}, max abs err {m_abs:.3g} (counts exact), "
+            f"extents max |err| {e_err:.3g} (bit-exact: {torch.equal(ext, ext_ref)}); "
+            f"{int(valid.sum())} valid slots")
+
+        # the whole Pallas-path extraction on the card against the plain
+        # versions on the CPU: valid and area exact; centre and extents atol
+        # 1e-3 px, angle 1e-5 rad, on elongated regions (principal extent
+        # over 1.5 times the other; elsewhere the angle is ill-conditioned);
+        # score atol 1e-5
+        for impl in ("pallas", "pallas_full"):
+            got = ccl.extract_regions(labels, scores, k, impl=impl)
+            ref = ccl.extract_regions(labels.cpu(), scores.cpu(), k, impl=impl)
+            got = {key: v.cpu() for key, v in got.items()}
+            if not (torch.equal(got["valid"], ref["valid"]) and torch.equal(got["area"],
+                                                                            ref["area"])):
+                raise AssertionError(f"{what} {impl}: valid or area differ from the CPU's")
+            length = ref["extent_u"][..., 1] - ref["extent_u"][..., 0] + 1.0
+            aniso = length > 1.5 * (ref["extent_v"][..., 1] - ref["extent_v"][..., 0] + 1.0)
+            diffs = {key: float((got[key] - ref[key]).abs()[aniso].max()) if aniso.any() else 0.0
+                     for key in ("center", "theta", "extent_u", "extent_v")}
+            diffs["score"] = float((got["score"] - ref["score"]).abs().max())
+            diffs["all_slots_theta"] = float((got["theta"] - ref["theta"]).abs().max())
+            log(f"{what} {impl} on the card vs the CPU ({int(aniso.sum())} elongated slots of "
+                f"{aniso.numel()}): max |diff| " + json.dumps(diffs))
+            limits = {"center": 1e-3, "theta": 1e-5, "extent_u": 1e-3, "extent_v": 1e-3,
+                      "score": 1e-5}
+            for key, lim in limits.items():
+                if not diffs[key] <= lim:
+                    raise AssertionError(f"{what} {impl}: {key} differs by {diffs[key]} > {lim}")
+        if timed is None:
+            timed = (labels, scores, roots, params, K2)
+
+    labels, scores, roots, params, K2 = timed
+    fns = {
+        "candidates": (lambda: ex.candidates_cuda(labels, K2),
+                       lambda: ex.candidates_reference(labels, K2)),
+        "moments": (lambda: ex.moments_cuda(labels, scores, roots),
+                    lambda: ex.moments_reference(labels, scores, roots)),
+        "extents": (lambda: ex.extents_cuda(labels, roots, params),
+                    lambda: ex.extents_reference(labels, roots, params)),
+    }
+    with torch.no_grad():
+        times = {name: (cuda_ms(f, reps=100), device_busy_ms(f, reps=20), cuda_ms(p, reps=10))
+                 for name, (f, p) in fns.items()}
+        whole = {}
+        for impl in ("xla", "pallas", "pallas_full"):
+            def run(impl=impl):
+                return ccl.extract_regions(labels, scores, K, impl=impl)
+
+            whole[impl] = (cuda_ms(run, reps=20), device_busy_ms(run))
+    bounds = extract_bounds(labels.cpu().numpy(), K, K2)
+    log(f"extract kernel ms at {B}x{H}x{W}, K 32 (kernel by CUDA events, median of 100; "
+        "kernel-busy by torch.profiler; plain by CUDA events, median of 10): " + json.dumps(
+            {n: {"ms": t[0], "busy_ms": t[1], "plain_ms": t[2], "bound_ms": bounds[n][0],
+                 "bound_by": bounds[n][1], "bound_bytes": bounds[n][2]}
+             for n, t in times.items()}))
+    log("extract_regions ms by impl (CUDA events, median of 20; kernel-busy): "
+        + json.dumps({k: {"ms": v[0], "busy_ms": v[1]} for k, v in whole.items()})
+        + "; library: none (no single PyTorch call)")
+    replaces = {"candidates": 66, "moments": 120, "extents": 168}
+    return [{
+        "name": f"extract_{name}", "route": "cuda",
+        "source": "megreader_tpu_torch/csrc/extract.cu",
+        "replaces": f"megreader_tpu/ops/pallas_extract.py:{replaces[name]}",
+        "launches": 0, "max_abs_err": errs[name], "ms": times[name][0],
+        "plain_ms": times[name][2], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+        "library_ms": None,
+    } for name in ("candidates", "moments", "extents")]
 
 
 def ctc_inputs(rng, B: int = 64, T: int = 25, C: int = 37, L: int = 32):
@@ -742,7 +955,56 @@ def phase_e2e():
     idle = "not measured" if run_busy is None else f"{1.0 - run_busy / run_ms:.4f}"
     log(f"e2e run: {run_ms} ms per batch of {B} (CUDA events) = {B / run_ms * 1e3:.2f} "
         f"pages/s; kernel-busy {run_busy} ms; device idle share {idle}")
-    return launches
+    extract_launches = e2e_extract_impls(pipe, det, rec, pages, out, labels, prob,
+                                         (stage_ms["extract"], busy_ms["extract"], run_ms))
+    return launches, extract_launches
+
+
+def e2e_extract_impls(pipe, det, rec, pages, ref, labels, prob, xla_times):
+    """One serving batch with each Pallas-path extraction (the CUDA extraction
+    kernels): one launch of each kernel the impl runs, the CCL once; valid
+    slots equal to the 'xla' batch's on the same pages and quads within 1e-2
+    px of them; the extract stage's and the batch's times. Returns each
+    extraction kernel's launches in those two batches."""
+    from megreader_tpu_torch.ops import extract as ex
+    from megreader_tpu_torch.ops.ccl import connected_components_cuda
+    from megreader_tpu_torch.pipelines.e2e import E2EPipeline
+
+    kernels = {"ccl": connected_components_cuda, "candidates": ex.candidates_cuda,
+               "moments": ex.moments_cuda, "extents": ex.extents_cuda}
+    totals = dict.fromkeys(("candidates", "moments", "extents"), 0)
+    times = {"xla": xla_times}
+    for impl in ("pallas", "pallas_full"):
+        p2 = E2EPipeline(det, rec, max_regions=pipe.max_regions, rectify="perspective",
+                         ccl_iters=pipe.ccl_iters, box_thresh=pipe.box_thresh, device="cuda",
+                         extract_impl=impl)
+        for k in kernels.values():
+            k.launches = 0
+        out = p2.run(None, None, pages)
+        torch.cuda.synchronize()
+        got = {name: k.launches for name, k in kernels.items()}
+        want = {"ccl": 1, "candidates": int(impl == "pallas_full"), "moments": 1, "extents": 1}
+        valid = ref["valid"]
+        qdiff = float((out["quads"][valid] - ref["quads"][valid]).abs().max())
+        log(f"e2e extract_impl={impl}: launches {got}; valid slots equal to the xla batch's: "
+            f"{torch.equal(out['valid'], valid)} ({int(valid.sum())}); quads max |diff| "
+            f"{qdiff:.3g} px")
+        if got != want:
+            raise AssertionError(f"e2e {impl}: kernel launches {got}, expected {want}")
+        if not torch.equal(out["valid"], valid) or not qdiff <= 1e-2:
+            raise AssertionError(f"e2e {impl}: regions differ from the xla batch's")
+        for name in totals:
+            totals[name] += got[name]
+        with torch.no_grad():
+            times[impl] = (cuda_ms(lambda: p2.regions(labels, prob), reps=10),
+                           device_busy_ms(lambda: p2.regions(labels, prob)),
+                           cuda_ms(lambda: p2.run(None, None, pages), reps=5))
+    B = pages.shape[0]
+    log("e2e by extract_impl (extract stage ms by CUDA events, its kernel-busy ms, batch ms by "
+        "CUDA events, pages/s): " + json.dumps(
+            {k: {"extract_ms": t[0], "extract_busy_ms": t[1], "run_ms": t[2],
+                 "pages_per_s": B / t[2] * 1e3} for k, t in times.items()}))
+    return totals
 
 
 class WordCrops:
@@ -1072,6 +1334,158 @@ def phase_train2d():
     return launches
 
 
+class TextPages:
+    """Numpy-made pages with the item contract of the port's
+    ``SyntheticDetectionDataset``: {"image": (H, W, 3) uint8, "polygons":
+    exact quads (4, 2) float32, "ignore", "texts", "scale", "filename"}. Each
+    page holds 3-8 words, half of them rotated by up to 0.5 rad, as bright
+    strokes (columns of a random glyph pattern) on dark noise; one word in
+    eight is a don't-care ('###') region."""
+
+    def __init__(self, n: int, seed: int, hw=(640, 640)):
+        self.n = n
+        self.seed = seed
+        self.hw = hw
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i: int):
+        from megreader_tpu_torch.data.datasets import _overlaps
+
+        rng = np.random.default_rng(self.seed * 999_983 + i)
+        H, W = self.hw
+        img = rng.integers(0, 50, (H, W, 3), dtype=np.uint8)
+        yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+        polys, ignore, texts = [], [], []
+        for _ in range(int(rng.integers(3, 9))):
+            w, h = rng.uniform(40, min(200, 0.45 * W)), rng.uniform(12, 40)
+            th = rng.uniform(-0.5, 0.5) if rng.random() < 0.5 else 0.0
+            c = np.array([rng.uniform(0.1 * W, 0.9 * W), rng.uniform(0.1 * H, 0.9 * H)])
+            R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+            quad = (np.array([[-w, -h], [w, -h], [w, h], [-w, h]]) / 2 @ R.T + c)
+            quad = quad.astype(np.float32)
+            if quad.min() < 2 or quad[:, 0].max() > W - 3 or quad[:, 1].max() > H - 3 or any(
+                    _overlaps(quad, q) for q in polys):
+                continue
+            u = (xx - c[0]) * np.cos(th) + (yy - c[1]) * np.sin(th)
+            v = -(xx - c[0]) * np.sin(th) + (yy - c[1]) * np.cos(th)
+            inside = (np.abs(u) <= w / 2) & (np.abs(v) <= h / 2)
+            strokes = (np.floor(u / 3) % 3 != 0) & (np.abs(v) <= 0.4 * h)
+            img[inside & strokes] = 235
+            polys.append(quad)
+            ignore.append(bool(rng.random() < 0.125))
+            texts.append("###" if ignore[-1] else "word")
+        return {"image": img, "polygons": polys, "ignore": ignore, "texts": texts,
+                "scale": np.array([1.0, 1.0], np.float32), "filename": f"pages_{i}"}
+
+
+def phase_traindet(B: int = 8, hw=(640, 640)):
+    """Config #4 (the DB detector) at full width through Experiment/Trainer on
+    GT maps rasterized on the card: 24 steps, one validation through
+    evaluate_detection, a checkpoint that resumes; the GT maps on the card
+    against the CPU; the step split and the device idle share."""
+    from megreader_tpu_torch.experiment import Experiment
+    from megreader_tpu_torch.models.detector import SegDetector
+    from megreader_tpu_torch.ops.ccl import connected_components_cuda
+    from megreader_tpu_torch.ops.gt_maps import make_detection_gt
+    from megreader_tpu_torch.train.checkpoint import CheckpointManager
+    from megreader_tpu_torch.train.train_step import (
+        OptimizerConfig,
+        create_train_state,
+        make_train_step,
+    )
+
+    per_epoch, epochs = 4, 6
+    steps = per_epoch * epochs
+    # experiments/seg_detector_synth.yaml: SGD lr 0.007, momentum 0.9, decay
+    # 1e-4, poly over 20 000 steps
+    opt = OptimizerConfig(name="sgd", lr=0.007, momentum=0.9, weight_decay=1e-4,
+                          schedule="poly", total_steps=20_000)
+    data = TextPages(B * per_epoch, SEED + 20, hw)
+    eval_data = TextPages(2 * B, SEED + 21, hw)
+    det = SegDetector(backbone="resnet18", fpn_dim=256, head_dim=64, k=50.0, device="cuda")
+    seeded_weights(det.net, SEED + 22)
+
+    with tempfile.TemporaryDirectory() as ws:
+        def experiment(model, n_epochs, **kw):
+            return Experiment(model, data, optimizer=opt, workspace=ws, batch_size=B,
+                              epochs=n_epochs, log_every=1, max_polys=16, **kw)
+
+        exp = experiment(det, epochs, eval_dataset=eval_data, validate_every_steps=steps)
+        connected_components_cuda.launches = 0
+        t0 = time.perf_counter()
+        state = exp.make_trainer().train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(ws, "train_metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in lines if "loss" in r]
+        evals = [r for r in lines if "eval/hmean" in r]
+        first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        log(f"traindet (config #4): {state.step} steps of {B} pages of {hw} in {wall:.2f} s "
+            f"(host clock, loader, device GT maps, logging, checkpoint and one validation "
+            f"included); loss mean of the first 5 steps {first:.4f}, of the last 5 {last:.4f}; "
+            f"losses {losses}; parts at the last step "
+            + json.dumps({k: [r for r in lines if "bce" in r][-1][k]
+                          for k in ("bce", "dice", "thresh_l1")}))
+        if state.step != steps or len(losses) != steps:
+            raise AssertionError(f"traindet ran {state.step} steps and logged {len(losses)}")
+        if not all(np.isfinite(losses)) or not last < first:
+            raise AssertionError("traindet: losses must be finite and fall")
+        if len(evals) != 1 or evals[0]["step"] != steps:
+            raise AssertionError(f"traindet: expected one validation at step {steps}: {evals}")
+        metrics = {k: evals[0][f"eval/{k}"] for k in ("precision", "recall", "hmean")}
+        if not all(np.isfinite(list(metrics.values()))):
+            raise AssertionError(f"traindet: validation metrics not finite: {metrics}")
+        log(f"traindet validation (evaluate_detection, ICDAR 2015 protocol, {2 * B} pages) at "
+            f"step {steps}: {metrics}; CCL kernel launches {connected_components_cuda.launches}")
+
+        det2 = SegDetector(backbone="resnet18", fpn_dim=256, head_dim=64, device="cuda")
+        seeded_weights(det2.net, SEED + 23)
+        restored = CheckpointManager(ws).restore(create_train_state(det2, opt))
+        same = all(torch.equal(a, b) for a, b in zip(det.net.state_dict().values(),
+                                                    det2.net.state_dict().values()))
+        if restored.step != steps or restored.optimizer.count != steps or not same:
+            raise AssertionError("traindet: the checkpoint did not restore the trained state")
+        resumed = experiment(det2, epochs + 1).make_trainer().train(resume=True)
+        if resumed.step != steps + per_epoch:
+            raise AssertionError(f"traindet: resume ended at step {resumed.step}")
+        log(f"traindet: restored step {restored.step} into a fresh model, resumed to "
+            f"{resumed.step}")
+
+    # the GT maps on the card against the same call on the CPU: masks equal,
+    # the threshold map within 1e-5 (float32 arithmetic, the same operations)
+    raw = exp.collate([data[i] for i in range(B)])
+    polys = [torch.from_numpy(raw[k]) for k in ("polys", "poly_valid", "poly_ignore")]
+    maps = make_detection_gt(*(t.cuda() for t in polys), hw=hw)
+    maps_cpu = make_detection_gt(*polys, hw=hw)
+    diffs = {k: (int((maps[k].cpu() != v).sum()), float((maps[k].cpu() - v).abs().max()))
+             for k, v in maps_cpu.items()}
+    log(f"traindet GT maps on the card vs the CPU ({int(raw['poly_valid'].sum())} polygons, "
+        f"{int(raw['poly_ignore'].sum())} ignored): (pixels that differ, max |diff|) "
+        + json.dumps(diffs))
+    for k, (n, d) in diffs.items():
+        if (k == "thresh_map" and d > 1e-5) or (k != "thresh_map" and n > 0):
+            raise AssertionError(f"traindet: GT map {k} on the card differs from the CPU's")
+    if not all(float(maps_cpu["gt"][b].sum()) > 0 for b in range(B)):
+        raise AssertionError("traindet: a page has no text in its GT map")
+
+    # the step split (CUDA events) and the device idle share (torch.profiler)
+    state = create_train_state(det, opt)
+    split = step_split(exp, raw, det.net, lambda maps, b: det.map_loss(maps, b)[0],
+                       state.optimizer, ("prepare", "forward", "loss", "backward", "optimizer"))
+    step_fn = make_train_step(det, prepare=exp.prepare)
+    busy = device_busy_ms(lambda: step_fn(state, raw))
+    step_ms = cuda_ms(lambda: step_fn(state, raw), reps=10)
+    idle = "not measured" if busy is None else f"{1.0 - busy / step_ms:.4f}"
+    log("traindet step split (ms, median of 10, CUDA events; prepare = pages to the card + GT "
+        "maps, loss = the three losses with the OHEM sort): " + json.dumps(split)
+        + f"; {B / split['step'] * 1e3:.1f} pages/s")
+    log(f"traindet step (make_train_step, CUDA events, median of 10): {step_ms} ms = "
+        f"{B / step_ms * 1e3:.1f} pages/s; kernel-busy {busy} ms; device idle share {idle}")
+
+
 def phase_decode2d():
     """Config #2's batched decode on the card through RecognizerPredictor,
     greedy (independent heights) and Viterbi (Markov heights), against the
@@ -1139,13 +1553,18 @@ def main() -> int:
         return 1
     phase_setup()
     ccl_row = phase_ccl()
+    extract_rows = phase_extract()
     alpha_row, beta_row = phase_ctc()
     alpha2d_row, beta2d_row = phase_ctc2d()
-    ccl_row["launches"] = phase_e2e()
+    ccl_row["launches"], extract_launches = phase_e2e()
+    for row in extract_rows:
+        row["launches"] = extract_launches[row["name"][len("extract_"):]]
     alpha_row["launches"], beta_row["launches"] = phase_train()
     alpha2d_row["launches"], beta2d_row["launches"] = phase_train2d()
     phase_decode2d()
-    log(json.dumps({"kernels": [ccl_row, alpha_row, beta_row, alpha2d_row, beta2d_row]}))
+    phase_traindet()
+    log(json.dumps({"kernels": [ccl_row, *extract_rows, alpha_row, beta_row, alpha2d_row,
+                                beta2d_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ arrays) maps onto a port module's parameters and buffers by name:
 
 * the module path is the same, with the trunk's ``backbone`` named
   ``ResNet_0`` on the flax side (the 2D-CTC net's heads ``class_head``,
-  ``height_head``, ``trans_head`` and ``init_head`` keep their names);
+  ``height_head``, ``trans_head`` and ``init_head``, and the detector's
+  ``fpn``, ``prob_head`` and ``thresh_head``, keep their names);
 * ``Conv2d.weight`` <- ``kernel`` (HWIO -> OIHW), ``Conv2d.bias`` <- ``bias``;
 * ``Linear.weight`` <- ``kernel`` ((in, out) -> (out, in)), ``bias`` as is;
 * ``BatchNorm2d`` ``weight``/``bias`` <- ``scale``/``bias`` in params,

@@ -1,8 +1,10 @@
 """Batching loader: dataset dicts -> stacked numpy batches, prefetched.
 
-A port of ``megreader_tpu/data/loader.py`` for recognition: the same shuffle
-(``np.random.default_rng(seed + epoch)``, the epoch counted from 1 at each
-``iter``), so both packages visit a dataset in the same order, index for
+A port of ``megreader_tpu/data/loader.py``: the recognition and detection
+collates (``detection_collate`` stacks host GT maps in compact wire types;
+``detection_collate_polys`` pads polygon lists for the device GT maps), and
+the same shuffle (``np.random.default_rng(seed + epoch)``, the epoch counted
+from 1 at each ``iter``), so both packages visit a dataset in the same order, index for
 index; ``drop_last``; a thread pool that fetches the samples of a batch; a
 background thread that keeps ``prefetch`` batches ready. Batches stay numpy
 (images uint8): the train step's prepare moves them to the card and casts
@@ -20,6 +22,8 @@ import numpy as np
 from ..core.charset import Charset
 
 _STACK_KEYS_REC = ("image", "size")
+_STACK_KEYS_DET = ("image", "gt", "mask", "thresh_map", "thresh_mask", "scale")
+_LIST_KEYS = ("polygons", "ignore", "texts", "text", "filename")
 
 
 def recognition_collate(samples: Sequence[Dict], charset: Charset, max_label_len: int = 32) -> Dict:
@@ -31,6 +35,47 @@ def recognition_collate(samples: Sequence[Dict], charset: Charset, max_label_len
     batch["label"] = labels
     batch["label_length"] = lengths
     batch["text"] = texts
+    return batch
+
+
+def detection_collate(samples: Sequence[Dict]) -> Dict:
+    """Host GT maps stacked in compact wire types: images and binary maps
+    uint8, the threshold map float16 (the device casts after the copy);
+    polygons, flags, texts and names kept as lists."""
+    batch = {k: np.stack([s[k] for s in samples]) for k in _STACK_KEYS_DET if k in samples[0]}
+    for k in ("gt", "mask", "thresh_mask"):
+        if k in batch:
+            batch[k] = batch[k].astype(np.uint8)
+    if "thresh_map" in batch:
+        batch["thresh_map"] = batch["thresh_map"].astype(np.float16)
+    for k in _LIST_KEYS:
+        if k in samples[0]:
+            batch[k] = [s[k] for s in samples]
+    return batch
+
+
+def detection_collate_polys(samples: Sequence[Dict], max_polys: int = 16) -> Dict:
+    """Images and padded polygon buffers for the device GT maps: polys (B, P,
+    4, 2) float32, poly_valid and poly_ignore (B, P) bool, plus the list keys.
+
+    ``max_polys`` is the least capacity, not a cap: P doubles until every
+    page's polygons fit, so no instance is dropped."""
+    from ..ops.gt_maps import pad_polygons
+
+    batch = {"image": np.stack([s["image"] for s in samples])}
+    if "scale" in samples[0]:
+        batch["scale"] = np.stack([s["scale"] for s in samples])
+    cap = max_polys
+    need = max((len(s["polygons"]) for s in samples), default=0)
+    while cap < need:
+        cap *= 2
+    polys, valid, ign = zip(*(pad_polygons(s["polygons"], s["ignore"], cap) for s in samples))
+    batch["polys"] = np.stack(polys)
+    batch["poly_valid"] = np.stack(valid)
+    batch["poly_ignore"] = np.stack(ign)
+    for k in _LIST_KEYS:
+        if k in samples[0]:
+            batch[k] = [s[k] for s in samples]
     return batch
 
 

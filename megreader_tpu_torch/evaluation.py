@@ -1,14 +1,19 @@
-"""Recognition evaluation: the experiment's eval set through the predictor and
-the measurer (``megreader_tpu/evaluation.py::evaluate_recognition``)."""
+"""Evaluation loops: recognition accuracy / NED and detection P/R/H-mean
+(``megreader_tpu/evaluation.py``): the model's forward, the representer or the
+predictor, then the measurer, over the experiment's eval set."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
+import torch
 import torch.nn as nn
 
+from .ops.image import normalize
 from .pipelines.predictors import RecognizerPredictor
-from .postproc.measurers import RecognitionMeasurer
+from .postproc.detection import SegDetectorRepresenter
+from .postproc.measurers import DetectionMeasurer, DetEvalMeasurer, RecognitionMeasurer
 
 
 def evaluate_recognition(exp, net: nn.Module = None, mode: str = "greedy") -> Dict[str, float]:
@@ -22,3 +27,39 @@ def evaluate_recognition(exp, net: nn.Module = None, mode: str = "greedy") -> Di
         preds.extend(predictor.predict(net, batch["image"], batch["size"]))
         gts.extend(exp.charset.normalize(t) for t in batch["text"])
     return RecognitionMeasurer().measure(preds, gts)
+
+
+def evaluate_detection(exp, net: nn.Module = None,
+                       representer: Optional[SegDetectorRepresenter] = None,
+                       protocol: str = "icdar2015", int8: bool = False) -> Dict[str, float]:
+    """Precision, recall and H-mean of the detector's quads over
+    ``exp.eval_loader`` (``protocol`` 'icdar2015' or 'deteval'); ``net``
+    (None: the model's own module) gives the prob maps, in eval mode."""
+    if int8:
+        raise NotImplementedError("int8=True: int8 serving is not ported (ROADMAP Queue 1 item 12)")
+    if protocol not in ("icdar2015", "deteval"):
+        raise ValueError(f"unknown detection protocol {protocol!r}")
+    if exp.eval_loader is None:
+        raise ValueError("experiment has no eval dataset")
+    representer = representer or SegDetectorRepresenter()
+    measurer = DetEvalMeasurer() if protocol == "deteval" else DetectionMeasurer()
+    device = next(exp.model.net.parameters()).device
+    raws = []
+    for batch in exp.eval_loader:
+        # the pixels only: the prepare function's GT maps are not needed here
+        x = normalize(torch.as_tensor(np.asarray(batch["image"])).to(device).float())
+        prob = exp.model.predict_maps(x, net=net, heads=("prob",))["prob"]
+        scales = np.asarray(batch["scale"])
+        for b, res in enumerate(representer.represent(prob, scales=scales)):
+            gt = [p * scales[b][None, :] for p in batch["polygons"][b]]
+            raws.append(measurer.measure_one(list(res["polygons"]), gt, batch["ignore"][b]))
+    return measurer.gather(raws)
+
+
+def evaluate(exp, net: nn.Module = None, mode: str = "greedy", protocol: str = "icdar2015",
+             representer_mode: str = "quad", int8: bool = False) -> Dict[str, float]:
+    """The task's evaluation: detection for ``SegDetector``, else recognition."""
+    if exp.task != "SegDetector":
+        return evaluate_recognition(exp, net, mode=mode)
+    return evaluate_detection(exp, net, representer=SegDetectorRepresenter(mode=representer_mode),
+                              protocol=protocol, int8=int8)

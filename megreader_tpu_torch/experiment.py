@@ -1,12 +1,23 @@
-"""Experiment: wire a recognizer, its data and its optimizer into a trainer.
+"""Experiment: wire a model, its data and its optimizer into a trainer.
 
-The recognition branch of ``megreader_tpu/experiment.py``, built from Python
-objects: ``recognition_collate`` on the host (uint8 canvases, encoded
-labels), and a prepare function that moves each batch to the model's device,
-casts it there, resizes each crop to ``crop_hw`` with its aspect kept
-(``resize_with_aspect_pad``) and normalizes it. With ``validate_every_steps``
-and an eval dataset, the trainer runs ``evaluation.evaluate_recognition``
-(greedy, or Viterbi for Markov heights) every so many steps.
+The recognition and detection branches of ``megreader_tpu/experiment.py``,
+built from Python objects.
+
+* Recognition: ``recognition_collate`` on the host (uint8 canvases, encoded
+  labels), and a prepare function that moves each batch to the model's
+  device, casts it there, resizes each crop to ``crop_hw`` with its aspect
+  kept (``resize_with_aspect_pad``) and normalizes it.
+* Detection (``SegDetector``): with ``device_gt`` (the default), the host
+  ships pages and padded polygon buffers (``detection_collate_polys``, at
+  least ``max_polys`` slots) and the prepare function rasterizes the GT maps
+  on the device (``ops/gt_maps.make_detection_gt``) with the train dataset's
+  shrink ratio, minimal text size and threshold range, and turns the
+  datasets' host maps off; without it, the datasets' host maps travel in
+  compact types (``detection_collate``) and are cast on the device.
+
+With ``validate_every_steps`` and an eval dataset, the trainer runs
+``evaluation.evaluate`` every so many steps: ``evaluate_recognition``
+(greedy, or Viterbi for Markov heights) or ``evaluate_detection``.
 """
 
 from __future__ import annotations
@@ -18,13 +29,17 @@ import numpy as np
 import torch
 
 from .core.charset import Charset
-from .data.loader import Loader, recognition_collate
-from .evaluation import evaluate_recognition
+from .data.loader import Loader, detection_collate, detection_collate_polys, recognition_collate
+from .evaluation import evaluate
+from .ops.gt_maps import make_detection_gt
 from .ops.image import normalize, resize_with_aspect_pad
 from .train.train_step import OptimizerConfig
 from .train.trainer import Trainer
 
 RECOGNITION_TASKS = {"CTCRecognizer", "Ctc2dRecognizer"}
+DETECTION_TASKS = {"SegDetector"}
+#: the dataset attributes that set the device GT maps' geometry
+_GT_ATTRS = ("shrink_ratio", "min_text_size", "thresh_min", "thresh_max")
 
 
 def _recognition_prepare(batch: Dict, crop_hw=(32, 100), device="cuda") -> Dict:
@@ -40,9 +55,33 @@ def _recognition_prepare(batch: Dict, crop_hw=(32, 100), device="cuda") -> Dict:
     }
 
 
+def _detection_prepare(batch: Dict, device="cuda") -> Dict:
+    """Host GT maps (compact types) -> float32 maps on ``device``."""
+    out = {"image": normalize(torch.as_tensor(np.asarray(batch["image"])).to(device).float())}
+    for k in ("gt", "mask", "thresh_map", "thresh_mask"):
+        out[k] = torch.as_tensor(np.asarray(batch[k])).to(device).float()
+    return out
+
+
+def _detection_prepare_device(batch: Dict, gt_kwargs: Optional[Dict] = None,
+                              device="cuda") -> Dict:
+    """Pages and polygon buffers -> pages and GT maps rasterized on ``device``;
+    a batch that still carries host maps passes them through."""
+    if "gt" in batch:
+        return _detection_prepare(batch, device)
+    image = torch.as_tensor(np.asarray(batch["image"])).to(device).float()
+    maps = make_detection_gt(
+        *(torch.as_tensor(np.asarray(batch[k])).to(device)
+          for k in ("polys", "poly_valid", "poly_ignore")),
+        hw=(image.shape[1], image.shape[2]), **(gt_kwargs or {}),
+    )
+    return {"image": normalize(image), **maps}
+
+
 class Experiment:
-    """Model + dataset + optimizer + trainer wiring, for ``CTCRecognizer`` and
-    ``Ctc2dRecognizer`` (whose net must be built for the same ``crop_hw``)."""
+    """Model + dataset + optimizer + trainer wiring, for ``CTCRecognizer``,
+    ``Ctc2dRecognizer`` (whose net must be built for the same ``crop_hw``) and
+    ``SegDetector``."""
 
     def __init__(
         self,
@@ -60,15 +99,17 @@ class Experiment:
         use_mesh: bool = False,
         augment: bool = False,
         validate_every_steps: int = 0,
+        device_gt: bool = True,
+        max_polys: int = 16,
         loader_workers: int = 4,
         loader_worker_mode: str = "thread",
     ):
         self.model = model
         self.task = model.__class__.__name__
-        if self.task not in RECOGNITION_TASKS:
+        if self.task not in RECOGNITION_TASKS | DETECTION_TASKS:
             raise NotImplementedError(
-                f"task {self.task}: only the CTC and 2D-CTC recognizers' training is "
-                "ported (ROADMAP Queue 1 items 7, 10, 13)"
+                f"task {self.task}: only the CTC and 2D-CTC recognizers' and the detector's "
+                "training is ported (ROADMAP Queue 1 items 10, 13)"
             )
         if augment:
             raise NotImplementedError(
@@ -77,12 +118,25 @@ class Experiment:
         self.workspace = workspace
         self.crop_hw = tuple(crop_hw)
         self.charset = charset or Charset()
-        self.collate = functools.partial(
-            recognition_collate, charset=self.charset, max_label_len=max_label_len
-        )
         device = next(model.net.parameters()).device
-        self.prepare = functools.partial(_recognition_prepare, crop_hw=self.crop_hw,
-                                         device=device)
+        if self.task in RECOGNITION_TASKS:
+            self.collate = functools.partial(
+                recognition_collate, charset=self.charset, max_label_len=max_label_len
+            )
+            self.prepare = functools.partial(_recognition_prepare, crop_hw=self.crop_hw,
+                                             device=device)
+        elif device_gt:
+            self.collate = functools.partial(detection_collate_polys, max_polys=max_polys)
+            gt_kwargs = {a: float(getattr(train_dataset, a)) for a in _GT_ATTRS
+                         if getattr(train_dataset, a, None) is not None}
+            self.prepare = functools.partial(_detection_prepare_device, gt_kwargs=gt_kwargs,
+                                             device=device)
+            for ds in (train_dataset, eval_dataset):
+                if ds is not None and hasattr(ds, "gt_maps"):
+                    ds.gt_maps = False  # no host rasterization
+        else:
+            self.collate = detection_collate
+            self.prepare = functools.partial(_detection_prepare, device=device)
         self.train_loader = (
             Loader(train_dataset, batch_size, self.collate, shuffle=True, host_shard=True,
                    workers=loader_workers, worker_mode=loader_worker_mode)
@@ -105,7 +159,7 @@ class Experiment:
         validate_fn = None
         if self.validate_every_steps and self.eval_loader is not None:
             def validate_fn(model, state):
-                return evaluate_recognition(self, state.module)
+                return evaluate(self, state.module)
 
         return Trainer(
             model=self.model,

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.losses import balanced_bce_loss, dice_loss, masked_l1_loss
 from .resnet import BatchNorm2d, resnet_variant
 
 
@@ -72,7 +73,7 @@ class MapHead(nn.Module):
         h, w = y.shape[-2:]
         y = F.relu(self.bn1(self.up1(_resize_to(y, 2 * h, 2 * w))))
         y = self.up2(_resize_to(y, 4 * h, 4 * w))
-        return torch.sigmoid(y[:, 0].float())
+        return torch.sigmoid(y[:, 0])
 
 
 class SegDetectorNet(nn.Module):
@@ -103,13 +104,66 @@ class SegDetectorNet(nn.Module):
 
 
 class SegDetector:
-    """Serving wrapper: builds the net on ``device`` in eval mode."""
+    """Task wrapper: the net on ``device``, the DB training loss over the
+    prob, binary and thresh maps, and map inference. ``apply``, ``loss`` and
+    ``predict_maps`` put the net in train or eval mode themselves.
+
+    Not ported, each raising ``NotImplementedError``: ``dcn_stages``
+    (deformable trunk convs, ROADMAP Queue 1 item 13),
+    ``compute_dtype='bfloat16'`` (item 6) and the ``stem_s2d`` /
+    ``stem_s2d4`` stems (TPU layout rewrites of the plain stem, item 4). The
+    JAX package's ``fused_upsample`` head is a TPU formulation of the plain
+    resize -> conv head the port runs, and is not an option here."""
 
     def __init__(self, backbone: str = "resnet18", fpn_dim: int = 256, head_dim: int = 64,
-                 k: float = 50.0, width: int = 64, compute_dtype: str = "float32",
+                 k: float = 50.0, bce_scale: float = 5.0, l1_scale: float = 10.0,
+                 negative_ratio: float = 3.0, width: int = 64, compute_dtype: str = "float32",
+                 dcn_stages=(), stem_s2d: bool = False, stem_s2d4: bool = False,
                  device="cuda"):
         if compute_dtype != "float32":
             raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: bf16 serving is not ported yet (ROADMAP)"
+                f"compute_dtype={compute_dtype!r}: bf16 is not ported yet (ROADMAP Queue 1 item 6)"
+            )
+        if tuple(dcn_stages):
+            raise NotImplementedError(
+                f"dcn_stages={tuple(dcn_stages)}: deformable convs are not ported yet "
+                "(ROADMAP Queue 1 item 13)"
+            )
+        if stem_s2d or stem_s2d4:
+            raise NotImplementedError(
+                "stem_s2d / stem_s2d4: the space-to-depth stems are not ported "
+                "(ROADMAP Queue 1 item 4)"
             )
         self.net = SegDetectorNet(backbone, fpn_dim, head_dim, k, width).to(device).eval()
+        self.bce_scale = bce_scale
+        self.l1_scale = l1_scale
+        self.negative_ratio = negative_ratio
+
+    def apply(self, images: torch.Tensor, train: bool = False,
+              heads: Tuple[str, ...] = ("prob", "thresh"), net: nn.Module = None):
+        """NHWC normalized pages -> maps; ``train`` runs BatchNorm on batch
+        statistics and updates its running statistics. ``net`` overrides the
+        wrapper's own module (same architecture)."""
+        net = self.net if net is None else net
+        return net.train(train)(images, heads=tuple(heads))
+
+    def loss(self, batch: Dict[str, torch.Tensor], train: bool = True):
+        """batch: image (B, H, W, 3) normalized; gt (shrunk text), mask (valid
+        pixels), thresh_map, thresh_mask, each (B, H, W) -> (bce_scale * bce +
+        dice + l1_scale * l1, metrics {loss, bce, dice, thresh_l1} detached)."""
+        return self.map_loss(self.apply(batch["image"], train=train), batch)
+
+    def map_loss(self, maps: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]):
+        """``loss`` from the net's maps {prob, thresh, binary}."""
+        bce = balanced_bce_loss(maps["prob"], batch["gt"], batch["mask"], self.negative_ratio)
+        dice = dice_loss(maps["binary"], batch["gt"], batch["mask"])
+        l1 = masked_l1_loss(maps["thresh"], batch["thresh_map"], batch["thresh_mask"])
+        total = self.bce_scale * bce + dice + self.l1_scale * l1
+        metrics = {"loss": total, "bce": bce, "dice": dice, "thresh_l1": l1}
+        return total, {k: v.detach() for k, v in metrics.items()}
+
+    @torch.no_grad()
+    def predict_maps(self, images: torch.Tensor, net: nn.Module = None,
+                     heads: Tuple[str, ...] = ("prob", "thresh")) -> Dict[str, torch.Tensor]:
+        """Eval-mode maps of NHWC normalized pages."""
+        return self.apply(images, train=False, heads=heads, net=net)

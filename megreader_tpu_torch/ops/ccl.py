@@ -115,14 +115,12 @@ def connected_components(mask: torch.Tensor, max_iters: int = 64) -> torch.Tenso
     return connected_components_cuda(mask, max_iters)
 
 
-def _candidate_roots(lbl: torch.Tensor, K: int):
-    """Top-K component roots by area, as ``ops/ccl._candidate_roots_single``.
-
-    lbl (B, N) int64. Roots (pixels labelled with their own index) take
-    candidate slots by raster rank; only the first K2 = max(8K, 128) compete.
-    Returns (top_area (B, K) f32, top_root (B, K) int64, valid (B, K))."""
+def _candidates(lbl: torch.Tensor, K2: int):
+    """Roots (pixels labelled with their own index) of lbl (B, N) int64 in
+    K2 slots by raster rank, with their exact pixel counts: (cand_idx (B, K2)
+    int64, cand_area (B, K2) f32). Dead slots hold root 0 and area 0; roots
+    past the first K2 take no slot."""
     B, N = lbl.shape
-    K2 = max(8 * K, 128)
     idx = torch.arange(N, device=lbl.device)
     valid = lbl >= 0
     is_root = (lbl == idx) & valid
@@ -136,11 +134,22 @@ def _candidate_roots(lbl: torch.Tensor, K: int):
 
     counts = torch.zeros((B, N + _SPILL), dtype=torch.int64, device=lbl.device)
     counts.scatter_add_(1, torch.where(valid, lbl, N + spill), torch.ones_like(lbl))
-    cand_area = counts.gather(1, cand_idx).to(torch.float32) * alive
+    return cand_idx, counts.gather(1, cand_idx).to(torch.float32) * alive
+
+
+def _top_k_slots(cand_idx: torch.Tensor, cand_area: torch.Tensor, K: int):
+    """The K candidates of largest area: (top_area (B, K) f32, top_root (B, K),
+    valid (B, K))."""
     # stable sort: equal areas keep the lower slot first, as lax.top_k does
     top_area, order = torch.sort(cand_area, dim=1, descending=True, stable=True)
     top_area, sel = top_area[:, :K], order[:, :K]
     return top_area, cand_idx.gather(1, sel), top_area > 0
+
+
+def _candidate_roots(lbl: torch.Tensor, K: int):
+    """Top-K component roots by area, as ``ops/ccl._candidate_roots_single``:
+    only the first K2 = max(8K, 128) roots in raster order compete."""
+    return _top_k_slots(*_candidates(lbl, max(8 * K, 128)), K)
 
 
 def _group_stats(group: torch.Tensor, G: int, area: torch.Tensor,
@@ -191,15 +200,29 @@ def _group_stats(group: torch.Tensor, G: int, area: torch.Tensor,
 
 
 def extract_regions(labels: torch.Tensor, scores: torch.Tensor,
-                    max_regions: int = 64) -> Stats:
+                    max_regions: int = 64, impl: str = "auto") -> Stats:
     """(B, H, W) labels + prob map -> per-region stats, K fixed slots per page.
 
-    Same slots and values as the JAX XLA formulation (``_region_stats_single``):
+    ``impl``: 'auto' is 'xla', as in the JAX package; 'pallas' and
+    'pallas_full' run the JAX package's Pallas path through the CUDA kernels
+    of ``ops/extract.py`` (its plain versions on the CPU): the XLA candidate
+    phase or the candidates kernel, then the moments and extents kernels.
+
+    'xla' gives the same slots and values as the JAX XLA formulation
+    (``_region_stats_single``):
     slots in descending area (ties: lower raster rank first), centered second
     moments, principal angle, extents on the principal axes. A slot with no
     region (``valid`` False) holds root 0 with divisor 1, as there; its stats
     describe the component rooted at pixel 0, if one exists. Pixels reach their
     slot by gather and scatter, never through a (K, N) mask."""
+    if impl == "auto":
+        impl = "xla"
+    if impl in ("pallas", "pallas_full"):
+        from .extract import extract_regions_kernels
+
+        return extract_regions_kernels(labels, scores, max_regions, full=impl == "pallas_full")
+    if impl != "xla":
+        raise ValueError(f"unknown extract impl {impl!r}")
     B, H, W = labels.shape
     N = H * W
     K = max_regions

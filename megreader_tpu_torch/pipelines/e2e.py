@@ -75,9 +75,8 @@ class E2EPipeline:
             raise _not_ported(f"rec_mode={rec_mode!r}", "item 3, prefix beam search")
         if ccl_multigrid:
             raise _not_ported("ccl_multigrid", "item 6, page-pipeline variants")
-        if extract_impl not in ("auto", "xla"):
-            raise _not_ported(f"extract_impl={extract_impl!r}",
-                              "Queue 2 item 3, region-extraction kernels")
+        if extract_impl not in ("auto", "xla", "pallas", "pallas_full"):
+            raise ValueError(f"unknown extract_impl {extract_impl!r}")
         if unclip not in ("inverse", "ratio"):
             raise ValueError(f"unknown unclip mode {unclip!r}")
         self.detector = detector
@@ -94,13 +93,24 @@ class E2EPipeline:
         self.rectify = rectify
         self.ccl_iters = ccl_iters
         self.rec_mode = rec_mode
+        #: region-stats path: 'auto' resolves to 'xla', as in the JAX package;
+        #: 'pallas' / 'pallas_full' run the CUDA extraction kernels
+        #: (``ops/extract.py``)
+        self.extract_impl = extract_impl
         self.device = torch.device(device)
+        #: what 'auto' resolved to; the CCL follows the device (kernel on the
+        #: card, plain version on the CPU)
+        self.resolved_impls = {
+            "ccl": "cuda" if self.device.type == "cuda" else "plain",
+            "extract": "xla" if extract_impl == "auto" else extract_impl,
+        }
 
     # --- stages -------------------------------------------------------------
 
     def detect(self, det_module, pages: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) pages -> (B, H, W) float32 prob map."""
-        return det_module(normalize(pages), heads=("prob",))["prob"].float()
+        """(B, H, W, 3) pages -> (B, H, W) float32 prob map (the module in
+        eval mode)."""
+        return det_module.eval()(normalize(pages), heads=("prob",))["prob"].float()
 
     def label(self, prob: torch.Tensor) -> torch.Tensor:
         """Binarize and label components: (B, H, W) int32."""
@@ -109,7 +119,8 @@ class E2EPipeline:
     def regions(self, labels: torch.Tensor, prob: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Labels + prob -> stats, word quads (B, K, 4, 2), boxes, valid."""
         H, W = prob.shape[1:]
-        stats = extract_regions(labels, prob, max_regions=self.max_regions)
+        stats = extract_regions(labels, prob, max_regions=self.max_regions,
+                                impl=self.resolved_impls["extract"])
         if self.unclip == "inverse":
             d = unclip_distance_inverse(stats, shrink_ratio=self.shrink_ratio)
         else:

@@ -114,6 +114,6 @@ def test_launch_error_raises():
 
 
 def test_kernel_sources_and_build_dir_are_listed():
-    assert kernels.sources() == ["ccl", "ctc", "ctc2d"]
+    assert kernels.sources() == ["ccl", "ctc", "ctc2d", "extract"]
     ignored = (kernels.BUILD_DIR.parents[1] / ".gitignore").read_text().split()
     assert "build/" in ignored

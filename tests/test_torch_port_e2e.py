@@ -63,16 +63,13 @@ def _jax_models():
     return det, rec, det_vars, rec_vars
 
 
-@pytest.fixture(scope="module", params=[("perspective", "inverse"), ("box", "ratio")],
-                ids=lambda p: f"{p[0]}-{p[1]}")
-def slice_pair(request):
-    rectify, unclip = request.param
+def _run_pair(rectify, unclip, extract_impl="auto"):
     det, rec, det_vars, rec_vars = _jax_models()
     pages = _pages(3)
     prob = np.asarray(det.apply(det_vars, jax_normalize(jnp.asarray(pages)),
                                 heads=("prob",))["prob"])
     opts = dict(max_regions=K, box_thresh=0.0, bin_thresh=_threshold(prob),
-                rectify=rectify, unclip=unclip)
+                rectify=rectify, unclip=unclip, extract_impl=extract_impl)
     jpipe = JaxE2EPipeline(det, rec, **opts)
     ref = {k: np.asarray(v) for k, v in jpipe.build()(det_vars, rec_vars, pages).items()}
 
@@ -95,9 +92,15 @@ def slice_pair(request):
                 det_vars=det_vars, rec_vars=rec_vars)
 
 
-def test_e2e_run_matches_jax(slice_pair):
-    ref, got = slice_pair["ref"], slice_pair["got"]
-    assert slice_pair["margin"] > LOGIT_MARGIN
+@pytest.fixture(scope="module", params=[("perspective", "inverse"), ("box", "ratio")],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def slice_pair(request):
+    return _run_pair(*request.param)
+
+
+def _assert_run_matches(pair):
+    ref, got = pair["ref"], pair["got"]
+    assert pair["margin"] > LOGIT_MARGIN
     assert set(got) == set(ref)
     valid = ref["valid"]
     assert valid.sum() >= 4  # enough regions for the comparison to mean something
@@ -109,6 +112,21 @@ def test_e2e_run_matches_jax(slice_pair):
     np.testing.assert_allclose(got["scores"][valid], ref["scores"][valid], rtol=0, atol=1e-5)
     for k in ref:
         assert got[k].shape == ref[k].shape, k
+
+
+def test_e2e_run_matches_jax(slice_pair):
+    _assert_run_matches(slice_pair)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_full"])
+def test_extract_impl_runs_and_matches(impl):
+    """The Pallas-path extraction (the CUDA kernels' plain versions on the
+    CPU) against the JAX pipeline with the same option (its kernels in
+    interpret mode)."""
+    pair = _run_pair("perspective", "inverse", extract_impl=impl)
+    assert pair["tpipe"].resolved_impls == {"ccl": "plain", "extract": impl}
+    assert pair["jpipe"].resolved_impls["extract"] == impl
+    _assert_run_matches(pair)
 
 
 def test_e2e_predict_strings_match_jax(slice_pair):
@@ -125,8 +143,7 @@ def test_e2e_predict_strings_match_jax(slice_pair):
 
 @pytest.mark.parametrize("opt", [
     {"rectify": "chain"}, {"rectify": "deskew"}, {"deskew": True}, {"bf16": True},
-    {"rec_mode": "beam"}, {"ccl_multigrid": True}, {"extract_impl": "pallas"},
-    {"extract_impl": "pallas_full"},
+    {"rec_mode": "beam"}, {"ccl_multigrid": True},
 ], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(opt):
     rec = CTCRecognizer(37, hidden=8, num_encoder_layers=1, device="cpu")

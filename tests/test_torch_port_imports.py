@@ -42,6 +42,14 @@ def test_every_port_module_is_checked():
     assert "chip_smoke.py" in names
 
 
+@pytest.mark.parametrize("module", [
+    "ops/extract.py", "ops/losses.py", "ops/gt_maps.py", "data/processes.py",
+    "postproc/detection.py", "postproc/measurers.py", "evaluation.py", "experiment.py",
+])
+def test_detection_slice_modules_are_checked(module):
+    assert ROOT / "megreader_tpu_torch" / module in FILES
+
+
 def test_chip_smoke_fails_without_cuda():
     out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
