@@ -13,11 +13,16 @@ Phases (any failure exits non-zero):
    ``megreader_tpu_torch/csrc`` with nvcc (one process per source, in
    parallel), turn TF32 off for the comparisons.
 2. ccl: the CUDA connected-components kernel against its plain PyTorch
-   version on the card, bit-exact, at the serving shape 8x640x640 with the
-   sweep cap 24 (text-like rectangles, a serpentine that hits the cap, an
-   empty page), then unaligned 641x637 pages and an empty/full pair. Times
-   the kernel and the plain version with CUDA events, and computes the
-   kernel's bound for this run's masks.
+   version on the card, labels and per-page sweep counts bit-exact, at the
+   sweep caps 1, 2, 3, 24 and 64, on: the serving shape 8x640x640 (text-like
+   rectangles, a serpentine that hits the cap 24, an empty page); a
+   transposed serpentine and 1-px columns joined at alternate ends; unaligned
+   641x637 pages; an empty/full pair; batch 1 and batch 32 at 640x640; 2
+   pages at 1280x1280; serpentines 2000 px wide and 4200 px tall (rows and
+   columns longer than one of the kernel's tiles). Prints each launch's
+   grid, blocks per SM and strip width; times the kernel (CUDA events and
+   kernel-busy) and the plain version, and computes the kernel's bound for
+   this run's masks.
 3. extract: the three CUDA extraction kernels (candidates, moments, extents)
    against their plain versions on the card at the serving shape (8x640x640
    labels of the CCL kernel with cap 24, K 32, K2 256; text-like rectangles,
@@ -200,54 +205,101 @@ def phase_setup():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def phase_ccl():
-    from megreader_tpu_torch.ops.ccl import (
-        connected_components_cuda,
-        connected_components_reference,
-    )
+def column_snake(H: int, W: int) -> np.ndarray:
+    """1-px vertical stripes joined at alternate ends: one component that
+    runs W/2 times down and up the page's columns."""
+    m = np.zeros((H, W), bool)
+    m[1:H - 1, 0:W - 1:2] = True
+    for k, x in enumerate(range(1, W - 2, 2)):
+        m[1 if k % 2 else H - 2, x] = True
+    return m
 
-    rng = np.random.default_rng(SEED)
-    B, H, W, cap = 8, 640, 640, 24
+
+def ccl_cases(rng):
+    """The phase-ccl batches: the serving masks first (text-like rectangles, a
+    serpentine that hits the cap, an empty page), then masks whose runs cross
+    every chunk, strip and segment edge of the kernel, at the shapes that
+    change its launch (strip width, grid larger than what co-resides)."""
+    B, H, W = 8, 640, 640
     main = text_masks(rng, B, H, W)
     main[6] = serpentine(H, W)
     main[7] = False
     unaligned = text_masks(rng, 2, 641, 637)
     unaligned[1] = rng.random((641, 637)) < 0.45
-    edge = np.stack([np.zeros((H, W), bool), np.ones((H, W), bool)])
+    big = text_masks(rng, 2, 1280, 1280, n=120)
+    big[1] = serpentine(1280, 1280)
+    b32 = text_masks(rng, 32, H, W)
+    b32[31] = serpentine(H, W).T
+    return {
+        "serving 8x640x640": main,
+        "transposed serpentine, joined 1-px columns": np.stack(
+            [serpentine(H, W).T, column_snake(H, W)]),
+        "unaligned 641x637": unaligned,
+        "empty/full": np.stack([np.zeros((H, W), bool), np.ones((H, W), bool)]),
+        "batch 1 640x640": text_masks(rng, 1, H, W),
+        "batch 32 640x640": b32,
+        "2x1280x1280": big,
+        # a row of 4 tiles and a column of 2 tiles (their carries between tiles)
+        "wide 1x64x2000": serpentine(64, 2000)[None],
+        "tall 1x4200x96": np.ascontiguousarray(serpentine(96, 4200).T)[None],
+    }
+
+
+def phase_ccl():
+    from megreader_tpu_torch.ops.ccl import (
+        connected_components_cuda,
+        connected_components_cuda_config,
+        connected_components_reference,
+    )
+
+    rng = np.random.default_rng(SEED)
+    cases = ccl_cases(rng)
+    main = cases["serving 8x640x640"]
+    B, H, W = main.shape
+    cap = 24
 
     max_err = 0
     sweeps = None
-    for name, m in (("serving 8x640x640", main), ("unaligned 641x637", unaligned),
-                    ("empty/full", edge)):
+    for name, m in cases.items():
         mask = torch.from_numpy(m).cuda()
-        got = connected_components_cuda(mask, cap)
-        ref, sw = connected_components_reference(mask, cap, return_sweeps=True)
-        torch.cuda.synchronize()
-        err = int((got.long() - ref.long()).abs().max())
-        log(f"ccl {name}: max |kernel - plain| = {err}, sweeps per page {sw.tolist()}")
-        if not torch.equal(got, ref):
-            raise AssertionError(f"ccl kernel disagrees with the plain version on {name}")
-        max_err = max(max_err, err)
-        if sweeps is None:
-            sweeps = sw
+        log(f"ccl {name}: launch {connected_components_cuda_config(*m.shape)}")
+        for c in (1, 2, 3, 24, 64):
+            got, got_sw = connected_components_cuda(mask, c, return_sweeps=True)
+            ref, sw = connected_components_reference(mask, c, return_sweeps=True)
+            torch.cuda.synchronize()
+            err = int((got.long() - ref.long()).abs().max())
+            log(f"ccl {name} cap {c}: max |kernel - plain| = {err}, sweeps per page "
+                f"{sw.tolist()}")
+            if not torch.equal(got, ref):
+                raise AssertionError(f"ccl kernel disagrees with the plain version on "
+                                     f"{name} at cap {c}")
+            if not torch.equal(got_sw, sw):
+                raise AssertionError(f"ccl kernel ran sweeps {got_sw.tolist()} on {name} at "
+                                     f"cap {c}, the plain version {sw.tolist()}")
+            max_err = max(max_err, err)
+            if sweeps is None and c == cap:
+                sweeps = sw
     if int(sweeps[6]) != cap:
         raise AssertionError(f"the serpentine page ran {int(sweeps[6])} sweeps, not the cap {cap}")
 
     mask = torch.from_numpy(main).cuda()
     ms = cuda_ms(lambda: connected_components_cuda(mask, cap), reps=50)
+    busy = device_busy_ms(lambda: connected_components_cuda(mask, cap), reps=10)
     plain_ms = cuda_ms(lambda: connected_components_reference(mask, cap), reps=20)
     one_sweep_ms = cuda_ms(lambda: connected_components_cuda(mask, 1), reps=50)
+    one_sweep_busy = device_busy_ms(lambda: connected_components_cuda(mask, 1), reps=10)
     n = B * H * W
     bytes_moved = n * (1 + 4)  # mask read once, labels written once
     ops = int(sweeps.sum()) * H * W * 4 * 2  # 4 passes, compare + select per pixel
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
-    sweep_bytes = n * 4 * 8  # per sweep: 4 passes, each reads and writes labels
-    log(f"ccl time: kernel {ms} ms, plain {plain_ms} ms, kernel capped at one sweep "
-        f"{one_sweep_ms} ms (median, CUDA events)")
+    sweep_bytes = (n * 8, n * 16)  # per sweep and phase: labels read once, written at most once
+    log(f"ccl launch at the serving shape: {connected_components_cuda_config(B, H, W)}")
+    log(f"ccl time: kernel {ms} ms by CUDA events, {busy} ms kernel-busy; plain {plain_ms} ms; "
+        f"kernel capped at one sweep {one_sweep_ms} ms by events, {one_sweep_busy} ms busy")
     log(f"ccl bound: bytes {bytes_moved} -> {bytes_ms:.5f} ms, ops {ops} -> {ops_ms:.5f} ms; "
-        f"sweeps {sweeps.tolist()} (sum {int(sweeps.sum())}); multi-pass traffic "
-        f"{sweep_bytes} B per sweep = {sweep_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms at HBM rate")
+        f"sweeps {sweeps.tolist()} (sum {int(sweeps.sum())}); L2 traffic of the design "
+        f"{sweep_bytes[0]}-{sweep_bytes[1]} B per sweep")
     return {
         "name": "ccl",
         "route": "cuda",
@@ -946,7 +998,8 @@ def phase_e2e():
         run_busy = device_busy_ms(lambda: pipe.run(None, None, pages))
         _, sweeps = connected_components_reference(prob > pipe.bin_thresh, pipe.ccl_iters,
                                                    return_sweeps=True)
-    log(f"e2e ccl sweeps per page {sweeps.tolist()}")
+    log(f"e2e ccl stage: {stage_ms['ccl']} ms by CUDA events, {busy_ms['ccl']} ms kernel-busy; "
+        f"sweeps per page {sweeps.tolist()}")
     total = sum(stage_ms.values())
     log("e2e stage ms (median, CUDA events): " + json.dumps(stage_ms)
         + f", sum {total:.3f} ms = {B / total * 1e3:.2f} pages/s")

@@ -4,8 +4,8 @@
 mask with its minimum own linear index (background -1). On a CUDA tensor it
 launches the hand-written kernel ``csrc/ccl.cu``; on a CPU tensor it runs the
 plain version ``connected_components_reference``. Both repeat the same sweep
-(row forward, row backward, column forward, column backward segmented running
-min) until a sweep changes nothing or ``max_iters`` sweeps ran, so their labels
+(every horizontal run of mask pixels takes its minimum, then every vertical
+run) until a sweep changes nothing or ``max_iters`` sweeps ran, so their labels
 are bit-identical, including the capped state on serpentine masks.
 
 ``extract_regions`` turns labels and the prob map into K fixed region slots per
@@ -76,8 +76,12 @@ def connected_components_reference(
     return (out, sweeps) if return_sweeps else out
 
 
-def connected_components_cuda(mask: torch.Tensor, max_iters: int = 64) -> torch.Tensor:
-    """Launch ``csrc/ccl.cu`` on a CUDA mask; raises on anything it does not take."""
+def connected_components_cuda(mask: torch.Tensor, max_iters: int = 64,
+                              return_sweeps: bool = False):
+    """Launch ``csrc/ccl.cu`` on a CUDA mask; raises on anything it does not take.
+
+    With ``return_sweeps`` also returns the (B,) int32 number of sweeps each
+    page ran, as the kernel counted them."""
     if mask.device.type != "cuda":
         raise ValueError(f"connected_components_cuda needs a CUDA tensor, got {mask.device}")
     if mask.dtype not in (torch.bool, torch.uint8):
@@ -90,16 +94,34 @@ def connected_components_cuda(mask: torch.Tensor, max_iters: int = 64) -> torch.
     if H * W >= 2**31:
         raise ValueError(f"page of {H}x{W} pixels overflows int32 labels")
     labels = torch.empty((B, H, W), dtype=torch.int32, device=mask.device)
-    fn = kernels.library("ccl").mr_ccl_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib = kernels.library("ccl")
+    lib.mr_ccl_scratch_size.argtypes = [ctypes.c_int]
+    lib.mr_ccl_scratch_size.restype = ctypes.c_int64
+    # the sweep counts, then the changed flags; the kernel zeroes them
+    scratch = torch.empty(lib.mr_ccl_scratch_size(B), dtype=torch.int32, device=mask.device)
+    fn = lib.mr_ccl_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(mask.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(mask.data_ptr(), labels.data_ptr(), B, H, W, int(max_iters), stream)
+        err = fn(mask.data_ptr(), labels.data_ptr(), scratch.data_ptr(), B, H, W,
+                 int(max_iters), stream)
     kernels.check(err, "ccl kernel")
     connected_components_cuda.launches += 1
-    return labels
+    return (labels, scratch[:B]) if return_sweeps else labels
+
+
+def connected_components_cuda_config(B: int, H: int, W: int) -> Dict[str, int]:
+    """The launch ``csrc/ccl.cu`` makes for a (B, H, W) mask on the current
+    CUDA device: grid blocks, co-resident blocks per SM, SMs, and the strip
+    width of the first sweep."""
+    out = (ctypes.c_int * 4)()
+    fn = kernels.library("ccl").mr_ccl_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    kernels.check(fn(B, H, W, out), "ccl launch config")
+    return dict(zip(("grid", "blocks_per_sm", "sms", "strip"), out))
 
 
 #: kernel launches since the count was last set to 0

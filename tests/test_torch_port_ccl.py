@@ -41,6 +41,29 @@ def _serpentine():
     return m
 
 
+def _column_snake():
+    """1-px vertical stripes joined at alternate ends: one component whose
+    every vertical run spans the page, joined through 1-px bends."""
+    m = np.zeros((64, 96), bool)
+    m[1:63, 0:95:2] = True
+    for k, x in enumerate(range(1, 94, 2)):
+        m[1 if k % 2 else 62, x] = True
+    return m
+
+
+def _edge_runs_unaligned():
+    """W = 101 (not a multiple of 32): runs that cross every 32-pixel edge of
+    each row at shifted offsets, joined down the page in a staircase."""
+    m = np.zeros((40, 101), bool)
+    for y in range(0, 40, 2):
+        for edge in (32, 64, 96):
+            lo = max(edge - 3 - y % 5, 0)
+            m[y, lo:min(edge + 2 + y % 3, 101)] = True
+        m[y + 1, (7 * y) % 101] = True  # a vertical joint to the next row
+    m[:, 100] |= np.arange(40) % 3 != 0  # the ragged last column
+    return m
+
+
 CASES = {
     "batched_random": lambda rng: rng.random((3, 64, 96)) < 0.35,
     "text_blobs_and_diagonal": lambda rng: np.stack([_text_blobs(), _diagonal()]),
@@ -49,6 +72,9 @@ CASES = {
     "empty_and_full": lambda rng: np.stack(
         [np.zeros((16, 128), bool), np.ones((16, 128), bool)]
     ),
+    "transposed_serpentine": lambda rng: np.ascontiguousarray(_serpentine().T)[None],
+    "column_snake": lambda rng: _column_snake()[None],
+    "edge_runs_unaligned_101": lambda rng: _edge_runs_unaligned()[None],
 }
 
 
@@ -56,7 +82,11 @@ CASES = {
     "case,max_iters",
     [("batched_random", 64), ("text_blobs_and_diagonal", 64),
      ("serpentine_capped", 2), ("serpentine_capped", 64),
-     ("unaligned_61x97", 64), ("empty_and_full", 64)],
+     ("unaligned_61x97", 64), ("empty_and_full", 64),
+     ("transposed_serpentine", 1), ("transposed_serpentine", 2),
+     ("transposed_serpentine", 3), ("transposed_serpentine", 64),
+     ("column_snake", 1), ("column_snake", 64),
+     ("edge_runs_unaligned_101", 64)],
 )
 def test_ccl_reference_matches_jax_bit_exact(case, max_iters):
     mask = CASES[case](np.random.default_rng(0))
@@ -75,6 +105,27 @@ def test_serpentine_cap_is_hit_and_counted():
     full, sweeps = ccl.connected_components_reference(mask, 64, return_sweeps=True)
     assert 2 < int(sweeps[0]) < 64
     assert len(torch.unique(full[full >= 0])) == 1  # one component when uncapped
+
+
+def test_column_cases_stay_capped():
+    """The transposed serpentine at cap 3 and the column snake short of its
+    49 sweeps are capped states, not converged ones."""
+    for mask, cap in ((_serpentine().T, 3), (_column_snake(), 24)):
+        m = torch.from_numpy(np.ascontiguousarray(mask)[None])
+        _, sweeps = ccl.connected_components_reference(m, cap, return_sweeps=True)
+        assert sweeps.tolist() == [cap]
+
+
+def test_wrapper_passes_every_launcher_argument():
+    """The ctypes signature of ``mr_ccl_launch`` in the wrapper has one entry
+    per parameter of the C launcher in ``csrc/ccl.cu``."""
+    src = (kernels.CSRC / "ccl.cu").read_text()
+    decl = src[src.index('extern "C" int mr_ccl_launch('):]
+    params = decl[decl.index("(") + 1:decl.index(")")].split(",")
+    tree = ast.parse(inspect.getsource(ccl.connected_components_cuda).lstrip())
+    argtypes = [n.value for n in ast.walk(tree) if isinstance(n, ast.Assign)
+                and [ast.unparse(t) for t in n.targets] == ["fn.argtypes"]]
+    assert len(argtypes) == 1 and len(argtypes[0].elts) == len(params) == 8
 
 
 def test_cpu_tensor_takes_plain_version(monkeypatch):
