@@ -46,9 +46,12 @@ Phases (any failure exits non-zero):
    emission, transition and initial-height gradients) against the plain
    PyTorch version on the card at config #2's shape (B 64, T 25, H 4, C 37,
    labels padded to 32) and the curved A/B shape (T 40, H 6), with the label
-   cases of phase 4 (loss rtol 1e-4, gradients rtol 1e-3). Times the kernels
-   (CUDA events and kernel-busy time) and the plain version, and computes the
-   kernels' bounds for this run's lengths.
+   cases of phase 4 (loss rtol 1e-4, gradients rtol 1e-3 against autograd
+   through the plain forward and against the plain beta,
+   ``ctc2d_beta_reference``); two beta launches bitwise equal; the XLA scan's
+   gradient on rows without an alignment. Times the kernels (CUDA events,
+   kernel-busy time and the host time of a wrapper call) and the plain
+   version, and computes the kernels' bounds for this run's lengths.
 6. e2e: the full-width serving path (ResNet-18 det + FPN 256 + head 64;
    ResNet-18 rec + 2x BiLSTM 256, 37 classes) on seeded random weights, 8
    numpy-made pages of 640x640, through ``E2EPipeline.predict``. Checks finite
@@ -738,8 +741,10 @@ def phase_ctc2d():
     #2's shape (H 4, T 25) and the curved A/B shape (H 6, T 40); times and
     bounds at config #2's shape."""
     from megreader_tpu_torch.ops.ctc2d import (
+        _shared_bytes,
         ctc2d_alpha_cuda,
         ctc2d_beta_cuda,
+        ctc2d_beta_reference,
         ctc2d_loss_markov,
         ctc2d_nll_markov_reference,
     )
@@ -773,19 +778,42 @@ def phase_ctc2d():
         # autograd through the plain DP, rtol 1e-3 / atol 1e-4, for a
         # weighted sum of the rows' losses
         gw = torch.from_numpy(rng.uniform(0.5, 2.0, B).astype(np.float32)).cuda()
-        grad_emit, grad_trans = ctc2d_beta_cuda(emit, trans, ll, lb, lbl, alpha, nll, gw)
-        grad_init = grad_emit[:, 0].sum(-1)
+        grads = ctc2d_beta_cuda(emit, trans, ll, lb, lbl, alpha, nll, gw)
         leaves = [t.detach().clone().requires_grad_() for t in (emit, trans, init)]
         (ctc2d_nll_markov_reference(*leaves, ll, lb, lbl) * gw).sum().backward()
+        plain_beta = ctc2d_beta_reference(emit, trans, ll, lb, lbl, alpha, nll, gw)
+        again = ctc2d_beta_cuda(emit, trans, ll, lb, lbl, alpha, nll, gw)
         torch.cuda.synchronize()
         bwd_err = 0.0
-        for what, got, leaf in (("emit", grad_emit, leaves[0]), ("trans", grad_trans, leaves[1]),
-                                ("init", grad_init, leaves[2])):
+        for what, got, leaf, plain in zip(("emit", "trans", "init"), grads, leaves, plain_beta):
             err = float((got - leaf.grad).abs().max())
+            err_plain = float((got - plain).abs().max())
             bwd_err = max(bwd_err, err)
-            log(f"ctc2d {name} backward: max |kernel - plain| of d nll / d {what} {err:.3g}")
+            log(f"ctc2d {name} backward: max |kernel - plain| of d nll / d {what} {err:.3g} "
+                f"(autograd), {err_plain:.3g} (plain beta, ctc2d_beta_reference)")
             if not torch.allclose(got, leaf.grad, rtol=1e-3, atol=1e-4):
                 raise AssertionError(f"ctc2d beta kernel: {what} gradient disagrees ({name})")
+            if not torch.allclose(got, plain, rtol=1e-3, atol=1e-4):
+                raise AssertionError(f"ctc2d beta kernel: {what} gradient disagrees with the "
+                                     f"plain beta ({name})")
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"ctc2d beta kernel: two launches differ ({name})")
+        # rows with no alignment: the XLA scan's pattern, -1/(2H) on the two
+        # terminal states' classes at the last step, -1/H^2 on its transitions
+        expect_e = torch.zeros_like(emit)
+        expect_t = torch.zeros_like(trans)
+        for b in np.flatnonzero(~possible):
+            t_last = int(ll_np[b]) - 1
+            expect_e[b, t_last, :, 0] -= 0.5 / H * gw[b]
+            expect_e[b, t_last, :, int(lb_np[b, lbl_np[b] - 1])] -= 0.5 / H * gw[b]
+            expect_t[b, t_last] = -1.0 / H**2 * gw[b]
+        if not (torch.allclose(grads[0][~ok], expect_e[~ok], rtol=0, atol=1e-6)
+                and torch.allclose(grads[1][~ok], expect_t[~ok], rtol=0, atol=1e-6)
+                and bool((grads[2][~ok] == 0).all())):
+            raise AssertionError(f"ctc2d beta kernel: rows without an alignment ({name})")
+        log(f"ctc2d {name} backward: two launches bitwise equal; rows without an alignment "
+            f"carry the XLA scan's pattern; shared memory (alpha, beta) "
+            f"{_shared_bytes(T, H, L, C)} B")
 
         # the loss through the autograd Function, mean reduction
         x = [t.clone().requires_grad_() for t in (emit, trans, init)]
@@ -817,6 +845,19 @@ def phase_ctc2d():
     busy_fwd = device_busy_ms(lambda: ctc2d_alpha_cuda(emit, trans, init, ll, lb, lbl), reps=20)
     busy_bwd = device_busy_ms(
         lambda: ctc2d_beta_cuda(emit, trans, ll, lb, lbl, alpha, nll, ones), reps=20)
+    host_us = {}
+    for what, fn in (("forward", lambda: ctc2d_alpha_cuda(emit, trans, init, ll, lb, lbl)),
+                     ("backward", lambda: ctc2d_beta_cuda(emit, trans, ll, lb, lbl, alpha, nll,
+                                                          ones))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        host_us[what] = (time.perf_counter() - t0) / 1000 * 1e6
+        torch.cuda.synchronize()
+    log(f"ctc2d host time per wrapper call with the card idle (perf_counter over 1000 calls, "
+        f"then one synchronise): forward {host_us['forward']:.2f} us, backward "
+        f"{host_us['backward']:.2f} us")
     (fwd_bound, fwd_by, fwd_bytes, fwd_ops), (bwd_bound, bwd_by, bwd_bytes, bwd_ops) = \
         ctc2d_bounds(ll_np, lbl_np, T, H, C, L)
     log(f"ctc2d time at config #2's shape (ms, median, CUDA events): kernels forward {ms_fwd}, "

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -31,6 +31,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[str, Dict[str, ctypes._CFuncPtr]] = {}
 
 
 def _nvcc() -> str:
@@ -91,6 +92,24 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
+
+
+def functions(name: str, prototypes: Dict[str, Tuple[Sequence, type]]
+              ) -> Dict[str, ctypes._CFuncPtr]:
+    """The named C functions of ``csrc/<name>.cu``, each with its
+    ``(argtypes, restype)`` from ``prototypes`` set once, when they are first
+    asked for, and not again on every call."""
+    fns = _bound.get(name)
+    if fns is None:
+        lib = library(name)
+        fns = {}
+        for fn_name, (argtypes, restype) in prototypes.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
+            fns[fn_name] = fn
+        _bound[name] = fns
+    return fns
 
 
 def check(err: int, what: str) -> None:

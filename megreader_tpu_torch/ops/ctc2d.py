@@ -18,7 +18,10 @@ version ``ctc2d_nll_markov_reference`` (a port of the XLA scan
 autograd); any other tensor goes through the hand-written CUDA kernels in
 ``csrc/ctc2d.cu`` (``ctc2d_nll_markov_cuda``: the alpha kernel forward, the
 beta kernel backward, gradients for the emissions, the transitions and the
-initial heights).
+initial heights). Each kernel's own arithmetic has a plain version beside
+it: ``ctc2d_alpha_reference`` (the NLL and every alpha plane) and
+``ctc2d_beta_reference`` (the beta planes, then the gradients from alpha,
+beta and logZ, without autograd).
 
 Both keep the XLA scan's sentinel arithmetic, not the Pallas kernels': the
 label move's logsumexp gives ``NEG_INF`` where its maximum lies at or below
@@ -38,13 +41,14 @@ then greedy CTC along the chosen heights).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .ctc import NEG_INF, _SMEM_LIMIT, _extend_labels, _reduce, ctc_greedy_decode, ctc_nll
+from .ctc import NEG_INF, _extend_labels, _reduce, ctc_greedy_decode, ctc_nll
 
 
 def _logsumexp(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -73,11 +77,39 @@ def ctc2d_loss_independent(emit_log_probs: torch.Tensor, height_log_probs: torch
     return _reduce(nll, label_lengths, reduction)
 
 
-def ctc2d_nll_markov_reference(emit_log_probs: torch.Tensor, trans_log_probs: torch.Tensor,
-                               init_height_log_probs: torch.Tensor,
-                               logit_lengths: torch.Tensor, labels: torch.Tensor,
-                               label_lengths: torch.Tensor, blank: int = 0) -> torch.Tensor:
-    """Plain Markov 2D-CTC forward DP -> (B,) NLL; differentiable by autograd.
+def _label_move(x: torch.Tensor, can_skip: torch.Tensor, down: bool) -> torch.Tensor:
+    """Guarded logsumexp along the last axis of x at s, s -/+ 1 and (where
+    ``can_skip``) s -/+ 2: the label move down the states (alpha) or up them
+    (beta); NEG_INF where the maximum lies at or below NEG_INF / 2."""
+    S = x.shape[-1]
+    if down:
+        x1 = F.pad(x, (1, 0), value=NEG_INF)[..., :S]
+        x2 = F.pad(x, (2, 0), value=NEG_INF)[..., :S]
+    else:
+        x1 = F.pad(x, (0, 1), value=NEG_INF)[..., 1:]
+        x2 = F.pad(x, (0, 2), value=NEG_INF)[..., 2:]
+    stacked = torch.stack([x, x1, torch.where(can_skip, x2, NEG_INF)])
+    m = stacked.amax(0)
+    return torch.where(m <= NEG_INF / 2, NEG_INF, m + torch.log(torch.exp(stacked - m).sum(0)))
+
+
+def _states(labels: torch.Tensor, label_lengths: torch.Tensor, blank: int, dev):
+    """(ext (B, S), can_skip (B, S): the s-2 -> s move is allowed, valid (B, S))."""
+    B = labels.shape[0]
+    S = 2 * labels.shape[1] + 1
+    ext = _extend_labels(labels.long().to(dev), blank)
+    ext_shift2 = F.pad(ext, (2, 0), value=-1)[:, :S]
+    can_skip = (ext != blank) & (ext != ext_shift2)
+    valid = torch.arange(S, device=dev).view(1, S) < 2 * label_lengths.long().to(dev).view(B, 1) + 1
+    return ext, can_skip, valid
+
+
+def ctc2d_alpha_reference(emit_log_probs: torch.Tensor, trans_log_probs: torch.Tensor,
+                          init_height_log_probs: torch.Tensor, logit_lengths: torch.Tensor,
+                          labels: torch.Tensor, label_lengths: torch.Tensor, blank: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain Markov 2D-CTC forward DP -> (nll (B,), alpha (B, T, H, 2L+1)),
+    the alpha kernel's outputs; differentiable by autograd.
 
     emit (B, T, H, C) log P(c | t, h); trans (B, T, H, H) log A_t with rows
     h_prev and columns h, entry t used on the move into column t (t >= 1);
@@ -85,31 +117,25 @@ def ctc2d_nll_markov_reference(emit_log_probs: torch.Tensor, trans_log_probs: to
     B, T, H, C = emit_log_probs.shape
     S = 2 * labels.shape[1] + 1
     dev = emit_log_probs.device
-    labels = labels.long().to(dev)
     label_lengths = label_lengths.long().to(dev)
     logit_lengths = logit_lengths.to(dev)
-    ext = _extend_labels(labels, blank)
-    ext_shift2 = F.pad(ext, (2, 0), value=-1)[:, :S]
-    can_skip = ((ext != blank) & (ext != ext_shift2)).view(B, 1, S)
+    ext, can_skip, valid = _states(labels, label_lengths, blank, dev)
+    can_skip, valid = can_skip.view(B, 1, S), valid.view(B, 1, S)
     s_idx = torch.arange(S, device=dev).view(1, S)
-    valid = (s_idx < 2 * label_lengths.view(B, 1) + 1).view(B, 1, S)
     emit = emit_log_probs.gather(3, ext.view(B, 1, 1, S).expand(B, T, H, S))  # (B, T, H, S)
 
     # t = 0: the first blank and the first label, at every height
     start = ((s_idx == 0) | ((s_idx == 1) & (label_lengths > 0).view(B, 1))).view(B, 1, S)
     alpha = torch.where(start & valid, init_height_log_probs.unsqueeze(-1) + emit[:, 0], NEG_INF)
-
+    planes = [alpha]
     for t in range(1, T):
         # 1) label moves in each height plane (guarded logsumexp)
-        a1 = F.pad(alpha, (1, 0), value=NEG_INF)[..., :S]
-        a2 = torch.where(can_skip, F.pad(alpha, (2, 0), value=NEG_INF)[..., :S], NEG_INF)
-        stacked = torch.stack([alpha, a1, a2])
-        m = stacked.amax(0)
-        lbl = torch.where(m <= NEG_INF / 2, NEG_INF, m + torch.log(torch.exp(stacked - m).sum(0)))
+        lbl = _label_move(alpha, can_skip, down=True)
         # 2) height move: logsumexp over h_prev of lbl[h_prev] + A_t[h_prev, h]
         moved = _logsumexp(lbl.unsqueeze(2) + trans_log_probs[:, t].unsqueeze(-1), 1)
         new = torch.where(valid, moved + emit[:, t], NEG_INF)
         alpha = torch.where((t < logit_lengths).view(B, 1, 1), new, alpha)
+        planes.append(alpha)
 
     # marginalize heights, then read the terminal states
     alpha_s = _logsumexp(alpha, 1)  # (B, S)
@@ -118,12 +144,124 @@ def ctc2d_nll_markov_reference(emit_log_probs: torch.Tensor, trans_log_probs: to
     a_prev = alpha_s.gather(1, (s_last - 1).clamp(min=0).view(B, 1))[:, 0]
     a_prev = torch.where(label_lengths > 0, a_prev, NEG_INF)
     m = torch.maximum(a_last, a_prev)
-    return -(m + torch.log(torch.exp(a_last - m) + torch.exp(a_prev - m)))
+    return -(m + torch.log(torch.exp(a_last - m) + torch.exp(a_prev - m))), torch.stack(planes, 1)
+
+
+def ctc2d_nll_markov_reference(emit_log_probs: torch.Tensor, trans_log_probs: torch.Tensor,
+                               init_height_log_probs: torch.Tensor,
+                               logit_lengths: torch.Tensor, labels: torch.Tensor,
+                               label_lengths: torch.Tensor, blank: int = 0) -> torch.Tensor:
+    """Plain Markov 2D-CTC forward DP -> (B,) NLL; differentiable by autograd
+    (arguments as ``ctc2d_alpha_reference``)."""
+    return ctc2d_alpha_reference(emit_log_probs, trans_log_probs, init_height_log_probs,
+                                 logit_lengths, labels, label_lengths, blank)[0]
+
+
+def ctc2d_beta_reference(emit_log_probs: torch.Tensor, trans_log_probs: torch.Tensor,
+                         logit_lengths: torch.Tensor, labels: torch.Tensor,
+                         label_lengths: torch.Tensor, alpha: torch.Tensor, nll: torch.Tensor,
+                         grad_nll: torch.Tensor, blank: int = 0
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The beta kernel's arithmetic in plain PyTorch, without autograd ->
+    d(grad_nll . nll) / d (emit (B, T, H, C), trans (B, T, H, H), init (B, H)).
+
+    Phase A, the chain: beta[t_last] is 0 on the terminal states; beta[t-1]
+    is the guarded logsumexp over h'' of mv[h''] + A_t[h, h''], mv the
+    backward label move of beta[t] + emit[t] on valid states. Phase B, with
+    no serial dependency: the occupancy exp(alpha + beta - logZ) summed per
+    class, and the transition terms exp(lblmove(alpha[t-1])[h'] + A_t[h', h]
+    + emit[t, h] + beta[t, h] - logZ) summed over states. Frozen steps and
+    ``trans[:, 0]`` get 0; a row with no alignment (loss about 1e30, or NaN
+    for a bad label) gets the XLA scan's gradient (see the module's notes)."""
+    B, T, H, C = emit_log_probs.shape
+    S = 2 * labels.shape[1] + 1
+    dev = emit_log_probs.device
+    label_lengths = label_lengths.long().to(dev)
+    t_last = logit_lengths.long().to(dev).clamp(1, T) - 1
+    ext, can_skip, valid = _states(labels, label_lengths, blank, dev)
+    cls = ext.clamp(0, C - 1)
+    s_idx = torch.arange(S, device=dev).view(1, S)
+    skip2 = F.pad(can_skip, (0, 2), value=False)[:, 2:].view(B, 1, S)  # the s -> s+2 move
+    valid3 = valid.view(B, 1, S)
+    emit = emit_log_probs.gather(3, cls.view(B, 1, 1, S).expand(B, T, H, S))  # (B, T, H, S)
+    terminal = (s_idx == 2 * label_lengths.view(B, 1)) | (
+        (label_lengths > 0).view(B, 1) & (s_idx == 2 * label_lengths.view(B, 1) - 1))
+    start = torch.where(terminal, 0.0, NEG_INF).view(B, 1, S).expand(B, H, S)
+
+    # phase A: the mirrored recursion, every beta plane kept
+    planes = [None] * T
+    beta = start
+    for t in range(T - 1, -1, -1):
+        if t < T - 1:
+            nx = torch.where(valid3, beta + emit[:, t + 1], NEG_INF)
+            mv = _label_move(nx, skip2, down=False)
+            x = mv.unsqueeze(1) + trans_log_probs[:, t + 1].unsqueeze(-1)  # (B, H, H'', S)
+            m = x.amax(2)
+            stepped = torch.where(m <= NEG_INF / 2, NEG_INF,
+                                  m + torch.log(torch.exp(x - m.unsqueeze(2)).sum(2)))
+            beta = torch.where((t < t_last).view(B, 1, 1), stepped, start)
+        planes[t] = beta
+    beta = torch.stack(planes, 1)  # (B, T, H, S)
+
+    # phase B: occupancies and transition terms, all steps at once
+    logz = -nll.view(B, 1, 1, 1)
+    g = grad_nll.view(B, 1, 1)
+    live = torch.arange(T, device=dev).view(1, T) <= t_last.view(B, 1)  # (B, T)
+    occ = torch.where(valid.view(B, 1, 1, S) & live.view(B, T, 1, 1),
+                      torch.exp(alpha + beta - logz), 0.0)
+    grad_emit = torch.zeros_like(emit_log_probs).scatter_add_(
+        3, cls.view(B, 1, 1, S).expand(B, T, H, S), occ)
+    grad_emit = -grad_emit * g.view(B, 1, 1, 1)
+    lm = _label_move(alpha[:, :-1], can_skip.view(B, 1, 1, S), down=True)  # (B, T-1, H', S)
+    nx = beta[:, 1:] + emit[:, 1:]  # (B, T-1, H, S)
+    terms = torch.exp(lm.unsqueeze(3) + trans_log_probs[:, 1:].unsqueeze(-1)
+                      + nx.unsqueeze(2) - logz.unsqueeze(-1))  # (B, T-1, H', H, S)
+    terms = torch.where(valid.view(B, 1, 1, 1, S) & live[:, 1:].view(B, T - 1, 1, 1, 1),
+                        terms, 0.0)
+    grad_trans = torch.zeros_like(trans_log_probs)
+    grad_trans[:, 1:] = -terms.sum(-1) * g.view(B, 1, 1, 1)
+
+    # rows with no alignment: the XLA scan's pattern, scaled by the row's
+    # upstream gradient (NaN for a bad label)
+    lz = -nll
+    none = ~(lz > NEG_INF / 2)
+    if bool(none.any()):
+        gg = torch.where(torch.isnan(lz), lz, grad_nll)
+        w = 0.5 / H
+        at_last = (torch.arange(T, device=dev).view(1, T) == t_last.view(B, 1)) & (
+            t_last > 0).view(B, 1)  # (B, T)
+        c_idx = torch.arange(C, device=dev).view(1, C)
+        c_prev = labels.long().to(dev).gather(
+            1, (label_lengths - 1).clamp(min=0).view(B, 1))
+        c_prev = torch.where(label_lengths.view(B, 1) > 0, c_prev, -1)
+        per_class = -w * ((c_idx == blank).float() + (c_idx == c_prev).float())  # (B, C)
+        pe = torch.where(at_last.view(B, T, 1, 1), per_class.view(B, 1, 1, C), 0.0)
+        pe = torch.where(live.view(B, T, 1, 1), pe * gg.view(B, 1, 1, 1), 0.0)
+        per_trans = -torch.where(label_lengths > 0, 2.0, 1.0) * w / H  # (B,)
+        pt = torch.where(at_last.view(B, T, 1, 1), per_trans.view(B, 1, 1, 1), 0.0)
+        pt = torch.where(live.view(B, T, 1, 1), pt * gg.view(B, 1, 1, 1), 0.0)
+        pt[:, 0] = 0.0
+        grad_emit = torch.where(none.view(B, 1, 1, 1), pe, grad_emit)
+        grad_trans = torch.where(none.view(B, 1, 1, 1), pt, grad_trans)
+    return grad_emit, grad_trans, grad_emit[:, 0].sum(-1)
+
+
+# Dynamic shared memory a block may take on Hopper (227 KB); above 48 KB
+# the launchers opt in
+_SMEM_LIMIT_2D = 232448
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_PROTOTYPES = {
+    "mr_ctc2d_smem": ([_I] * 5, ctypes.c_size_t),
+    "mr_ctc2d_max_heights": ([], _I),
+    "mr_ctc2d_max_states": ([], _I),
+    "mr_ctc2d_alpha_launch": ([_P] * 6 + [_I] * 6 + [_P] * 3, _I),
+    "mr_ctc2d_beta_launch": ([_P] * 5 + [_I] * 6 + [_P] * 7, _I),
+}
 
 
 def _check(emit, trans, init, logit_lengths, labels, label_lengths, blank) -> None:
-    if emit.device.type != "cuda":
-        raise ValueError(f"the 2D-CTC kernels need a CUDA tensor, got {emit.device}")
+    """Raise unless the kernels take these tensors (device checked apart)."""
     if emit.dtype != torch.float32 or emit.dim() != 4:
         raise TypeError(f"emit_log_probs must be (B, T, H, C) float32, got "
                         f"{tuple(emit.shape)} {emit.dtype}")
@@ -132,18 +270,17 @@ def _check(emit, trans, init, logit_lengths, labels, label_lengths, blank) -> No
         raise ValueError(f"emit_log_probs of shape {tuple(emit.shape)} is empty")
     if not 0 <= blank < C:
         raise ValueError(f"blank {blank} is not one of the {C} classes")
-    floats = [("trans_log_probs", trans, (B, T, H, H))]
-    if init is not None:
-        floats.append(("init_height_log_probs", init, (B, H)))
-    for name, t, shape in floats:
-        if t.dtype != torch.float32 or tuple(t.shape) != shape or t.device != emit.device:
-            raise TypeError(f"{name} must be float32 of shape {shape} on {emit.device}, "
+    dev = emit.device
+    for name, t, shape in (("trans_log_probs", trans, (B, T, H, H)),
+                           ("init_height_log_probs", init, (B, H))):
+        if t is not None and (t.dtype != torch.float32 or t.shape != shape or t.device != dev):
+            raise TypeError(f"{name} must be float32 of shape {shape} on {dev}, "
                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     for name, t, shape in (("logit_lengths", logit_lengths, (B,)),
                            ("labels", labels, (B, labels.shape[-1])),
                            ("label_lengths", label_lengths, (B,))):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape or t.device != emit.device:
-            raise TypeError(f"{name} must be int32 of shape {shape} on {emit.device}, "
+        if t.dtype != torch.int32 or t.shape != shape or t.device != dev:
+            raise TypeError(f"{name} must be int32 of shape {shape} on {dev}, "
                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     for name, t in (("emit_log_probs", emit), ("trans_log_probs", trans),
                     ("init_height_log_probs", init), ("logit_lengths", logit_lengths),
@@ -152,20 +289,41 @@ def _check(emit, trans, init, logit_lengths, labels, label_lengths, blank) -> No
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_limits(lib, H: int, L: int, C: int) -> None:
-    """One block per sequence of H x (S rounded up to 32) threads."""
-    S = 2 * L + 1
-    threads = H * (-(-S // 32) * 32)
-    if threads > 1024:
-        raise ValueError(f"H = {H} heights x S = 2L+1 = {S} states (padded to a warp) need "
-                         f"{threads} threads, more than one block's 1024")
-    fn = lib.mr_ctc2d_beta_smem
-    fn.argtypes = [ctypes.c_int] * 3
-    fn.restype = ctypes.c_size_t
-    smem = fn(H, L, C)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"2D-CTC beta kernel needs {smem} B of shared memory for H={H}, "
-                         f"L={L}, C={C} (limit {_SMEM_LIMIT})")
+def _require_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"the 2D-CTC kernels need a CUDA tensor, got {t.device}")
+
+
+@functools.lru_cache(maxsize=64)
+def _shared_bytes(T: int, H: int, L: int, C: int) -> Tuple[int, int]:
+    """Dynamic shared memory of the (alpha, beta) kernels at this shape, after
+    checking the launchers' limits; raises beyond them (nothing is cached
+    then, so every call raises)."""
+    fns = kernels.functions("ctc2d", _PROTOTYPES)
+    max_h, max_states = fns["mr_ctc2d_max_heights"](), fns["mr_ctc2d_max_states"]()
+    if H > max_h:
+        raise ValueError(f"the 2D-CTC kernels take at most {max_h} heights, got {H}")
+    if 2 * L + 1 > max_states:
+        raise ValueError(f"the 2D-CTC kernels take at most {max_states} states S = 2L+1, "
+                         f"got {2 * L + 1} (L = {L})")
+    smem = fns["mr_ctc2d_smem"]
+    need = (smem(0, T, H, L, C), smem(1, T, H, L, C))
+    if max(need) > _SMEM_LIMIT_2D:
+        raise ValueError(f"the 2D-CTC kernels need {need} B of shared memory for T={T}, H={H}, "
+                         f"L={L}, C={C} (limit {_SMEM_LIMIT_2D})")
+    return need
+
+
+def _launch(fn, dev: torch.device, *args) -> int:
+    """Call a launcher on ``dev``'s current stream, making ``dev`` current
+    only where it is not. The stream is read as the raw handle
+    (``torch.cuda.current_stream(dev).cuda_stream`` without building a
+    ``Stream`` object on every call)."""
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)
 
 
 def ctc2d_alpha_cuda(emit_log_probs: torch.Tensor, trans_log_probs: torch.Tensor,
@@ -173,26 +331,22 @@ def ctc2d_alpha_cuda(emit_log_probs: torch.Tensor, trans_log_probs: torch.Tensor
                      labels: torch.Tensor, label_lengths: torch.Tensor, blank: int = 0
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel: -> (nll (B,), alpha (B, T, H, 2L+1))."""
+    _require_cuda(emit_log_probs)
     _check(emit_log_probs, trans_log_probs, init_height_log_probs, logit_lengths, labels,
            label_lengths, blank)
     B, T, H, C = emit_log_probs.shape
     L = labels.shape[1]
-    lib = kernels.library("ctc2d")
-    _launch_limits(lib, H, L, C)
+    _shared_bytes(T, H, L, C)
     dev = emit_log_probs.device
     nll = torch.empty((B,), dtype=torch.float32, device=dev)
     alpha = torch.empty((B, T, H, 2 * L + 1), dtype=torch.float32, device=dev)
     if B == 0:
         return nll, alpha
-    fn = lib.mr_ctc2d_alpha_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(emit_log_probs.data_ptr(), trans_log_probs.data_ptr(),
-                 init_height_log_probs.data_ptr(), logit_lengths.data_ptr(), labels.data_ptr(),
-                 label_lengths.data_ptr(), B, T, H, C, L, int(blank), alpha.data_ptr(),
-                 nll.data_ptr(), stream)
+    fn = kernels.functions("ctc2d", _PROTOTYPES)["mr_ctc2d_alpha_launch"]
+    err = _launch(fn, dev, emit_log_probs.data_ptr(), trans_log_probs.data_ptr(),
+                  init_height_log_probs.data_ptr(), logit_lengths.data_ptr(), labels.data_ptr(),
+                  label_lengths.data_ptr(), B, T, H, C, L, int(blank), alpha.data_ptr(),
+                  nll.data_ptr())
     kernels.check(err, "ctc2d alpha kernel")
     ctc2d_alpha_cuda.launches += 1
     return nll, alpha
@@ -202,36 +356,33 @@ def ctc2d_beta_cuda(emit_log_probs: torch.Tensor, trans_log_probs: torch.Tensor,
                     logit_lengths: torch.Tensor, labels: torch.Tensor,
                     label_lengths: torch.Tensor, alpha: torch.Tensor, nll: torch.Tensor,
                     grad_nll: torch.Tensor, blank: int = 0
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel: -> d(grad_nll . nll) / d emit (B, T, H, C)
-    and / d trans (B, T, H, H)."""
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel: -> d(grad_nll . nll) / d emit (B, T, H, C),
+    / d trans (B, T, H, H) and / d init (B, H)."""
+    _require_cuda(emit_log_probs)
     _check(emit_log_probs, trans_log_probs, None, logit_lengths, labels, label_lengths, blank)
     B, T, H, C = emit_log_probs.shape
     L = labels.shape[1]
     dev = emit_log_probs.device
     for name, t, shape in (("alpha", alpha, (B, T, H, 2 * L + 1)), ("nll", nll, (B,)),
                            ("grad_nll", grad_nll, (B,))):
-        if (t.dtype != torch.float32 or tuple(t.shape) != shape or t.device != dev
+        if (t.dtype != torch.float32 or t.shape != shape or t.device != dev
                 or not t.is_contiguous()):
             raise TypeError(f"{name} must be contiguous float32 {shape} on {dev}")
-    lib = kernels.library("ctc2d")
-    _launch_limits(lib, H, L, C)
+    _shared_bytes(T, H, L, C)
     grad_emit = torch.empty_like(emit_log_probs)
     grad_trans = torch.empty_like(trans_log_probs)
+    grad_init = torch.empty((B, H), dtype=torch.float32, device=dev)
     if B == 0:
-        return grad_emit, grad_trans
-    fn = lib.mr_ctc2d_beta_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 6
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(emit_log_probs.data_ptr(), trans_log_probs.data_ptr(), logit_lengths.data_ptr(),
-                 labels.data_ptr(), label_lengths.data_ptr(), B, T, H, C, L, int(blank),
-                 alpha.data_ptr(), nll.data_ptr(), grad_nll.data_ptr(), grad_emit.data_ptr(),
-                 grad_trans.data_ptr(), stream)
+        return grad_emit, grad_trans, grad_init
+    fn = kernels.functions("ctc2d", _PROTOTYPES)["mr_ctc2d_beta_launch"]
+    err = _launch(fn, dev, emit_log_probs.data_ptr(), trans_log_probs.data_ptr(),
+                  logit_lengths.data_ptr(), labels.data_ptr(), label_lengths.data_ptr(), B, T, H,
+                  C, L, int(blank), alpha.data_ptr(), nll.data_ptr(), grad_nll.data_ptr(),
+                  grad_emit.data_ptr(), grad_trans.data_ptr(), grad_init.data_ptr())
     kernels.check(err, "ctc2d beta kernel")
     ctc2d_beta_cuda.launches += 1
-    return grad_emit, grad_trans
+    return grad_emit, grad_trans, grad_init
 
 
 #: kernel launches since the counts were last set to 0
@@ -241,8 +392,8 @@ ctc2d_beta_cuda.launches = 0
 
 class _Ctc2dNll(torch.autograd.Function):
     """Forward: the alpha kernel (alpha saved); backward: the beta kernel,
-    scaled by the upstream gradient of each row. The initial heights'
-    gradient is the emission gradient of column 0 summed over classes."""
+    scaled by the upstream gradient of each row, which also gives the
+    initial heights' gradient."""
 
     @staticmethod
     def forward(ctx, emit, trans, init, logit_lengths, labels, label_lengths, blank):
@@ -255,10 +406,9 @@ class _Ctc2dNll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_nll):
         emit, trans, logit_lengths, labels, label_lengths, alpha, nll = ctx.saved_tensors
-        grad_emit, grad_trans = ctc2d_beta_cuda(emit, trans, logit_lengths, labels,
-                                                label_lengths, alpha, nll,
-                                                grad_nll.contiguous(), ctx.blank)
-        grad_init = grad_emit[:, 0].sum(-1)
+        grad_emit, grad_trans, grad_init = ctc2d_beta_cuda(
+            emit, trans, logit_lengths, labels, label_lengths, alpha, nll,
+            grad_nll.contiguous(), ctx.blank)
         return grad_emit, grad_trans, grad_init, None, None, None, None
 
 
