@@ -39,9 +39,17 @@ Phases (any failure exits non-zero):
 4. ctc: the CUDA CTC kernels (alpha forward, beta backward) against the plain
    PyTorch version on the card at config #1's training shape (B 64, T 25,
    C 37, labels padded to 32): varied logit lengths, repeated labels, an
-   empty label and rows without an alignment. Times the kernels, the plain
-   version and ``torch.nn.functional.ctc_loss`` with CUDA events, and computes
-   the kernels' bounds for this run's lengths.
+   empty label and rows without an alignment (loss and every alpha plane
+   rtol 1e-4, gradients rtol 1e-3 against autograd through the plain forward
+   and against the plain beta, ``ctc_beta_reference``); two beta launches
+   bitwise equal; a label outside [0, C) (NaN on its row only); then long
+   labels at T 120 / L 50, T 240 / L 100 and T 1000 / L 500 (up to 32
+   columns of states) and 5,000 classes at T 25 (each kernel's instance
+   with its emissions, and beta's planes, in shared memory and the one in
+   device memory). Times the kernels (CUDA events, kernel-busy time and
+   the host time of a wrapper call), the plain version and
+   ``torch.nn.functional.ctc_loss``, and computes the kernels' bounds for
+   this run's lengths.
 5. ctc2d: the CUDA 2D-CTC kernels (alpha forward; beta backward with the
    emission, transition and initial-height gradients) against the plain
    PyTorch version on the card at config #2's shape (B 64, T 25, H 4, C 37,
@@ -554,12 +562,112 @@ def ctc_bounds(logit_lengths, label_lengths, T: int, C: int, L: int):
     return out
 
 
+def ctc_long_inputs(rng, B: int, T: int, C: int = 37, L: int = 100):
+    """Long labels (L/2 to L of them) over T steps: a row of L labels in
+    equal pairs (a blank forced between each pair), an empty label, a row of
+    L labels in L - 1 steps (no alignment), the rest random, logit lengths
+    from 3T/4 to T. Returns numpy (logits, logit_lengths, labels,
+    label_lengths) and the rows that have an alignment."""
+    logits = (2.0 * rng.standard_normal((B, T, C))).astype(np.float32)
+    logit_lengths = rng.integers(3 * T // 4, T + 1, size=B).astype(np.int32)
+    label_lengths = rng.integers(L // 2, L + 1, size=B).astype(np.int32)
+    labels = np.zeros((B, L), np.int32)
+    for b in range(B):
+        labels[b, :label_lengths[b]] = rng.integers(1, C, size=label_lengths[b])
+    labels[0], label_lengths[0], logit_lengths[0] = np.repeat(rng.integers(1, C, L // 2), 2), L, T
+    labels[1], label_lengths[1] = 0, 0
+    label_lengths[2], logit_lengths[2] = L, L - 1
+    labels[2] = rng.integers(1, C, size=L)
+    words = [labels[b, :label_lengths[b]] for b in range(B)]
+    repeats = np.array([int((w[1:] == w[:-1]).sum()) for w in words])
+    possible = label_lengths + repeats <= logit_lengths
+    assert possible[0] and possible[1] and not possible[2] and possible.sum() > B // 2
+    return logits, logit_lengths, labels, label_lengths, possible
+
+
+def check_ctc_kernels(name, lp, ll, lb, lbl, possible, gw, float64=False):
+    """Both CTC kernels against the plain versions on the card at one shape:
+    the loss (rtol 1e-4 / atol 1e-4: a log-space DP summed in another order)
+    and every alpha plane (the same); the gradient of the weighted losses
+    (rtol 1e-3 / atol 1e-4) against autograd through the plain forward
+    (with ``float64``, run in float64: over hundreds of steps float32
+    autograd's own error reaches that tolerance) and against the plain beta
+    (``ctc_beta_reference``); two beta launches bitwise equal; rows without
+    an alignment finite at about 1e30, with the XLA scan's gradient. Returns
+    the largest (forward, backward) errors on the rows with an alignment."""
+    from megreader_tpu_torch.ops.ctc import (
+        _plan,
+        ctc_alpha_cuda,
+        ctc_alpha_reference,
+        ctc_beta_cuda,
+        ctc_beta_reference,
+        ctc_nll_reference,
+    )
+
+    B, T, C = lp.shape
+    L = lb.shape[1]
+    ok = torch.from_numpy(possible).cuda()
+    ll_np, lb_np, lbl_np = (t.cpu().numpy() for t in (ll, lb, lbl))
+    nll, alpha = ctc_alpha_cuda(lp, ll, lb, lbl)
+    ref, ref_alpha = ctc_alpha_reference(lp, ll, lb, lbl)
+    torch.cuda.synchronize()
+    fwd_err = float((nll - ref)[ok].abs().max())
+    plane_err = float((alpha - ref_alpha)[ok].abs().max())
+    log(f"ctc {name} (B {B}, T {T}, C {C}, L {L}; emissions in "
+        f"{['device', 'shared'][_plan(T, L, C)[0]]} memory) forward: max |kernel - plain| on "
+        f"rows with an alignment {fwd_err:.3g}, of the alpha planes {plane_err:.3g}; rows "
+        f"without one: kernel {nll[~ok].tolist()}, plain {ref[~ok].tolist()}")
+    if not (torch.allclose(nll, ref, rtol=1e-4, atol=1e-4)
+            and torch.allclose(alpha, ref_alpha, rtol=1e-4, atol=1e-4)):
+        raise AssertionError(f"ctc alpha kernel disagrees with the plain version ({name})")
+    if not (torch.isfinite(nll).all() and bool((nll[~ok] > 1e29).all())):
+        raise AssertionError("ctc: a row without an alignment must give a finite ~1e30 loss")
+
+    grad = ctc_beta_cuda(lp, ll, lb, lbl, alpha, nll, gw)
+    again = ctc_beta_cuda(lp, ll, lb, lbl, alpha, nll, gw)
+    dtype = torch.float64 if float64 else torch.float32
+    lp_ref = lp.detach().to(dtype).requires_grad_()
+    (ctc_nll_reference(lp_ref, ll, lb, lbl) * gw.to(dtype)).sum().backward()
+    auto = lp_ref.grad.float()
+    plain = ctc_beta_reference(lp, ll, lb, lbl, alpha, nll, gw)
+    torch.cuda.synchronize()
+    bwd_err = float((grad - auto).abs().max())
+    log(f"ctc {name} backward (emissions and planes in "
+        f"{['device', 'shared'][_plan(T, L, C)[1]]} memory): "
+        f"max |kernel - plain| of d nll / d log_probs {bwd_err:.3g} (autograd in {dtype}), "
+        f"{float((grad - plain).abs().max()):.3g} (plain beta, ctc_beta_reference)")
+    if not torch.allclose(grad, auto, rtol=1e-3, atol=1e-4):
+        raise AssertionError(f"ctc beta kernel disagrees with the plain version ({name})")
+    if not torch.allclose(grad, plain, rtol=1e-3, atol=1e-4):
+        raise AssertionError(f"ctc beta kernel disagrees with the plain beta ({name})")
+    if not torch.equal(grad, again):
+        raise AssertionError(f"ctc beta kernel: two launches differ ({name})")
+    # rows with no alignment: -1/2 at the two terminal states' classes at the
+    # row's last step
+    expect = torch.zeros_like(lp)
+    for b in np.flatnonzero(~possible):
+        t_last = min(max(int(ll_np[b]), 1), T) - 1
+        if t_last > 0:
+            expect[b, t_last, 0] -= 0.5 * gw[b]
+            expect[b, t_last, int(lb_np[b, lbl_np[b] - 1])] -= 0.5 * gw[b]
+    if not torch.allclose(grad[~ok], expect[~ok], rtol=0, atol=1e-6):
+        raise AssertionError(f"ctc beta kernel: rows without an alignment ({name})")
+    log(f"ctc {name} backward: two launches bitwise equal; rows without an alignment carry "
+        f"the XLA scan's pattern")
+    return fwd_err, bwd_err
+
+
 def phase_ctc():
+    """Both CTC kernels against the plain version on the card at config #1's
+    shape, with a bad label, at three long-label shapes and with 5,000
+    classes (each instance of each kernel); times, host time per call and
+    bounds at config #1's shape."""
     import torch.nn.functional as F
 
     from megreader_tpu_torch.ops.ctc import (
         ctc_alpha_cuda,
         ctc_beta_cuda,
+        ctc_beta_reference,
         ctc_loss,
         ctc_loss_reference,
         ctc_nll_reference,
@@ -571,32 +679,51 @@ def phase_ctc():
     logits = torch.from_numpy(logits_np).cuda()
     ll, lb, lbl = (torch.from_numpy(a).cuda() for a in (ll_np, lb_np, lbl_np))
     lp = F.log_softmax(logits, -1).contiguous()
-    ok = torch.from_numpy(possible).cuda()
-
-    # forward: the alpha kernel against the plain DP (loss rtol 1e-4 / atol
-    # 1e-4: a log-space DP summed in another order)
-    nll, alpha = ctc_alpha_cuda(lp, ll, lb, lbl)
-    ref = ctc_nll_reference(lp, ll, lb, lbl)
-    torch.cuda.synchronize()
-    fwd_err = float((nll - ref)[ok].abs().max())
-    log(f"ctc forward: max |kernel - plain| on rows with an alignment {fwd_err:.3g}; "
-        f"rows without one: kernel {nll[~ok].tolist()}, plain {ref[~ok].tolist()}")
-    if not torch.allclose(nll, ref, rtol=1e-4, atol=1e-4):
-        raise AssertionError("ctc alpha kernel disagrees with the plain version")
-    if not (torch.isfinite(nll).all() and bool((nll[~ok] > 1e29).all())):
-        raise AssertionError("ctc: a row without an alignment must give a finite ~1e30 loss")
-
-    # backward: the beta kernel against autograd through the plain DP
-    # (gradient rtol 1e-3 / atol 1e-4), for d(sum nll)/d log_probs
     ones = torch.ones(B, device="cuda")
-    grad = ctc_beta_cuda(lp, ll, lb, lbl, alpha, nll, ones)
-    lp_ref = lp.detach().clone().requires_grad_()
-    ctc_nll_reference(lp_ref, ll, lb, lbl).sum().backward()
-    torch.cuda.synchronize()
-    bwd_err = float((grad - lp_ref.grad).abs().max())
-    log(f"ctc backward: max |kernel - plain| of d nll / d log_probs {bwd_err:.3g}")
-    if not torch.allclose(grad, lp_ref.grad, rtol=1e-3, atol=1e-4):
-        raise AssertionError("ctc beta kernel disagrees with the plain version")
+    gw = torch.from_numpy(rng.uniform(0.5, 2.0, B).astype(np.float32)).cuda()
+    fwd_err, bwd_err = check_ctc_kernels("config #1", lp, ll, lb, lbl, possible, ones)
+    check_ctc_kernels("config #1, weighted rows", lp, ll, lb, lbl, possible, gw)
+    nll, alpha = ctc_alpha_cuda(lp, ll, lb, lbl)
+
+    # a label outside [0, C): NaN loss and a NaN gradient on that row's live
+    # steps, the other rows as before
+    bad = 5  # a row with frozen steps
+    lb_bad = lb.clone()
+    lb_bad[bad, 0] = C + 62
+    nll_bad, alpha_bad = ctc_alpha_cuda(lp, ll, lb_bad, lbl)
+    grad_bad = ctc_beta_cuda(lp, ll, lb_bad, lbl, alpha_bad, nll_bad, gw)
+    plain_nll = nll.clone()
+    plain_nll[bad] = float("nan")
+    plain_bad = ctc_beta_reference(lp, ll, lb_bad, lbl, alpha_bad, plain_nll, gw)
+    grad_ok = ctc_beta_cuda(lp, ll, lb, lbl, alpha, nll, gw)
+    others = torch.arange(B, device="cuda") != bad
+    live = int(ll_np[bad])
+    if not (bool(torch.isnan(nll_bad[bad])) and torch.equal(nll_bad[others], nll[others])
+            and bool(torch.isnan(grad_bad[bad, :live]).all())
+            and bool((grad_bad[bad, live:] == 0).all())
+            and torch.equal(grad_bad[others], grad_ok[others])
+            and torch.equal(torch.isnan(grad_bad), torch.isnan(plain_bad))):
+        raise AssertionError("ctc kernels: a bad label must give a NaN loss and gradient on "
+                             "its row only")
+    log(f"ctc bad label (row {bad}): NaN loss and NaN gradient on its {live} live steps, as the "
+        f"plain beta; the other rows unchanged")
+
+    # long labels, more than one column of states (beta's planes in shared
+    # memory at T 120 / L 50, in device memory at T 240 / L 100 and at
+    # S 1001), and a large charset (5,000 classes: the emissions of both
+    # kernels in device memory)
+    for name, (Bl, Tl, Ll, Cl) in (("long, T 120, L 50", (32, 120, 50, C)),
+                                   ("long, T 240, L 100", (64, 240, 100, C)),
+                                   ("widest, T 1000, L 500", (8, 1000, 500, C)),
+                                   ("large charset, C 5000", (16, 25, 16, 5000))):
+        lrng = np.random.default_rng(SEED + 40 + Tl + Ll)
+        lg_np, lll_np, llb_np, llbl_np, lpossible = ctc_long_inputs(lrng, Bl, Tl, Cl, Ll)
+        llp = F.log_softmax(torch.from_numpy(lg_np).cuda(), -1).contiguous()
+        lw = torch.from_numpy(lrng.uniform(0.5, 2.0, Bl).astype(np.float32)).cuda()
+        errs = check_ctc_kernels(name, llp, *(torch.from_numpy(a).cuda()
+                                               for a in (lll_np, llb_np, llbl_np)), lpossible, lw,
+                                 float64=True)
+        fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
 
     # the whole loss from logits, kernels under autograd, mean reduction
     x = logits.clone().requires_grad_()
@@ -619,6 +746,7 @@ def phase_ctc():
         ctc_beta_cuda(lp, ll, lb, lbl, a, n, ones)
 
     ms_both = cuda_ms(kernels_both, reps=100)
+    lp_ref = lp.detach().clone().requires_grad_()
     with torch.no_grad():
         plain_fwd = cuda_ms(lambda: ctc_nll_reference(lp, ll, lb, lbl), reps=20)
     out_ref = ctc_nll_reference(lp_ref, ll, lb, lbl).sum()
@@ -642,6 +770,7 @@ def phase_ctc():
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(out_lib, lp_lib, retain_graph=True), reps=100)
     lib_both = cuda_ms(lambda: torch.autograd.grad(lib_loss(), lp_lib), reps=100)
     lib_nll = F.ctc_loss(lp_lib.detach(), lb.long(), il, tl, blank=0, reduction="none")
+    ok = torch.from_numpy(possible).cuda()
     log(f"F.ctc_loss on the rows with an alignment: max |kernel - F.ctc_loss| "
         f"{float((nll - lib_nll)[ok].abs().max()):.3g}")
 
@@ -651,6 +780,18 @@ def phase_ctc():
     busy_bwd = device_busy_ms(lambda: ctc_beta_cuda(lp, ll, lb, lbl, alpha, nll, ones), reps=20)
     log(f"ctc kernel-busy ms per launch (torch.profiler device time): forward {busy_fwd}, "
         f"backward {busy_bwd}")
+    host_us = {}
+    for what, fn in (("forward", lambda: ctc_alpha_cuda(lp, ll, lb, lbl)),
+                     ("backward", lambda: ctc_beta_cuda(lp, ll, lb, lbl, alpha, nll, ones))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        host_us[what] = (time.perf_counter() - t0) / 1000 * 1e6
+        torch.cuda.synchronize()
+    log(f"ctc host time per wrapper call with the card idle (perf_counter over 1000 calls, "
+        f"then one synchronise): forward {host_us['forward']:.2f} us, backward "
+        f"{host_us['backward']:.2f} us")
     (fwd_bound, fwd_by, fwd_bytes, fwd_ops), (bwd_bound, bwd_by, bwd_bytes, bwd_ops) = ctc_bounds(
         ll_np, lbl_np, T, C, L)
     log(f"ctc time (ms, median, CUDA events): kernels forward {ms_fwd}, backward {ms_bwd}, "

@@ -22,12 +22,18 @@ import threading
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+
+#: dynamic shared memory a block may take on Hopper (227 KB); above 48 KB a
+#: launcher opts its kernel in
+SMEM_LIMIT = 232448
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -110,6 +116,18 @@ def functions(name: str, prototypes: Dict[str, Tuple[Sequence, type]]
             fns[fn_name] = fn
         _bound[name] = fns
     return fns
+
+
+def launch(fn, dev: torch.device, *args) -> int:
+    """Call a launcher on ``dev``'s current stream, making ``dev`` current
+    only where it is not. The stream is read as the raw handle
+    (``torch.cuda.current_stream(dev).cuda_stream`` without building a
+    ``Stream`` object on every call)."""
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)
 
 
 def check(err: int, what: str) -> None:

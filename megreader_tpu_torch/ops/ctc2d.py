@@ -48,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .ctc import NEG_INF, _extend_labels, _reduce, ctc_greedy_decode, ctc_nll
+from .ctc import NEG_INF, _label_move, _reduce, _states, ctc_greedy_decode, ctc_nll
 
 
 def _logsumexp(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -75,33 +75,6 @@ def ctc2d_loss_independent(emit_log_probs: torch.Tensor, height_log_probs: torch
     fused = fuse_heights(emit_log_probs, height_log_probs)
     nll = ctc_nll(fused, logit_lengths, labels, label_lengths, blank)
     return _reduce(nll, label_lengths, reduction)
-
-
-def _label_move(x: torch.Tensor, can_skip: torch.Tensor, down: bool) -> torch.Tensor:
-    """Guarded logsumexp along the last axis of x at s, s -/+ 1 and (where
-    ``can_skip``) s -/+ 2: the label move down the states (alpha) or up them
-    (beta); NEG_INF where the maximum lies at or below NEG_INF / 2."""
-    S = x.shape[-1]
-    if down:
-        x1 = F.pad(x, (1, 0), value=NEG_INF)[..., :S]
-        x2 = F.pad(x, (2, 0), value=NEG_INF)[..., :S]
-    else:
-        x1 = F.pad(x, (0, 1), value=NEG_INF)[..., 1:]
-        x2 = F.pad(x, (0, 2), value=NEG_INF)[..., 2:]
-    stacked = torch.stack([x, x1, torch.where(can_skip, x2, NEG_INF)])
-    m = stacked.amax(0)
-    return torch.where(m <= NEG_INF / 2, NEG_INF, m + torch.log(torch.exp(stacked - m).sum(0)))
-
-
-def _states(labels: torch.Tensor, label_lengths: torch.Tensor, blank: int, dev):
-    """(ext (B, S), can_skip (B, S): the s-2 -> s move is allowed, valid (B, S))."""
-    B = labels.shape[0]
-    S = 2 * labels.shape[1] + 1
-    ext = _extend_labels(labels.long().to(dev), blank)
-    ext_shift2 = F.pad(ext, (2, 0), value=-1)[:, :S]
-    can_skip = (ext != blank) & (ext != ext_shift2)
-    valid = torch.arange(S, device=dev).view(1, S) < 2 * label_lengths.long().to(dev).view(B, 1) + 1
-    return ext, can_skip, valid
 
 
 def ctc2d_alpha_reference(emit_log_probs: torch.Tensor, trans_log_probs: torch.Tensor,
@@ -246,10 +219,6 @@ def ctc2d_beta_reference(emit_log_probs: torch.Tensor, trans_log_probs: torch.Te
     return grad_emit, grad_trans, grad_emit[:, 0].sum(-1)
 
 
-# Dynamic shared memory a block may take on Hopper (227 KB); above 48 KB
-# the launchers opt in
-_SMEM_LIMIT_2D = 232448
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
     "mr_ctc2d_smem": ([_I] * 5, ctypes.c_size_t),
@@ -258,6 +227,7 @@ _PROTOTYPES = {
     "mr_ctc2d_alpha_launch": ([_P] * 6 + [_I] * 6 + [_P] * 3, _I),
     "mr_ctc2d_beta_launch": ([_P] * 5 + [_I] * 6 + [_P] * 7, _I),
 }
+_launch = kernels.launch
 
 
 def _check(emit, trans, init, logit_lengths, labels, label_lengths, blank) -> None:
@@ -308,22 +278,10 @@ def _shared_bytes(T: int, H: int, L: int, C: int) -> Tuple[int, int]:
                          f"got {2 * L + 1} (L = {L})")
     smem = fns["mr_ctc2d_smem"]
     need = (smem(0, T, H, L, C), smem(1, T, H, L, C))
-    if max(need) > _SMEM_LIMIT_2D:
+    if max(need) > kernels.SMEM_LIMIT:
         raise ValueError(f"the 2D-CTC kernels need {need} B of shared memory for T={T}, H={H}, "
-                         f"L={L}, C={C} (limit {_SMEM_LIMIT_2D})")
+                         f"L={L}, C={C} (limit {kernels.SMEM_LIMIT})")
     return need
-
-
-def _launch(fn, dev: torch.device, *args) -> int:
-    """Call a launcher on ``dev``'s current stream, making ``dev`` current
-    only where it is not. The stream is read as the raw handle
-    (``torch.cuda.current_stream(dev).cuda_stream`` without building a
-    ``Stream`` object on every call)."""
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    if dev.index == torch.cuda.current_device():
-        return fn(*args, stream)
-    with torch.cuda.device(dev):
-        return fn(*args, stream)
 
 
 def ctc2d_alpha_cuda(emit_log_probs: torch.Tensor, trans_log_probs: torch.Tensor,
