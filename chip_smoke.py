@@ -28,14 +28,17 @@ Phases (any failure exits non-zero):
    labels of the CCL kernel with cap 24, K 32, K2 256; text-like rectangles,
    a component rooted at pixel 0, 20% noise with more components than K2,
    rotated bars, an empty page), again at K 20 (K2 rounded to 256 where the
-   XLA candidate phase keeps 160) and on unaligned 641x637 pages: candidates
-   and selected roots bit-exact, moment counts exact and sums within rtol
-   1e-6, extents within 1e-4 px; then ``extract_regions`` with
-   ``impl='pallas'`` and ``'pallas_full'`` on the card against the same call
-   on the CPU (valid and area exact, centre and extents 1e-3 px and angle
-   1e-5 rad on elongated regions). Times each kernel (CUDA events and
-   kernel-busy), its plain version and the three impls, and computes each
-   kernel's bound for these labels.
+   XLA candidate phase keeps 160), on unaligned 641x637 pages and on two
+   2048x2048 pages with page-sized components (one all foreground):
+   candidates and selected roots bit-exact; moments' count, first and
+   second moments bit-exact to the plain version and across two launches,
+   their score sums within rtol 1e-6; extents within 1e-4 px; then, but for
+   the 2048x2048 pages, ``extract_regions`` with ``impl='pallas'`` and
+   ``'pallas_full'`` on the card against the same call on the CPU (valid and
+   area exact, centre and extents 1e-3 px and angle 1e-5 rad on elongated
+   regions). Times each kernel (CUDA events, kernel-busy and the host time
+   of a wrapper call), its plain version and the three impls, and computes
+   each kernel's bound for these labels.
 4. ctc: the CUDA CTC kernels (alpha forward, beta backward) against the plain
    PyTorch version on the card at config #1's training shape (B 64, T 25,
    C 37, labels padded to 32): varied logit lengths, repeated labels, an
@@ -358,12 +361,26 @@ def extract_masks(rng, B: int, H: int, W: int) -> np.ndarray:
     return m
 
 
+def large_masks(rng, H: int = 2048, W: int = 2048) -> np.ndarray:
+    """Two pages with page-sized components: one all foreground (a single
+    component of H*W pixels, its sum of x^2 about 5.9e12 at 2048), and a
+    96-px frame around a disc of radius 0.4 W, with text-like rectangles."""
+    m = np.zeros((2, H, W), bool)
+    m[0] = True
+    yy, xx = np.mgrid[0:H, 0:W]
+    m[1] = (yy < 96) | (yy >= H - 96) | (xx < 96) | (xx >= W - 96)
+    m[1] |= (xx - W / 2) ** 2 + (yy - H / 2) ** 2 < (0.4 * W) ** 2
+    m[1] |= text_masks(rng, 1, H, W)[0]
+    return m
+
+
 def extract_bounds(labels_np: np.ndarray, K: int, K2: int):
     """Least times (ms) of the three extraction functions on these labels, and
     what bounds each: every input read once and every output written once at
-    the HBM rate, against the work these labels need (candidates: a root test
-    and a count per pixel, INT32; moments: 12 float64 operations per member
-    pixel, two passes; extents: 12 per member pixel) at the H100's rates."""
+    the HBM rate (moments: the labels and the scores), against the work these
+    labels need (candidates: a root test and a count per pixel, INT32;
+    moments: 12 operations per member pixel, counted at the float64 rate;
+    extents: 12 float64 operations per member pixel) at the H100's rates."""
     B = labels_np.shape[0]
     n = labels_np.size
     fg = int((labels_np >= 0).sum())
@@ -380,11 +397,13 @@ def extract_bounds(labels_np: np.ndarray, K: int, K2: int):
     return out
 
 
-def phase_extract(B: int = 8, H: int = 640, W: int = 640):
+def phase_extract(B: int = 8, H: int = 640, W: int = 640, large_hw: int = 2048):
     """The three extraction kernels against their plain versions on the card
     at the serving shape (K 32, and K 20 for the K2 rounding; then unaligned
-    pages), and the whole Pallas-path extraction on the card against the
-    plain versions on the CPU; times and bounds at the serving shape."""
+    pages, then two 2048x2048 pages with page-sized components), and the
+    whole Pallas-path extraction on the card against the plain versions on
+    the CPU (not at 2048x2048, where the CPU's plain path is slow); times,
+    host time a call and bounds at the serving shape."""
     from megreader_tpu_torch.ops import ccl
     from megreader_tpu_torch.ops import extract as ex
 
@@ -392,9 +411,11 @@ def phase_extract(B: int = 8, H: int = 640, W: int = 640):
     K, cap = 32, 24
     serving = (f"serving {B}x{H}x{W}", extract_masks(rng, B, H, W))
     unaligned = (f"unaligned 2x{H + 1}x{W - 3}", extract_masks(rng, 2, H + 1, W - 3))
+    large = (f"large 2x{large_hw}x{large_hw}", large_masks(rng, large_hw, large_hw))
     errs = {"candidates": 0.0, "moments": 0.0, "extents": 0.0}
     timed = None
-    for (name, m), k in ((serving, K), (serving, 20), (unaligned, K)):
+    for (name, m), k in ((serving, K), (serving, 20), (unaligned, K), (large, K)):
+        whole_path = ("pallas", "pallas_full") if name != large[0] else ()
         labels = ccl.connected_components_cuda(torch.from_numpy(m).cuda(), cap)
         scores = torch.from_numpy(rng.random(m.shape, dtype=np.float32)).cuda()
         K2 = ex.pallas_k2(k)
@@ -411,15 +432,24 @@ def phase_extract(B: int = 8, H: int = 640, W: int = 640):
         if not torch.equal(ccl._top_k_slots(*cand, k)[1].to(torch.int32), roots):
             raise AssertionError(f"{what}: the selected roots differ")
 
-        # moments: counts exact; float64 sums in another order, then float32
-        # (rtol 1e-6 / atol 1e-6)
+        # moments: count, first and second moments (columns 0, 2-6) and the
+        # zero column 7 bit-exact to the plain version and across two
+        # launches (exact int64 sums, the same finishing arithmetic); the
+        # score (column 1), a float64 sum in atomic order, rtol 1e-6
         M = ex.moments_cuda(labels, scores, roots)
+        M2 = ex.moments_cuda(labels, scores, roots)
         M_ref = ex.moments_reference(labels, scores, roots)
         torch.cuda.synchronize()
+        exact = [0, 2, 3, 4, 5, 6, 7]
         m_err = float(((M - M_ref).abs() / M_ref.abs().clamp(min=1.0)).max())
-        if not (torch.equal(M[..., 0], M_ref[..., 0])
-                and torch.allclose(M, M_ref, rtol=1e-6, atol=1e-6)):
-            raise AssertionError(f"{what}: the moments kernels disagree ({m_err:.3g})")
+        if not torch.equal(M[..., exact], M_ref[..., exact]):
+            bad = int((M[..., exact] != M_ref[..., exact]).sum())
+            raise AssertionError(f"{what}: the moments kernel's integer columns differ from "
+                                 f"the plain version's in {bad} values ({m_err:.3g})")
+        if not torch.equal(M[..., exact], M2[..., exact]):
+            raise AssertionError(f"{what}: two moments launches differ in columns 0, 2-7")
+        if not torch.allclose(M[..., 1], M_ref[..., 1], rtol=1e-6, atol=0.0):
+            raise AssertionError(f"{what}: the moments kernel's scores disagree ({m_err:.3g})")
         m_abs = float((M - M_ref).abs().max())
 
         # extents on the same parameters: float64 rounded once per operation
@@ -437,7 +467,9 @@ def phase_extract(B: int = 8, H: int = 640, W: int = 640):
         errs["moments"] = max(errs["moments"], m_abs)
         errs["extents"] = max(errs["extents"], e_err)
         log(f"{what}: candidates bit-exact ({int((cand_ref[1] > 0).sum())} live slots), "
-            f"moments max rel err {m_err:.3g}, max abs err {m_abs:.3g} (counts exact), "
+            f"moments columns 0, 2-7 bit-exact and repeatable, score max rel err "
+            f"{m_err:.3g}, max abs err {m_abs:.3g} (bitwise: {torch.equal(M, M_ref)}, "
+            f"repeat bitwise: {torch.equal(M, M2)}), "
             f"extents max |err| {e_err:.3g} (bit-exact: {torch.equal(ext, ext_ref)}); "
             f"{int(valid.sum())} valid slots")
 
@@ -446,7 +478,7 @@ def phase_extract(B: int = 8, H: int = 640, W: int = 640):
         # 1e-3 px, angle 1e-5 rad, on elongated regions (principal extent
         # over 1.5 times the other; elsewhere the angle is ill-conditioned);
         # score atol 1e-5
-        for impl in ("pallas", "pallas_full"):
+        for impl in whole_path:
             got = ccl.extract_regions(labels, scores, k, impl=impl)
             ref = ccl.extract_regions(labels.cpu(), scores.cpu(), k, impl=impl)
             got = {key: v.cpu() for key, v in got.items()}
@@ -470,6 +502,13 @@ def phase_extract(B: int = 8, H: int = 640, W: int = 640):
             timed = (labels, scores, roots, params, K2)
 
     labels, scores, roots, params, K2 = timed
+    # moments at the most slots the kernels take (shared memory past 48 KB)
+    many = ex.candidates_reference(labels, 8 * ex.MAX_REGIONS)[0][:, :ex.MAX_REGIONS].contiguous()
+    M, M_ref = ex.moments_cuda(labels, scores, many), ex.moments_reference(labels, scores, many)
+    if not (torch.equal(M[..., exact], M_ref[..., exact])
+            and torch.allclose(M[..., 1], M_ref[..., 1], rtol=1e-6, atol=0.0)):
+        raise AssertionError(f"extract K {ex.MAX_REGIONS}: the moments kernels disagree")
+    log(f"extract moments at K {ex.MAX_REGIONS}: columns 0, 2-7 bit-exact, score rtol 1e-6")
     fns = {
         "candidates": (lambda: ex.candidates_cuda(labels, K2),
                        lambda: ex.candidates_reference(labels, K2)),
@@ -487,11 +526,20 @@ def phase_extract(B: int = 8, H: int = 640, W: int = 640):
                 return ccl.extract_regions(labels, scores, K, impl=impl)
 
             whole[impl] = (cuda_ms(run, reps=20), device_busy_ms(run))
+        host_us = {}
+        for name, (f, _) in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                f()
+            host_us[name] = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
     bounds = extract_bounds(labels.cpu().numpy(), K, K2)
     log(f"extract kernel ms at {B}x{H}x{W}, K 32 (kernel by CUDA events, median of 100; "
-        "kernel-busy by torch.profiler; plain by CUDA events, median of 10): " + json.dumps(
-            {n: {"ms": t[0], "busy_ms": t[1], "plain_ms": t[2], "bound_ms": bounds[n][0],
-                 "bound_by": bounds[n][1], "bound_bytes": bounds[n][2]}
+        "kernel-busy by torch.profiler; plain by CUDA events, median of 10; host us a wrapper "
+        "call from the card idle, perf_counter over 200 calls): " + json.dumps(
+            {n: {"ms": t[0], "busy_ms": t[1], "plain_ms": t[2], "host_us": host_us[n],
+                 "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "bound_bytes": bounds[n][2]}
              for n, t in times.items()}))
     log("extract_regions ms by impl (CUDA events, median of 20; kernel-busy): "
         + json.dumps({k: {"ms": v[0], "busy_ms": v[1]} for k, v in whole.items()})

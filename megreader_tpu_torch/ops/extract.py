@@ -37,7 +37,8 @@ import torch
 from .. import kernels
 from .ccl import _SPILL, Stats, _candidate_roots, _candidates, _top_k_slots
 
-#: slots a kernel's shared memory holds (moments: 44 bytes a slot of 48 KB)
+#: slots a kernel takes (shared memory a slot: extents 36 bytes, within 48 KB;
+#: moments 192, opted in above 48 KB)
 MAX_REGIONS = 1024
 
 
@@ -68,15 +69,34 @@ def candidates_reference(labels: torch.Tensor, K2: int) -> Tuple[torch.Tensor, t
     return cand_idx.to(torch.int32), cand_area
 
 
+def check_moment_range(H: int, W: int) -> None:
+    """Raise unless the moments' int64 sums cannot overflow on an (H, W) page.
+
+    Every sum of x^2, y^2 or x*y over a slot, and every term of the centring,
+    is at most H*W*(max(H, W) - 1)^2, which must stay below 2^63. Below 2^53
+    (pages up to about 9,700 px square) every such integer also converts to
+    float64 exactly."""
+    if H * W * (max(H, W) - 1) ** 2 >= 2**63:
+        raise ValueError(f"a page of {H}x{W} may overflow the moments' int64 sums")
+
+
 def moments_reference(labels: torch.Tensor, scores: torch.Tensor,
                       roots: torch.Tensor) -> torch.Tensor:
     """labels (B, H, W) int32, scores (B, H, W), roots (B, K) -> (B, K, 8)
     float32 sums over each slot's pixels (label == root): count, score, x, y,
     then dx^2, dy^2, dx*dy centred on sum / max(count, 1); column 7 is 0.
 
-    Each pixel joins the lowest slot holding its root, in float64; slots that
-    repeat a root copy that slot's sums."""
+    Each pixel joins the lowest slot holding its root; slots that repeat a
+    root copy that slot's sums. The count n and the sums of x, y, x^2, y^2
+    and x*y are exact int64 sums. The centring splits sum x = q*n + r
+    (0 <= r < n), so that sum dx^2 = (sum x^2 - q^2*n - 2*q*r) - r^2/n and
+    sum dx*dy = (sum xy - qx*qy*n - qx*ry - qy*rx) - rx*ry/n: each bracket is
+    an exact int64, then one float64 division, one float64 subtraction and
+    one rounding to float32 (n = 0 gives 0). The score is a float64 sum.
+    ``csrc/extract.cu`` finishes with the same integer steps and float64
+    operations."""
     B, H, W = labels.shape
+    check_moment_range(H, W)
     N, K = H * W, roots.shape[1]
     dev = labels.device
     lbl = labels.reshape(B, N).to(torch.int64)
@@ -87,21 +107,29 @@ def moments_reference(labels: torch.Tensor, scores: torch.Tensor,
     group = slot_of.gather(1, torch.where(lbl >= 0, lbl, N))
     group = torch.where(group < K, group, K + torch.arange(N, device=dev) % _SPILL)
 
-    def gsum(vals):  # (B, N) -> (B, K)
-        out = torch.zeros((B, K + _SPILL), dtype=torch.float64, device=dev)
+    def gsum(vals):  # (1 or B, N) -> (B, K), in vals' type
+        out = torch.zeros((B, K + _SPILL), dtype=vals.dtype, device=dev)
         return out.scatter_add_(1, group, vals.expand(B, N))[:, :K]
 
-    def per_pixel(t):  # (B, K) -> (B, N)
-        return torch.cat([t, t.new_zeros(B, _SPILL)], 1).gather(1, group)
+    pix = torch.arange(N, device=dev).view(1, N)
+    xs, ys = pix % W, pix // W
+    n, sx, sy = gsum(torch.ones_like(xs)), gsum(xs), gsum(ys)
+    sxx, syy, sxy = gsum(xs * xs), gsum(ys * ys), gsum(xs * ys)
+    m = n.clamp(min=1)
+    qx, rx = sx // m, sx % m
+    qy, ry = sy // m, sy % m
 
-    xs, ys = _coords(H, W, dev)
-    count = gsum(torch.ones_like(xs))
-    sums = [count, gsum(scores.reshape(B, N).to(torch.float64)), gsum(xs), gsum(ys)]
-    n = torch.clamp(count, min=1.0)
-    dx = xs - per_pixel(sums[2] / n)
-    dy = ys - per_pixel(sums[3] / n)
-    sums += [gsum(dx * dx), gsum(dy * dy), gsum(dx * dy), torch.zeros_like(count)]
-    M = torch.stack(sums, -1)
+    def centred(e, r2):  # the exact int64 bracket less r^2 / n, in float64
+        return e.to(torch.float64) - r2.to(torch.float64) / m.to(torch.float64)
+
+    M = torch.stack([
+        n.to(torch.float64), gsum(scores.reshape(B, N).to(torch.float64)),
+        sx.to(torch.float64), sy.to(torch.float64),
+        centred(sxx - qx * qx * n - 2 * qx * rx, rx * rx),
+        centred(syy - qy * qy * n - 2 * qy * ry, ry * ry),
+        centred(sxy - qx * qy * n - qx * ry - qy * rx, rx * ry),
+        torch.zeros((B, K), dtype=torch.float64, device=dev),
+    ], -1)
     return M.gather(1, first[..., None].expand(B, K, 8)).to(torch.float32)
 
 
@@ -111,6 +139,9 @@ def extents_reference(labels: torch.Tensor, roots: torch.Tensor,
     cos, sin) -> (B, K, 4) float32 (min u, max u, min v, max v) over each
     slot's pixels, u = dx cos + dy sin, v = -dx sin + dy cos in float64
     rounded to float32; a slot with no pixel keeps (1e9, -1e9, 1e9, -1e9).
+    The minima start from 1e9 and the maxima from -1e9, as the TPU kernel's
+    accumulators do, so a slot whose projections all lie past them (a dead
+    slot centred on a page-sized component's undivided sums) keeps them too.
 
     One pass per slot: slots that share a root (the empty slots' root 0) may
     differ in their parameters."""
@@ -128,8 +159,10 @@ def extents_reference(labels: torch.Tensor, roots: torch.Tensor,
         u = (dx * c + dy * s).to(torch.float32)
         v = (-dx * s + dy * c).to(torch.float32)
         out.append(torch.stack([
-            torch.where(member, u, big).amin(1), torch.where(member, u, -big).amax(1),
-            torch.where(member, v, big).amin(1), torch.where(member, v, -big).amax(1),
+            torch.minimum(torch.where(member, u, big).amin(1), big),
+            torch.maximum(torch.where(member, u, -big).amax(1), -big),
+            torch.minimum(torch.where(member, v, big).amin(1), big),
+            torch.maximum(torch.where(member, v, -big).amax(1), -big),
         ], -1))
     return torch.stack(out, 1) if out else params.new_zeros((B, 0, 4))
 
@@ -163,16 +196,16 @@ def _slots(roots: torch.Tensor, labels: torch.Tensor) -> int:
     return K
 
 
-def _fn(name: str, n_ptr: int, n_int: int):
-    fn = getattr(kernels.library("extract"), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _stream(t: torch.Tensor) -> int:
-    with torch.cuda.device(t.device):
-        return torch.cuda.current_stream().cuda_stream
+# The C launchers of csrc/extract.cu, bound once (``kernels.functions``)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_PROTOTYPES = {
+    "mr_extract_tile_pixels": ([], _I),
+    "mr_extract_candidates": ([_P] * 5 + [_I] * 3 + [_P], _I),
+    "mr_extract_moments": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    "mr_extract_extents": ([_P] * 4 + [_I] * 4 + [_P], _I),
+}
+#: 64-bit words of the moments kernel's scratch a slot (kSums in csrc/extract.cu)
+_MOMENT_WORDS = 8
 
 
 def candidates_cuda(labels: torch.Tensor, K2: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -182,35 +215,38 @@ def candidates_cuda(labels: torch.Tensor, K2: int) -> Tuple[torch.Tensor, torch.
         raise ValueError(f"K2 = {K2} outside 1..{8 * MAX_REGIONS}")
     B, H, W = labels.shape
     N = H * W
-    lib = kernels.library("extract")
-    lib.mr_extract_tile_pixels.restype = ctypes.c_int
-    T = -(-N // lib.mr_extract_tile_pixels())
+    fns = kernels.functions("extract", _PROTOTYPES)
+    T = -(-N // fns["mr_extract_tile_pixels"]())
     dev = labels.device
     tile_counts = torch.empty((B, T), dtype=torch.int32, device=dev)
     slot_of = torch.empty((B, N), dtype=torch.int32, device=dev)
     cand_idx = torch.empty((B, K2), dtype=torch.int32, device=dev)
     areas = torch.empty((B, K2), dtype=torch.int32, device=dev)
-    err = _fn("mr_extract_candidates", 5, 3)(
-        labels.data_ptr(), tile_counts.data_ptr(), slot_of.data_ptr(), cand_idx.data_ptr(),
-        areas.data_ptr(), B, N, K2, _stream(labels))
+    err = kernels.launch(fns["mr_extract_candidates"], dev, labels.data_ptr(),
+                         tile_counts.data_ptr(), slot_of.data_ptr(), cand_idx.data_ptr(),
+                         areas.data_ptr(), B, N, K2)
     kernels.check(err, "extract candidates kernels")
     candidates_cuda.launches += 1
     return cand_idx, areas.to(torch.float32)
 
 
 def moments_cuda(labels: torch.Tensor, scores: torch.Tensor, roots: torch.Tensor) -> torch.Tensor:
-    """Launch the two moments kernels (see ``moments_reference``)."""
+    """Launch the moments kernels (see ``moments_reference``): one pass over
+    the labels and scores, then a small one that writes the float32 result."""
     _check_labels(labels, "moments_cuda")
     B, H, W = labels.shape
+    check_moment_range(H, W)
     _check_like(scores, labels, torch.float32, (B, H, W), "scores")
     K = _slots(roots, labels)
-    sums = torch.empty((B, K, 8), dtype=torch.float64, device=labels.device)
-    err = _fn("mr_extract_moments", 4, 4)(
-        labels.data_ptr(), scores.data_ptr(), roots.data_ptr(), sums.data_ptr(),
-        B, H * W, W, K, _stream(labels))
-    kernels.check(err, "extract moments kernels")
+    dev = labels.device
+    out = torch.empty((B, K, 8), dtype=torch.float32, device=dev)
+    scratch = torch.empty((B, K, _MOMENT_WORDS), dtype=torch.int64, device=dev)
+    fn = kernels.functions("extract", _PROTOTYPES)["mr_extract_moments"]
+    err = kernels.launch(fn, dev, labels.data_ptr(), scores.data_ptr(), roots.data_ptr(),
+                         scratch.data_ptr(), out.data_ptr(), B, H, W, K)
+    kernels.check(err, "extract moments kernel")
     moments_cuda.launches += 1
-    return sums.to(torch.float32)
+    return out
 
 
 def extents_cuda(labels: torch.Tensor, roots: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
@@ -220,9 +256,9 @@ def extents_cuda(labels: torch.Tensor, roots: torch.Tensor, params: torch.Tensor
     K = _slots(roots, labels)
     _check_like(params, labels, torch.float32, (B, K, 4), "params")
     ext = torch.empty((B, K, 4), dtype=torch.float32, device=labels.device)
-    err = _fn("mr_extract_extents", 4, 4)(
-        labels.data_ptr(), roots.data_ptr(), params.data_ptr(), ext.data_ptr(),
-        B, H * W, W, K, _stream(labels))
+    fn = kernels.functions("extract", _PROTOTYPES)["mr_extract_extents"]
+    err = kernels.launch(fn, labels.device, labels.data_ptr(), roots.data_ptr(),
+                         params.data_ptr(), ext.data_ptr(), B, H * W, W, K)
     kernels.check(err, "extract extents kernel")
     extents_cuda.launches += 1
     return ext

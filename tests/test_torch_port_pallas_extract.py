@@ -259,3 +259,19 @@ def test_non_cpu_tensors_never_fall_back(monkeypatch):
                extract.moments_cuda, extract.extents_cuda, extract.extract_regions_kernels):
         tree = ast.parse(inspect.getsource(fn).lstrip())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), fn.__name__
+
+
+def test_extents_keep_the_sentinels_when_every_projection_lies_past_them():
+    """All-foreground pages (no pixel outside the slot's component) and slots
+    centred past 1e9 px, as a dead slot is on a page-sized component's
+    undivided sums: the minima stay at or below 1e9 and the maxima at or
+    above -1e9, as the Pallas kernel's accumulators start from them."""
+    labels = np.zeros((B, H, W), np.int32)
+    roots = np.zeros((B, 4), np.int32)
+    params = np.array([[[W / 2, H / 2, 1.0, 0.0], [3e9, H / 2, 1.0, 0.0],
+                        [W / 2, -2e9, 0.0, 1.0], [-2e9, 2e9, 0.6, 0.8]]] * B, np.float32)
+    ext = extract.extents_reference(torch.from_numpy(labels), torch.from_numpy(roots),
+                                    torch.from_numpy(params)).numpy()
+    ref = np.asarray(_jax_extents(jnp.asarray(labels), jnp.asarray(roots), jnp.asarray(params)))
+    np.testing.assert_allclose(ext, ref, rtol=1e-5, atol=1e-4)
+    assert (ext[:, 1, 1] == -1e9).all() and (ext[:, 2, 0] == 1e9).all()
