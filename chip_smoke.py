@@ -32,7 +32,9 @@ Phases (any failure exits non-zero):
    2048x2048 pages with page-sized components (one all foreground):
    candidates and selected roots bit-exact; moments' count, first and
    second moments bit-exact to the plain version and across two launches,
-   their score sums within rtol 1e-6; extents within 1e-4 px; then, but for
+   their score sums within rtol 1e-6; extents bit-exact to the plain
+   version and across two launches; moments and extents again at K 1024,
+   candidates at K2 8192 (bit-exact, two launches equal); then, but for
    the 2048x2048 pages, ``extract_regions`` with ``impl='pallas'`` and
    ``'pallas_full'`` on the card against the same call on the CPU (valid and
    area exact, centre and extents 1e-3 px and angle 1e-5 rad on elongated
@@ -421,12 +423,15 @@ def phase_extract(B: int = 8, H: int = 640, W: int = 640, large_hw: int = 2048):
         K2 = ex.pallas_k2(k)
         what = f"extract {name}, K {k} (K2 {K2})"
 
-        # candidates: roots and areas bit-exact
+        # candidates: roots and areas bit-exact, and across two launches
         cand = ex.candidates_cuda(labels, K2)
+        cand2 = ex.candidates_cuda(labels, K2)
         cand_ref = ex.candidates_reference(labels, K2)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(cand, cand_ref)):
             raise AssertionError(f"{what}: the candidates kernel disagrees with the plain one")
+        if not all(torch.equal(a, b) for a, b in zip(cand, cand2)):
+            raise AssertionError(f"{what}: two candidates launches differ")
         top_area, roots, valid = ccl._top_k_slots(*cand_ref, k)
         roots = roots.to(torch.int32).contiguous()
         if not torch.equal(ccl._top_k_slots(*cand, k)[1].to(torch.int32), roots):
@@ -453,24 +458,30 @@ def phase_extract(B: int = 8, H: int = 640, W: int = 640, large_hw: int = 2048):
         m_abs = float((M - M_ref).abs().max())
 
         # extents on the same parameters: float64 rounded once per operation
-        # on both sides (atol 1e-4 px; expected bit-exact)
+        # on both sides, min and max order-free, so bit-exact to the plain
+        # version and across two launches
         a = top_area.clamp(min=1.0)
         theta = 0.5 * torch.atan2(2.0 * M_ref[..., 6] / a, (M_ref[..., 4] - M_ref[..., 5]) / a)
         params = torch.stack([M_ref[..., 2] / a, M_ref[..., 3] / a, theta.cos(), theta.sin()],
                              2).contiguous()
         ext = ex.extents_cuda(labels, roots, params)
+        ext2 = ex.extents_cuda(labels, roots, params)
         ext_ref = ex.extents_reference(labels, roots, params)
         torch.cuda.synchronize()
         e_err = float((ext - ext_ref).abs().max())
-        if e_err > 1e-4:
-            raise AssertionError(f"{what}: the extents kernel disagrees ({e_err})")
+        if not torch.equal(ext, ext_ref):
+            bad = int((ext != ext_ref).sum())
+            raise AssertionError(f"{what}: the extents kernel differs from the plain version in "
+                                 f"{bad} values (max |err| {e_err})")
+        if not torch.equal(ext, ext2):
+            raise AssertionError(f"{what}: two extents launches differ")
         errs["moments"] = max(errs["moments"], m_abs)
         errs["extents"] = max(errs["extents"], e_err)
         log(f"{what}: candidates bit-exact ({int((cand_ref[1] > 0).sum())} live slots), "
             f"moments columns 0, 2-7 bit-exact and repeatable, score max rel err "
             f"{m_err:.3g}, max abs err {m_abs:.3g} (bitwise: {torch.equal(M, M_ref)}, "
             f"repeat bitwise: {torch.equal(M, M2)}), "
-            f"extents max |err| {e_err:.3g} (bit-exact: {torch.equal(ext, ext_ref)}); "
+            f"extents bit-exact and repeatable; "
             f"{int(valid.sum())} valid slots")
 
         # the whole Pallas-path extraction on the card against the plain
@@ -502,13 +513,46 @@ def phase_extract(B: int = 8, H: int = 640, W: int = 640, large_hw: int = 2048):
             timed = (labels, scores, roots, params, K2)
 
     labels, scores, roots, params, K2 = timed
+    # candidates at the most slots they take (K2 8192: a table past 48 KB of
+    # shared memory), bit-exact and repeatable
+    cand_ref = ex.candidates_reference(labels, 8 * ex.MAX_REGIONS)
+    cand = ex.candidates_cuda(labels, 8 * ex.MAX_REGIONS)
+    cand2 = ex.candidates_cuda(labels, 8 * ex.MAX_REGIONS)
+    if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(cand, cand_ref, cand2)):
+        raise AssertionError(f"extract K2 {8 * ex.MAX_REGIONS}: the candidates kernels disagree")
+    log(f"extract candidates at K2 {8 * ex.MAX_REGIONS}: bit-exact and repeatable "
+        f"({int((cand_ref[1] > 0).sum())} live slots)")
     # moments at the most slots the kernels take (shared memory past 48 KB)
-    many = ex.candidates_reference(labels, 8 * ex.MAX_REGIONS)[0][:, :ex.MAX_REGIONS].contiguous()
+    many = cand_ref[0][:, :ex.MAX_REGIONS].contiguous()
     M, M_ref = ex.moments_cuda(labels, scores, many), ex.moments_reference(labels, scores, many)
     if not (torch.equal(M[..., exact], M_ref[..., exact])
             and torch.allclose(M[..., 1], M_ref[..., 1], rtol=1e-6, atol=0.0)):
         raise AssertionError(f"extract K {ex.MAX_REGIONS}: the moments kernels disagree")
     log(f"extract moments at K {ex.MAX_REGIONS}: columns 0, 2-7 bit-exact, score rtol 1e-6")
+    # extents at the most slots, on parameters that vary by slot (the dead
+    # slots' root 0 a chain of about a thousand slots on the first page)
+    a = cand_ref[1][:, :ex.MAX_REGIONS].clamp(min=1.0)
+    theta = 0.5 * torch.atan2(2.0 * M_ref[..., 6] / a, (M_ref[..., 4] - M_ref[..., 5]) / a)
+    params_many = torch.stack([M_ref[..., 2] / a, M_ref[..., 3] / a, theta.cos(), theta.sin()],
+                              2).contiguous()
+    ext = ex.extents_cuda(labels, many, params_many)
+    if not (torch.equal(ext, ex.extents_reference(labels, many, params_many))
+            and torch.equal(ext, ex.extents_cuda(labels, many, params_many))):
+        raise AssertionError(f"extract K {ex.MAX_REGIONS}: the extents kernel disagrees")
+    log(f"extract extents at K {ex.MAX_REGIONS}: bit-exact and repeatable")
+    # extents of slots that repeat a live root with other parameters (chains
+    # of several links), each slot on its own axes
+    prng = np.random.default_rng(SEED + 23)
+    dup = roots[:, torch.tensor([0, 1, 0, 2, 1, 0, 3, 2] * (roots.shape[1] // 8))].contiguous()
+    theta = prng.uniform(-np.pi, np.pi, dup.shape)
+    params_dup = torch.from_numpy(np.stack([
+        prng.uniform(0, labels.shape[2], dup.shape), prng.uniform(0, labels.shape[1], dup.shape),
+        np.cos(theta), np.sin(theta)], -1).astype(np.float32)).cuda()
+    ext = ex.extents_cuda(labels, dup, params_dup)
+    if not (torch.equal(ext, ex.extents_reference(labels, dup, params_dup))
+            and torch.equal(ext, ex.extents_cuda(labels, dup, params_dup))):
+        raise AssertionError("extract: the extents kernel disagrees on repeated roots")
+    log("extract extents with repeated roots on other parameters: bit-exact and repeatable")
     fns = {
         "candidates": (lambda: ex.candidates_cuda(labels, K2),
                        lambda: ex.candidates_reference(labels, K2)),

@@ -13,7 +13,10 @@ K-sized glue between them.
 Each has a plain PyTorch version (``*_reference``) and a CUDA wrapper
 (``*_cuda``) that counts its launches; the dispatching function runs the plain
 version for a CPU tensor and the kernel for any other, which raises on what it
-does not take.
+does not take. The kernels find a pixel's slot by probing its label in a
+shared-memory table of the page's roots, with no loop over the slots; the
+candidates, the moments' integer columns and the extents are bit-exact to
+the plain versions and from launch to launch.
 
 ``extract_regions_kernels`` is ``extract_regions_pallas``: the candidate phase
 by the XLA formulation (``ops/ccl.py::_candidate_roots``, K2 = max(8K, 128))
@@ -37,8 +40,9 @@ import torch
 from .. import kernels
 from .ccl import _SPILL, Stats, _candidate_roots, _candidates, _top_k_slots
 
-#: slots a kernel takes (shared memory a slot: extents 36 bytes, within 48 KB;
-#: moments 192, opted in above 48 KB)
+#: slots a kernel takes (shared memory a slot with its share of the root
+#: table: extents 104 bytes, moments 192; both opt in above 48 KB). The
+#: candidates take up to 8 * MAX_REGIONS (a table of 2-8 entries a slot)
 MAX_REGIONS = 1024
 
 
@@ -199,8 +203,8 @@ def _slots(roots: torch.Tensor, labels: torch.Tensor) -> int:
 # The C launchers of csrc/extract.cu, bound once (``kernels.functions``)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
-    "mr_extract_tile_pixels": ([], _I),
-    "mr_extract_candidates": ([_P] * 5 + [_I] * 3 + [_P], _I),
+    "mr_extract_candidates_scratch_bytes": ([_I] * 3, ctypes.c_longlong),
+    "mr_extract_candidates": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "mr_extract_moments": ([_P] * 5 + [_I] * 4 + [_P], _I),
     "mr_extract_extents": ([_P] * 4 + [_I] * 4 + [_P], _I),
 }
@@ -209,25 +213,26 @@ _MOMENT_WORDS = 8
 
 
 def candidates_cuda(labels: torch.Tensor, K2: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the candidates kernels on CUDA labels (see ``candidates_reference``)."""
+    """Launch the candidates kernels on CUDA labels (see ``candidates_reference``):
+    a pass that ranks each tile's roots in the page (a chained scan), then one
+    that counts each candidate's pixels through a shared table of the
+    candidates. The scratch is K2-sized and a few words a tile."""
     _check_labels(labels, "candidates_cuda")
     if not 0 < K2 <= 8 * MAX_REGIONS:
         raise ValueError(f"K2 = {K2} outside 1..{8 * MAX_REGIONS}")
     B, H, W = labels.shape
     N = H * W
     fns = kernels.functions("extract", _PROTOTYPES)
-    T = -(-N // fns["mr_extract_tile_pixels"]())
     dev = labels.device
-    tile_counts = torch.empty((B, T), dtype=torch.int32, device=dev)
-    slot_of = torch.empty((B, N), dtype=torch.int32, device=dev)
+    scratch = torch.empty(fns["mr_extract_candidates_scratch_bytes"](B, N, K2),
+                          dtype=torch.uint8, device=dev)
     cand_idx = torch.empty((B, K2), dtype=torch.int32, device=dev)
-    areas = torch.empty((B, K2), dtype=torch.int32, device=dev)
+    areas = torch.empty((B, K2), dtype=torch.float32, device=dev)
     err = kernels.launch(fns["mr_extract_candidates"], dev, labels.data_ptr(),
-                         tile_counts.data_ptr(), slot_of.data_ptr(), cand_idx.data_ptr(),
-                         areas.data_ptr(), B, N, K2)
+                         scratch.data_ptr(), cand_idx.data_ptr(), areas.data_ptr(), B, N, K2)
     kernels.check(err, "extract candidates kernels")
     candidates_cuda.launches += 1
-    return cand_idx, areas.to(torch.float32)
+    return cand_idx, areas
 
 
 def moments_cuda(labels: torch.Tensor, scores: torch.Tensor, roots: torch.Tensor) -> torch.Tensor:
@@ -250,7 +255,10 @@ def moments_cuda(labels: torch.Tensor, scores: torch.Tensor, roots: torch.Tensor
 
 
 def extents_cuda(labels: torch.Tensor, roots: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
-    """Launch the extents kernel (see ``extents_reference``)."""
+    """Launch the extents kernels (see ``extents_reference``): a small one that
+    writes the sentinels, then one pass over the labels, each pixel projected
+    for every distinct parameter set among the slots that hold its root.
+    Bit-exact and repeatable."""
     _check_labels(labels, "extents_cuda")
     B, H, W = labels.shape
     K = _slots(roots, labels)
@@ -258,7 +266,7 @@ def extents_cuda(labels: torch.Tensor, roots: torch.Tensor, params: torch.Tensor
     ext = torch.empty((B, K, 4), dtype=torch.float32, device=labels.device)
     fn = kernels.functions("extract", _PROTOTYPES)["mr_extract_extents"]
     err = kernels.launch(fn, labels.device, labels.data_ptr(), roots.data_ptr(),
-                         params.data_ptr(), ext.data_ptr(), B, H * W, W, K)
+                         params.data_ptr(), ext.data_ptr(), B, H, W, K)
     kernels.check(err, "extract extents kernel")
     extents_cuda.launches += 1
     return ext

@@ -275,3 +275,57 @@ def test_extents_keep_the_sentinels_when_every_projection_lies_past_them():
     ref = np.asarray(_jax_extents(jnp.asarray(labels), jnp.asarray(roots), jnp.asarray(params)))
     np.testing.assert_allclose(ext, ref, rtol=1e-5, atol=1e-4)
     assert (ext[:, 1, 1] == -1e9).all() and (ext[:, 2, 0] == 1e9).all()
+
+
+def _bars_of_three(n):
+    """Labels of n components, each a 1x3 bar rooted at its left pixel, laid
+    out in raster order 32 to a row (every third row), background -1."""
+    labels = np.full((H, W), -1, np.int32)
+    for c in range(n):
+        y, x = 3 * (c // 32), 4 * (c % 32)
+        labels[y, x:x + 3] = y * W + x
+    return labels
+
+
+@pytest.mark.parametrize("K2", [128, 256])
+def test_candidates_at_exactly_k2_roots_and_one_more(K2):
+    """A page with exactly K2 roots keeps them all; one with K2 + 1 drops
+    the last in raster order, which counts nowhere."""
+    labels = np.stack([_bars_of_three(K2), _bars_of_three(K2 + 1)])
+    cand_idx, cand_area = extract.candidates_reference(torch.from_numpy(labels), K2)
+    ref_idx, ref_area = _jax_candidates(jnp.asarray(labels), K2)
+    np.testing.assert_array_equal(cand_idx.numpy(), np.asarray(ref_idx))
+    np.testing.assert_array_equal(cand_area.numpy(), np.asarray(ref_area))
+    roots = np.flatnonzero(labels[1].reshape(-1) == np.arange(H * W))
+    assert len(roots) == K2 + 1
+    for page in range(B):
+        np.testing.assert_array_equal(cand_idx[page].numpy(), roots[:K2])
+        assert (cand_area[page] == 3.0).all()
+
+
+def test_extents_of_slots_that_share_a_root_follow_their_own_parameters():
+    """Slots that repeat a root (two live roots twice, root 0 three times) each
+    project that root's pixels on their own axes: pixel 0 is foreground on
+    the second page (its root-0 slots see the component there) and
+    background on the first (they keep the sentinels)."""
+    labels, _ = _labels_and_scores("bars_origin_ties")
+    assert labels[0, 0, 0] == -1 and labels[1, 0, 0] == 0
+    tl = torch.from_numpy(labels)
+    live = extract.candidates_reference(tl, 128)[0][:, :3].numpy()
+    roots = np.concatenate([live, live[:, 1:2], np.zeros((B, 3), np.int32), live[:, 2:3]], 1)
+    K = roots.shape[1]
+    rng = np.random.default_rng(3)
+    theta = rng.uniform(-np.pi, np.pi, (B, K))
+    params = np.stack([rng.uniform(0, W, (B, K)), rng.uniform(0, H, (B, K)), np.cos(theta),
+                       np.sin(theta)], -1).astype(np.float32)
+    tr, tp = torch.from_numpy(roots), torch.from_numpy(params)
+    ext = extract.extents_reference(tl, tr, tp).numpy()
+    ref = np.asarray(_jax_extents(jnp.asarray(labels), jnp.asarray(roots), jnp.asarray(params)))
+    np.testing.assert_allclose(ext, ref, rtol=1e-5, atol=1e-4)
+    for k in range(K):  # each slot as if it were alone
+        alone = extract.extents_reference(tl, tr[:, k:k + 1].contiguous(),
+                                          tp[:, k:k + 1].contiguous()).numpy()
+        np.testing.assert_array_equal(ext[:, k:k + 1], alone)
+    assert (ext[0, 4:7] == [1e9, -1e9, 1e9, -1e9]).all()  # root 0 names no pixel on page 0
+    assert len({tuple(e) for e in ext[1, 4:7]}) == 3  # three parameter sets, three extents
+    assert not np.array_equal(ext[:, 1], ext[:, 3]) and not np.array_equal(ext[:, 2], ext[:, 7])
