@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the page-serving
 path with each region-extraction path, the training of the config-#1
 recognizer, the training and batched decode of the config-#2 2D-CTC
-recognizer, and the training and detection evaluation of the config-#4
-detector.
+recognizer, the training and detection evaluation of the config-#4
+detector, the training and decodes of the config-#3 attention recognizer,
+serving with beam decodes, and the CTC prefix beam search.
 
     python3 chip_smoke.py
 
@@ -107,6 +108,27 @@ Phases (any failure exits non-zero):
     resumes. Then ``make_detection_gt`` on the card against the CPU, and the
     step split into prepare (GT maps), forward, loss, backward and
     optimizer, with the device idle share.
+
+11. attention: config #3 at full width (ResNet-18 rec2d of width 64, dim
+    256, max_len 32, 39 classes, batch 64 of 32x100 crops, the optimizer of
+    phase 7) through ``Experiment``/``Trainer`` for 24 steps: finite,
+    falling losses, one validation, a checkpoint that resumes. Then one
+    train-mode loss and the teacher-forced logits on the card against the
+    CPU (rtol 1e-4 of the logits' largest magnitude, atol 1e-5); the step
+    split (prepare, encode, decoder loop, loss, backward, optimizer) and the
+    device idle share. On fresh seeded weights shaped so that the decodes
+    depend on the crop: beam W 1 equal to greedy bit for bit, the greedy
+    and beam (W 5) ids of 64 crops equal to the CPU's on every row that the
+    CPU decides by a margin over 1e-3 (the other rows are counted), and the
+    decodes' crops/s.
+12. serving: one batch of 8 640x640 pages with the config-#1 recognizer
+    under ``rec_mode='beam'``, then with the config-#3 recognizer greedy and
+    beam, each held to the CPU on one page (``cross_check``: a CTC beam on
+    the CPU's logits gives equal ids on both devices; the attention ids
+    equal on the clear-margin crops), with its per-stage ms and pages/s.
+13. beam: ``ctc_beam_decode`` at ``scripts/bench_beam.py``'s shape and
+    logits (B 256, T 50, C 37, W 8) with ``blank_collapse`` 1.0 and 0.999:
+    ids and lengths equal to the CPU's on every row; its times.
 
 Prints a JSON line of per-kernel numbers (all eight kernels), then, as the
 last line, ``{"ok": true, "device": {...}}``. Needs a CUDA device; exits 1
@@ -1194,9 +1216,49 @@ def cross_check(pipe, det_net, rec_net, pages_np, device="cuda") -> None:
         crops_d = pipe.crops(pg.to(device), {k: reg[k].to(device) for k in ("quads", "boxes")})
         keep = found.reshape(-1)
         compare("crops", crops_d[keep.to(device)], crops[keep], 1e-4)
-        compare("logits", rec_net(crops[keep].to(device)), rec_cpu(crops[keep]), 1e-4)
+        decoded = check_recognizer(pipe, rec_net, rec_cpu, crops[keep], compare, device)
     log(f"e2e cross-check ({device} vs CPU, pages {tuple(pg.shape)}, {int(found.sum())} "
-        f"regions, {int(reg['valid'].sum())} valid): max abs diff " + json.dumps(diffs))
+        f"regions, {int(reg['valid'].sum())} valid, rec_mode {pipe.rec_mode}): max abs diff "
+        + json.dumps(diffs) + decoded)
+
+
+def check_recognizer(pipe, rec_net, rec_cpu, x, compare, device) -> str:
+    """The recognizer stage of ``cross_check`` on crops ``x`` (on the CPU):
+    its float outputs on ``device`` against the CPU's, then the ids of the
+    pipeline's decode. A CTC beam decodes the CPU's logits on both devices
+    (ids equal on every crop); the attention family's teacher-forced logits
+    follow the CPU's greedy ids, and its ids must equal the CPU's on every
+    crop that the CPU decides by a clear margin (``attention_margins``).
+    Returns a note for the log line."""
+    from megreader_tpu_torch.models.attention import AttentionRecognizer
+    from megreader_tpu_torch.ops.ctc import ctc_beam_decode
+
+    rec = pipe.recognizer
+    rec_net.eval()
+    rec_cpu.eval()
+    if not isinstance(rec, AttentionRecognizer):
+        logits = rec_cpu(x)
+        compare("logits", rec_net(x.to(device)), logits, 1e-4)
+        if pipe.rec_mode != "beam":
+            return ""
+        lengths = torch.full((len(x),), logits.shape[1], dtype=torch.int32)
+        ref = ctc_beam_decode(logits, lengths, beam_width=pipe.beam_width)
+        got = ctc_beam_decode(logits.to(device), lengths.to(device), beam_width=pipe.beam_width)
+        if not all(torch.equal(g.cpu(), r) for g, r in zip(got, ref)):
+            raise AssertionError("e2e cross-check: the CTC beam's ids differ from the CPU's")
+        return f"; CTC beam (W {pipe.beam_width}) ids on the CPU's logits equal on {len(x)} crops"
+    ids_cpu, lengths_cpu, clear = attention_margins(rec, rec_cpu, x, pipe.rec_mode,
+                                                    pipe.beam_width)
+    go = torch.full((len(x), 1), 1, dtype=torch.int64)  # AttentionCharset.GO
+    targets_in = torch.cat([go, ids_cpu[:, :-1].long()], 1)
+    compare("logits", rec_net(x.to(device), targets_in.to(device)), rec_cpu(x, targets_in), 1e-4)
+    ids, lengths = pipe.recognize(rec_net, x.to(device))
+    same = (ids.cpu() == ids_cpu).all(1) & (lengths.cpu() == lengths_cpu)
+    if not bool(same[clear].all()):
+        raise AssertionError(f"e2e cross-check: attention {pipe.rec_mode} ids differ from the "
+                             f"CPU's on {int((~same & clear).sum())} clear-margin crops")
+    return (f"; attention {pipe.rec_mode} ids equal on {int(same.sum())} of {len(x)} crops, "
+            f"{int(clear.sum())} of them clear-margin (all equal)")
 
 
 def phase_e2e():
@@ -1874,6 +1936,356 @@ def phase_decode2d():
         f"batch of 8 (CUDA events) = {8 / run_ms * 1e3:.2f} pages/s")
 
 
+def attention_model(seed: int, device="cuda", width: int = 64, dim: int = 256):
+    """Config #3 (experiments/attention_resnet18_synth.yaml): resnet18 rec2d
+    trunk of width 64, dim 256, max_len 32, 39 classes, on seeded weights."""
+    from megreader_tpu_torch.models.attention import AttentionRecognizer
+
+    rec = AttentionRecognizer(num_classes=39, backbone="resnet18", dim=dim, max_len=32,
+                              width=width, device=device)
+    seeded_weights(rec.net, seed)
+    return rec
+
+
+def shape_attention(net, images) -> None:
+    """Random weights read every crop as the same string. Centre the memory
+    projection on these crops' features and scale it to a spread of 3, and
+    make the position table and the output layer larger, so that the decodes
+    depend on the crop (and so that a comparison of ids means something)."""
+    with torch.no_grad():
+        net.eval()
+        feat = net.trunk(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        feat = feat.reshape(-1, feat.shape[-1]).double()
+        w = net.mem_proj.weight.double() * (3.0 / feat.std(0).mean())
+        net.mem_proj.weight.copy_(w)
+        net.mem_proj.bias.copy_(-(feat.mean(0) @ w.T))
+        net.pos2d.mul_(5.0)
+        net.out.weight.mul_(2.0)
+
+
+def attention_margins(rec, net_cpu, x, mode: str, beam_width: int, margin: float = 1e-3):
+    """The CPU's decode of crops ``x`` with ``net_cpu`` (``mode`` 'greedy' or
+    'beam') -> (ids, lengths, clear): ``clear`` marks the crops it decides by
+    more than ``margin``. Greedy: the chosen class beats the runner-up by
+    more than ``margin`` at every step up to the row's EOS. Beam: the chosen
+    hypothesis's score beats the runner-up's by more than ``margin`` at the
+    end. The logits and the beam's final scores are read by wrapping
+    ``decode_step`` and ``stable_top_k`` for the call."""
+    from megreader_tpu_torch.models import attention
+
+    seen = []
+    if mode == "greedy":
+        step = net_cpu.decode_step
+
+        def recording_step(*args):
+            out = step(*args)
+            seen.append(out[1])
+            return out
+
+        net_cpu.decode_step = recording_step
+        try:
+            ids, lengths = rec.decode_greedy(x, net=net_cpu)
+        finally:
+            del net_cpu.decode_step
+        top2 = torch.stack(seen, 1).topk(2, -1).values
+        live = torch.arange(ids.shape[1]).view(1, -1) < lengths.view(-1, 1)
+        return ids, lengths, ((top2[..., 0] - top2[..., 1] > margin) | ~live).all(1)
+    top_k = attention.stable_top_k
+
+    def recording_top_k(v, k):
+        out = top_k(v, k)
+        seen.append(out[0])
+        return out
+
+    attention.stable_top_k = recording_top_k
+    try:
+        ids, lengths = rec.decode_beam(x, beam_width, net=net_cpu)
+    finally:
+        attention.stable_top_k = top_k
+    return ids, lengths, seen[-1][:, 0] - seen[-1][:, 1] > margin
+
+
+def attention_step_split(exp, raw, net, optimizer):
+    """Median ms of each part of an attention train step (CUDA events, 10
+    after 3 warm-up): prepare, encode, the decoder loop (32 teacher-forced
+    steps), the loss, backward, optimizer; plus the step."""
+    parts = ("prepare", "encode", "decoder_loop", "loss", "backward", "optimizer")
+    times = {k: [] for k in parts + ("step",)}
+    for rep in range(13):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        b = exp.prepare(raw)
+        labels = b["label"].long()
+        B, T = labels.shape
+        ev[1].record()
+        net.train()
+        mem, keys = net.encode(b["image"])
+        ev[2].record()
+        y_in = torch.cat([labels.new_full((B, 1), 1), labels[:, :T - 1]], 1)  # GO first
+        state, logits = mem.new_zeros(B, net.dim), []
+        for t in range(T):
+            state, step_logits = net.decode_step(keys, mem, state, y_in[:, t])
+            logits.append(step_logits)
+        ev[3].record()
+        logp = torch.log_softmax(torch.stack(logits, 1), -1)
+        mask = (torch.arange(T, device=labels.device) < b["label_length"].view(B, 1)).float()
+        tok = torch.gather(logp, 2, labels.unsqueeze(-1))[..., 0]
+        loss = -(tok * mask).sum() / mask.sum().clamp(min=1.0)
+        ev[4].record()
+        loss.backward()
+        ev[5].record()
+        optimizer.step()
+        optimizer.zero_grad()
+        ev[6].record()
+        ev[6].synchronize()
+        if rep >= 3:
+            for k, (a, e) in zip(parts, zip(ev[:-1], ev[1:])):
+                times[k].append(a.elapsed_time(e))
+            times["step"].append(ev[0].elapsed_time(ev[6]))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def phase_attention(B: int = 64, width: int = 64, dim: int = 256):
+    """Config #3 (the attention recognizer) at full width through
+    Experiment/Trainer: 24 steps, one validation, a checkpoint that resumes;
+    one step's loss and the teacher-forced logits against the CPU; beam W 1
+    equal to greedy on the card; greedy and beam (W 5) ids of 64 crops
+    against the CPU's on clear-margin rows; the step split, the device idle
+    share and the decodes' crops/s. Returns the decodes' model (fresh seeded
+    weights shaped by ``shape_attention``) for the serving batches."""
+    from megreader_tpu_torch.experiment import Experiment
+    from megreader_tpu_torch.train.checkpoint import CheckpointManager
+    from megreader_tpu_torch.train.train_step import create_train_state, make_train_step
+
+    per_epoch, epochs = 4, 6
+    steps = per_epoch * epochs
+    opt = adam_warmup_cosine()  # config #3's optimizer is config #1's
+    # WordCrops stands in for SyntheticRecognitionDataset, whose cv2
+    # rendering the card's machine lacks; the same item contract
+    data = WordCrops(B * per_epoch, SEED + 30)
+    eval_data = WordCrops(B, SEED + 31)
+    rec = attention_model(SEED + 32, width=width, dim=dim)
+
+    with tempfile.TemporaryDirectory() as ws:
+        def experiment(model, n_epochs, **kw):
+            return Experiment(model, data, optimizer=opt, workspace=ws, batch_size=B,
+                              epochs=n_epochs, log_every=1, **kw)
+
+        exp = experiment(rec, epochs, eval_dataset=eval_data, validate_every_steps=steps)
+        t0 = time.perf_counter()
+        state = exp.make_trainer().train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(ws, "train_metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in lines if "loss" in r]
+        evals = [r for r in lines if "eval/accuracy" in r]
+        first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        log(f"attention (config #3): {state.step} steps of {B} crops in {wall:.2f} s (host "
+            f"clock, loader, logging, checkpoint and one validation included); loss mean of "
+            f"the first 5 steps {first:.4f}, of the last 5 {last:.4f}; losses {losses}")
+        if state.step != steps or len(losses) != steps:
+            raise AssertionError(f"attention ran {state.step} steps and logged {len(losses)}")
+        if not all(np.isfinite(losses)) or not last < first:
+            raise AssertionError("attention: losses must be finite and fall")
+        if len(evals) != 1 or evals[0]["step"] != steps or evals[0]["eval/n"] != B:
+            raise AssertionError(f"attention: expected one validation at step {steps}: {evals}")
+        log(f"attention validation (evaluate_recognition, greedy, {B} crops) at step {steps}: "
+            f"accuracy {evals[0]['eval/accuracy']}, ned {evals[0]['eval/ned']}")
+
+        rec2 = attention_model(SEED + 33, width=width, dim=dim)
+        restored = CheckpointManager(ws).restore(create_train_state(rec2, opt))
+        same = all(torch.equal(a, b) for a, b in zip(rec.net.state_dict().values(),
+                                                    rec2.net.state_dict().values()))
+        if restored.step != steps or restored.optimizer.count != steps or not same:
+            raise AssertionError("attention: the checkpoint did not restore the trained state")
+        resumed = experiment(rec2, epochs + 1).make_trainer().train(resume=True)
+        if resumed.step != steps + per_epoch:
+            raise AssertionError(f"attention: resume ended at step {resumed.step}")
+        log(f"attention: restored step {restored.step} into a fresh model, resumed to "
+            f"{resumed.step}")
+
+    raw = exp.collate([data[i] for i in range(B)])
+    batch = exp.prepare(raw)
+    cpu = attention_model(SEED + 34, device="cpu", width=width, dim=dim)
+    cpu.net.load_state_dict(rec.net.state_dict())
+    batch_cpu = {k: v.cpu() for k, v in batch.items()}
+
+    # one train-mode loss (on copies: BatchNorm's running statistics move)
+    # and the teacher-forced logits (eval mode), the card against the CPU
+    card_copy, cpu_copy = copy.deepcopy(rec), copy.deepcopy(cpu)
+    loss_d = float(card_copy.loss(batch, train=True)[1]["loss"])
+    loss_c = float(cpu_copy.loss(batch_cpu, train=True)[1]["loss"])
+    labels = batch_cpu["label"].long()
+    targets_in = torch.cat([torch.ones_like(labels[:, :1]), labels[:, :-1]], 1)  # GO first
+    with torch.no_grad():
+        tf_d = rec.net.eval()(batch["image"], targets_in.cuda()).cpu()
+        tf_c = cpu.net.eval()(batch_cpu["image"], targets_in)
+    # float32 sums in another order: the logits are held on their own scale
+    # (rtol 1e-4 of their largest magnitude, atol 1e-5), as cross_check does
+    tf_diff, tf_scale = float((tf_d - tf_c).abs().max()), float(tf_c.abs().max())
+    log(f"attention card vs CPU: train-mode loss {loss_d} vs {loss_c}; teacher-forced logits "
+        f"max |diff| {tf_diff:.3g} (max |CPU| {tf_scale:.3g})")
+    if abs(loss_d - loss_c) > 1e-4 * max(1.0, abs(loss_c)):
+        raise AssertionError("attention: the card's loss disagrees with the CPU's")
+    if not tf_diff <= 1e-5 + 1e-4 * tf_scale:
+        raise AssertionError("attention: the card's teacher-forced logits disagree with the CPU's")
+
+    # time: the step (events), its split, kernel-busy and idle share
+    state = create_train_state(rec, opt)
+    split = attention_step_split(exp, raw, rec.net, state.optimizer)
+    step_fn = make_train_step(rec, prepare=exp.prepare)
+    busy = device_busy_ms(lambda: step_fn(state, raw))
+    step_ms = cuda_ms(lambda: step_fn(state, raw), reps=10)
+    idle = "not measured" if busy is None else f"{1.0 - busy / step_ms:.4f}"
+    log("attention step split (ms, median of 10, CUDA events): " + json.dumps(split)
+        + f"; {B / split['step'] * 1e3:.1f} crops/s")
+    log(f"attention step (make_train_step, CUDA events, median of 10): {step_ms} ms = "
+        f"{B / step_ms * 1e3:.1f} crops/s; kernel-busy {busy} ms; device idle share {idle}")
+
+    # the decodes, on fresh seeded weights shaped so that they depend on the
+    # crop (the trained net reads most crops as one string)
+    x, x_cpu = batch["image"], batch_cpu["image"]
+    dec = attention_model(SEED + 35, width=width, dim=dim)
+    shape_attention(dec.net, x)
+    cpu.net.load_state_dict(dec.net.state_dict())
+    greedy = dec.decode_greedy(x)
+    beam1 = dec.decode_beam(x, beam_width=1)
+    if not all(torch.equal(a, b) for a, b in zip(greedy, beam1)):
+        rows = int((~(greedy[0] == beam1[0]).all(1)).sum())
+        raise AssertionError(f"attention: beam W 1 differs from greedy on {rows} rows")
+    notes = {}
+    for mode, got in (("greedy", greedy), ("beam", dec.decode_beam(x, beam_width=5))):
+        ids_c, lengths_c, clear = attention_margins(cpu, cpu.net, x_cpu, mode, 5)
+        same = (got[0].cpu() == ids_c).all(1) & (got[1].cpu() == lengths_c)
+        notes[mode] = {"equal": int(same.sum()), "clear_margin": int(clear.sum()),
+                       "other_rows": int((~clear).sum()),
+                       "distinct_strings": len({tuple(r) for r in ids_c.tolist()})}
+        if not bool(same[clear].all()):
+            raise AssertionError(f"attention {mode}: ids differ from the CPU's on "
+                                 f"{int((~same & clear).sum())} clear-margin rows")
+    log(f"attention decodes of {B} crops: beam W 1 equal to greedy bit for bit; card vs CPU "
+        f"(W 5 for the beam): " + json.dumps(notes))
+    decodes = {"greedy": lambda: dec.decode_greedy(x),
+               "beam_w5": lambda: dec.decode_beam(x, beam_width=5)}
+    times = {}
+    for name, fn in decodes.items():
+        ms = cuda_ms(fn, reps=5)
+        times[name] = {"ms": ms, "busy_ms": device_busy_ms(fn), "crops_per_s": B / ms * 1e3}
+    log(f"attention decode of {B} crops (CUDA events, median of 5; kernel-busy): "
+        + json.dumps(times))
+    return dec
+
+
+def beam_logits(rng, B: int = 256, T: int = 50, C: int = 37) -> np.ndarray:
+    """``scripts/bench_beam.py``'s logits: N(0, 1), then per row runs of 3-8
+    frames with blank at 12 (62%) or single frames with a symbol at 9."""
+    logits = rng.standard_normal((B, T, C)).astype(np.float32)
+    for b in range(B):
+        t = 0
+        while t < T:
+            if rng.random() < 0.62:
+                run = int(rng.integers(3, 9))
+                logits[b, t:t + run, 0] = 12.0
+                t += run
+            else:
+                logits[b, t, int(rng.integers(1, C))] = 9.0
+                t += 1
+    return logits
+
+
+def phase_beam(B: int = 256):
+    """``ctc_beam_decode`` on the card at ``scripts/bench_beam.py``'s shape and
+    logits (B 256, T 50, C 37, W 8, seed 0) with ``blank_collapse`` 1.0 and
+    0.999: ids and lengths equal to the CPU's on every row; times."""
+    from megreader_tpu_torch.ops.ctc import ctc_beam_decode
+
+    T, W = 50, 8
+    logits_cpu = torch.from_numpy(beam_logits(np.random.default_rng(0), B, T))
+    lengths_cpu = torch.full((B,), T, dtype=torch.int32)
+    logits, lengths = logits_cpu.cuda(), lengths_cpu.cuda()
+    out = {}
+    for collapse in (1.0, 0.999):
+        ids, lens = ctc_beam_decode(logits, lengths, beam_width=W, blank_collapse=collapse)
+        ids_c, lens_c = ctc_beam_decode(logits_cpu, lengths_cpu, beam_width=W,
+                                        blank_collapse=collapse)
+        rows = int((~((ids.cpu() == ids_c).all(1) & (lens.cpu() == lens_c))).sum())
+        if rows:
+            raise AssertionError(f"beam (collapse {collapse}): {rows} rows differ from the CPU's")
+
+        def fn():
+            return ctc_beam_decode(logits, lengths, beam_width=W, blank_collapse=collapse)
+
+        out[str(collapse)] = {"ms": cuda_ms(fn, reps=5), "busy_ms": device_busy_ms(fn),
+                              "mean_length": float(lens_c.float().mean())}
+    log(f"beam (ctc_beam_decode, B {B}, T {T}, C 37, W {W}): ids and lengths equal to the "
+        f"CPU's on all {B} rows at both settings; by blank_collapse (CUDA events, median of "
+        f"5; kernel-busy): " + json.dumps(out))
+
+
+def serving_batch(name, pipe, det, rec, pages, pages_np):
+    """One serving batch of ``pipe`` held to the CPU on one page
+    (``cross_check``), with its pages/s and per-stage ms (CUDA events)."""
+    from megreader_tpu_torch.ops.ccl import connected_components_cuda
+
+    cross_check(pipe, det.net, rec.net, pages_np[:1])
+    connected_components_cuda.launches = 0
+    out = pipe.run(None, None, pages)
+    torch.cuda.synchronize()
+    B, K = out["valid"].shape
+    if connected_components_cuda.launches != 1:
+        raise AssertionError(f"{name}: the CCL kernel ran {connected_components_cuda.launches} "
+                             "times in one batch")
+    if tuple(out["ids"].shape[:2]) != (B, K) or not bool(out["valid"].any()):
+        raise AssertionError(f"{name}: ids {tuple(out['ids'].shape)}, "
+                             f"{int(out['valid'].sum())} valid slots")
+    with torch.no_grad():
+        prob = pipe.detect(det.net, pages)
+        labels = pipe.label(prob)
+        reg = pipe.regions(labels, prob)
+        crops = pipe.crops(pages, reg)
+        stages = {
+            "detector": lambda: pipe.detect(det.net, pages),
+            "ccl": lambda: pipe.label(prob),
+            "extract": lambda: pipe.regions(labels, prob),
+            "rectify": lambda: pipe.crops(pages, reg),
+            "recognizer": lambda: pipe.recognize(rec.net, crops),
+        }
+        stage_ms = {k: cuda_ms(f, reps=5) for k, f in stages.items()}
+        run_ms = cuda_ms(lambda: pipe.run(None, None, pages), reps=5)
+    texts = [pipe.charset.decode(i[:n]) for i, n, v in zip(
+        out["ids"][0].tolist(), out["lengths"][0].tolist(), out["valid"][0].tolist()) if v]
+    log(f"{name}: {int(out['valid'].sum())} valid regions on {B} pages, first page texts "
+        f"{texts[:6]}; stage ms (median of 5, CUDA events) " + json.dumps(stage_ms)
+        + f"; batch {run_ms} ms = {B / run_ms * 1e3:.2f} pages/s")
+
+
+def phase_serving(att, B: int = 8, hw: int = 640):
+    """Serving batches of 8 640x640 pages: the config-#1 recognizer with
+    ``rec_mode='beam'``, then the config-#3 recognizer ``att`` greedy and
+    beam, each held to the CPU on one page."""
+    from megreader_tpu_torch.models.detector import SegDetector
+    from megreader_tpu_torch.models.recognizer import CTCRecognizer
+    from megreader_tpu_torch.pipelines.e2e import E2EPipeline
+
+    rng = np.random.default_rng(SEED + 1)
+    det = SegDetector(device="cuda")
+    rec = CTCRecognizer(num_classes=37, device="cuda")
+    seeded_weights(det.net, SEED + 2)
+    seeded_weights(rec.net, SEED + 3)
+    pages_np = make_pages(rng, B, hw, hw)
+    pages = torch.from_numpy(pages_np).cuda()
+    kw = dict(max_regions=32, rectify="perspective", ccl_iters=24, box_thresh=0.3,
+              device="cuda")
+    pipe = E2EPipeline(det, rec, rec_mode="beam", **kw)
+    calibrate_prob_head(pipe, det.net, pages)
+    serving_batch("serving config #1, rec_mode='beam' (W 8)", pipe, det, rec, pages, pages_np)
+    for mode in ("greedy", "beam"):
+        pipe = E2EPipeline(det, att, rec_mode=mode, **kw)
+        serving_batch(f"serving config #3 (attention), rec_mode={mode!r}"
+                      + (" (W 8)" if mode == "beam" else ""), pipe, det, att, pages, pages_np)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1890,6 +2302,8 @@ def main() -> int:
     alpha2d_row["launches"], beta2d_row["launches"] = phase_train2d()
     phase_decode2d()
     phase_traindet()
+    phase_serving(phase_attention())
+    phase_beam()
     log(json.dumps({"kernels": [ccl_row, *extract_rows, alpha_row, beta_row, alpha2d_row,
                                 beta2d_row]}))
     log(json.dumps({"ok": True, "device": {

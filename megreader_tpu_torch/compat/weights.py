@@ -5,13 +5,18 @@ arrays) maps onto a port module's parameters and buffers by name:
 
 * the module path is the same, with the trunk's ``backbone`` named
   ``ResNet_0`` on the flax side (the 2D-CTC net's heads ``class_head``,
-  ``height_head``, ``trans_head`` and ``init_head``, and the detector's
-  ``fpn``, ``prob_head`` and ``thresh_head``, keep their names);
+  ``height_head``, ``trans_head`` and ``init_head``, the detector's ``fpn``,
+  ``prob_head`` and ``thresh_head``, and the attention net's ``trunk``,
+  ``mem_proj``, ``embed``, ``gru``, ``attn_*`` and ``out``, keep their names);
 * ``Conv2d.weight`` <- ``kernel`` (HWIO -> OIHW), ``Conv2d.bias`` <- ``bias``;
-* ``Linear.weight`` <- ``kernel`` ((in, out) -> (out, in)), ``bias`` as is;
+* ``Linear.weight`` <- ``kernel`` ((in, out) -> (out, in)), ``bias`` as is
+  where the layer has one;
+* ``Embedding.weight`` <- ``embedding``, as it is;
 * ``BatchNorm2d`` ``weight``/``bias`` <- ``scale``/``bias`` in params,
   ``running_mean``/``running_var`` <- ``mean``/``var`` in batch_stats;
-* LSTM ``w_ih``/``w_hh``/``b_ih``/``b_hh`` as they are.
+* LSTM and GRU cell ``w_ih``/``w_hh``/``b_ih``/``b_hh`` as they are;
+* the root module's own parameter ``pos2d`` (the attention net's, which flax
+  makes inside ``encode``) <- ``params/pos2d``, as it is.
 
 Every port entry must be found and every flax entry used: a missing or
 leftover key, or a shape that differs, raises. ``export_flax_variables`` maps
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..models.attention import GRUCellTorchlike
 from ..models.sequence import LSTM
 
 Path = Tuple[str, ...]
@@ -40,6 +46,10 @@ def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
         else:
             out[prefix + (str(k),)] = np.asarray(v)
     return out
+
+
+#: parameters that the root module holds itself, by name
+_ROOT_PARAMS = ("pos2d",)
 
 
 def _flax_module_path(name: str) -> Path:
@@ -63,17 +73,24 @@ def _entries(module: nn.Module):
                 yield pre + "bias", "params", path + ("bias",), None
         elif isinstance(m, nn.Linear):
             yield pre + "weight", "params", path + ("kernel",), "linear"
-            yield pre + "bias", "params", path + ("bias",), None
+            if m.bias is not None:
+                yield pre + "bias", "params", path + ("bias",), None
+        elif isinstance(m, nn.Embedding):
+            yield pre + "weight", "params", path + ("embedding",), None
         elif isinstance(m, nn.BatchNorm2d):
             yield pre + "weight", "params", path + ("scale",), None
             yield pre + "bias", "params", path + ("bias",), None
             yield pre + "running_mean", "batch_stats", path + ("mean",), None
             yield pre + "running_var", "batch_stats", path + ("var",), None
-        elif isinstance(m, LSTM):
+        elif isinstance(m, (LSTM, GRUCellTorchlike)):
             for p in ("w_ih", "w_hh", "b_ih", "b_hh"):
                 yield pre + p, "params", path + (p,), None
-        elif any(True for _ in m.parameters(recurse=False)):
-            raise TypeError(f"no flax mapping for module {name!r} ({type(m).__name__})")
+        else:
+            for p, _ in m.named_parameters(recurse=False):
+                if name or p not in _ROOT_PARAMS:
+                    raise TypeError(f"no flax mapping for parameter {p!r} of module {name!r} "
+                                    f"({type(m).__name__})")
+                yield p, "params", (p,), None
 
 
 def _named_tensors(module: nn.Module) -> Dict[str, torch.Tensor]:
@@ -143,7 +160,8 @@ def export_flax_variables(module: nn.Module,
 
 def seeded_flax_variables(variables: Mapping, seed: int) -> Dict:
     """A copy of a flax variables tree with every leaf redrawn from a numpy
-    generator: kernels and LSTM weights N(0, 1/fan_in), biases N(0, 0.05²),
+    generator: kernels, LSTM and GRU weights N(0, 1/fan_in), embeddings and
+    ``pos2d`` N(0, 1/D) (D their last axis), biases N(0, 0.05²),
     BN scale 1 + N(0, 0.1²), BN mean N(0, 0.05²), BN var U(0.5, 1.5).
 
     Random weights that both packages can share, made without a framework's
@@ -159,7 +177,7 @@ def seeded_flax_variables(variables: Mapping, seed: int) -> Dict:
             a = 1.0 + 0.1 * rng.standard_normal(shape)
         elif name in ("bias", "b_ih", "b_hh"):
             a = 0.05 * rng.standard_normal(shape)
-        else:  # kernel (..., in, out) or w_ih / w_hh (4H, in)
+        else:  # kernel (..., in, out), w_ih / w_hh (gates x H, in), embedding, pos2d
             fan_in = int(np.prod(shape[:-1])) if name == "kernel" else shape[-1]
             a = rng.standard_normal(shape) / np.sqrt(fan_in)
         return a.astype(np.float32)

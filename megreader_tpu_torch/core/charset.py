@@ -1,4 +1,4 @@
-"""CTC charset: char <-> index maps, blank at index 0."""
+"""Charsets: CTC (blank at index 0) and attention (PAD, GO, EOS, then characters)."""
 
 from __future__ import annotations
 
@@ -58,3 +58,39 @@ class Charset:
 
     def decode_batch(self, ids: np.ndarray, lengths: np.ndarray) -> List[str]:
         return [self.decode(row[: int(n)]) for row, n in zip(np.asarray(ids), np.asarray(lengths))]
+
+
+class AttentionCharset(Charset):
+    """Charset for attentional decoders: PAD 0, GO 1, EOS 2, characters from 3
+    (39 classes with the default alphabet)."""
+
+    PAD, GO, EOS = 0, 1, 2
+    NUM_SPECIAL = 3
+
+    def __init__(self, alphabet: str = DEFAULT_ALPHABET, case_sensitive: bool = False):
+        super().__init__(alphabet, case_sensitive)
+        self._c2i = {c: i + self.NUM_SPECIAL for i, c in enumerate(self.alphabet)}
+        self._i2c = {i + self.NUM_SPECIAL: c for i, c in enumerate(self.alphabet)}
+
+    @property
+    def num_classes(self) -> int:
+        return len(self.alphabet) + self.NUM_SPECIAL
+
+    def encode(self, text: str, max_len: int) -> Tuple[np.ndarray, int]:
+        """-> ids ended by EOS, then PAD; the length includes the EOS."""
+        ids = [self._c2i[c] for c in self.normalize(text)][: max_len - 1]
+        ids.append(self.EOS)
+        out = np.full((max_len,), self.PAD, dtype=np.int32)
+        out[: len(ids)] = ids
+        return out, len(ids)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        """Characters up to the first EOS; control tokens are dropped."""
+        chars = []
+        for i in ids:
+            i = int(i)
+            if i == self.EOS:
+                break
+            if i >= self.NUM_SPECIAL:
+                chars.append(self._i2c.get(i, ""))
+        return "".join(chars)

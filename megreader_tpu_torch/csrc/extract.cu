@@ -201,16 +201,21 @@ constexpr int kCandTile = kCandWarps * kGroup * kChunk;  // pixels a block
 // look-back status of a tile: flag in the high word, count or prefix in the low
 constexpr unsigned long long kCountReady = 1ull << 32, kPrefixReady = 2ull << 32;
 
-// A 1-D grid of B * T blocks, block g taking tile g % T of page g / T. The
-// look-back waits only on lower blocks, which the card starts first (as CUB's
-// single-pass scan assumes). status (B, T) is zero at launch.
+// A 1-D grid of B * T blocks. A block takes its tile from a ticket, one
+// atomicAdd on a counter, and not from blockIdx.x: ticket g is tile g % T of
+// page g / T. Every lower ticket was drawn by a block that is already running,
+// so the look-back waits only on tiles that are in progress or done, in
+// whatever order the card starts the blocks. status (B, T) and the ticket
+// counter are zero at launch.
 template <bool kVec>
 __global__ void __launch_bounds__(kCandThreads)
     rank_roots_kernel(const int* __restrict__ labels, unsigned long long* status,
-                      int* __restrict__ cand_idx, int N, int T, int K2) {
-  __shared__ int s_warp[kCandWarps], s_prefix;
+                      unsigned* ticket, int* __restrict__ cand_idx, int N, int T, int K2) {
+  __shared__ int s_warp[kCandWarps], s_prefix, s_ticket;
   EXTRACT_STAMP(0, 0);
-  const int b = static_cast<int>(blockIdx.x) / T, t = static_cast<int>(blockIdx.x) % T;
+  if (threadIdx.x == 0) s_ticket = static_cast<int>(atomicAdd(ticket, 1u));
+  __syncthreads();
+  const int b = s_ticket / T, t = s_ticket % T;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int* l = labels + static_cast<int64_t>(b) * N;
   const int64_t base =
@@ -882,10 +887,11 @@ cudaError_t opt_in(Kernel kernel, size_t smem) {
 }  // namespace
 
 // The candidates' scratch in bytes: look-back status (B, T) as 64-bit words,
-// then the pages' done counters (B) and counts (B, K2).
+// then the pages' done counters (B), counts (B, K2) and the rank pass's
+// ticket counter.
 extern "C" long long mr_extract_candidates_scratch_bytes(int B, int N, int K2) {
   const int64_t T = (int64_t{N} + kCandTile - 1) / kCandTile;
-  return int64_t{B} * T * 8 + (int64_t{B} + int64_t{B} * K2) * 4;
+  return int64_t{B} * T * 8 + (int64_t{B} + int64_t{B} * K2 + 1) * 4;
 }
 
 // labels (B, N) int32 -> cand_idx (B, K2) int32, areas (B, K2) float32;
@@ -903,6 +909,7 @@ extern "C" int mr_extract_candidates(const void* labels, void* scratch, void* ca
     unsigned long long* status = static_cast<unsigned long long*>(scratch);
     unsigned* done = reinterpret_cast<unsigned*>(status + int64_t{B} * T);
     int* counts = reinterpret_cast<int*>(done + B);
+    unsigned* ticket = reinterpret_cast<unsigned*>(counts + int64_t{B} * K2);
     // the table: 8 K2 entries where they fit, at least 2 K2
     int bits = table_bits(8 * int64_t{K2});
     auto smem = [&](int bb) { return (size_t{1} << bb) * sizeof(int2) + K2 * sizeof(int); };
@@ -914,7 +921,7 @@ extern "C" int mr_extract_candidates(const void* labels, void* scratch, void* ca
     if (err != cudaSuccess) return static_cast<int>(err);
     const int* lbl = static_cast<const int*>(labels);
     rank<<<static_cast<unsigned>(int64_t{B} * T), kCandThreads, 0, st>>>(
-        lbl, status, static_cast<int*>(cand_idx), N, T, K2);
+        lbl, status, ticket, static_cast<int*>(cand_idx), N, T, K2);
     area<<<dim3(T, B), kCandThreads, smem(bits), st>>>(lbl, status,
                                                       static_cast<const int*>(cand_idx), counts,
                                                       done, static_cast<float*>(areas), N, T,

@@ -18,7 +18,8 @@ from .postproc.measurers import DetectionMeasurer, DetEvalMeasurer, RecognitionM
 
 def evaluate_recognition(exp, net: nn.Module = None, mode: str = "greedy") -> Dict[str, float]:
     """Accuracy, normalized edit distance and count over ``exp.eval_loader``;
-    ``net`` (None: the model's own module) decodes."""
+    ``net`` (None: the model's own module) decodes, by ``mode`` 'greedy' or
+    'beam' (``RecognizerPredictor``'s width)."""
     if exp.eval_loader is None:
         raise ValueError("experiment has no eval dataset")
     predictor = RecognizerPredictor(exp.model, exp.charset, crop_hw=exp.crop_hw, mode=mode)

@@ -28,15 +28,15 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .core.charset import Charset
 from .data.loader import Loader, detection_collate, detection_collate_polys, recognition_collate
 from .evaluation import evaluate
 from .ops.gt_maps import make_detection_gt
 from .ops.image import normalize, resize_with_aspect_pad
+from .pipelines.predictors import default_charset
 from .train.train_step import OptimizerConfig
 from .train.trainer import Trainer
 
-RECOGNITION_TASKS = {"CTCRecognizer", "Ctc2dRecognizer"}
+RECOGNITION_TASKS = {"CTCRecognizer", "Ctc2dRecognizer", "AttentionRecognizer"}
 DETECTION_TASKS = {"SegDetector"}
 #: the dataset attributes that set the device GT maps' geometry
 _GT_ATTRS = ("shrink_ratio", "min_text_size", "thresh_min", "thresh_max")
@@ -80,8 +80,9 @@ def _detection_prepare_device(batch: Dict, gt_kwargs: Optional[Dict] = None,
 
 class Experiment:
     """Model + dataset + optimizer + trainer wiring, for ``CTCRecognizer``,
-    ``Ctc2dRecognizer`` (whose net must be built for the same ``crop_hw``) and
-    ``SegDetector``."""
+    ``Ctc2dRecognizer`` and ``AttentionRecognizer`` (whose nets must be built
+    for the same ``crop_hw``; the attention task's charset defaults to
+    ``AttentionCharset``) and ``SegDetector``."""
 
     def __init__(
         self,
@@ -108,8 +109,8 @@ class Experiment:
         self.task = model.__class__.__name__
         if self.task not in RECOGNITION_TASKS | DETECTION_TASKS:
             raise NotImplementedError(
-                f"task {self.task}: only the CTC and 2D-CTC recognizers' and the detector's "
-                "training is ported (ROADMAP Queue 1 items 10, 13)"
+                f"task {self.task}: only the recognizers' and the detector's training is "
+                "ported (ROADMAP Queue 1 item 13)"
             )
         if augment:
             raise NotImplementedError(
@@ -117,7 +118,7 @@ class Experiment:
             )
         self.workspace = workspace
         self.crop_hw = tuple(crop_hw)
-        self.charset = charset or Charset()
+        self.charset = charset or default_charset(model)
         device = next(model.net.parameters()).device
         if self.task in RECOGNITION_TASKS:
             self.collate = functools.partial(

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ..ops.ctc import ctc_greedy_decode, ctc_loss
+from ..ops.ctc import ctc_beam_decode, ctc_greedy_decode, ctc_loss
 from .resnet import resnet_variant
 from .sequence import StackedBiLSTM
 
@@ -43,8 +43,8 @@ class CTCRecognizerNet(nn.Module):
 
 class CTCRecognizer:
     """Task wrapper: the net on ``device``, the CTC training loss, greedy
-    decode. ``loss`` and ``decode`` put the net in train or eval mode
-    themselves."""
+    and prefix-beam decode. ``loss`` and ``decode`` put the net in train or
+    eval mode themselves."""
 
     def __init__(self, num_classes: int = 37, backbone: str = "resnet18",
                  encoder: str = "bilstm", hidden: int = 256, num_encoder_layers: int = 2,
@@ -70,16 +70,20 @@ class CTCRecognizer:
         return loss, {"loss": loss.detach()}
 
     @torch.no_grad()
-    def decode(self, images: torch.Tensor, mode: str = "greedy", net: nn.Module = None):
-        """NHWC crops -> (ids (B, T) int32, lengths (B,) int32). ``net``
-        overrides the wrapper's own module (same architecture)."""
-        if mode != "greedy":
-            raise NotImplementedError(
-                f"decode mode {mode!r}: prefix beam search is not ported yet "
-                "(ROADMAP Queue 1 item 3)"
-            )
+    def decode(self, images: torch.Tensor, mode: str = "greedy", net: nn.Module = None,
+               beam_width: int = 8, blank_collapse: float = 1.0):
+        """NHWC crops -> (ids (B, T) int32, lengths (B,) int32): ``mode``
+        'greedy' or 'beam' (``ctc_beam_decode`` of width ``beam_width``;
+        ``blank_collapse`` < 1 drops blank-dominated frames first). The
+        logits are taken in float32. ``net`` overrides the wrapper's own
+        module (same architecture)."""
         net = self.net if net is None else net
         logits = net.eval()(images).float()
         B, T, _ = logits.shape
         lengths = torch.full((B,), T, dtype=torch.int32, device=logits.device)
-        return ctc_greedy_decode(logits, lengths, blank=self.blank)
+        if mode == "greedy":
+            return ctc_greedy_decode(logits, lengths, blank=self.blank)
+        if mode == "beam":
+            return ctc_beam_decode(logits, lengths, beam_width=beam_width, blank=self.blank,
+                                   blank_collapse=blank_collapse)
+        raise ValueError(f"unknown decode mode {mode!r}")

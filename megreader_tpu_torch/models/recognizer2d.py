@@ -19,11 +19,13 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..ops.ctc import ctc_beam_decode
 from ..ops.ctc2d import (
     ctc2d_greedy_decode,
     ctc2d_loss_independent,
     ctc2d_loss_markov,
     ctc2d_viterbi_height_decode,
+    fuse_heights,
 )
 from .resnet import resnet_variant
 
@@ -77,9 +79,9 @@ class Ctc2dRecognizerNet(nn.Module):
 
 class Ctc2dRecognizer:
     """Task wrapper: the net on ``device``, the 2D-CTC training loss and the
-    decode (greedy for independent heights, Viterbi over the height chain for
-    Markov heights). ``loss`` and ``decode`` put the net in train or eval mode
-    themselves."""
+    decode (greedy or prefix beam for independent heights, Viterbi over the
+    height chain for Markov heights). ``loss`` and ``decode`` put the net in
+    train or eval mode themselves."""
 
     def __init__(self, num_classes: int = 37, backbone: str = "resnet18",
                  transition: str = "independent", blank: int = 0, width: int = 64,
@@ -110,19 +112,22 @@ class Ctc2dRecognizer:
         return loss, {"loss": loss.detach()}
 
     @torch.no_grad()
-    def decode(self, images: torch.Tensor, mode: str = "greedy", net: nn.Module = None):
-        """NHWC crops -> (ids (B, T) int32, lengths (B,) int32). Markov heights
-        decode by Viterbi whatever ``mode`` says, as in the JAX package.
-        ``net`` overrides the wrapper's own module (same architecture)."""
+    def decode(self, images: torch.Tensor, mode: str = "greedy", net: nn.Module = None,
+               beam_width: int = 8, blank_collapse: float = 1.0):
+        """NHWC crops -> (ids (B, T) int32, lengths (B,) int32). Independent
+        heights: ``mode`` 'greedy', or 'beam' (``ctc_beam_decode`` of the
+        heights' fused 1-D posterior); Markov heights decode by Viterbi
+        whatever ``mode`` says, as in the JAX package. ``net`` overrides the
+        wrapper's own module (same architecture)."""
         net = self.net if net is None else net
-        heads = net.eval()(images)
+        heads = tuple(h.float() for h in net.eval()(images))
         B, T = heads[0].shape[:2]
         lengths = torch.full((B,), T, dtype=torch.int32, device=heads[0].device)
         if self.transition == "markov":
             return ctc2d_viterbi_height_decode(*heads, lengths, blank=self.blank)
+        if mode == "beam":
+            return ctc_beam_decode(fuse_heights(*heads), lengths, beam_width=beam_width,
+                                   blank=self.blank, blank_collapse=blank_collapse)
         if mode != "greedy":
-            raise NotImplementedError(
-                f"decode mode {mode!r}: beam search over the fused heights is not ported "
-                "(ROADMAP Queue 1 item 9)"
-            )
+            raise ValueError(f"unknown decode mode {mode!r}")
         return ctc2d_greedy_decode(*heads, lengths, blank=self.blank)

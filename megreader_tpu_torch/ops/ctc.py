@@ -1,4 +1,4 @@
-"""CTC loss and greedy decoding.
+"""CTC loss, greedy decoding and prefix beam search.
 
 ``ctc_loss`` is the CTC negative log-likelihood from unnormalized logits
 (B, T, C): ``log_softmax`` in torch, then the NLL, then the reduction. The NLL
@@ -18,6 +18,11 @@ or below ``NEG_INF / 2`` gives ``NEG_INF``, alpha is frozen from
 row with no alignment so has a finite loss of about 1e30, where
 ``torch.nn.functional.ctc_loss`` gives ``inf``, and its gradient is -1/2 at
 the two terminal states' classes at the row's last step.
+
+``ctc_beam_decode`` (with ``blank_collapse_frames``) is PyTorch code on
+either device, as its JAX counterpart is jnp: the same sentinel, wrapping
+int32 prefix hashes and lower-index-first tie order, so that the same logits
+give the same ids.
 """
 
 from __future__ import annotations
@@ -398,3 +403,195 @@ def ctc_greedy_decode(logits: torch.Tensor, logit_lengths: torch.Tensor,
     out = torch.zeros((B, T + 1), dtype=torch.int32, device=logits.device)
     out.scatter_(1, slot, torch.where(keep, am, 0).to(torch.int32))
     return out[:, :T], lengths
+
+
+# --------------------------------------------------------------------------
+# CTC prefix beam search (fixed width), a port of the JAX package's
+# ``ctc_beam_decode``: the same candidates, hashes, sentinel and tie order, so
+# the same logits give the same best prefix.
+# --------------------------------------------------------------------------
+
+#: rolling-hash multipliers of a prefix's identity, in wrapping int32 arithmetic
+H1, H2 = 1000003, 1000033
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values wrapped to signed 32 bits (int32 overflow, made explicit)."""
+    return ((x + 2**31) & 0xFFFFFFFF) - 2**31
+
+
+def _logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """log(e^a + e^b), NEG_INF where the larger lies at or below NEG_INF / 2."""
+    m = torch.maximum(a, b)
+    return torch.where(m <= NEG_INF / 2, NEG_INF,
+                       m + torch.log(torch.exp(a - m) + torch.exp(b - m)))
+
+
+def _logsumexp_last(x: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last axis as ``jax.nn.logsumexp`` computes it (the
+    maximum added after the log); the entries here are finite."""
+    m = x.amax(-1)
+    return torch.log(torch.exp(x - m.unsqueeze(-1)).sum(-1)) + m
+
+
+def stable_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest along the last axis, lower index first among equal
+    values (``jax.lax.top_k``'s order; ``torch.topk`` promises none)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def blank_collapse_frames(log_probs: torch.Tensor, logit_lengths: torch.Tensor,
+                          blank: int = 0, threshold: float = 0.999
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Drop blank-dominated frames before the beam (Lee et al. 2022,
+    arXiv:2210.17017).
+
+    A frame whose blank log-prob is at least log(``threshold``) only extends
+    every beam with blank; a run of such frames folds into one update with the
+    run's summed blank log-prob, applied before the next kept frame.
+
+    Returns (the kept frames' log-probs (B, T, C), left-packed and zero after
+    them, kept lengths (B,) int32, pre_blank (B, T): the summed blank log-prob
+    of the run before each kept frame, NEG_INF where the frame before was
+    kept)."""
+    B, T, C = log_probs.shape
+    dev = log_probs.device
+    lengths = logit_lengths.to(dev).long().view(B, 1)
+    in_range = torch.arange(T, device=dev).view(1, T) < lengths
+    log_thresh = torch.log(torch.tensor(threshold, dtype=log_probs.dtype, device=dev))
+    dom = (log_probs[:, :, blank] >= log_thresh) & in_range
+    keep = ~dom & in_range
+    lp_blank = torch.where(dom, log_probs[:, :, blank], 0.0)
+    # the summed blank log-prob of the dominated run that ends at each frame
+    run = log_probs.new_zeros(B)
+    runs = []
+    for t in range(T):
+        run = torch.where(dom[:, t], run + lp_blank[:, t], 0.0)
+        runs.append(run)
+    run_sums = torch.stack(runs, 1)
+    prev_dom = F.pad(dom, (1, 0))[:, :T]
+    prev_run = F.pad(run_sums, (1, 0))[:, :T]
+    pre = torch.where(prev_dom, prev_run, NEG_INF)
+    pos = torch.cumsum(keep, 1) - 1
+    kept = keep.sum(1).to(torch.int32)
+    slot = torch.where(keep, pos, T)  # dropped frames go to slot T
+    out = log_probs.new_zeros((B, T + 1, C))
+    out.scatter_(1, slot.unsqueeze(-1).expand(B, T, C), log_probs)
+    pre_out = log_probs.new_full((B, T + 1), NEG_INF)
+    pre_out.scatter_(1, slot, pre)
+    return out[:, :T], kept, pre_out[:, :T]
+
+
+def ctc_beam_decode(logits: torch.Tensor, logit_lengths: torch.Tensor, beam_width: int = 8,
+                    blank: int = 0, blank_collapse: float = 1.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched CTC prefix beam search of fixed width W.
+
+    Per beam: the prefix (a (T,) buffer), its length, the log-probs p_b (paths
+    ending in blank) and p_nb (ending in the last symbol), its last symbol and
+    two rolling hashes. Each frame builds W stay candidates (blank, or the
+    last symbol repeated) and W*C extend candidates, keeps the best 4W, merges
+    those with equal (hash 1, hash 2, length) into the first of them (an
+    O(P^2) masked fold), and keeps the best W. The loop runs to the batch's
+    longest length, read from the host once; a row past its own length is
+    frozen. ``blank_collapse`` < 1 first drops the frames whose blank
+    probability exceeds it (``blank_collapse_frames``); 1.0 is the exact
+    beam over every frame.
+
+    logits (B, T, C) -> (ids (B, T) int32, lengths (B,) int32) of the best beam."""
+    B, T, C = logits.shape
+    W = beam_width
+    dev = logits.device
+    log_probs = torch.log_softmax(logits, -1)
+    if blank_collapse < 1.0:
+        log_probs, logit_lengths, pre_blank = blank_collapse_frames(
+            log_probs, logit_lengths, blank, blank_collapse)
+    else:
+        pre_blank = None
+    lengths = logit_lengths.to(dev).long()
+    max_t = int(lengths.max()) if B else 0
+
+    prefixes = torch.zeros((B, W, T), dtype=torch.int64, device=dev)
+    lens = torch.zeros((B, W), dtype=torch.int64, device=dev)
+    p_b = log_probs.new_full((B, W), NEG_INF)
+    p_b[:, 0] = 0.0
+    p_nb = log_probs.new_full((B, W), NEG_INF)
+    h1 = torch.zeros((B, W), dtype=torch.int64, device=dev)
+    h2 = torch.zeros_like(h1)
+    last = torch.full((B, W), -1, dtype=torch.int64, device=dev)
+
+    P = 4 * W
+    classes = torch.arange(C, device=dev)
+    fold = torch.ones((P, P), dtype=torch.bool, device=dev).triu()  # j >= i
+    earlier = torch.ones((P, P), dtype=torch.bool, device=dev).tril(-1)  # j < i
+
+    for t in range(max_t):
+        lp = log_probs[:, t]  # (B, C)
+        if pre_blank is not None:  # the collapsed blank run before this frame
+            run = pre_blank[:, t].unsqueeze(1)
+            has_run = run > NEG_INF / 2
+            p_b = torch.where(has_run, _logaddexp(p_b, p_nb) + run, p_b)
+            p_nb = torch.where(has_run, NEG_INF, p_nb)
+        p_tot = _logaddexp(p_b, p_nb)
+        # stay: blank extends the prefix's every path; the last symbol
+        # repeated extends its paths that end in that symbol
+        stay_pb = p_tot + lp[:, blank].unsqueeze(1)
+        lp_last = torch.gather(lp, 1, last.clamp(0, C - 1))
+        stay_pnb = torch.where(last >= 0, p_nb + lp_last, NEG_INF)
+        # extend by class c: only blank-ending paths where c repeats the last
+        ext_base = torch.where(classes.view(1, 1, C) == last.unsqueeze(-1),
+                               p_b.unsqueeze(-1), p_tot.unsqueeze(-1))
+        ext_pnb = ext_base + lp.unsqueeze(1)
+        ext_pnb[:, :, blank] = NEG_INF
+        ext_flat = ext_pnb.reshape(B, W * C)
+        pool = torch.cat([_logaddexp(stay_pb, stay_pnb), ext_flat], 1)
+
+        _, top_idx = stable_top_k(pool, P)  # (B, P)
+        is_stay = top_idx < W
+        ext_i = (top_idx - W).clamp(0, W * C - 1)
+        ext_c = ext_i % C
+        src = torch.where(is_stay, top_idx.clamp(0, W - 1), ext_i // C)
+        s_h1, s_h2 = torch.gather(h1, 1, src), torch.gather(h2, 1, src)
+        s_len = torch.gather(lens, 1, src)
+        n_h1 = torch.where(is_stay, s_h1, _wrap_int32(s_h1 * H1 + ext_c + 1))
+        n_h2 = torch.where(is_stay, s_h2, _wrap_int32(s_h2 * H2 + ext_c + 1))
+        n_len = torch.where(is_stay, s_len, s_len + 1)
+        n_last = torch.where(is_stay, torch.gather(last, 1, src), ext_c)
+        n_pb = torch.where(is_stay, torch.gather(stay_pb, 1, src), NEG_INF)
+        n_pnb = torch.where(is_stay, torch.gather(stay_pnb, 1, src),
+                            torch.gather(ext_flat, 1, ext_i))
+
+        # equal prefixes: fold the mass of each into its first occurrence
+        same = ((n_h1.unsqueeze(2) == n_h1.unsqueeze(1))
+                & (n_h2.unsqueeze(2) == n_h2.unsqueeze(1))
+                & (n_len.unsqueeze(2) == n_len.unsqueeze(1)))  # (B, P, P)
+        dup = (same & earlier).any(2)
+        mask = same & fold
+        n_pb = _logsumexp_last(torch.where(mask, n_pb.unsqueeze(1), NEG_INF))
+        n_pnb = _logsumexp_last(torch.where(mask, n_pnb.unsqueeze(1), NEG_INF))
+        score = torch.where(dup, NEG_INF, _logaddexp(n_pb, n_pnb))
+
+        _, best = stable_top_k(score, W)  # (B, W)
+        f_src = torch.gather(src, 1, best)
+        f_len = torch.gather(n_len, 1, best)
+        f_stay = torch.gather(is_stay, 1, best)
+        f_c = torch.gather(torch.where(is_stay, -1, ext_c), 1, best)
+        new_prefix = torch.gather(prefixes, 1, f_src.unsqueeze(-1).expand(B, W, T)).clone()
+        appended = new_prefix.scatter(2, (f_len - 1).clamp(0, T - 1).unsqueeze(-1),
+                                      f_c.clamp(min=0).unsqueeze(-1))
+        new_prefix = torch.where(f_stay.unsqueeze(-1), new_prefix, appended)
+
+        active = (t < lengths).unsqueeze(1)  # rows past their length stay frozen
+        prefixes = torch.where(active.unsqueeze(-1), new_prefix, prefixes)
+        lens = torch.where(active, f_len, lens)
+        p_b = torch.where(active, torch.gather(n_pb, 1, best), p_b)
+        p_nb = torch.where(active, torch.gather(n_pnb, 1, best), p_nb)
+        h1 = torch.where(active, torch.gather(n_h1, 1, best), h1)
+        h2 = torch.where(active, torch.gather(n_h2, 1, best), h2)
+        last = torch.where(active, torch.gather(n_last, 1, best), last)
+
+    top = torch.argmax(_logaddexp(p_b, p_nb), 1)  # the first best
+    ids = torch.gather(prefixes, 1, top.view(B, 1, 1).expand(B, 1, T))[:, 0]
+    out_len = torch.gather(lens, 1, top.view(B, 1))[:, 0]
+    return ids.to(torch.int32), out_len.to(torch.int32)

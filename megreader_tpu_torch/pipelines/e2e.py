@@ -4,8 +4,9 @@
       -> SegDetectorNet prob map (B, H, W)
       -> binarize + connected components (CUDA kernel on the card)
       -> K fixed region slots per page -> word quads (B, K, 4, 2)
-      -> perspective (or box) crops (B*K, 32, 100, 3) -> CTC or 2D-CTC
-         recognizer -> its decode (greedy; Viterbi for Markov heights)
+      -> perspective (or box) crops (B*K, 32, 100, 3) -> CTC, 2D-CTC or
+         attention recognizer -> its decode (``rec_mode`` 'greedy' or 'beam'
+         of width ``beam_width``; Viterbi for Markov heights)
       -> ids/lengths; ``predict`` looks the strings up on the host.
 
 Shapes are static: K is a fixed region budget, and slots without a region are
@@ -20,8 +21,6 @@ from typing import Dict, List, Optional
 import torch
 
 from ..core.charset import Charset
-from ..models.recognizer import CTCRecognizer
-from ..models.recognizer2d import Ctc2dRecognizer
 from ..ops.ccl import (
     connected_components,
     extract_regions,
@@ -30,6 +29,7 @@ from ..ops.ccl import (
     unclip_distance_inverse,
 )
 from ..ops.image import crop_resize_boxes, normalize, rectify_quads_mxu
+from .predictors import RECOGNIZERS, default_charset
 
 
 def _not_ported(what: str, item: str):
@@ -59,10 +59,11 @@ class E2EPipeline:
         bf16: bool = False,
         extract_impl: str = "auto",
         rec_mode: str = "greedy",
+        beam_width: int = 8,
         device="cuda",
     ):
-        if not isinstance(recognizer, (CTCRecognizer, Ctc2dRecognizer)):
-            raise _not_ported("the attention recognizer family", "item 10")
+        if not isinstance(recognizer, RECOGNIZERS):
+            raise _not_ported(f"recognizer {type(recognizer).__name__}", "item 13")
         if deskew or rectify == "deskew":
             raise _not_ported("rectify='deskew'", "item 6, page-pipeline variants")
         if rectify == "chain":
@@ -71,8 +72,8 @@ class E2EPipeline:
             raise ValueError(f"unknown rectify mode {rectify!r}")
         if bf16:
             raise _not_ported("bf16 serving", "item 6, page-pipeline variants")
-        if rec_mode != "greedy":
-            raise _not_ported(f"rec_mode={rec_mode!r}", "item 3, prefix beam search")
+        if rec_mode not in ("greedy", "beam"):
+            raise ValueError(f"unknown rec_mode {rec_mode!r}")
         if ccl_multigrid:
             raise _not_ported("ccl_multigrid", "item 6, page-pipeline variants")
         if extract_impl not in ("auto", "xla", "pallas", "pallas_full"):
@@ -81,7 +82,7 @@ class E2EPipeline:
             raise ValueError(f"unknown unclip mode {unclip!r}")
         self.detector = detector
         self.recognizer = recognizer
-        self.charset = charset or Charset()
+        self.charset = charset or default_charset(recognizer)
         self.max_regions = max_regions
         self.bin_thresh = bin_thresh
         self.box_thresh = box_thresh
@@ -93,6 +94,7 @@ class E2EPipeline:
         self.rectify = rectify
         self.ccl_iters = ccl_iters
         self.rec_mode = rec_mode
+        self.beam_width = beam_width
         #: region-stats path: 'auto' resolves to 'xla', as in the JAX package;
         #: 'pallas' / 'pallas_full' run the CUDA extraction kernels
         #: (``ops/extract.py``)
@@ -151,8 +153,10 @@ class E2EPipeline:
         return normalize(crops.reshape(B * K, Ho, Wo, 3))
 
     def recognize(self, rec_module, crops: torch.Tensor):
-        """Crops -> (ids (B*K, T) int32, lengths (B*K,) int32)."""
-        return self.recognizer.decode(crops, mode=self.rec_mode, net=rec_module)
+        """Crops -> (ids (B*K, T) int32, lengths (B*K,) int32), by the
+        recognizer family's decode for ``rec_mode``."""
+        return self.recognizer.decode(crops, mode=self.rec_mode, net=rec_module,
+                                      beam_width=self.beam_width)
 
     # --- whole path -----------------------------------------------------------
 

@@ -1,9 +1,11 @@
 """Recognizer predictor: word crops -> strings, batched on the model's device.
 
 A port of ``megreader_tpu/pipelines/predictors.py::RecognizerPredictor`` for
-the CTC and 2D-CTC families: canvases are resized to ``crop_hw`` with their
-aspect kept (``resize_with_aspect_pad``) and normalized on the device, the
-model decodes the batch there, and only ids and lengths cross to the host.
+the CTC, 2D-CTC and attention families: canvases are resized to ``crop_hw``
+with their aspect kept (``resize_with_aspect_pad``) and normalized on the
+device, the model decodes the batch there (``mode`` 'greedy' or 'beam' of
+width ``beam_width``; Markov heights decode by Viterbi), and only ids and
+lengths cross to the host.
 """
 
 from __future__ import annotations
@@ -14,25 +16,34 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..core.charset import Charset
+from ..core.charset import AttentionCharset, Charset
+from ..models.attention import AttentionRecognizer
 from ..models.recognizer import CTCRecognizer
 from ..models.recognizer2d import Ctc2dRecognizer
 from ..ops.image import normalize, resize_with_aspect_pad
 
+RECOGNIZERS = (CTCRecognizer, Ctc2dRecognizer, AttentionRecognizer)
+
+
+def default_charset(model) -> Charset:
+    """The charset a recognizer's ids index: ``AttentionCharset`` for the
+    attention family, the CTC ``Charset`` for the others."""
+    return AttentionCharset() if isinstance(model, AttentionRecognizer) else Charset()
+
 
 class RecognizerPredictor:
-    """Word crops -> strings, for ``CTCRecognizer`` and ``Ctc2dRecognizer``."""
+    """Word crops -> strings, for ``CTCRecognizer``, ``Ctc2dRecognizer`` and
+    ``AttentionRecognizer``."""
 
-    def __init__(self, model, charset=None, crop_hw=(32, 100), mode: str = "greedy"):
-        if not isinstance(model, (CTCRecognizer, Ctc2dRecognizer)):
-            raise NotImplementedError(
-                f"{type(model).__name__}: the attention family is not ported "
-                "(ROADMAP Queue 1 item 10)"
-            )
+    def __init__(self, model, charset=None, crop_hw=(32, 100), mode: str = "greedy",
+                 beam_width: int = 8):
+        if not isinstance(model, RECOGNIZERS):
+            raise TypeError(f"{type(model).__name__} is not a recognizer")
         self.model = model
-        self.charset = charset or Charset()
+        self.charset = charset or default_charset(model)
         self.crop_hw = tuple(crop_hw)
         self.mode = mode
+        self.beam_width = beam_width
 
     def prepare(self, canvases, sizes) -> torch.Tensor:
         """(B, H, W, 3) canvases with (B, 2) crop sizes -> normalized (B, Ho, Wo, 3)
@@ -45,5 +56,6 @@ class RecognizerPredictor:
 
     def predict(self, net: nn.Module, canvases, sizes) -> List[str]:
         """``net`` (None: the model's own module) decodes the crops."""
-        ids, lengths = self.model.decode(self.prepare(canvases, sizes), mode=self.mode, net=net)
+        ids, lengths = self.model.decode(self.prepare(canvases, sizes), mode=self.mode, net=net,
+                                         beam_width=self.beam_width)
         return self.charset.decode_batch(ids.cpu().numpy(), lengths.cpu().numpy())

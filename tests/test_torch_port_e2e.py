@@ -146,7 +146,21 @@ def test_e2e_predict_strings_match_jax(slice_pair):
     {"rec_mode": "beam"}, {"ccl_multigrid": True},
 ], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(opt):
+    """Every option here is refused, but ``rec_mode='beam'``, which is ported:
+    its pipeline decodes crops by the recognizer's beam of width
+    ``beam_width`` (the beam is held to JAX by
+    ``tests/test_torch_port_ctc_beam.py``), and an unknown mode raises."""
     rec = CTCRecognizer(37, hidden=8, num_encoder_layers=1, device="cpu")
+    if opt == {"rec_mode": "beam"}:
+        pipe = E2EPipeline(None, rec, device="cpu", beam_width=4, **opt)
+        crops = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 32, 100, 3))
+                                 .astype(np.float32))
+        got = pipe.recognize(None, crops)
+        ref = rec.decode(crops, mode="beam", beam_width=4)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        with pytest.raises(ValueError, match="unknown rec_mode"):
+            E2EPipeline(None, rec, device="cpu", rec_mode="sample")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         E2EPipeline(None, rec, device="cpu", **opt)
 

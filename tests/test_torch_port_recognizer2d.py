@@ -43,6 +43,8 @@ from megreader_tpu_torch.experiment import Experiment, _recognition_prepare
 from megreader_tpu_torch.models.detector import SegDetector
 from megreader_tpu_torch.models.recognizer2d import Ctc2dRecognizer, rec2d_feature_height
 from megreader_tpu_torch.models.resnet import resnet_variant
+from megreader_tpu_torch.ops.ctc import ctc_beam_decode
+from megreader_tpu_torch.ops.ctc2d import fuse_heights
 from megreader_tpu_torch.pipelines.e2e import E2EPipeline
 from megreader_tpu_torch.pipelines.predictors import RecognizerPredictor
 from megreader_tpu_torch.postproc.measurers import RecognitionMeasurer, edit_distance
@@ -164,10 +166,19 @@ def test_left_out_options_raise(what):
     if what == "bf16":
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
             Ctc2dRecognizer(37, width=WIDTH, compute_dtype="bfloat16", device="cpu")
-    elif what == "beam":
+    elif what == "beam":  # ported: the beam over the fused heights, Viterbi for Markov
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 32, 100, 3))
+                             .astype(np.float32))
         rec = Ctc2dRecognizer(37, width=WIDTH, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            rec.decode(torch.zeros((1, 32, 100, 3)), mode="beam")
+        with torch.no_grad():
+            emit, height = rec.net.eval()(x)
+        lengths = torch.full((2,), emit.shape[1], dtype=torch.int32)
+        ref = ctc_beam_decode(fuse_heights(emit, height), lengths, beam_width=3)
+        got = rec.decode(x, mode="beam", beam_width=3)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        markov = Ctc2dRecognizer(37, transition="markov", width=WIDTH, device="cpu")
+        assert all(torch.equal(g, r) for g, r in
+                   zip(markov.decode(x, mode="beam"), markov.decode(x, mode="greedy")))
     else:
         with pytest.raises(ValueError, match="unknown transition"):
             Ctc2dRecognizer(37, transition="hmm", device="cpu")
