@@ -4,7 +4,8 @@ path with each region-extraction path, the training of the config-#1
 recognizer, the training and batched decode of the config-#2 2D-CTC
 recognizer, the training and detection evaluation of the config-#4
 detector, the training and decodes of the config-#3 attention recognizer,
-serving with beam decodes, and the CTC prefix beam search.
+serving with beam decodes, the CTC prefix beam search, and bf16 serving of
+the trained detector with mixed-precision training of all four configs.
 
     python3 chip_smoke.py
 
@@ -129,6 +130,22 @@ Phases (any failure exits non-zero):
 13. beam: ``ctc_beam_decode`` at ``scripts/bench_beam.py``'s shape and
     logits (B 256, T 50, C 37, W 8) with ``blank_collapse`` 1.0 and 0.999:
     ids and lengths equal to the CPU's on every row; its times.
+14. bf16: the trained detector read from ``assets/bench_det_fp16.msgpack``
+    by the port's own msgpack decoder (step, leaves, decode time), served
+    with the config-#1 recognizer (seeded) on 8 ``TextPages`` of 640x640
+    (seed 5): one float32 batch (``extract_impl='xla'``) and two
+    ``bf16=True`` batches (``'xla'``, ``'pallas_full'``), each with its
+    kernel launches, valid regions per page against the words drawn (at
+    least one each), CCL sweeps per page, busy ms per stage and pages/s by
+    events; the float32 and the bf16 pipelines held to the CPU on 2 pages
+    (``serving_cross_check``). Then configs #1, #2 (Markov heights), #3 and
+    #4 with ``compute_dtype='bfloat16'`` through ``Experiment``/``Trainer``
+    for 12 steps each (config #4 with ``bench.py``'s Adam 3e-4, the recipe
+    that trained the asset): the first batch's loss within rtol 0.05 of the float32
+    model's on the same weights, finite falling losses, float32 parameters
+    and optimizer state, the CTC and 2D-CTC kernels launched once a step;
+    ms a step, busy and idle share. Every kernel must launch on these bf16
+    paths (``launches_bf16`` in the kernels line).
 
 Prints a JSON line of per-kernel numbers (all eight kernels), then, as the
 last line, ``{"ok": true, "device": {...}}``. Needs a CUDA device; exits 1
@@ -2286,6 +2303,301 @@ def phase_serving(att, B: int = 8, hw: int = 640):
                       + (" (W 8)" if mode == "beam" else ""), pipe, det, att, pages, pages_np)
 
 
+ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                     "bench_det_fp16.msgpack")
+#: the bf16 phase's tolerances against the CPU, by precision: the prob map on
+#: its own scale, the share of mask pixels that may differ, matched quads in
+#: px (bf16: the bounds of tests/test_torch_port_bf16.py, the port against
+#: JAX on the CPU), the recognizer's logits on their own scale (bf16: None,
+#: the CPU's own bf16 logits' distance from its float32 ones on the same
+#: crops; the seeded full-width recognizer's bf16 noise is 0.11 of its scale
+#: on the CPU). A frame whose top-2 logit margin exceeds twice the logits'
+#: bound must take the same class on both devices
+BF16_TOL = {False: {"prob": 1e-3, "mask": 1e-5, "quad": 1e-2, "logits": 1e-4},
+            True: {"prob": 7.5e-2, "mask": 5e-4, "quad": 1.5, "logits": None}}
+
+
+def serving_cross_check(pipe, det_net, rec_net, pages_np) -> dict:
+    """``pipe`` on the card against the same pipeline on the CPU (plain
+    versions, ``extract_impl='xla'``), both from the same pages, at the
+    tolerances of ``BF16_TOL[pipe.bf16]``: prob maps, masks, valid regions per
+    page, matched quads, then the recognizer's logits and greedy ids on the
+    CPU's crops: the same class on every frame that the CPU decides by a
+    margin over twice the logits' bound, the same ids on every crop all of
+    whose frames are so decided. Returns the measured gaps."""
+    from megreader_tpu_torch.ops.ctc import ctc_greedy_decode
+    from megreader_tpu_torch.pipelines.e2e import E2EPipeline
+
+    tol = BF16_TOL[pipe.bf16]
+    cpu = E2EPipeline(pipe.detector, pipe.recognizer, max_regions=pipe.max_regions,
+                      rectify=pipe.rectify, ccl_iters=pipe.ccl_iters, bf16=pipe.bf16,
+                      device="cpu")
+    det_cpu, rec_cpu = copy.deepcopy(det_net).cpu(), copy.deepcopy(rec_net).cpu()
+    pg = torch.from_numpy(pages_np)
+    with torch.no_grad():
+        prob_c = cpu.detect(det_cpu, pg)
+        prob_d = pipe.detect(det_net, pg.cuda()).cpu()
+        out_c = cpu.run(det_cpu, rec_cpu, pg)
+        out_d = {k: v.cpu() for k, v in pipe.run(det_net, rec_net, pg.cuda()).items()}
+        reg = cpu.regions(cpu.label(prob_c), prob_c)
+        crops = cpu.crops(pg, reg)[reg["valid"].reshape(-1)]
+        logits_c = cpu.serving(rec_cpu).eval()(crops).float()
+        logits_d = pipe.serving(rec_net).eval()(crops.cuda()).float().cpu()
+        logits_32 = rec_cpu.eval()(crops.float())
+    gaps = {"prob": float((prob_d - prob_c).abs().max()),
+            "mask": float(((prob_d > pipe.bin_thresh) != (prob_c > pipe.bin_thresh))
+                          .float().mean()),
+            "logits": float((logits_d - logits_c).abs().max())}
+    where = f"serving cross-check (bf16={pipe.bf16})"
+    if not gaps["prob"] <= tol["prob"] * max(1.0, float(prob_c.abs().max())):
+        raise AssertionError(f"{where}: prob maps differ by {gaps['prob']}")
+    if not gaps["mask"] <= tol["mask"]:
+        raise AssertionError(f"{where}: masks differ on a share {gaps['mask']} of the pixels")
+    n_c, n_d = out_c["valid"].sum(1), out_d["valid"].sum(1)
+    if not torch.equal(n_c, n_d):
+        raise AssertionError(f"{where}: valid regions per page {n_d.tolist()} on the card, "
+                             f"{n_c.tolist()} on the CPU")
+    quad = 0.0
+    for b in range(len(n_c)):
+        qc, qd = out_c["quads"][b][out_c["valid"][b]], out_d["quads"][b][out_d["valid"][b]]
+        if len(qc):
+            d = (qd[None] - qc[:, None]).abs().amax((2, 3))  # (cpu, card)
+            quad = max(quad, float(d.amin(1).max()))
+    gaps["quad_px"] = quad
+    if not quad <= tol["quad"]:
+        raise AssertionError(f"{where}: matched quads differ by {quad} px")
+    gaps["logits_cpu_vs_float32"] = float((logits_c - logits_32).abs().max())
+    bound = (gaps["logits_cpu_vs_float32"] if tol["logits"] is None
+             else tol["logits"] * max(1.0, float(logits_c.abs().max())))
+    if not gaps["logits"] <= bound:
+        raise AssertionError(f"{where}: the recognizer's logits differ by {gaps['logits']}")
+    top2 = logits_c.topk(2, -1).values
+    clear = top2[..., 0] - top2[..., 1] > 2 * bound  # (crops, frames)
+    if not bool((logits_c.argmax(-1) == logits_d.argmax(-1))[clear].all()):
+        raise AssertionError(f"{where}: a clear-margin frame takes another class")
+    lengths = torch.full((len(crops),), logits_c.shape[1], dtype=torch.int32)
+    ids_c, len_c = ctc_greedy_decode(logits_c, lengths)
+    ids_d, len_d = ctc_greedy_decode(logits_d, lengths)
+    same = (ids_c == ids_d).all(1) & (len_c == len_d)
+    if not bool(same[clear.all(1)].all()):
+        raise AssertionError(f"{where}: ids differ on a crop of clear-margin frames")
+    log(f"{where}, pages {tuple(pg.shape)}: max |card - CPU| " + json.dumps(gaps)
+        + f"; valid regions per page {n_c.tolist()} on both; {int(clear.sum())} of "
+        f"{clear.numel()} frames clear by {2 * bound:.4g}, same class on all; greedy ids "
+        f"equal on {int(same.sum())} of {len(crops)} crops, on all {int(clear.all(1).sum())} "
+        "crops of clear frames")
+    return gaps
+
+
+def bf16_serving(det, rec, pages, pages_np, words):
+    """One float32 batch ('xla') and two bf16 batches ('xla', 'pallas_full')
+    of the trained detector: launches, valid regions against the words drawn,
+    CCL sweeps, busy ms per stage, pages/s by events; each pipeline held to
+    the CPU on 2 pages. Returns the kernels' launches in the bf16 batches."""
+    from megreader_tpu_torch.ops import extract as ex
+    from megreader_tpu_torch.ops.ccl import (
+        connected_components_cuda,
+        connected_components_reference,
+    )
+    from megreader_tpu_torch.pipelines.e2e import E2EPipeline
+
+    kernels = {"ccl": connected_components_cuda, "candidates": ex.candidates_cuda,
+               "moments": ex.moments_cuda, "extents": ex.extents_cuda}
+    bf16_launches = dict.fromkeys(kernels, 0)
+    B = pages.shape[0]
+    pipes = {}
+    for bf16, impl in ((False, "xla"), (True, "xla"), (True, "pallas_full")):
+        name = f"{'bf16' if bf16 else 'f32'} {impl}"
+        pipe = pipes[name] = E2EPipeline(det, rec, max_regions=32, rectify="perspective",
+                                         ccl_iters=24, bf16=bf16, extract_impl=impl,
+                                         device="cuda")
+        if impl == "xla":
+            serving_cross_check(pipe, det.net, rec.net, pages_np[:2])
+        pipe.run(None, None, pages)  # warm-up; makes the bf16 copies
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        out = pipe.run(None, None, pages)
+        torch.cuda.synchronize()
+        got = {n: k.launches for n, k in kernels.items()}
+        want = {"ccl": 1, "candidates": int(impl == "pallas_full"),
+                "moments": int(impl != "xla"), "extents": int(impl != "xla")}
+        if got != want:
+            raise AssertionError(f"bf16 phase, {name}: kernel launches {got}, expected {want}")
+        if bf16:
+            for n in got:
+                bf16_launches[n] += got[n]
+        valid = out["valid"].sum(1).tolist()
+        if any(v < w for v, w in zip(valid, words)):
+            raise AssertionError(f"bf16 phase, {name}: valid regions per page {valid}, "
+                                 f"words drawn {words}")
+        with torch.no_grad():
+            prob = pipe.detect(det.net, pages)
+            labels = pipe.label(prob)
+            reg = pipe.regions(labels, prob)
+            crops = pipe.crops(pages, reg)
+            _, sweeps = connected_components_reference(prob > pipe.bin_thresh, pipe.ccl_iters,
+                                                       return_sweeps=True)
+            stages = {
+                "detector": lambda: pipe.detect(det.net, pages),
+                "ccl": lambda: pipe.label(prob),
+                "extract": lambda: pipe.regions(labels, prob),
+                "rectify": lambda: pipe.crops(pages, reg),
+                "recognizer": lambda: pipe.recognize(rec.net, crops),
+            }
+            stage_ms = {k: cuda_ms(f, reps=5) for k, f in stages.items()}
+            busy_ms = {k: device_busy_ms(f) for k, f in stages.items()}
+            run_ms = cuda_ms(lambda: pipe.run(None, None, pages), reps=5)
+            run_busy = device_busy_ms(lambda: pipe.run(None, None, pages))
+        idle = "not measured" if run_busy is None else f"{1.0 - run_busy / run_ms:.4f}"
+        log(f"bf16 phase, trained detector, {name}: launches {got}; valid regions per page "
+            f"{valid}, words drawn {words}; CCL sweeps per page {sweeps.tolist()}; stage ms "
+            f"(median of 5, CUDA events) " + json.dumps(stage_ms) + "; stage kernel-busy ms "
+            + json.dumps(busy_ms) + f"; batch {run_ms} ms = {B / run_ms * 1e3:.2f} pages/s, "
+            f"kernel-busy {run_busy} ms, device idle share {idle}")
+    # the three pipelines in turns, there and back, so that a drift of the
+    # host's speed weighs on each alike
+    turns = {name: [] for name in pipes}
+    for name in [*pipes, *reversed(pipes)]:
+        turns[name].append(cuda_ms(lambda: pipes[name].run(None, None, pages), reps=10))
+    log("bf16 phase, serving in turns (f32 xla, bf16 xla, bf16 pallas_full, then back; ms a "
+        "batch of 8, median of 10 each, CUDA events): " + json.dumps(turns) + "; pages/s "
+        + json.dumps({k: [B / t * 1e3 for t in v] for k, v in turns.items()}))
+    return bf16_launches
+
+
+def bf16_train(name, make, data, opt, B, per_epoch, epochs, seed, counted, **exp_kw):
+    """``make(compute_dtype)`` -> a task on the card; trains its
+    mixed-precision model through Experiment/Trainer for per_epoch x epochs
+    steps: the eval-mode loss of the first batch within rtol 0.05 of the
+    float32 model's on the same weights, finite falling losses, float32
+    parameters and optimizer state; times a step. Returns ``counted``'s
+    launches (kernel wrappers) in the run."""
+    from megreader_tpu_torch.experiment import Experiment
+    from megreader_tpu_torch.train.train_step import create_train_state, make_train_step
+
+    steps = per_epoch * epochs
+    model = make("bfloat16")
+    seeded_weights(model.net, seed)
+    model32 = make("float32")
+    model32.net.load_state_dict(model.net.state_dict())
+    with tempfile.TemporaryDirectory() as ws:
+        exp = Experiment(model, data, optimizer=opt, workspace=ws, batch_size=B, epochs=epochs,
+                         log_every=1, **exp_kw)
+        raw = exp.collate([data[i] for i in range(B)])
+        batch = exp.prepare(raw)
+        with torch.no_grad():
+            l16 = model.loss(batch, train=False)[0].item()
+            l32 = model32.loss(batch, train=False)[0].item()
+        del model32
+        for k in counted:
+            k.launches = 0
+        t0 = time.perf_counter()
+        state = exp.make_trainer().train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = tuple(k.launches for k in counted)
+        with open(os.path.join(ws, "train_metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f if '"loss"' in line]
+    first, last = statistics.mean(losses[:4]), statistics.mean(losses[-4:])
+    dtypes = {str(t.dtype) for t in (*model.net.parameters(), *model.net.buffers())
+              if t.is_floating_point()}
+    dtypes |= {str(v.dtype) for st in state.optimizer.inner.state.values() for v in st.values()
+               if torch.is_tensor(v) and v.is_floating_point() and v.dim()}
+    log(f"bf16 phase, {name} mixed precision: step-0 loss (eval mode) bf16 {l16:.6f}, float32 "
+        f"{l32:.6f} (rel {abs(l16 - l32) / abs(l32):.3g}); {state.step} steps in {wall:.2f} s "
+        f"(host clock); launches {launches}; loss mean of the first 4 steps {first:.4f}, of "
+        f"the last 4 {last:.4f}; losses {losses}; parameter, buffer and optimizer dtypes "
+        f"{sorted(dtypes)}")
+    if not abs(l16 - l32) <= 0.05 * abs(l32):
+        raise AssertionError(f"bf16 phase, {name}: step-0 loss {l16} vs float32 {l32}")
+    if state.step != steps or len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"bf16 phase, {name}: {state.step} steps, losses {losses}")
+    if not last < first:
+        raise AssertionError(f"bf16 phase, {name}: the loss did not fall")
+    if dtypes != {"torch.float32"}:
+        raise AssertionError(f"bf16 phase, {name}: dtypes {dtypes} in the trained state")
+    state = create_train_state(model, opt)
+    step_fn = make_train_step(model, prepare=exp.prepare)
+    busy = device_busy_ms(lambda: step_fn(state, raw))
+    step_ms = cuda_ms(lambda: step_fn(state, raw), reps=10)
+    idle = "not measured" if busy is None else f"{1.0 - busy / step_ms:.4f}"
+    log(f"bf16 phase, {name} mixed-precision step (make_train_step, CUDA events, median of "
+        f"10): {step_ms} ms = {B / step_ms * 1e3:.1f} items/s; kernel-busy {busy} ms; device "
+        f"idle share {idle}")
+    return launches
+
+
+def phase_bf16(B: int = 8, hw: int = 640, rec_B: int = 64, per_epoch: int = 4, epochs: int = 3):
+    """The trained detector read from the repo's asset and served in float32
+    and bf16, then configs #1-#4 trained in mixed precision. Returns the
+    launches of every kernel on the bf16 paths."""
+    from megreader_tpu_torch.compat.msgpack import load_flax_msgpack
+    from megreader_tpu_torch.compat.weights import load_flax_variables
+    from megreader_tpu_torch.models.attention import AttentionRecognizer
+    from megreader_tpu_torch.models.detector import SegDetector
+    from megreader_tpu_torch.models.recognizer import CTCRecognizer
+    from megreader_tpu_torch.models.recognizer2d import Ctc2dRecognizer
+    from megreader_tpu_torch.ops import ctc, ctc2d
+    from megreader_tpu_torch.train.train_step import OptimizerConfig
+
+    t0 = time.perf_counter()
+    variables, step = load_flax_msgpack(ASSET)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    leaves = []
+
+    def walk(tree):
+        for v in tree.values():
+            walk(v) if isinstance(v, dict) else leaves.append(v)
+
+    walk(variables)
+    log(f"bf16 phase: {os.path.relpath(ASSET)} read by the port's msgpack decoder in "
+        f"{decode_ms:.1f} ms (host clock): step {step}, {len(leaves)} leaves, "
+        f"{sum(a.size for a in leaves)} values, float16 widened to "
+        f"{sorted({str(a.dtype) for a in leaves})}")
+    det = SegDetector(device="cuda")
+    load_flax_variables(det.net, variables)
+    rec = CTCRecognizer(num_classes=37, device="cuda")
+    seeded_weights(rec.net, SEED + 3)
+    items = [TextPages(B, 5, (hw, hw))[i] for i in range(B)]
+    pages_np = np.stack([it["image"] for it in items]).astype(np.float32)
+    words = [len(it["polygons"]) for it in items]
+    launches = bf16_serving(det, rec, torch.from_numpy(pages_np).cuda(), pages_np, words)
+    del det, rec
+    torch.cuda.empty_cache()
+
+    opt = adam_warmup_cosine()
+    launches["ctc_alpha"], launches["ctc_beta"] = bf16_train(
+        "config #1", lambda dt: CTCRecognizer(num_classes=37, compute_dtype=dt, device="cuda"),
+        WordCrops(rec_B * per_epoch, SEED + 40), opt, rec_B, per_epoch, epochs, SEED + 41,
+        (ctc.ctc_alpha_cuda, ctc.ctc_beta_cuda))
+    got = bf16_train(
+        "config #2 (Markov heights)",
+        lambda dt: Ctc2dRecognizer(37, transition="markov", compute_dtype=dt, device="cuda"),
+        WordCrops(rec_B * per_epoch, SEED + 42), opt, rec_B, per_epoch, epochs, SEED + 43,
+        (ctc2d.ctc2d_alpha_cuda, ctc2d.ctc2d_beta_cuda, ctc.ctc_alpha_cuda, ctc.ctc_beta_cuda))
+    if got[2:] != (0, 0):
+        raise AssertionError(f"bf16 phase, config #2: the 1-D CTC kernels ran {got[2:]}")
+    launches["ctc2d_alpha"], launches["ctc2d_beta"] = got[:2]
+    bf16_train(
+        "config #3 (attention)",
+        lambda dt: AttentionRecognizer(num_classes=39, compute_dtype=dt, device="cuda"),
+        WordCrops(rec_B * per_epoch, SEED + 44), opt, rec_B, per_epoch, epochs, SEED + 45, ())
+    # bench.py's recipe for this detector, the one that trained the asset:
+    # experiments/seg_detector_synth.yaml's SGD (lr 0.007, momentum 0.9, no
+    # warm-up) stalled the seeded bf16 detector from its 6th step on the card
+    # (gradient norm 182 -> 1.3, PERF.md PR 12)
+    bf16_train(
+        "config #4 (detector)", lambda dt: SegDetector(compute_dtype=dt, device="cuda"),
+        TextPages(B * per_epoch, SEED + 46, (hw, hw)),
+        OptimizerConfig(name="adam", lr=3e-4, schedule="constant"),
+        B, per_epoch, epochs, SEED + 47, (), max_polys=16)
+    log("bf16 phase: kernel launches on the bf16 paths " + json.dumps(launches))
+    if not all(launches.values()):
+        raise AssertionError(f"bf16 phase: a kernel did not launch on a bf16 path: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2304,8 +2616,11 @@ def main() -> int:
     phase_traindet()
     phase_serving(phase_attention())
     phase_beam()
-    log(json.dumps({"kernels": [ccl_row, *extract_rows, alpha_row, beta_row, alpha2d_row,
-                                beta2d_row]}))
+    bf16 = phase_bf16()
+    rows = [ccl_row, *extract_rows, alpha_row, beta_row, alpha2d_row, beta2d_row]
+    for row in rows:
+        row["launches_bf16"] = bf16[row["name"].removeprefix("extract_")]
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

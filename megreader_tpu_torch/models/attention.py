@@ -17,6 +17,12 @@ PAD at no cost, and ranks by score (length-normalised when
 flax builds ``pos2d`` at the first call, from the feature map it sees; the
 port's net takes H' and W' from ``crop_hw`` at construction and raises at
 forward if the feature map disagrees.
+
+``compute_dtype='bfloat16'`` runs the trunk in bf16 (mixed precision,
+float32 parameters). ``mem_proj`` takes the features in float32, as flax casts
+them, and the decoder (attention, GRU, ``out``) computes in float32 under
+mixed precision and under the bf16 serving cast alike: every op promotes its
+input with its weights (``ops/precision.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch.nn as nn
 
 from ..core.charset import AttentionCharset
 from ..ops.ctc import NEG_INF, stable_top_k
+from ..ops.precision import Linear, at_least_float32, matmul_t, parse_compute_dtype
 from .recognizer2d import rec2d_feature_height
 from .resnet import resnet_variant
 
@@ -52,8 +59,8 @@ class GRUCellTorchlike(nn.Module):
         nn.init.orthogonal_(self.w_hh)
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-        i_r, i_z, i_n = (x @ self.w_ih.T + self.b_ih).chunk(3, -1)
-        h_r, h_z, h_n = (h @ self.w_hh.T + self.b_hh).chunk(3, -1)
+        i_r, i_z, i_n = matmul_t(x, self.w_ih, self.b_ih).chunk(3, -1)
+        h_r, h_z, h_n = matmul_t(h, self.w_hh, self.b_hh).chunk(3, -1)
         r = torch.sigmoid(i_r + h_r)
         z = torch.sigmoid(i_z + h_z)
         n = torch.tanh(i_n + r * h_n)
@@ -64,30 +71,30 @@ class AttentionRecognizerNet(nn.Module):
     """Encoder and one decoder step; ``forward`` is the teacher-forced loop."""
 
     def __init__(self, num_classes: int, backbone: str = "resnet18", dim: int = 256,
-                 max_len: int = 32, width: int = 64, crop_hw=(32, 100)):
+                 max_len: int = 32, width: int = 64, crop_hw=(32, 100), dtype=None):
         super().__init__()
         self.dim = dim
         self.max_len = max_len
-        self.trunk = resnet_variant(backbone, "rec2d", width)
+        self.trunk = resnet_variant(backbone, "rec2d", width, dtype=dtype)
         self.grid = (rec2d_feature_height(crop_hw[0]), rec2d_feature_width(crop_hw[1]))
         self.pos2d = nn.Parameter(0.02 * torch.randn(1, *self.grid, dim))
-        self.mem_proj = nn.Linear(self.trunk.out_channels[-1], dim)
+        self.mem_proj = Linear(self.trunk.out_channels[-1], dim)
         self.embed = nn.Embedding(num_classes, dim)
         self.gru = GRUCellTorchlike(2 * dim, dim)
-        self.attn_mem = nn.Linear(dim, dim, bias=False)
-        self.attn_state = nn.Linear(dim, dim, bias=False)
-        self.attn_v = nn.Linear(dim, 1, bias=False)
-        self.out = nn.Linear(2 * dim, num_classes)
+        self.attn_mem = Linear(dim, dim, bias=False)
+        self.attn_state = Linear(dim, dim, bias=False)
+        self.attn_v = Linear(dim, 1, bias=False)
+        self.out = Linear(2 * dim, num_classes)
 
     def encode(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """NHWC crops -> (memory (B, H'W', D), keys (B, H'W', D)), in the
-        decoder's type (float32; float64 in the tests)."""
+        """NHWC crops -> (memory (B, H'W', D), keys (B, H'W', D)) in float32
+        (float64 in the tests)."""
         feat = self.trunk(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)  # (B, H', W', C)
         if tuple(feat.shape[1:3]) != self.grid:
             raise ValueError(f"feature map of {tuple(feat.shape[1:3])}, but the net was built "
                              f"for {self.grid} (crops {tuple(images.shape[1:3])}): build it "
                              "with the crop_hw it is fed")
-        mem = self.mem_proj(feat.to(self.mem_proj.weight.dtype)) + self.pos2d
+        mem = self.mem_proj(at_least_float32(feat)) + self.pos2d
         mem = mem.reshape(feat.shape[0], -1, self.dim)
         return mem, self.attn_mem(mem)
 
@@ -132,12 +139,8 @@ class AttentionRecognizer:
     def __init__(self, num_classes: int = 39, backbone: str = "resnet18", dim: int = 256,
                  max_len: int = 32, width: int = 64, compute_dtype: str = "float32",
                  crop_hw=(32, 100), device="cuda"):
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: bf16 is not ported yet (ROADMAP Queue 1 item 6)"
-            )
-        self.net = AttentionRecognizerNet(num_classes, backbone, dim, max_len, width,
-                                          crop_hw).to(device).eval()
+        self.net = AttentionRecognizerNet(num_classes, backbone, dim, max_len, width, crop_hw,
+                                          parse_compute_dtype(compute_dtype)).to(device).eval()
         self.num_classes = num_classes
         self.max_len = max_len
 

@@ -7,6 +7,14 @@ returns (B, H, W) maps, as the JAX package does.
 The map head is the plain formulation of the JAX ``MapHead`` (resize ->
 conv): the JAX package's packed serving head is a TPU layout rewrite with the
 same parameters, equality-tested against this formulation there.
+
+``compute_dtype='bfloat16'`` is the JAX package's mixed precision: the trunk,
+the FPN and the heads' convs in bf16 on float32 parameters, BatchNorm in
+float32, the sigmoids and the loss in float32. Under the bf16 serving cast
+(``ops/precision.py::cast_floats``) the same ops promote their bf16 input and
+weights. The resizes run in their input's dtype, so a bf16 head rounds its
+upsampled tensor once more than the JAX head, which folds each upsample into
+the conv after it.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.losses import balanced_bce_loss, dice_loss, masked_l1_loss
+from ..ops.precision import Conv2d, at_least_float32, parse_compute_dtype
 from .resnet import BatchNorm2d, resnet_variant
 
 
@@ -34,13 +43,13 @@ def _resize_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 class FPNNeck(nn.Module):
     """Top-down FPN: laterals to ``dim``, upsample+add, smooth, concat at /4."""
 
-    def __init__(self, in_chs, dim: int = 256, out_dim: int = 256):
+    def __init__(self, in_chs, dim: int = 256, out_dim: int = 256, dtype=None):
         super().__init__()
         for i, c in zip((2, 3, 4, 5), in_chs):
-            self.add_module(f"lat{i}", nn.Conv2d(c, dim, 1))
+            self.add_module(f"lat{i}", Conv2d(c, dim, 1, compute_dtype=dtype))
         q = out_dim // 4
         for i in (2, 3, 4, 5):
-            self.add_module(f"smooth{i}", nn.Conv2d(dim, q, 3, 1, 1))
+            self.add_module(f"smooth{i}", Conv2d(dim, q, 3, 1, 1, compute_dtype=dtype))
 
     def forward(self, feats: Tuple[torch.Tensor, ...]) -> torch.Tensor:
         c2, c3, c4, c5 = feats
@@ -58,34 +67,34 @@ class FPNNeck(nn.Module):
 
 class MapHead(nn.Module):
     """conv3x3 -> BN -> relu -> [2x upsample -> conv3x3 -> BN -> relu] ->
-    [2x upsample -> conv3x3] -> sigmoid: a (B, 4h, 4w) map."""
+    [2x upsample -> conv3x3] -> sigmoid: a (B, 4h, 4w) float32 map."""
 
-    def __init__(self, in_ch: int, dim: int = 64):
+    def __init__(self, in_ch: int, dim: int = 64, dtype=None):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, dim, 3, 1, 1, bias=False)
+        self.conv = Conv2d(in_ch, dim, 3, 1, 1, bias=False, compute_dtype=dtype)
         self.bn = BatchNorm2d(dim)
-        self.up1 = nn.Conv2d(dim, dim // 2, 3, 1, 1, bias=False)
+        self.up1 = Conv2d(dim, dim // 2, 3, 1, 1, bias=False, compute_dtype=dtype)
         self.bn1 = BatchNorm2d(dim // 2)
-        self.up2 = nn.Conv2d(dim // 2, 1, 3, 1, 1)
+        self.up2 = Conv2d(dim // 2, 1, 3, 1, 1, compute_dtype=dtype)
 
     def forward(self, x):
         y = F.relu(self.bn(self.conv(x)))
         h, w = y.shape[-2:]
         y = F.relu(self.bn1(self.up1(_resize_to(y, 2 * h, 2 * w))))
         y = self.up2(_resize_to(y, 4 * h, 4 * w))
-        return torch.sigmoid(y[:, 0])
+        return torch.sigmoid(at_least_float32(y[:, 0]))
 
 
 class SegDetectorNet(nn.Module):
     """ResNet trunk + FPN + prob/thresh heads; NHWC pages in, (B, H, W) maps out."""
 
     def __init__(self, num_backbone: str = "resnet18", fpn_dim: int = 256,
-                 head_dim: int = 64, k: float = 50.0, width: int = 64):
+                 head_dim: int = 64, k: float = 50.0, width: int = 64, dtype=None):
         super().__init__()
-        self.backbone = resnet_variant(num_backbone, "det", width)
-        self.fpn = FPNNeck(self.backbone.out_channels, fpn_dim, fpn_dim)
-        self.prob_head = MapHead(fpn_dim, head_dim)
-        self.thresh_head = MapHead(fpn_dim, head_dim)
+        self.backbone = resnet_variant(num_backbone, "det", width, dtype=dtype)
+        self.fpn = FPNNeck(self.backbone.out_channels, fpn_dim, fpn_dim, dtype)
+        self.prob_head = MapHead(fpn_dim, head_dim, dtype)
+        self.thresh_head = MapHead(fpn_dim, head_dim, dtype)
         self.k = k
 
     def forward(self, images: torch.Tensor,
@@ -109,8 +118,7 @@ class SegDetector:
     ``predict_maps`` put the net in train or eval mode themselves.
 
     Not ported, each raising ``NotImplementedError``: ``dcn_stages``
-    (deformable trunk convs, ROADMAP Queue 1 item 13),
-    ``compute_dtype='bfloat16'`` (item 6) and the ``stem_s2d`` /
+    (deformable trunk convs, ROADMAP Queue 1 item 13) and the ``stem_s2d`` /
     ``stem_s2d4`` stems (TPU layout rewrites of the plain stem, item 4). The
     JAX package's ``fused_upsample`` head is a TPU formulation of the plain
     resize -> conv head the port runs, and is not an option here."""
@@ -120,10 +128,7 @@ class SegDetector:
                  negative_ratio: float = 3.0, width: int = 64, compute_dtype: str = "float32",
                  dcn_stages=(), stem_s2d: bool = False, stem_s2d4: bool = False,
                  device="cuda"):
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: bf16 is not ported yet (ROADMAP Queue 1 item 6)"
-            )
+        dtype = parse_compute_dtype(compute_dtype)
         if tuple(dcn_stages):
             raise NotImplementedError(
                 f"dcn_stages={tuple(dcn_stages)}: deformable convs are not ported yet "
@@ -134,7 +139,8 @@ class SegDetector:
                 "stem_s2d / stem_s2d4: the space-to-depth stems are not ported "
                 "(ROADMAP Queue 1 item 4)"
             )
-        self.net = SegDetectorNet(backbone, fpn_dim, head_dim, k, width).to(device).eval()
+        self.net = SegDetectorNet(backbone, fpn_dim, head_dim, k, width,
+                                  dtype).to(device).eval()
         self.bce_scale = bce_scale
         self.l1_scale = l1_scale
         self.negative_ratio = negative_ratio

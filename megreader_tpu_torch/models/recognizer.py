@@ -3,6 +3,11 @@
 Shape trace (config #1, NHWC in): (B, 32, 100, 3) -> resnet18-rec ->
 (B, 512, 2, 25) -> mean over height -> (B, 25, 512) -> StackedBiLSTM(256) x2
 -> (B, 25, 512) -> Linear(num_classes) -> (B, 25, 37).
+
+``compute_dtype='bfloat16'`` is the JAX package's mixed precision: float32
+parameters, bf16 convs and matmuls, BatchNorm and the LSTM cells in float32,
+bf16 logits handed on as float32; the CTC loss takes its log-softmax in
+float32, as the TPU kernel path does (``ops/ctc.py::ctc_loss``).
 """
 
 from __future__ import annotations
@@ -11,17 +16,19 @@ import torch
 import torch.nn as nn
 
 from ..ops.ctc import ctc_beam_decode, ctc_greedy_decode, ctc_loss
+from ..ops.precision import Linear, parse_compute_dtype
 from .resnet import resnet_variant
 from .sequence import StackedBiLSTM
 
 
 class CTCRecognizerNet(nn.Module):
     """CNN + BiLSTM encoder + per-timestep classifier; NHWC crops in,
-    (B, T, num_classes) float32 logits out."""
+    (B, T, num_classes) float32 logits out. ``dtype``: the compute dtype of
+    the trunk, the encoder and the classifier (None: promote, as flax)."""
 
     def __init__(self, num_classes: int, backbone: str = "resnet18", encoder: str = "bilstm",
                  hidden: int = 256, num_encoder_layers: int = 2,
-                 height_collapse: str = "mean"):
+                 height_collapse: str = "mean", dtype=None):
         super().__init__()
         if encoder != "bilstm":
             raise NotImplementedError(
@@ -31,9 +38,10 @@ class CTCRecognizerNet(nn.Module):
             raise NotImplementedError(
                 f"height_collapse={height_collapse!r}: only 'mean' is ported (ROADMAP Queue 1)"
             )
-        self.backbone = resnet_variant(backbone, "rec")
-        self.encoder = StackedBiLSTM(self.backbone.out_channels[-1], hidden, num_encoder_layers)
-        self.classifier = nn.Linear(2 * hidden, num_classes)
+        self.backbone = resnet_variant(backbone, "rec", dtype=dtype)
+        self.encoder = StackedBiLSTM(self.backbone.out_channels[-1], hidden, num_encoder_layers,
+                                     dtype)
+        self.classifier = Linear(2 * hidden, num_classes, compute_dtype=dtype)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         feat = self.backbone(images.permute(0, 3, 1, 2))  # (B, C, H', W')
@@ -48,9 +56,11 @@ class CTCRecognizer:
 
     def __init__(self, num_classes: int = 37, backbone: str = "resnet18",
                  encoder: str = "bilstm", hidden: int = 256, num_encoder_layers: int = 2,
-                 blank: int = 0, height_collapse: str = "mean", device="cuda"):
+                 blank: int = 0, height_collapse: str = "mean", compute_dtype: str = "float32",
+                 device="cuda"):
         self.net = CTCRecognizerNet(
-            num_classes, backbone, encoder, hidden, num_encoder_layers, height_collapse
+            num_classes, backbone, encoder, hidden, num_encoder_layers, height_collapse,
+            parse_compute_dtype(compute_dtype),
         ).to(device).eval()
         self.num_classes = num_classes
         self.blank = blank

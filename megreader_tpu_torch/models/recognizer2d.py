@@ -12,6 +12,11 @@ flax infers the height H' of the feature map when it builds the transition
 head (``Dense(H)``); the port's net takes it from ``crop_hw`` at
 construction (three halvings of the crop height, ceil after each stride-2
 conv) and raises at forward if the feature map disagrees.
+
+``compute_dtype='bfloat16'`` runs the trunk in bf16 (mixed precision,
+float32 parameters); the heads take the features in float32, as flax casts
+them, so the heads, the losses and the decodes stay float32 under mixed
+precision and under the bf16 serving cast alike.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from ..ops.ctc2d import (
     ctc2d_viterbi_height_decode,
     fuse_heights,
 )
+from ..ops.precision import Linear, at_least_float32, parse_compute_dtype
 from .resnet import resnet_variant
 
 TRANSITIONS = ("independent", "markov")
@@ -46,20 +52,21 @@ class Ctc2dRecognizerNet(nn.Module):
     tuple of float32 log-probs out (see the module docstring)."""
 
     def __init__(self, num_classes: int, backbone: str = "resnet18",
-                 transition: str = "independent", width: int = 64, crop_hw=(32, 100)):
+                 transition: str = "independent", width: int = 64, crop_hw=(32, 100),
+                 dtype=None):
         super().__init__()
         if transition not in TRANSITIONS:
             raise ValueError(f"unknown transition {transition!r}")
         self.transition = transition
-        self.backbone = resnet_variant(backbone, "rec2d", width)
+        self.backbone = resnet_variant(backbone, "rec2d", width, dtype=dtype)
         feat = self.backbone.out_channels[-1]
         self.height = rec2d_feature_height(crop_hw[0])
-        self.class_head = nn.Linear(feat, num_classes)
+        self.class_head = Linear(feat, num_classes)
         if transition == "independent":
-            self.height_head = nn.Linear(feat, 1)
+            self.height_head = Linear(feat, 1)
         else:
-            self.trans_head = nn.Linear(feat, self.height)
-            self.init_head = nn.Linear(feat, 1)
+            self.trans_head = Linear(feat, self.height)
+            self.init_head = Linear(feat, 1)
 
     def forward(self, images: torch.Tensor):
         feat = self.backbone(images.permute(0, 3, 1, 2))  # (B, C, H', W')
@@ -67,8 +74,9 @@ class Ctc2dRecognizerNet(nn.Module):
             raise ValueError(f"feature map of height {feat.shape[2]}, but the net was built "
                              f"for {self.height} (crop height {images.shape[1]}): build it "
                              "with the crop_hw it is fed")
-        # (B, T=W', H', C), in the heads' type (float32; float64 in the tests)
-        feat = feat.permute(0, 3, 2, 1).to(self.class_head.weight.dtype)
+        # (B, T=W', H', C) in float32 (float64 in the tests); the heads
+        # promote it with their weights
+        feat = at_least_float32(feat.permute(0, 3, 2, 1))
         emit = torch.log_softmax(self.class_head(feat), -1)
         if self.transition == "independent":
             return emit, torch.log_softmax(self.height_head(feat)[..., 0], -1)
@@ -86,13 +94,8 @@ class Ctc2dRecognizer:
     def __init__(self, num_classes: int = 37, backbone: str = "resnet18",
                  transition: str = "independent", blank: int = 0, width: int = 64,
                  compute_dtype: str = "float32", crop_hw=(32, 100), device="cuda"):
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: bf16 training is not ported "
-                "(ROADMAP Queue 1 item 9)"
-            )
-        self.net = Ctc2dRecognizerNet(num_classes, backbone, transition, width,
-                                      crop_hw).to(device).eval()
+        self.net = Ctc2dRecognizerNet(num_classes, backbone, transition, width, crop_hw,
+                                      parse_compute_dtype(compute_dtype)).to(device).eval()
         self.num_classes = num_classes
         self.transition = transition
         self.blank = blank

@@ -13,15 +13,21 @@ variant='rec': 3x3/s1 stem + 2x2/s2 max pool, stage strides
 last feature map.
 variant='rec2d': the 'rec' stem with stage strides (1, (2, 2), (2, 1), (1, 1)),
 keeping height for the 2D-CTC heads: 32x100 -> H=4, W=25; 48x160 -> 6x40.
+
+``dtype`` is the convs' compute dtype (bf16 for mixed precision; None
+promotes the input and the kernel, ``ops/precision.py``). BatchNorm computes
+in float32 and returns its input's dtype in either case.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.precision import Conv2d
 
 STAGE_SIZES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 
@@ -35,16 +41,27 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``running = 0.99 * running + 0.01 * batch``. torch's own train mode
     differs twice: its ``momentum`` is the weight of the batch value (so
     flax's 0.99 is torch's 0.01, not torch's default 0.1), and it moves
-    ``running_var`` toward the unbiased variance."""
+    ``running_var`` toward the unbiased variance.
+
+    Both modes compute in float32 (float64 for a float64 input) from the
+    input, the statistics and the affine as they are stored, and return the
+    input's dtype: the JAX package's ``_bn`` (a float32 BatchNorm cast back to
+    the surrounding compute dtype) under mixed precision and under the bf16
+    serving cast alike."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.99):
         super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # torch's batch norm computes a bf16 input in float32 and returns
+        # bf16, with float32 (mixed precision) or bf16 (serving cast) affine
+        # and statistics alike
         if not self.training:
-            return super().forward(x)
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            y = x.to(torch.promote_types(x.dtype, torch.float32))
+            var, mean = torch.var_mean(y, dim=(0, 2, 3), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
@@ -57,15 +74,17 @@ def _pair(s):
 class BasicBlock(nn.Module):
     """2x(3x3 conv) residual block with a 1x1 projection where the shape changes."""
 
-    def __init__(self, in_ch: int, features: int, stride=(1, 1)):
+    def __init__(self, in_ch: int, features: int, stride=(1, 1),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         stride = _pair(stride)
-        self.conv1 = nn.Conv2d(in_ch, features, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(in_ch, features, 3, stride, 1, bias=False, compute_dtype=dtype)
         self.bn1 = BatchNorm2d(features)
-        self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(features, features, 3, 1, 1, bias=False, compute_dtype=dtype)
         self.bn2 = BatchNorm2d(features)
         if in_ch != features or stride != (1, 1):
-            self.downsample_conv = nn.Conv2d(in_ch, features, 1, stride, bias=False)
+            self.downsample_conv = Conv2d(in_ch, features, 1, stride, bias=False,
+                                          compute_dtype=dtype)
             self.downsample_bn = BatchNorm2d(features)
         else:
             self.downsample_conv = None
@@ -81,14 +100,14 @@ class ResNet(nn.Module):
     """Configurable BasicBlock trunk (see the module docstring)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2), variant: str = "det",
-                 width: int = 64, in_ch: int = 3):
+                 width: int = 64, in_ch: int = 3, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if variant == "det":
-            self.stem_conv = nn.Conv2d(in_ch, width, 7, 2, 3, bias=False)
+            self.stem_conv = Conv2d(in_ch, width, 7, 2, 3, bias=False, compute_dtype=dtype)
             self.pool = nn.MaxPool2d(3, 2, 1)
             strides = [(1, 1), (2, 2), (2, 2), (2, 2)]
         elif variant in ("rec", "rec2d"):
-            self.stem_conv = nn.Conv2d(in_ch, width, 3, 1, 1, bias=False)
+            self.stem_conv = Conv2d(in_ch, width, 3, 1, 1, bias=False, compute_dtype=dtype)
             self.pool = nn.MaxPool2d(2, 2)
             last = (2, 1) if variant == "rec" else (1, 1)
             strides = [(1, 1), (2, 2), (2, 1), last]
@@ -102,7 +121,8 @@ class ResNet(nn.Module):
             names = []
             for j in range(n):
                 name = f"layer{i + 1}_block{j}"
-                self.add_module(name, BasicBlock(ch, width * 2**i, stride if j == 0 else (1, 1)))
+                self.add_module(name, BasicBlock(ch, width * 2**i, stride if j == 0 else (1, 1),
+                                                 dtype))
                 ch = width * 2**i
                 names.append(name)
             self.stages.append(names)
@@ -118,10 +138,11 @@ class ResNet(nn.Module):
         return tuple(feats) if self.variant == "det" else y
 
 
-def resnet_variant(name: str, variant: str = "det", width: int = 64) -> ResNet:
+def resnet_variant(name: str, variant: str = "det", width: int = 64,
+                   dtype: Optional[torch.dtype] = None) -> ResNet:
     if name not in STAGE_SIZES:
         raise NotImplementedError(
             f"backbone {name!r}: only the BasicBlock trunks {sorted(STAGE_SIZES)} are ported"
         )
-    return ResNet(STAGE_SIZES[name], variant, width)
+    return ResNet(STAGE_SIZES[name], variant, width, dtype=dtype)
 

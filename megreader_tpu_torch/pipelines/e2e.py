@@ -12,13 +12,21 @@
 Shapes are static: K is a fixed region budget, and slots without a region are
 masked by ``valid``, not dropped. Each stage is a method, so a caller can time
 the stages one by one; ``run`` chains them.
+
+``bf16=True`` serves as the JAX package's ``bf16`` pipeline does: the
+detector and the recognizer run as bf16-cast copies (``cast_floats``, made
+once per module and made again only when its weights change), fed bf16
+normalized pages and crops; the prob map comes back as float32, and the CCL,
+the extraction and the rectification see what they see in float32 serving.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn as nn
 
 from ..core.charset import Charset
 from ..ops.ccl import (
@@ -29,6 +37,7 @@ from ..ops.ccl import (
     unclip_distance_inverse,
 )
 from ..ops.image import crop_resize_boxes, normalize, rectify_quads_mxu
+from ..ops.precision import cast_floats
 from .predictors import RECOGNIZERS, default_charset
 
 
@@ -70,8 +79,6 @@ class E2EPipeline:
             raise _not_ported("rectify='chain'", "item 11, curved-text serving")
         if rectify not in ("perspective", "box"):
             raise ValueError(f"unknown rectify mode {rectify!r}")
-        if bf16:
-            raise _not_ported("bf16 serving", "item 6, page-pipeline variants")
         if rec_mode not in ("greedy", "beam"):
             raise ValueError(f"unknown rec_mode {rec_mode!r}")
         if ccl_multigrid:
@@ -95,6 +102,9 @@ class E2EPipeline:
         self.ccl_iters = ccl_iters
         self.rec_mode = rec_mode
         self.beam_width = beam_width
+        self.bf16 = bf16
+        #: module -> (its weights' versions, its bf16 copy)
+        self._cast = weakref.WeakKeyDictionary()
         #: region-stats path: 'auto' resolves to 'xla', as in the JAX package;
         #: 'pallas' / 'pallas_full' run the CUDA extraction kernels
         #: (``ops/extract.py``)
@@ -109,10 +119,27 @@ class E2EPipeline:
 
     # --- stages -------------------------------------------------------------
 
+    def serving(self, module: nn.Module) -> nn.Module:
+        """The module that serves for ``module``: itself, or under ``bf16``
+        its bf16-cast copy, cast again when ``module``'s weights have changed
+        since."""
+        if not self.bf16:
+            return module
+        versions = tuple(t._version for t in (*module.parameters(), *module.buffers()))
+        hit = self._cast.get(module)
+        if hit is None or hit[0] != versions:
+            hit = (versions, cast_floats(module, torch.bfloat16))
+            self._cast[module] = hit
+        return hit[1]
+
+    def _input(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(torch.bfloat16) if self.bf16 else x
+
     def detect(self, det_module, pages: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) pages -> (B, H, W) float32 prob map (the module in
         eval mode)."""
-        return det_module.eval()(normalize(pages), heads=("prob",))["prob"].float()
+        net = self.serving(det_module).eval()
+        return net(self._input(normalize(pages)), heads=("prob",))["prob"].float()
 
     def label(self, prob: torch.Tensor) -> torch.Tensor:
         """Binarize and label components: (B, H, W) int32."""
@@ -139,7 +166,8 @@ class E2EPipeline:
         return {"stats": stats, "quads": quads, "boxes": boxes, "valid": valid}
 
     def crops(self, pages: torch.Tensor, regions: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Word crops (B*K, Ho, Wo, 3), normalized for the recognizer."""
+        """Word crops (B*K, Ho, Wo, 3), normalized for the recognizer (bf16
+        under ``bf16``), cut from the float32 pages."""
         B, K = regions["quads"].shape[:2]
         Ho, Wo = self.crop_hw
         if self.rectify == "perspective":
@@ -150,12 +178,14 @@ class E2EPipeline:
             crops = rectify_quads_mxu(pages, qm, (Ho, Wo), aspect="preserve_h")
         else:
             crops = crop_resize_boxes(pages, regions["boxes"], (Ho, Wo), aspect="preserve_h")
-        return normalize(crops.reshape(B * K, Ho, Wo, 3))
+        return self._input(normalize(crops.reshape(B * K, Ho, Wo, 3)))
 
     def recognize(self, rec_module, crops: torch.Tensor):
         """Crops -> (ids (B*K, T) int32, lengths (B*K,) int32), by the
         recognizer family's decode for ``rec_mode``."""
-        return self.recognizer.decode(crops, mode=self.rec_mode, net=rec_module,
+        return self.recognizer.decode(crops, mode=self.rec_mode,
+                                      net=self.serving(self.recognizer.net if rec_module is None
+                                                       else rec_module),
                                       beam_width=self.beam_width)
 
     # --- whole path -----------------------------------------------------------

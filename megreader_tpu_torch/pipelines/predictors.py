@@ -1,16 +1,21 @@
-"""Recognizer predictor: word crops -> strings, batched on the model's device.
+"""Predictors: word crops -> strings, pages -> quads, batched on the model's device.
 
-A port of ``megreader_tpu/pipelines/predictors.py::RecognizerPredictor`` for
-the CTC, 2D-CTC and attention families: canvases are resized to ``crop_hw``
-with their aspect kept (``resize_with_aspect_pad``) and normalized on the
-device, the model decodes the batch there (``mode`` 'greedy' or 'beam' of
-width ``beam_width``; Markov heights decode by Viterbi), and only ids and
-lengths cross to the host.
+A port of ``megreader_tpu/pipelines/predictors.py``:
+
+* ``RecognizerPredictor`` for the CTC, 2D-CTC and attention families:
+  canvases are resized to ``crop_hw`` with their aspect kept
+  (``resize_with_aspect_pad``) and normalized on the device, the model
+  decodes the batch there (``mode`` 'greedy' or 'beam' of width
+  ``beam_width``; Markov heights decode by Viterbi), and only ids and lengths
+  cross to the host.
+* ``DetectorPredictor`` for ``SegDetector``: pages are normalized on the
+  device, the prob head alone runs, and the representer
+  (``postproc/detection.py``, quad mode) turns the maps into scored quads.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -18,9 +23,11 @@ import torch.nn as nn
 
 from ..core.charset import AttentionCharset, Charset
 from ..models.attention import AttentionRecognizer
+from ..models.detector import SegDetector
 from ..models.recognizer import CTCRecognizer
 from ..models.recognizer2d import Ctc2dRecognizer
 from ..ops.image import normalize, resize_with_aspect_pad
+from ..postproc.detection import SegDetectorRepresenter
 
 RECOGNIZERS = (CTCRecognizer, Ctc2dRecognizer, AttentionRecognizer)
 
@@ -59,3 +66,25 @@ class RecognizerPredictor:
         ids, lengths = self.model.decode(self.prepare(canvases, sizes), mode=self.mode, net=net,
                                          beam_width=self.beam_width)
         return self.charset.decode_batch(ids.cpu().numpy(), lengths.cpu().numpy())
+
+
+class DetectorPredictor:
+    """Pages -> per-page quads and scores, for ``SegDetector``."""
+
+    def __init__(self, model, representer: Optional[SegDetectorRepresenter] = None):
+        if not isinstance(model, SegDetector):
+            raise TypeError(f"{type(model).__name__} is not a SegDetector")
+        self.model = model
+        self.representer = representer or SegDetectorRepresenter()
+
+    @torch.no_grad()
+    def predict(self, net: nn.Module, pages, scales=None) -> List[Dict]:
+        """``net`` (None: the model's own module) maps (B, H, W, 3) float32
+        pages in [0, 255] to its prob maps; ``scales`` (B, 2) as the
+        representer takes them. Returns per page {'polygons' (n, 4, 2),
+        'scores' (n,)}."""
+        net = self.model.net if net is None else net
+        device = next(net.parameters()).device
+        images = torch.as_tensor(np.asarray(pages, np.float32)).to(device)
+        prob = net.eval()(normalize(images), heads=("prob",))["prob"]
+        return self.representer.represent(prob, scales=scales)

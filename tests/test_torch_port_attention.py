@@ -271,8 +271,15 @@ def test_decodes_are_not_degenerate(decodes):
 
 
 def test_left_out_dtype_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        AttentionRecognizer(**SIZE, compute_dtype="bfloat16", device="cpu")
+    """``compute_dtype='bfloat16'`` is ported (held to JAX by
+    ``tests/test_torch_port_bf16.py``): float32 parameters, a bf16 trunk, a
+    float32 decoder. An unknown dtype raises."""
+    rec = AttentionRecognizer(**SIZE, compute_dtype="bfloat16", device="cpu")
+    assert {p.dtype for p in rec.net.parameters()} == {torch.float32}
+    assert rec.net.trunk.stem_conv.compute_dtype == torch.bfloat16
+    assert rec.net.out.compute_dtype is None
+    with pytest.raises(ValueError, match="unknown compute_dtype"):
+        AttentionRecognizer(**SIZE, compute_dtype="float16", device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["greedy", "beam"])

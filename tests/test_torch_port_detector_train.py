@@ -305,6 +305,14 @@ def test_trained_port_detector_goes_back_to_flax(jax_step, port_step):
                                  {"stem_s2d": True}, {"stem_s2d4": True}],
                          ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_left_out_detector_options_raise(opt):
+    """Every option here is refused, but ``compute_dtype='bfloat16'``, which
+    is ported (held to JAX by ``tests/test_torch_port_bf16.py``): float32
+    parameters, bf16 convs."""
+    if opt == {"compute_dtype": "bfloat16"}:
+        det = SegDetector(**DET, device="cpu", **opt)
+        assert {p.dtype for p in det.net.parameters()} == {torch.float32}
+        assert det.net.prob_head.up2.compute_dtype == torch.bfloat16
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         SegDetector(**DET, device="cpu", **opt)
 

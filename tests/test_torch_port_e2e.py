@@ -146,11 +146,22 @@ def test_e2e_predict_strings_match_jax(slice_pair):
     {"rec_mode": "beam"}, {"ccl_multigrid": True},
 ], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(opt):
-    """Every option here is refused, but ``rec_mode='beam'``, which is ported:
-    its pipeline decodes crops by the recognizer's beam of width
-    ``beam_width`` (the beam is held to JAX by
-    ``tests/test_torch_port_ctc_beam.py``), and an unknown mode raises."""
+    """Every option here is refused, but ``rec_mode='beam'`` and
+    ``bf16=True``, which are ported: the first pipeline decodes crops by the
+    recognizer's beam of width ``beam_width`` (the beam is held to JAX by
+    ``tests/test_torch_port_ctc_beam.py``), and an unknown mode raises; the
+    second serves a bf16 copy of the recognizer on bf16 crops (held to JAX by
+    ``tests/test_torch_port_bf16.py``)."""
     rec = CTCRecognizer(37, hidden=8, num_encoder_layers=1, device="cpu")
+    if opt == {"bf16": True}:
+        pipe = E2EPipeline(None, rec, device="cpu", **opt)
+        crops = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 32, 100, 3))
+                                 .astype(np.float32))
+        got = pipe.recognize(None, crops.to(torch.bfloat16))
+        assert pipe.serving(rec.net).classifier.weight.dtype == torch.bfloat16
+        assert rec.net.classifier.weight.dtype == torch.float32
+        assert got[0].shape == (3, 25) and got[0].dtype == torch.int32
+        return
     if opt == {"rec_mode": "beam"}:
         pipe = E2EPipeline(None, rec, device="cpu", beam_width=4, **opt)
         crops = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 32, 100, 3))

@@ -163,9 +163,13 @@ def test_net_checks_its_feature_height():
 
 @pytest.mark.parametrize("what", ["bf16", "beam", "transition"])
 def test_left_out_options_raise(what):
-    if what == "bf16":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            Ctc2dRecognizer(37, width=WIDTH, compute_dtype="bfloat16", device="cpu")
+    if what == "bf16":  # ported: a bf16 trunk, float32 heads (tests/test_torch_port_bf16.py)
+        rec = Ctc2dRecognizer(37, width=WIDTH, compute_dtype="bfloat16", device="cpu")
+        assert {p.dtype for p in rec.net.parameters()} == {torch.float32}
+        assert rec.net.backbone.stem_conv.compute_dtype == torch.bfloat16
+        assert rec.net.class_head.compute_dtype is None
+        with pytest.raises(ValueError, match="unknown compute_dtype"):
+            Ctc2dRecognizer(37, width=WIDTH, compute_dtype="half", device="cpu")
     elif what == "beam":  # ported: the beam over the fused heights, Viterbi for Markov
         x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 32, 100, 3))
                              .astype(np.float32))
