@@ -4,8 +4,9 @@ path with each region-extraction path, the training of the config-#1
 recognizer, the training and batched decode of the config-#2 2D-CTC
 recognizer, the training and detection evaluation of the config-#4
 detector, the training and decodes of the config-#3 attention recognizer,
-serving with beam decodes, the CTC prefix beam search, and bf16 serving of
-the trained detector with mixed-precision training of all four configs.
+serving with beam decodes, the CTC prefix beam search, bf16 serving of
+the trained detector with mixed-precision training of all four configs, and
+the entry points (train, eval, page pipeline) on the repo's YAML files.
 
     python3 chip_smoke.py
 
@@ -24,7 +25,10 @@ Phases (any failure exits non-zero):
    columns longer than one of the kernel's tiles). Prints each launch's
    grid, blocks per SM and strip width; times the kernel (CUDA events and
    kernel-busy) and the plain version, and computes the kernel's bound for
-   this run's masks.
+   this run's masks. Then the multigrid solve (``multigrid_solve``: a launch
+   on the 2x2-min-pooled masks, then a launch started from its seeds) on the
+   same masks and caps, labels and both levels' sweep counts bit-exact
+   against the plain multigrid, and flat against multigrid timed in turns.
 3. extract: the three CUDA extraction kernels (candidates, moments, extents)
    against their plain versions on the card at the serving shape (8x640x640
    labels of the CCL kernel with cap 24, K 32, K2 256; text-like rectangles,
@@ -146,6 +150,31 @@ Phases (any failure exits non-zero):
     and optimizer state, the CTC and 2D-CTC kernels launched once a step;
     ms a step, busy and idle share. Every kernel must launch on these bf16
     paths (``launches_bf16`` in the kernels line).
+
+15. cli: the entry points on the repo's YAML files at full width, the
+    numpy datasets (``WordCrops``, ``TextPages``, registered in the port's
+    registry) put in through dotted overrides, each entry point's kernel
+    launches counted from 0: ``cli.train`` of
+    ``experiments/ctc_resnet18_synth.yaml`` for 8 steps and 4 more after a
+    resume (one CTC alpha and beta launch a step; the first step's loss
+    equal to the same run's built in Python, and both runs' host seconds a
+    step), of ``ctc2d_resnet18_synth.yaml`` with Markov heights for 4 steps
+    (the 2D-CTC kernels only); ``cli.eval`` greedy and beam of both
+    workspaces (one JSON line each); the trained detector of the asset in a
+    port checkpoint, ``cli.eval`` of ``seg_detector_synth.yaml`` on 8
+    ``TextPages`` (recall above 0); ``cli.pipeline`` on 8 pages written as
+    PNG with ``--rectify`` perspective, deskew and box and with
+    ``--extract-impl pallas_full``: the polygons identical across the
+    rectify modes (within 1e-2 px under ``'pallas_full'``), equal to a
+    direct ``E2EPipeline.predict`` (strings equal, polygons within 1e-3 px),
+    and on 2 pages to the same entry point on the CPU. Then the trained
+    detector's masks: multigrid labels equal to flat, CCL flat against
+    multigrid, serving pages/s with flat and multigrid CCL, deskew and box in
+    turns, and ``rotate_crops`` of 256 smooth crops on the card against
+    float64 on the CPU, within twice the CPU's own float32 distance from
+    float64 (at least 1e-3 on 0-255 values; float32 alone lies about 1.2e-3
+    from float64 there). Every kernel must launch through the entry points
+    (``launches_cli`` in the kernels line).
 
 Prints a JSON line of per-kernel numbers (all eight kernels), then, as the
 last line, ``{"ok": true, "device": {...}}``. Needs a CUDA device; exits 1
@@ -302,9 +331,11 @@ def ccl_cases(rng):
 
 def phase_ccl():
     from megreader_tpu_torch.ops.ccl import (
+        connected_components,
         connected_components_cuda,
         connected_components_cuda_config,
         connected_components_reference,
+        multigrid_solve,
     )
 
     rng = np.random.default_rng(SEED)
@@ -355,6 +386,37 @@ def phase_ccl():
     log(f"ccl bound: bytes {bytes_moved} -> {bytes_ms:.5f} ms, ops {ops} -> {ops_ms:.5f} ms; "
         f"sweeps {sweeps.tolist()} (sum {int(sweeps.sum())}); L2 traffic of the design "
         f"{sweep_bytes[0]}-{sweep_bytes[1]} B per sweep")
+
+    # multigrid: a launch on the 2x2-min-pooled masks, then a launch seeded by
+    # its labels, against the plain multigrid (labels and both levels' sweeps)
+    for name, m in cases.items():
+        mask = torch.from_numpy(m).cuda()
+        for c in (1, 2, 3, 24, 64):
+            got, got_sw = multigrid_solve(connected_components_cuda, mask, c, return_sweeps=True)
+            ref, sw = multigrid_solve(connected_components_reference, mask, c,
+                                      return_sweeps=True)
+            torch.cuda.synchronize()
+            err = int((got.long() - ref.long()).abs().max()) if got.numel() else 0
+            log(f"ccl multigrid {name} cap {c}: max |kernel - plain| = {err}, sweeps per page "
+                f"coarse {sw[0].tolist()} full {sw[1].tolist()}")
+            if not torch.equal(got, ref) or not torch.equal(got_sw, sw):
+                raise AssertionError(f"seeded ccl launch disagrees with the plain multigrid on "
+                                     f"{name} at cap {c}: sweeps {got_sw.tolist()} against "
+                                     f"{sw.tolist()}")
+            max_err = max(max_err, err)
+    mask = torch.from_numpy(main).cuda()
+    _, mg_sweeps = multigrid_solve(connected_components_cuda, mask, cap, return_sweeps=True)
+    mg = lambda: connected_components(mask, cap, multigrid=True)  # noqa: E731
+    flat = lambda: connected_components(mask, cap)  # noqa: E731
+    turns = {"flat": [], "multigrid": []}
+    for which in ("flat", "multigrid", "multigrid", "flat"):
+        turns[which].append(cuda_ms(flat if which == "flat" else mg, reps=50))
+    log(f"ccl flat against multigrid at the serving masks (cap {cap}; ms by CUDA events, "
+        f"median of 50, in turns): {json.dumps(turns)}; kernel-busy flat "
+        f"{device_busy_ms(flat, reps=10)} ms, multigrid {device_busy_ms(mg, reps=10)} ms "
+        f"(two launches and the pooling and seeding ops); sweeps flat {int(sweeps.sum())}, "
+        f"multigrid coarse {int(mg_sweeps[0].sum())} + full {int(mg_sweeps[1].sum())} "
+        f"(per page {mg_sweeps.tolist()})")
     return {
         "name": "ccl",
         "route": "cuda",
@@ -2598,6 +2660,335 @@ def phase_bf16(B: int = 8, hw: int = 640, rec_B: int = 64, per_epoch: int = 4, e
     return launches
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def kernel_counters():
+    """Each kernel's wrapper (its ``launches`` count) by the kernels line's
+    name, extraction kernels without their prefix."""
+    from megreader_tpu_torch.ops import ctc, ctc2d
+    from megreader_tpu_torch.ops import extract as ex
+    from megreader_tpu_torch.ops.ccl import connected_components_cuda
+
+    return {"ccl": connected_components_cuda, "candidates": ex.candidates_cuda,
+            "moments": ex.moments_cuda, "extents": ex.extents_cuda,
+            "ctc_alpha": ctc.ctc_alpha_cuda, "ctc_beta": ctc.ctc_beta_cuda,
+            "ctc2d_alpha": ctc2d.ctc2d_alpha_cuda, "ctc2d_beta": ctc2d.ctc2d_beta_cuda}
+
+
+def run_cli(name, main, argv, total):
+    """An entry point's ``main(argv)`` with every kernel's count set to 0 just
+    before it; its launches are added to ``total``. Returns (its result, its
+    launches, its seconds on the host clock, the JSON lines it printed); what
+    it printed is logged with a prefix."""
+    import contextlib
+    import io
+
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: k.launches for n, k in counters.items()}
+    for n, v in got.items():
+        total[n] += v
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"cli phase, {name} | {line}")
+    log(f"cli phase, {name}: {wall:.2f} s (host clock), launches "
+        + json.dumps({n: v for n, v in got.items() if v}))
+    return out, got, wall, [json.loads(line) for line in lines if line.startswith("{")]
+
+
+def node(cls: str, **kw) -> str:
+    """A YAML flow mapping for a dotted override that replaces a config node."""
+    return "{" + ", ".join([f"class: {cls}"] + [f"{k}: {v}" for k, v in kw.items()]) + "}"
+
+
+def step_seconds(ws: str):
+    """Host seconds between consecutive logged steps of a workspace's
+    ``train_metrics.jsonl`` (one line a step), and its losses."""
+    with open(os.path.join(ws, "train_metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if '"loss"' in line]
+    t = [r["t"] for r in recs]
+    return [b - a for a, b in zip(t, t[1:])], [r["loss"] for r in recs], [r["step"] for r in recs]
+
+
+def smooth_crops(rng, n: int, hw=(32, 100)) -> np.ndarray:
+    """Smooth 0-255 crops (sums of low-frequency waves), where the
+    resamplers' one-ulp coordinate differences stay far below 1e-3 px."""
+    H, W = hw
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    out = np.zeros((n, H, W, 3))
+    for _ in range(4):
+        f = rng.uniform(0.02, 0.1, (n, 1, 1, 3, 2))
+        ph = rng.uniform(0, 2 * np.pi, (n, 1, 1, 3))
+        out += np.sin(xx[None, ..., None] * f[..., 0] + yy[None, ..., None] * f[..., 1] + ph)
+    return (127.5 + 127.5 * out / 4).astype(np.float32)
+
+
+def phase_cli(B: int = 8, hw: int = 640, rec_B: int = 64, per_epoch: int = 4):
+    """The port as its users start it: the entry points on the repo's YAML
+    files at full width, the numpy datasets put in through dotted overrides.
+    Returns every kernel's launches in the entry points' runs."""
+    from megreader_tpu_torch.cli import eval as cli_eval
+    from megreader_tpu_torch.cli import pipeline as cli_pipeline
+    from megreader_tpu_torch.cli import train as cli_train
+    from megreader_tpu_torch.compat.msgpack import load_flax_msgpack
+    from megreader_tpu_torch.compat.weights import load_flax_variables
+    from megreader_tpu_torch.core.registry import COMPONENTS
+    from megreader_tpu_torch.data.imageio import write_png
+    from megreader_tpu_torch.experiment import Experiment
+    from megreader_tpu_torch.models.detector import SegDetector
+    from megreader_tpu_torch.models.recognizer import CTCRecognizer
+    from megreader_tpu_torch.ops.ccl import (
+        connected_components,
+        connected_components_cuda,
+        multigrid_solve,
+    )
+    from megreader_tpu_torch.ops.image import rotate_crops
+    from megreader_tpu_torch.pipelines.e2e import E2EPipeline
+    from megreader_tpu_torch.train.checkpoint import CheckpointManager
+    from megreader_tpu_torch.train.train_step import OptimizerConfig, create_train_state
+
+    t_phase = time.perf_counter()
+    for cls in (WordCrops, TextPages):
+        COMPONENTS.register(cls)
+    total = dict.fromkeys(kernel_counters(), 0)
+    cfg = {k: os.path.join(ROOT, "experiments", f"{k}.yaml")
+            for k in ("ctc_resnet18_synth", "ctc2d_resnet18_synth", "seg_detector_synth")}
+    rec_data = ["--experiment.train_dataset", node("WordCrops", n=rec_B * per_epoch,
+                                                   seed=SEED + 60),
+                "--experiment.eval_dataset", node("WordCrops", n=rec_B, seed=SEED + 61),
+                "--experiment.batch_size", str(rec_B), "--experiment.log_every", "1"]
+
+    def expect(name, got, want):
+        bad = {n: v for n, v in got.items() if v != want.get(n, 0)}
+        if bad:
+            raise AssertionError(f"cli phase, {name}: launches {got}, expected {want}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # config #1: 2 epochs of 4 steps, then a resume to 3 epochs
+        ws1 = os.path.join(tmp, "ctc")
+        steps = 2 * per_epoch
+        state, got, _, _ = run_cli("cli.train config #1", cli_train.main, [
+            cfg["ctc_resnet18_synth"], "--no-resume", "--experiment.workspace", ws1,
+            "--experiment.epochs", "2", *rec_data], total)
+        expect("cli.train config #1", got, {"ctc_alpha": steps, "ctc_beta": steps})
+        if state.step != steps:
+            raise AssertionError(f"cli phase: config #1 stopped at step {state.step}")
+        cli_dt, cli_losses, _ = step_seconds(ws1)
+        state, got, _, _ = run_cli("cli.train config #1, resumed", cli_train.main, [
+            cfg["ctc_resnet18_synth"], "--experiment.workspace", ws1, "--experiment.epochs",
+            "3", *rec_data], total)
+        expect("cli.train config #1, resumed", got,
+               {"ctc_alpha": per_epoch, "ctc_beta": per_epoch})
+        _, losses, logged = step_seconds(ws1)
+        if state.step != steps + per_epoch or logged != list(range(1, state.step + 1)) or not (
+                np.all(np.isfinite(losses))):
+            raise AssertionError(f"cli phase: config #1 resumed to step {state.step}, logged "
+                                 f"steps {logged}, losses {losses}")
+
+        # the same run built in Python: the entry point adds nothing a step
+        ws_py = os.path.join(tmp, "ctc_python")
+        torch.manual_seed(0)  # from_yaml draws the weights under the YAML's seed, 0
+        exp = Experiment(CTCRecognizer(num_classes=37, device="cuda"),
+                         WordCrops(rec_B * per_epoch, SEED + 60),
+                         eval_dataset=WordCrops(rec_B, SEED + 61),
+                         optimizer=adam_warmup_cosine(), workspace=ws_py, batch_size=rec_B,
+                         epochs=2, log_every=1)
+        exp.make_trainer().train(resume=False)
+        py_dt, py_losses, _ = step_seconds(ws_py)
+        log(f"cli phase, config #1 step on the host clock (s between logged steps 2-{steps}, "
+            f"median): cli.train {statistics.median(cli_dt[1:])} (all {cli_dt}), Experiment "
+            f"built in Python {statistics.median(py_dt[1:])} (all {py_dt}); losses cli "
+            f"{cli_losses}, Python {py_losses}")
+        if abs(cli_losses[0] - py_losses[0]) > 1e-5 * abs(py_losses[0]):
+            raise AssertionError(f"cli phase: the first step's loss {cli_losses[0]} through "
+                                 f"cli.train, {py_losses[0]} through Experiment")
+        del exp
+
+        # config #2 with Markov heights: 4 steps, the 2D-CTC kernels only
+        ws2 = os.path.join(tmp, "ctc2d")
+        markov = ["--experiment.model.transition", "markov"]
+        state, got, _, _ = run_cli("cli.train config #2 (Markov)", cli_train.main, [
+            cfg["ctc2d_resnet18_synth"], "--no-resume", "--experiment.workspace", ws2,
+            "--experiment.epochs", "1", *markov, *rec_data], total)
+        expect("cli.train config #2", got, {"ctc2d_alpha": per_epoch, "ctc2d_beta": per_epoch})
+        if state.step != per_epoch:
+            raise AssertionError(f"cli phase: config #2 stopped at step {state.step}")
+
+        # evaluation of both workspaces, greedy and beam (Viterbi for Markov)
+        for label, name, ws, extra, step in (
+                ("config #1", "ctc_resnet18_synth", ws1, [], steps + per_epoch),
+                ("config #2", "ctc2d_resnet18_synth", ws2, markov, per_epoch)):
+            for mode in ("greedy", "beam"):
+                _, got, _, printed = run_cli(f"cli.eval {label} {mode}", cli_eval.main, [
+                    cfg[name], "--experiment.workspace", ws, "--mode", mode, *extra,
+                    *rec_data], total)
+                expect(f"cli.eval {label}", got, {})
+                if (len(printed) != 1 or printed[0]["step"] != step
+                        or printed[0]["n"] != rec_B or not 0 <= printed[0]["ned"] <= 1):
+                    raise AssertionError(f"cli phase: cli.eval {label} {mode} printed {printed}")
+
+        # the trained detector (the repo's asset) in a port checkpoint
+        ws3 = os.path.join(tmp, "det")
+        variables, asset_step = load_flax_msgpack(ASSET)
+        det = SegDetector(device="cuda")
+        load_flax_variables(det.net, variables)
+        CheckpointManager(ws3).save(create_train_state(det, OptimizerConfig()), asset_step,
+                                    force=True)
+        pages_data = ["--experiment.train_dataset", node("TextPages", n=B, seed=5),
+                      "--experiment.eval_dataset", node("TextPages", n=B, seed=5),
+                      "--experiment.batch_size", str(B)]
+        _, got, _, printed = run_cli("cli.eval config #4 (trained detector)", cli_eval.main, [
+            cfg["seg_detector_synth"], "--experiment.workspace", ws3, *pages_data], total)
+        if not got["ccl"] or len(printed) != 1 or not printed[0]["recall"] > 0:
+            raise AssertionError(f"cli phase: detector evaluation printed {printed}, "
+                                 f"launches {got}")
+
+        # the page pipeline on PNG files
+        items = [TextPages(B, 5, (hw, hw))[i] for i in range(B)]
+        pages_np = np.stack([it["image"] for it in items])
+        paths = []
+        for i, page in enumerate(pages_np):
+            paths.append(os.path.join(tmp, f"page{i}.png"))
+            write_png(paths[-1], page)
+        base = ["--detector", cfg["seg_detector_synth"], "--det-workspace", ws3,
+                "--recognizer", cfg["ctc_resnet18_synth"], "--rec-workspace", ws1,
+                "--page-size", str(hw)]
+        rec = CTCRecognizer(num_classes=37, device="cuda")
+        CheckpointManager(ws1).restore_variables(rec.net)
+        served = {}
+        for rectify, impl in (("perspective", "auto"), ("deskew", "auto"), ("box", "auto"),
+                              ("perspective", "pallas_full")):
+            name = f"cli.pipeline --rectify {rectify} --extract-impl {impl}"
+            out, got, wall, printed = run_cli(name, cli_pipeline.main, [
+                *base, "--images", *paths, "--rectify", rectify, "--extract-impl", impl], total)
+            full = impl == "pallas_full"
+            expect(name, got, {"ccl": 1, "candidates": int(full), "moments": int(full),
+                               "extents": int(full)})
+            if printed != out or [p["image"] for p in out] != paths:
+                raise AssertionError(f"cli phase: {name} printed {printed}")
+            served[rectify, impl] = out
+            pipe = E2EPipeline(det, rec, box_thresh=0.5, rectify=rectify, extract_impl=impl,
+                               device="cuda")
+            direct = pipe.predict(None, None, pages_np.astype(np.float32))
+            err = 0.0
+            for page, want in zip(out, direct):
+                if [d["text"] for d in page["detections"]] != [d["text"] for d in want] or not (
+                        page["detections"]):
+                    raise AssertionError(f"cli phase: {name} read {page}, E2EPipeline.predict "
+                                         f"{want}")
+                for d, w in zip(page["detections"], want):
+                    err = max(err, float(np.abs(np.array(d["polygon"]) - w["polygon"]).max()))
+            if err > 1e-3:
+                raise AssertionError(f"cli phase: {name} polygons {err} px from predict")
+            log(f"cli phase, {name}: {[len(p['detections']) for p in out]} words a page "
+                f"({[len(it['polygons']) for it in items]} drawn), polygons {err} px from "
+                f"E2EPipeline.predict, {wall:.2f} s for {B} pages (host clock, the models' "
+                f"build and the PNG decode included)")
+        polys = {k: [[d["polygon"] for d in p["detections"]] for p in v] for k, v in
+                 served.items()}
+        if any(polys[r, "auto"] != polys["perspective", "auto"] for r in ("deskew", "box")):
+            raise AssertionError("cli phase: the polygons differ across rectify modes")
+        # the extraction kernels against the default 'xla' statistics: the
+        # serving batch's gate of phase e2e (same regions, quads within 1e-2 px)
+        full = [np.array(p, np.float64) for p in polys["perspective", "pallas_full"]]
+        xla = [np.array(p, np.float64) for p in polys["perspective", "auto"]]
+        if any(f.shape != x.shape or (f.size and np.abs(f - x).max() > 1e-2)
+               for f, x in zip(full, xla)):
+            raise AssertionError("cli phase: 'pallas_full' polygons differ from 'xla' ones")
+        cpu, _, _, _ = run_cli("cli.pipeline on the CPU, 2 pages", cli_pipeline.main, [
+            *base, "--images", *paths[:2], "--experiment.model.device", "cpu"], total)
+        err, same_text, n = 0.0, 0, 0
+        for page, want in zip(cpu, served["perspective", "auto"]):
+            if len(page["detections"]) != len(want["detections"]):
+                raise AssertionError(f"cli phase: the CPU read {page}, the card {want}")
+            for d, w in zip(page["detections"], want["detections"]):
+                err = max(err, float(np.abs(np.array(d["polygon"]) - w["polygon"]).max()))
+                same_text += d["text"] == w["text"]
+                n += 1
+        log(f"cli phase, cli.pipeline card against CPU on 2 pages: polygons within {err} px, "
+            f"{same_text} of {n} strings equal")
+        if err > 1e-3:
+            raise AssertionError(f"cli phase: card and CPU polygons {err} px apart")
+
+    # serving: flat CCL against multigrid, and the three rectify modes
+    pages = torch.from_numpy(pages_np.astype(np.float32)).cuda()
+    pipes = {"flat": E2EPipeline(det, rec, box_thresh=0.5, device="cuda"),
+             "multigrid": E2EPipeline(det, rec, box_thresh=0.5, ccl_multigrid=True,
+                                      device="cuda")}
+    for rectify in ("deskew", "box"):
+        pipes[rectify] = E2EPipeline(det, rec, box_thresh=0.5, rectify=rectify, device="cuda")
+    with torch.no_grad():
+        prob = pipes["flat"].detect(det.net, pages)
+        mask = prob > pipes["flat"].bin_thresh
+        connected_components_cuda.launches = 0
+        flat, mg = pipes["flat"].label(prob), pipes["multigrid"].label(prob)
+        torch.cuda.synchronize()
+        if connected_components_cuda.launches != 3 or not torch.equal(flat, mg):
+            raise AssertionError("cli phase: multigrid labels differ from the flat ones on the "
+                                 "trained detector's masks")
+        _, fsw = connected_components_cuda(mask, 24, return_sweeps=True)
+        _, msw = multigrid_solve(connected_components_cuda, mask, 24, return_sweeps=True)
+        ccl_ms = {"flat": cuda_ms(lambda: connected_components(mask, 24), reps=50),
+                  "multigrid": cuda_ms(lambda: connected_components(mask, 24, multigrid=True),
+                                       reps=50)}
+        ccl_busy = {"flat": device_busy_ms(lambda: connected_components(mask, 24), reps=10),
+                    "multigrid": device_busy_ms(
+                        lambda: connected_components(mask, 24, multigrid=True), reps=10)}
+        log(f"cli phase, CCL on the trained detector's masks ({B} TextPages, cap 24; "
+            f"{float(mask.float().mean()):.4f} foreground): ms by events {json.dumps(ccl_ms)}, "
+            f"kernel-busy {json.dumps(ccl_busy)}; sweeps flat {fsw.tolist()}, multigrid coarse "
+            f"{msw[0].tolist()} full {msw[1].tolist()}; labels equal")
+        for p in pipes.values():
+            p.run(None, None, pages)  # warm-up
+        turns = {name: [] for name in pipes}
+        for name in [*pipes, *reversed(pipes)]:
+            turns[name].append(cuda_ms(lambda: pipes[name].run(None, None, pages), reps=10))
+        log("cli phase, serving the trained detector in turns (perspective with flat and "
+            "multigrid CCL, deskew, box; there and back; ms a batch of 8, median of 10, CUDA "
+            "events): " + json.dumps(turns) + "; pages/s "
+            + json.dumps({k: [B / t * 1e3 for t in v] for k, v in turns.items()}))
+        reg = pipes["box"].regions(flat, prob)
+        K = pipes["box"].max_regions
+        crops_raw = torch.from_numpy(smooth_crops(np.random.default_rng(SEED + 62), B * K))
+        th = torch.from_numpy(np.random.default_rng(SEED + 63).uniform(-0.6, 0.6, B * K)
+                              .astype(np.float32))
+        got = rotate_crops(crops_raw.cuda(), th.cuda()).cpu().double()
+        ref = rotate_crops(crops_raw, th).double()
+        exact = rotate_crops(crops_raw.double(), th.double())
+        err = float((got - ref).abs().max())
+        # float32 itself: the CPU's float32 result lies cpu_err from float64
+        # (a one-ulp change of an angle moves a value by about that much)
+        cpu_err = float((ref - exact).abs().max())
+        card_err = float((got - exact).abs().max())
+        rot_ms = cuda_ms(lambda: rotate_crops(crops_raw.cuda(), th.cuda()), reps=20)
+        stage = {r: cuda_ms(lambda: pipes[r].crops(pages, reg), reps=10)
+                 for r in ("flat", "deskew", "box")}
+    log(f"cli phase, rotate_crops on {B * K} smooth 32x100 crops at angles in +-0.6 rad: "
+        f"card against CPU float32 max |err| {err}; against float64 card {card_err}, CPU "
+        f"float32 {cpu_err} (bound: twice the CPU's, and ATOL_PX 1e-3 at least); "
+        f"{rot_ms} ms by events; rectify stage ms (events) perspective "
+        f"{stage['flat']}, deskew {stage['deskew']}, box {stage['box']} (a batch of 8 pages)")
+    if card_err > max(1e-3, 2 * cpu_err):
+        raise AssertionError(f"cli phase: rotate_crops on the card {card_err} from float64, "
+                             f"the CPU's float32 {cpu_err}")
+    log(f"cli phase: {time.perf_counter() - t_phase:.1f} s (host clock); kernel launches in "
+        "the entry points' runs " + json.dumps(total))
+    for n in ("ccl", "candidates", "moments", "extents", "ctc_alpha", "ctc_beta", "ctc2d_alpha",
+              "ctc2d_beta"):
+        if not total[n]:
+            raise AssertionError(f"cli phase: kernel {n} did not launch through the entry points")
+    return total
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2617,9 +3008,11 @@ def main() -> int:
     phase_serving(phase_attention())
     phase_beam()
     bf16 = phase_bf16()
+    cli = phase_cli()
     rows = [ccl_row, *extract_rows, alpha_row, beta_row, alpha2d_row, beta2d_row]
     for row in rows:
         row["launches_bf16"] = bf16[row["name"].removeprefix("extract_")]
+        row["launches_cli"] = cli[row["name"].removeprefix("extract_")]
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,0 +1,66 @@
+"""Fill the port's component registry (``core/registry.py``): the bootstrap
+that ``Experiment.from_yaml`` and the entry points import.
+
+Every ported component is registered under its JAX package name, so that the
+YAML files of ``experiments/`` read unchanged. Each JAX name that is not
+ported yet is registered as a stub that raises ``NotImplementedError``
+naming its ROADMAP item, so that a YAML naming it fails with that reason
+instead of "unknown component". Importing this module twice registers
+nothing twice.
+"""
+
+from .core.charset import AttentionCharset, Charset
+from .core.registry import COMPONENTS
+from .data.datasets import SyntheticDetectionDataset, SyntheticRecognitionDataset
+from .data.loader import Loader
+from .experiment import Experiment
+from .models.attention import AttentionRecognizer
+from .models.detector import SegDetector
+from .models.recognizer import CTCRecognizer
+from .models.recognizer2d import Ctc2dRecognizer
+from .pipelines.e2e import E2EPipeline
+from .pipelines.predictors import DetectorPredictor, RecognizerPredictor
+from .postproc.detection import SegDetectorRepresenter
+from .postproc.measurers import DetectionMeasurer, DetEvalMeasurer, RecognitionMeasurer
+from .train.checkpoint import CheckpointManager
+from .train.logger import Logger
+from .train.train_step import OptimizerConfig
+from .train.trainer import Trainer
+from .utils.signal_monitor import SignalMonitor
+
+PORTED = (
+    Charset, AttentionCharset, SyntheticRecognitionDataset, SyntheticDetectionDataset,
+    Loader, Experiment, CTCRecognizer, Ctc2dRecognizer, AttentionRecognizer, SegDetector,
+    E2EPipeline, RecognizerPredictor, DetectorPredictor, SegDetectorRepresenter,
+    DetectionMeasurer, DetEvalMeasurer, RecognitionMeasurer, CheckpointManager, Logger,
+    OptimizerConfig, Trainer, SignalMonitor,
+)
+
+#: JAX component name -> (ROADMAP Queue 1 item, what it is)
+NOT_PORTED = {
+    "HardSyntheticRecognitionDataset": (7, "the hard synthetic tier (data/hard_synth.py)"),
+    "HardSyntheticDetectionDataset": (7, "the hard synthetic tier (data/hard_synth.py)"),
+    "RecognitionListDataset": (7, "the list-file disk dataset"),
+    "DetectionICDARDataset": (7, "the ICDAR disk dataset"),
+    "MixtureDataset": (7, "the dataset mixture"),
+    "RoITextSpotter": (13, "the RoI text spotter"),
+    "SharedTrunkSpotter": (13, "the shared-trunk spotter"),
+    "SpotterE2EPipeline": (13, "the spotter's page pipeline"),
+    "BucketedE2E": (11, "variable-size (bucketed) serving"),
+    "DetectionVisualizer": (15, "the detection visualizer"),
+}
+
+
+def _stub(name: str, item: int, what: str):
+    def refuse(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name}: {what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+    refuse.__name__ = refuse.__qualname__ = name
+    return refuse
+
+
+for _cls in PORTED:
+    COMPONENTS.register(_cls)
+for _name, (_item, _what) in NOT_PORTED.items():
+    COMPONENTS.register(_stub(_name, _item, _what), name=_name)

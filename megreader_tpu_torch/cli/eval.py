@@ -1,0 +1,58 @@
+"""Evaluate a checkpoint:
+
+    python -m megreader_tpu_torch.cli.eval experiments/<exp>.yaml [--step N]
+        [--mode greedy|beam] [--protocol icdar2015|deteval] [--representer quad]
+        [--experiment.<key> value ...]
+
+Restores the module's weights only (``CheckpointManager.restore_variables``:
+evaluation does not depend on the optimizer a checkpoint was trained with)
+from the latest, or the given, step of the workspace, evaluates on the
+experiment's eval set and prints one JSON line: the step and the metrics.
+``--representer poly`` (curved text, ROADMAP Queue 1 item 11) and ``--int8``
+(item 12) are refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from ..core.config import parse_cli_overrides
+from ..evaluation import evaluate
+from ..experiment import Experiment
+from ..train.checkpoint import CheckpointManager
+
+
+def main(argv=None):
+    """Returns the printed dict."""
+    ap = argparse.ArgumentParser(prog="python -m megreader_tpu_torch.cli.eval")
+    ap.add_argument("config")
+    ap.add_argument("--step", type=int, default=None)
+    ap.add_argument("--mode", default="greedy", choices=["greedy", "beam"])
+    ap.add_argument("--protocol", default="icdar2015", choices=["icdar2015", "deteval"])
+    ap.add_argument("--representer", default="quad", choices=["quad", "poly"],
+                    help="detection output: min-area quads (chain polygons are not "
+                         "ported)")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 serving quality gate (not ported)")
+    args, rest = ap.parse_known_args(argv)
+    if args.representer == "poly":
+        raise NotImplementedError("--representer poly: chain polygons are not ported yet "
+                                  "(ROADMAP Queue 1 item 11)")
+    if args.int8:
+        raise NotImplementedError("--int8: int8 serving is not ported yet "
+                                  "(ROADMAP Queue 1 item 12)")
+
+    exp = Experiment.from_yaml(args.config, parse_cli_overrides(rest))
+    mgr = CheckpointManager(exp.workspace)
+    step = args.step if args.step is not None else mgr.latest_step()
+    mgr.restore_variables(exp.model.net, step=step)
+    metrics = evaluate(exp, mode=args.mode, protocol=args.protocol,
+                       representer_mode=args.representer)
+    out = {"step": int(step or 0), **metrics}
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

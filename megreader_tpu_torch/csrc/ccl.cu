@@ -7,7 +7,9 @@
 // XLA solve (megreader_tpu/ops/ccl.py::_ccl_single):
 //   * input  (B, H, W) uint8 mask, output (B, H, W) int32 labels;
 //   * a pixel starts with its own linear index y*W+x, background holds -1 (no
-//     sweep reads it);
+//     sweep reads it); with a seed array (the multigrid solve of
+//     ops/ccl.py::connected_components(multigrid=True), after the JAX
+//     _ccl_multigrid_single), it starts with min(y*W+x, seed) instead;
 //   * one sweep is L <- C(R(L)): R gives every pixel of a horizontal run of mask
 //     pixels the run's minimum, C then does the same along each vertical run
 //     (the reference's forward-then-backward running min along a line gives
@@ -90,6 +92,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   const uint8_t* mask;
+  const int* seed;  // (B, H, W) start labels, min'd with the own index; or nullptr
   int* labels;
   int* scratch;  // B sweep counts, then 2 x B changed flags (see flag_offset)
   int B, H, W, max_iters;
@@ -409,10 +412,15 @@ __global__ void __launch_bounds__(kThreads, 2) ccl_kernel(Params p) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t nthreads = static_cast<int64_t>(gridDim.x) * kThreads;
 
-  // the mask is read here only: from now on a label < 0 is background
+  // the mask (and the seeds) are read here only: from now on a label < 0 is
+  // background
   for (int b = 0; b < B; ++b)
-    for (int64_t i = tid; i < n; i += nthreads)
-      p.labels[b * n + i] = __ldg(p.mask + b * n + i) ? static_cast<int>(i) : -1;
+    for (int64_t i = tid; i < n; i += nthreads) {
+      const int own = static_cast<int>(i);
+      p.labels[b * n + i] = !__ldg(p.mask + b * n + i) ? -1
+                            : p.seed ? min(own, __ldg(p.seed + b * n + i))
+                                     : own;
+    }
   for (int64_t i = tid; i < flag_offset(B) + 2 * B * kFlagStride; i += nthreads)
     p.scratch[i] = 0;
   for (int b = threadIdx.x; b < B; b += kThreads) {
@@ -553,15 +561,19 @@ extern "C" int64_t mr_ccl_scratch_size(int B) {
 }
 
 // scratch: mr_ccl_scratch_size(B) int32s; its first B hold each page's sweeps.
-extern "C" int mr_ccl_launch(const void* mask, void* labels, void* scratch, int B,
-                             int H, int W, int max_iters, void* stream) {
+// seed: nullptr (every mask pixel starts with its own index) or (B, H, W)
+// int32 start labels, each mask pixel starting with min(own index, seed).
+extern "C" int mr_ccl_launch(const void* mask, const void* seed, void* labels,
+                             void* scratch, int B, int H, int W, int max_iters,
+                             void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return 0;
   Config c{};
   cudaError_t err = launch_config(B, H, W, &c);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (c.grid < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  Params p{static_cast<const uint8_t*>(mask), static_cast<int*>(labels),
-           static_cast<int*>(scratch), B, H, W, max_iters, c.sms};
+  Params p{static_cast<const uint8_t*>(mask), static_cast<const int*>(seed),
+           static_cast<int*>(labels), static_cast<int*>(scratch), B, H, W, max_iters,
+           c.sms};
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(ccl_kernel),
                                     dim3(c.grid), dim3(kThreads), args, c.smem,

@@ -1,0 +1,193 @@
+"""Page images without cv2: PNG in and out, and cv2's bilinear resize.
+
+The page pipeline's entry point (``cli/pipeline.py``) reads pages with
+``cv2.imread(path, cv2.IMREAD_COLOR)`` and resizes them with ``cv2.resize``
+(``INTER_LINEAR``); the card's machine has no cv2, so the port does both
+here, with the standard library's ``zlib`` and numpy:
+
+* ``read_image``: 8-bit, non-interlaced PNG of colour type grey, grey with
+  alpha, RGB or RGBA, with any of the five row filters, -> (H, W, 3) uint8
+  RGB, as ``cv2.imread`` then ``cv2.cvtColor(BGR2RGB)`` give it (grey
+  repeated into the three channels, alpha dropped). Any other file raises
+  ``NotImplementedError``; a damaged one ``ValueError``.
+* ``write_png``: (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 -> a PNG
+  file, each row with a filter from ``filters`` in turn.
+* ``resize_linear``: cv2's ``INTER_LINEAR`` geometry (half-pixel centres,
+  edge clamping, no antialiasing when shrinking); cv2 rounds its fixed-point
+  weights, so a value may differ from cv2's by one grey level.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Sequence, Tuple
+
+import numpy as np
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+#: PNG colour type -> channels (8-bit samples)
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _chunks(data: bytes, path: str):
+    pos = len(_SIGNATURE)
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise ValueError(f"{path}: truncated PNG chunk {kind!r}")
+        if zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
+            raise ValueError(f"{path}: bad CRC in PNG chunk {kind!r}")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos += 12 + length
+    raise ValueError(f"{path}: PNG without IEND")
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int, path: str) -> np.ndarray:
+    """Undo the row filters: (h, stride) uint8 samples."""
+    if len(raw) != h * (stride + 1):
+        raise ValueError(f"{path}: PNG data holds {len(raw)} bytes, not {h * (stride + 1)}")
+    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind, f = int(rows[y, 0]), rows[y, 1:]
+        if kind == 0:
+            cur = f.copy()
+        elif kind == 1:  # Sub: a running sum along each sample of a pixel
+            cur = (f.reshape(-1, bpp).astype(np.int64).cumsum(0) % 256).astype(np.uint8)
+            cur = cur.reshape(stride)
+        elif kind == 2:  # Up
+            cur = f + prev
+        elif kind in (3, 4):  # Average, Paeth: a recurrence along the row
+            cur = bytearray(f.tobytes())
+            up = prev.tobytes()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[i - bpp] if i >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[i] = (cur[i] + pred) & 0xFF
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"{path}: unknown PNG row filter {kind}")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
+def read_image(path: str) -> np.ndarray:
+    """A PNG page as (H, W, 3) uint8 RGB (see the module's docstring)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(_SIGNATURE):
+        raise NotImplementedError(f"{path}: only PNG pages are read (no cv2 on this machine)")
+    header, idat = None, []
+    for kind, body in _chunks(data, path):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, depth, colour, compression, filtering, interlace = header
+    if depth != 8 or colour not in _CHANNELS or interlace != 0:
+        raise NotImplementedError(
+            f"{path}: PNG of bit depth {depth}, colour type {colour}, interlace {interlace}: "
+            "only 8-bit, non-interlaced grey, grey+alpha, RGB and RGBA are read")
+    if compression != 0 or filtering != 0:
+        raise ValueError(f"{path}: unknown PNG compression {compression} or filter "
+                         f"method {filtering}")
+    ch = _CHANNELS[colour]
+    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch, path).reshape(h, w, ch)
+    if ch <= 2:  # grey (+ alpha): the grey level in all three channels
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def _filter_row(kind: int, cur: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
+    c = cur.astype(np.int64)
+    b = prev.astype(np.int64)
+    a = np.concatenate([np.zeros(bpp, np.int64), c[:-bpp]])
+    if kind == 0:
+        pred = np.zeros_like(c)
+    elif kind == 1:
+        pred = a
+    elif kind == 2:
+        pred = b
+    elif kind == 3:
+        pred = (a + b) >> 1
+    elif kind == 4:
+        cc = np.concatenate([np.zeros(bpp, np.int64), b[:-bpp]])
+        p = a + b - cc
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+    else:
+        raise ValueError(f"unknown PNG row filter {kind}")
+    return ((c - pred) % 256).astype(np.uint8)
+
+
+def write_png(path: str, image: np.ndarray, filters: Sequence[int] = (1,)) -> None:
+    """Write (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 as an 8-bit
+    PNG; row y takes the filter ``filters[y % len(filters)]`` (0 None, 1 Sub,
+    2 Up, 3 Average, 4 Paeth)."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8:
+        raise TypeError(f"write_png takes uint8, got {image.dtype}")
+    if image.ndim == 2:
+        image = image[..., None]
+    h, w, ch = image.shape
+    colour = {1: 0, 2: 4, 3: 2, 4: 6}.get(ch)
+    if colour is None:
+        raise ValueError(f"write_png takes 1-4 channels, got {ch}")
+    rows = image.reshape(h, w * ch)
+    prev = np.zeros(w * ch, np.uint8)
+    out = bytearray()
+    for y in range(h):
+        kind = filters[y % len(filters)]
+        out.append(kind)
+        out += _filter_row(kind, rows[y], prev, ch).tobytes()
+        prev = rows[y]
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(bytes(out), 6)) + chunk(b"IEND", b""))
+
+
+def _taps(n_out: int, n_in: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """cv2's INTER_LINEAR source taps along one axis: (i0, i1, weight of i1)."""
+    scale = n_in / n_out
+    src = (np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5
+    i0 = np.floor(src).astype(np.int64)
+    frac = src - i0
+    frac = np.where(i0 < 0, 0.0, frac)
+    i0 = np.clip(i0, 0, n_in - 1)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    frac = np.where(i0 >= n_in - 1, 0.0, frac)
+    return i0, i1, frac
+
+
+def resize_linear(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """(H, W, C) uint8 -> (size[1], size[0], C) uint8, ``size`` = (width,
+    height) as ``cv2.resize`` takes it, with cv2's INTER_LINEAR geometry."""
+    w_out, h_out = size
+    h, w = image.shape[:2]
+    y0, y1, fy = _taps(h_out, h)
+    x0, x1, fx = _taps(w_out, w)
+    img = image.astype(np.float64)
+    rows = img[y0] * (1.0 - fy)[:, None, None] + img[y1] * fy[:, None, None]
+    out = rows[:, x0] * (1.0 - fx)[None, :, None] + rows[:, x1] * fx[None, :, None]
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)

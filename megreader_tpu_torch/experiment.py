@@ -18,6 +18,9 @@ built from Python objects.
 With ``validate_every_steps`` and an eval dataset, the trainer runs
 ``evaluation.evaluate`` every so many steps: ``evaluate_recognition``
 (greedy, or Viterbi for Markov heights) or ``evaluate_detection``.
+
+``Experiment.from_yaml`` builds one from an ``experiments/*.yaml`` file
+through the port's registry (``all.py``, ``core/config.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from .data.loader import Loader, detection_collate, detection_collate_polys, recognition_collate
+from .core.config import Config
 from .evaluation import evaluate
 from .ops.gt_maps import make_detection_gt
 from .ops.image import normalize, resize_with_aspect_pad
@@ -104,6 +108,8 @@ class Experiment:
         max_polys: int = 16,
         loader_workers: int = 4,
         loader_worker_mode: str = "thread",
+        seed: int = 0,
+        name: str = "exp",
     ):
         self.model = model
         self.task = model.__class__.__name__
@@ -117,6 +123,13 @@ class Experiment:
                 "augment=True: device augmentation is not ported (ROADMAP Queue 1 item 7)"
             )
         self.workspace = workspace
+        self.name = name
+        #: the seed of the initial weights' draw. The JAX trainer draws them
+        #: from PRNGKey(seed) (and its device augmentation, not ported, keys
+        #: on it); here the model exists before the experiment, so
+        #: ``from_yaml`` builds the YAML's graph under ``torch.manual_seed``
+        #: of it. Nothing else reads it.
+        self.seed = seed
         self.crop_hw = tuple(crop_hw)
         self.charset = charset or default_charset(model)
         device = next(model.net.parameters()).device
@@ -177,7 +190,18 @@ class Experiment:
 
     @staticmethod
     def from_yaml(path: str, overrides: Optional[Dict[str, Any]] = None) -> "Experiment":
-        raise NotImplementedError(
-            "from_yaml: YAML configs and the component registry are not ported "
-            "(ROADMAP Queue 1 item 8)"
-        )
+        """The ``experiment:`` node of a YAML file (``import:`` composed,
+        dotted ``overrides`` applied) built through the port's registry; the
+        weights are drawn under ``torch.manual_seed`` of its ``seed``."""
+        from . import all as _all  # noqa: F401  (fills the registry, once)
+
+        cfg = Config.load(path, overrides)
+        node = cfg.get("experiment")
+        seed = node.get("seed", 0) if isinstance(node, dict) else 0
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(int(seed))
+            graph = Config.compile(cfg)
+        exp = graph.get("experiment") if isinstance(graph, dict) else graph
+        if not isinstance(exp, Experiment):
+            raise ValueError(f"{path} must define an 'experiment:' node with class: Experiment")
+        return exp

@@ -6,7 +6,11 @@ launches the hand-written kernel ``csrc/ccl.cu``; on a CPU tensor it runs the
 plain version ``connected_components_reference``. Both repeat the same sweep
 (every horizontal run of mask pixels takes its minimum, then every vertical
 run) until a sweep changes nothing or ``max_iters`` sweeps ran, so their labels
-are bit-identical, including the capped state on serpentine masks.
+are bit-identical, including the capped state on serpentine masks. With
+``multigrid=True`` (the JAX ``_ccl_multigrid_single``) a solve of the
+2x2-min-pooled mask seeds the full-resolution one: on the card both are
+launches of the same kernel, the second started from the seeds; the labels
+equal the flat solve's.
 
 ``extract_regions`` turns labels and the prob map into K fixed region slots per
 page (area, mean score, centroid, principal angle, rotated extents), and
@@ -53,16 +57,20 @@ def _sweep(labels: torch.Tensor, mask: torch.Tensor, big: int) -> torch.Tensor:
 
 
 def connected_components_reference(
-    mask: torch.Tensor, max_iters: int = 64, return_sweeps: bool = False
+    mask: torch.Tensor, max_iters: int = 64, return_sweeps: bool = False,
+    seed: torch.Tensor = None,
 ):
     """Plain PyTorch CCL: (B, H, W) bool/uint8 -> (B, H, W) int32 labels.
 
     With ``return_sweeps`` also returns the (B,) number of sweeps each page
-    ran (the kernel runs the same number)."""
+    ran (the kernel runs the same number). ``seed`` ((B, H, W) int32): each
+    mask pixel starts from min(its own index, seed) instead of its index."""
     mask = mask.bool()
     B, H, W = mask.shape
     big = H * W
     idx = torch.arange(big, device=mask.device, dtype=torch.int64).view(1, H, W)
+    if seed is not None:
+        idx = torch.minimum(idx, seed.to(torch.int64))
     prev = torch.where(mask, idx, big)
     labels = _sweep(prev, mask, big)
     sweeps = torch.ones(B, dtype=torch.int32, device=mask.device)
@@ -77,11 +85,13 @@ def connected_components_reference(
 
 
 def connected_components_cuda(mask: torch.Tensor, max_iters: int = 64,
-                              return_sweeps: bool = False):
+                              return_sweeps: bool = False, seed: torch.Tensor = None):
     """Launch ``csrc/ccl.cu`` on a CUDA mask; raises on anything it does not take.
 
     With ``return_sweeps`` also returns the (B,) int32 number of sweeps each
-    page ran, as the kernel counted them."""
+    page ran, as the kernel counted them. ``seed`` ((B, H, W) int32 on the
+    mask's device): the kernel starts each mask pixel from min(its own index,
+    seed), as ``connected_components_reference`` does."""
     if mask.device.type != "cuda":
         raise ValueError(f"connected_components_cuda needs a CUDA tensor, got {mask.device}")
     if mask.dtype not in (torch.bool, torch.uint8):
@@ -93,6 +103,10 @@ def connected_components_cuda(mask: torch.Tensor, max_iters: int = 64,
     B, H, W = mask.shape
     if H * W >= 2**31:
         raise ValueError(f"page of {H}x{W} pixels overflows int32 labels")
+    if seed is not None and (seed.dtype != torch.int32 or seed.shape != mask.shape
+                             or seed.device != mask.device or not seed.is_contiguous()):
+        raise ValueError("seed must be a contiguous int32 tensor of the mask's shape "
+                         "and device")
     labels = torch.empty((B, H, W), dtype=torch.int32, device=mask.device)
     lib = kernels.library("ccl")
     lib.mr_ccl_scratch_size.argtypes = [ctypes.c_int]
@@ -100,13 +114,13 @@ def connected_components_cuda(mask: torch.Tensor, max_iters: int = 64,
     # the sweep counts, then the changed flags; the kernel zeroes them
     scratch = torch.empty(lib.mr_ccl_scratch_size(B), dtype=torch.int32, device=mask.device)
     fn = lib.mr_ccl_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(mask.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(mask.data_ptr(), labels.data_ptr(), scratch.data_ptr(), B, H, W,
-                 int(max_iters), stream)
+        err = fn(mask.data_ptr(), None if seed is None else seed.data_ptr(),
+                 labels.data_ptr(), scratch.data_ptr(), B, H, W, int(max_iters), stream)
     kernels.check(err, "ccl kernel")
     connected_components_cuda.launches += 1
     return (labels, scratch[:B]) if return_sweeps else labels
@@ -128,13 +142,52 @@ def connected_components_cuda_config(B: int, H: int, W: int) -> Dict[str, int]:
 connected_components_cuda.launches = 0
 
 
-def connected_components(mask: torch.Tensor, max_iters: int = 64) -> torch.Tensor:
+def multigrid_solve(solve, mask: torch.Tensor, max_iters: int = 64,
+                    return_sweeps: bool = False):
+    """Two-level CCL (the JAX ``_ccl_multigrid_single``), both levels by
+    ``solve`` (``connected_components_reference`` or
+    ``connected_components_cuda``).
+
+    The coarse mask is the 2x2 min-pool of the mask, so a coarse component is
+    connected at full resolution too, and each coarse label names a real
+    member pixel. Each pixel of a coarse-on block is seeded with the full
+    index of its coarse root's top-left pixel (pixels of an odd last row or
+    column get no seed), and the full-resolution solve starts from
+    min(index, seed): its fixed point is the flat solve's labels. With
+    ``return_sweeps`` also returns (2, B) int32 sweeps, the coarse solve's
+    then the full one's.
+
+    The JAX dispatcher skips multigrid under its Pallas kernel (``impl``
+    'pallas', which 'auto' picks on the TPU), so there it never ran under
+    'auto'; this port runs it whenever it is asked for. JAX's optimization
+    barrier on the mask guards an XLA fusion fault and has no counterpart
+    here."""
+    mask = mask.bool()
+    B, H, W = mask.shape
+    Hc, Wc = H // 2, W // 2
+    m = mask[:, :2 * Hc, :2 * Wc]
+    coarse = (m[:, 0::2, 0::2] & m[:, 0::2, 1::2] & m[:, 1::2, 0::2]
+              & m[:, 1::2, 1::2]).contiguous()
+    lc, coarse_sweeps = solve(coarse, max_iters, return_sweeps=True)
+    lc = lc.to(torch.int64)
+    cy = torch.div(lc, max(Wc, 1), rounding_mode="floor")
+    seed = torch.where(lc >= 0, 2 * cy * W + 2 * (lc - cy * Wc), H * W).to(torch.int32)
+    seed = seed.repeat_interleave(2, 1).repeat_interleave(2, 2)
+    seed = torch.nn.functional.pad(seed, (0, W - 2 * Wc, 0, H - 2 * Hc), value=H * W)
+    labels, sweeps = solve(mask.contiguous(), max_iters, return_sweeps=True,
+                           seed=seed.contiguous())
+    return (labels, torch.stack([coarse_sweeps, sweeps])) if return_sweeps else labels
+
+
+def connected_components(mask: torch.Tensor, max_iters: int = 64,
+                         multigrid: bool = False) -> torch.Tensor:
     """(B, H, W) bool -> (B, H, W) int32 labels (min linear index; -1 = bg).
 
-    A CPU tensor runs the plain version; any other launches the CUDA kernel."""
-    if mask.device.type == "cpu":
-        return connected_components_reference(mask, max_iters)
-    return connected_components_cuda(mask, max_iters)
+    A CPU tensor runs the plain version; any other launches the CUDA kernel
+    (twice under ``multigrid``, the second launch seeded by the first)."""
+    solve = (connected_components_reference if mask.device.type == "cpu"
+             else connected_components_cuda)
+    return multigrid_solve(solve, mask, max_iters) if multigrid else solve(mask, max_iters)
 
 
 def _candidates(lbl: torch.Tensor, K2: int):

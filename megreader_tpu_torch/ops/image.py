@@ -1,4 +1,5 @@
-"""Page and crop resampling: normalize, box crops, perspective rectification.
+"""Page and crop resampling: normalize, box crops, perspective rectification,
+three-shear deskew.
 
 Channels-last (NHWC) at every public function, as in the JAX package. The
 resamplers are separable tent-weight contractions (``einsum``/``matmul``):
@@ -235,3 +236,46 @@ def rectify_quads_mxu(images: torch.Tensor, quads: torch.Tensor,
         col = torch.arange(Wo, dtype=out.dtype, device=out.device).view(1, 1, Wo, 1)
         out = out * (col < out_w[:, None, None, None])
     return out.reshape(B, K, Ho, Wo, C)
+
+
+def _shear_x(crops: torch.Tensor, shift_per_row: torch.Tensor) -> torch.Tensor:
+    """out[k, y, x] = crops[k, y, x + shift_per_row[k, y]] (bilinear, zero
+    pad): per-row fractional shifts as tent-weight matmuls.
+
+    crops (K, H, W, C); shift_per_row (K, H)."""
+    W = crops.shape[2]
+    ox = torch.arange(W, dtype=crops.dtype, device=crops.device)
+    src = ox + shift_per_row[:, :, None]  # (K, H, Wo)
+    ix = torch.arange(W, dtype=crops.dtype, device=crops.device)
+    wmat = torch.relu(1.0 - torch.abs(src[..., None] - ix))  # (K, H, Wo, Wi)
+    return torch.einsum("khoi,khic->khoc", wmat, crops)
+
+
+def _shear_y(crops: torch.Tensor, shift_per_col: torch.Tensor) -> torch.Tensor:
+    """out[k, y, x] = crops[k, y + shift_per_col[k, x], x]; shift_per_col (K, W)."""
+    H = crops.shape[1]
+    oy = torch.arange(H, dtype=crops.dtype, device=crops.device)
+    src = oy + shift_per_col[:, :, None]  # (K, W, Ho)
+    wmat = torch.relu(1.0 - torch.abs(src[..., None] - oy))  # (K, W, Ho, Hi)
+    return torch.einsum("kwoi,kiwc->kowc", wmat, crops)
+
+
+def rotate_crops(crops: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """Deskew each crop: rotate its content by -theta about its centre, so
+    that a region whose principal axis lies at +theta comes out level.
+
+    The three-shear rotation R(t) = Sx(-tan t/2) Sy(sin t) Sx(-tan t/2), each
+    shear a 1-D bilinear resample per row or column (``_shear_x``,
+    ``_shear_y``). The output samples the input with R(+theta): walking the
+    output's x axis follows the region's direction (cos t, sin t); -theta
+    would rotate the text further.
+
+    crops (K, H, W, C); theta (K,) radians."""
+    K, H, W, _ = crops.shape
+    t_half = torch.tan(theta / 2.0)
+    s = torch.sin(theta)
+    y_rel = torch.arange(H, dtype=crops.dtype, device=crops.device) - (H - 1) / 2.0
+    x_rel = torch.arange(W, dtype=crops.dtype, device=crops.device) - (W - 1) / 2.0
+    out = _shear_x(crops, -t_half[:, None] * y_rel)
+    out = _shear_y(out, s[:, None] * x_rel)
+    return _shear_x(out, -t_half[:, None] * y_rel)

@@ -2,11 +2,12 @@
 
     pages (B, H, W, 3) float32 [0, 255]
       -> SegDetectorNet prob map (B, H, W)
-      -> binarize + connected components (CUDA kernel on the card)
+      -> binarize + connected components (CUDA kernel on the card; with
+         ``ccl_multigrid`` a half-resolution launch seeds a full one)
       -> K fixed region slots per page -> word quads (B, K, 4, 2)
-      -> perspective (or box) crops (B*K, 32, 100, 3) -> CTC, 2D-CTC or
-         attention recognizer -> its decode (``rec_mode`` 'greedy' or 'beam'
-         of width ``beam_width``; Viterbi for Markov heights)
+      -> perspective, box or deskewed box crops (B*K, 32, 100, 3) -> CTC,
+         2D-CTC or attention recognizer -> its decode (``rec_mode`` 'greedy'
+         or 'beam' of width ``beam_width``; Viterbi for Markov heights)
       -> ids/lengths; ``predict`` looks the strings up on the host.
 
 Shapes are static: K is a fixed region budget, and slots without a region are
@@ -36,7 +37,7 @@ from ..ops.ccl import (
     unclip_distance_for,
     unclip_distance_inverse,
 )
-from ..ops.image import crop_resize_boxes, normalize, rectify_quads_mxu
+from ..ops.image import crop_resize_boxes, normalize, rectify_quads_mxu, rotate_crops
 from ..ops.precision import cast_floats
 from .predictors import RECOGNIZERS, default_charset
 
@@ -73,16 +74,14 @@ class E2EPipeline:
     ):
         if not isinstance(recognizer, RECOGNIZERS):
             raise _not_ported(f"recognizer {type(recognizer).__name__}", "item 13")
-        if deskew or rectify == "deskew":
-            raise _not_ported("rectify='deskew'", "item 6, page-pipeline variants")
+        # the legacy flag upgrades an unspecified rectify mode only
+        rectify = "deskew" if (deskew and rectify == "perspective") else rectify
         if rectify == "chain":
             raise _not_ported("rectify='chain'", "item 11, curved-text serving")
-        if rectify not in ("perspective", "box"):
+        if rectify not in ("perspective", "box", "deskew"):
             raise ValueError(f"unknown rectify mode {rectify!r}")
         if rec_mode not in ("greedy", "beam"):
             raise ValueError(f"unknown rec_mode {rec_mode!r}")
-        if ccl_multigrid:
-            raise _not_ported("ccl_multigrid", "item 6, page-pipeline variants")
         if extract_impl not in ("auto", "xla", "pallas", "pallas_full"):
             raise ValueError(f"unknown extract_impl {extract_impl!r}")
         if unclip not in ("inverse", "ratio"):
@@ -98,8 +97,14 @@ class E2EPipeline:
         self.shrink_ratio = shrink_ratio
         self.crop_hw = tuple(crop_hw)
         self.box_margin = box_margin
+        #: crop geometry: 'box' (axis-aligned box), 'deskew' (the box turned
+        #: level by the region's principal angle, ``rotate_crops``) or
+        #: 'perspective' (the rotated quad rectified, ``rectify_quads_mxu``)
         self.rectify = rectify
         self.ccl_iters = ccl_iters
+        #: seed the full-resolution labels from a half-resolution solve
+        #: (``connected_components(multigrid=True)``): the same labels
+        self.ccl_multigrid = ccl_multigrid
         self.rec_mode = rec_mode
         self.beam_width = beam_width
         self.bf16 = bf16
@@ -143,7 +148,8 @@ class E2EPipeline:
 
     def label(self, prob: torch.Tensor) -> torch.Tensor:
         """Binarize and label components: (B, H, W) int32."""
-        return connected_components(prob > self.bin_thresh, max_iters=self.ccl_iters)
+        return connected_components(prob > self.bin_thresh, max_iters=self.ccl_iters,
+                                    multigrid=self.ccl_multigrid)
 
     def regions(self, labels: torch.Tensor, prob: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Labels + prob -> stats, word quads (B, K, 4, 2), boxes, valid."""
@@ -178,7 +184,10 @@ class E2EPipeline:
             crops = rectify_quads_mxu(pages, qm, (Ho, Wo), aspect="preserve_h")
         else:
             crops = crop_resize_boxes(pages, regions["boxes"], (Ho, Wo), aspect="preserve_h")
-        return self._input(normalize(crops.reshape(B * K, Ho, Wo, 3)))
+        crops = crops.reshape(B * K, Ho, Wo, 3)
+        if self.rectify == "deskew":
+            crops = rotate_crops(crops, regions["stats"]["theta"].reshape(B * K))
+        return self._input(normalize(crops))
 
     def recognize(self, rec_module, crops: torch.Tensor):
         """Crops -> (ids (B*K, T) int32, lengths (B*K,) int32), by the

@@ -61,12 +61,28 @@ class CheckpointManager:
         step = self.latest_step() if step is None else step
         if step is None:
             return state
-        device = next(state.module.parameters()).device
-        saved = torch.load(self._path(step), map_location=device, weights_only=True)
+        saved = self._read(step, state.module)
         state.module.load_state_dict(saved["module"])
         state.optimizer.load_state_dict(saved["optimizer"])
         state.step = int(saved["step"])
         return state
+
+    def restore_variables(self, module, step: Optional[int] = None):
+        """Load only the module's weights (parameters and buffers) from the
+        checkpoint at ``step`` (default: the latest) into ``module`` in place,
+        never the optimizer's state, so that evaluation and serving do not
+        depend on how the model was trained; returns the module (unchanged
+        when there is no checkpoint)."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return module
+        module.load_state_dict(self._read(step, module)["module"])
+        return module
+
+    def _read(self, step: int, module) -> dict:
+        """The checkpoint at ``step``, its tensors on ``module``'s device."""
+        device = next(module.parameters()).device
+        return torch.load(self._path(step), map_location=device, weights_only=True)
 
     def wait(self):
         """Saves are synchronous: nothing to wait for."""

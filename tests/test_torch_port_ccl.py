@@ -1,5 +1,6 @@
 """Port CCL: the plain PyTorch version against the JAX XLA solve, bit-exact,
-and the wrapper's dispatch (plain version only for CPU tensors, no fallback
+flat and multigrid (``multigrid=True``: a seeded second solve), and the
+wrapper's dispatch (plain version only for CPU tensors, no fallback
 on the CUDA branch). The CUDA kernel itself runs only on the card
 (``chip_smoke.py`` holds it against the plain version there)."""
 
@@ -125,7 +126,7 @@ def test_wrapper_passes_every_launcher_argument():
     tree = ast.parse(inspect.getsource(ccl.connected_components_cuda).lstrip())
     argtypes = [n.value for n in ast.walk(tree) if isinstance(n, ast.Assign)
                 and [ast.unparse(t) for t in n.targets] == ["fn.argtypes"]]
-    assert len(argtypes) == 1 and len(argtypes[0].elts) == len(params) == 8
+    assert len(argtypes) == 1 and len(argtypes[0].elts) == len(params) == 9
 
 
 def test_cpu_tensor_takes_plain_version(monkeypatch):
@@ -168,3 +169,91 @@ def test_kernel_sources_and_build_dir_are_listed():
     assert kernels.sources() == ["ccl", "ctc", "ctc2d", "extract"]
     ignored = (kernels.BUILD_DIR.parents[1] / ".gitignore").read_text().split()
     assert "build/" in ignored
+
+
+def _multigrid_masks():
+    """``tests/test_ccl.py``'s multigrid masks (text blobs with a thin wide
+    stroke, 35% random pixels with 1-px structures that erode away at half
+    resolution, diagonal neighbours) and odd-sized pages."""
+    rng = np.random.default_rng(0)
+    m = _text_blobs()
+    diag = _diagonal()
+    odd = np.zeros((33, 47), bool)
+    odd[5:12, 3:30] = True
+    odd[20:30, 10:45] = True
+    return {
+        "test_ccl": np.stack([m, rng.random((64, 96)) < 0.35, diag]),
+        "odd_33x47": np.stack([odd, rng.random((33, 47)) < 0.45,
+                               np.ascontiguousarray(_serpentine().T[:33, :47])]),
+        "one_row": rng.random((2, 1, 9)) < 0.5,
+    }
+
+
+@pytest.mark.parametrize("case", ["test_ccl", "odd_33x47", "one_row"])
+@pytest.mark.parametrize("max_iters", [1, 2, 3, 64])
+def test_multigrid_matches_jax_bit_exact(case, max_iters):
+    """The plain multigrid against the JAX XLA multigrid at every cap; uncapped
+    its labels are the flat solve's."""
+    mask = _multigrid_masks()[case]
+    ref = np.asarray(jax_connected_components(jnp.asarray(mask), max_iters=max_iters,
+                                              multigrid=True, impl="xla"))
+    got = ccl.connected_components(torch.from_numpy(mask), max_iters=max_iters,
+                                   multigrid=True)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    if max_iters == 64:
+        np.testing.assert_array_equal(
+            got.numpy(), ccl.connected_components(torch.from_numpy(mask), 64).numpy())
+
+
+def test_multigrid_runs_both_levels_through_one_solver():
+    """Both levels go through the given solver, the second with seeds at each
+    coarse root's full index (own index on the odd edge), and the sweeps
+    come back per level."""
+    mask = torch.from_numpy(_multigrid_masks()["odd_33x47"])
+    calls = []
+
+    def solve(m, max_iters, return_sweeps=False, seed=None):
+        calls.append((tuple(m.shape), None if seed is None else seed.clone()))
+        return ccl.connected_components_reference(m, max_iters, return_sweeps, seed=seed)
+
+    labels, sweeps = ccl.multigrid_solve(solve, mask, 64, return_sweeps=True)
+    assert [c[0] for c in calls] == [(3, 16, 23), (3, 33, 47)]
+    assert calls[0][1] is None
+    seed = calls[1][1]
+    assert seed.dtype == torch.int32 and torch.all(seed[:, 32, :] == 33 * 47)
+    assert torch.all(seed[:, :, 46] == 33 * 47)
+    on = seed < 33 * 47  # a seed names a member at or before the pixel
+    own = torch.arange(33 * 47, dtype=torch.int32).view(1, 33, 47).expand(3, -1, -1)
+    assert torch.all(mask[on]) and torch.all(seed[on] <= own[on])
+    assert torch.all(mask.flatten(1).gather(1, seed.flatten(1).clamp(max=33 * 47 - 1))
+                     .view_as(mask)[on])
+    assert sweeps.shape == (2, 3) and sweeps.dtype == torch.int32
+    np.testing.assert_array_equal(labels.numpy(), ccl.connected_components(mask, 64).numpy())
+
+
+def test_seeded_start_is_min_of_index_and_seed():
+    """A seed lowers a pixel's start label only: the sweeps from
+    min(index, seed) on a page where the seeds name real members give the flat
+    labels, and a capped first sweep shows the seeds."""
+    mask = torch.from_numpy(_serpentine()[None])
+    flat, flat_sw = ccl.connected_components_reference(mask, 64, return_sweeps=True)
+    root = int(flat[flat >= 0].min())
+    seed = torch.where(mask, root, 64 * 96).to(torch.int32)
+    got, sw = ccl.connected_components_reference(mask, 64, return_sweeps=True, seed=seed)
+    assert torch.equal(got, flat) and sw.tolist() == [1] < flat_sw.tolist()
+    none = torch.full_like(seed, 64 * 96)
+    assert torch.equal(ccl.connected_components_reference(mask, 2, seed=none),
+                       ccl.connected_components_reference(mask, 2))
+
+
+def test_multigrid_non_cpu_tensor_never_falls_back(monkeypatch):
+    """Under ``multigrid`` both levels of a non-CPU mask go to the kernel's
+    wrapper; the plain version is never called."""
+    monkeypatch.setattr(
+        ccl, "connected_components_reference",
+        lambda *a, **k: pytest.fail("plain version used for a non-CPU tensor"),
+    )
+    meta = torch.zeros((1, 8, 8), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ccl.connected_components(meta, max_iters=4, multigrid=True)

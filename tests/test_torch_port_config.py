@@ -1,0 +1,265 @@
+"""The port's chassis against the JAX package's, on the CPU: its YAML reader
+and config loader (``core/config.py``, no PyYAML) on every file of
+``experiments/``, ``import:``, cycles, ``$ref:``, dotted overrides and the
+command line's values; its registry (``core/registry.py``, filled by
+``all.py``); and ``Experiment.from_yaml`` on all 20 experiments, which either
+build with the JAX experiment's hyperparameters and parameter shapes or
+refuse naming a ROADMAP item. The models are built on the CPU by a plain
+dotted override (``experiment.model.device: cpu``)."""
+
+import glob
+import math
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+import yaml
+
+import megreader_tpu.all  # noqa: F401  (the JAX registry)
+from megreader_tpu.core import config as jax_config
+from megreader_tpu.experiment import Experiment as JaxExperiment
+from megreader_tpu_torch.compat.weights import export_flax_variables
+from megreader_tpu_torch.core import config
+from megreader_tpu_torch.core.registry import COMPONENTS, Registry
+from megreader_tpu_torch.experiment import Experiment
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXPERIMENTS = sorted(glob.glob(os.path.join(REPO, "experiments", "*.yaml")))
+CPU = {"experiment.model.device": "cpu"}
+#: the experiments the port builds; every other one names its ROADMAP item
+BUILT = {"ctc_resnet18_synth": "CTCRecognizer", "ctc2d_resnet18_synth": "Ctc2dRecognizer",
+         "attention_resnet18_synth": "AttentionRecognizer",
+         "seg_detector_synth": "SegDetector"}
+REFUSED_ITEM = {
+    "attention_hard": 7, "ctc2d_curved_ab": 7, "ctc2d_hard": 7, "ctc_curved_ab": 7,
+    "ctc_hard": 7, "ctc_hard48": 7, "ctc_hard_mix": 7, "ctc_hard_mix_long": 7,
+    "ctc_hard_small": 7, "ctc_listfile_disk": 7, "seg_detector_hard": 7,
+    "seg_detector_icdar_disk": 7, "roi_spotter_synth": 13, "seg_detector_dcn_synth": 13,
+    "shared_spotter_hard": 13, "shared_spotter_synth": 13,
+}
+
+
+def _name(path):
+    return os.path.basename(path)[:-len(".yaml")]
+
+
+def test_every_experiment_is_classified():
+    assert len(EXPERIMENTS) == 20
+    assert sorted(map(_name, EXPERIMENTS)) == sorted({**BUILT, **REFUSED_ITEM})
+
+
+@pytest.mark.parametrize("path", EXPERIMENTS, ids=_name)
+def test_load_yaml_matches_jax(path):
+    got = config.load_yaml(path)
+    assert got == jax_config.load_yaml(path)
+    assert got == config.Config.load(path)
+
+
+#: one YAML document of the subset each; the reader must give what PyYAML's
+#: safe_load gives, types included
+DOCUMENTS = [
+    "1e-3", "1.0e-3", "1.0e3", "3.0e+2", ".5", "-.inf", ".nan", "1_000", "0x1f", "017",
+    "0b101", "08", "-0", "+3", "190:20:30.15", "1:30", "true", "yes", "off", "On", "NO",
+    "y", "n", "null", "~", "", "'it''s'", '"a\\tb \\u00e9"', "foo bar", "a#b", "a #b",
+    "[640, 640]", "[]", "{}", "[a, b,]", "{a: 1, b: [x, 'y'], c}",
+    "key: val", "- a\n- b", "-", "- - a\n  - b\n- c",
+    "a:\n  - 1\n  - 2\nb: c", "a:\n- 1\n- 2\nb: 3",
+    "x: [1, 2]  # c\ny: 'it''s'  # d\n# whole line\nz: don't # e",
+    "parts:\n  - class: A\n    n: 1\n  - class: B\n    seed: 5\nnext: 2",
+    "a: b\nc:\n  d:\n    e: 1\n  f: 2\ng:", "'a': 1\n\"b c\": 2\n3: x\ntrue: y",
+]
+
+
+@pytest.mark.parametrize("text", DOCUMENTS, ids=repr)
+def test_reader_resolves_as_safe_load(text):
+    got, ref = config.parse_yaml(text), yaml.safe_load(text)
+    if isinstance(ref, float) and math.isnan(ref):
+        assert isinstance(got, float) and math.isnan(got)
+        return
+    assert got == ref
+    assert type(got) is type(ref)
+
+
+@pytest.mark.parametrize("text,line,what", [
+    ("a: 1\nb: &x 1", 2, "anchors"), ("a: *x", 1, "aliases"), ("a: !!str 1", 1, "tags"),
+    ("a: |\n  x", 1, "block scalars"), ("a: >\n  x", 1, "block scalars"),
+    ("a: 1\n---\nb: 2", 2, "several documents"), ("%YAML 1.1\na: 1", 1, "directives"),
+    ("a: 2001-12-14", 1, "timestamps"), ("<<: {a: 1}", 1, "merge keys"),
+    ("a: b: c", 1, "mapping values"), ("a: b\n  c", 2, "multi-line"),
+    ("a:\n\t b: 1", 2, "tabs"), ("a: 'open", 1, "unterminated"),
+    ("a: [1, 2", 1, "flow collection"), ('a: "\\q"', 1, "escape"),
+    ("a:\n  b: 1\n c: 2", 3, "indentation"),
+])
+def test_outside_the_subset_raises_naming_file_and_line(text, line, what):
+    with pytest.raises(config.YAMLError, match=f"^cfg.yaml:{line}: .*{what}"):
+        config.parse_yaml(text, "cfg.yaml")
+
+
+def test_import_and_overrides(tmp_path):
+    (tmp_path / "base.yaml").write_text("model:\n  lr: 0.01\n  depth: 18\n")
+    exp = tmp_path / "exp.yaml"
+    exp.write_text("import: [base.yaml]\nmodel:\n  lr: 0.1\nname: exp1\n")
+    cfg = config.Config.load(str(exp))
+    assert cfg["model"] == {"lr": 0.1, "depth": 18}  # the importing file wins
+    assert cfg == jax_config.Config.load(str(exp))
+    over = {"model.depth": 50, "model.new.deep": [1, 2]}
+    assert config.Config.load(str(exp), over) == jax_config.Config.load(str(exp), over)
+    assert config.Config.load(str(exp), over)["model"]["depth"] == 50
+
+
+def test_import_cycle_is_refused(tmp_path):
+    (tmp_path / "a.yaml").write_text("import: [b.yaml]\nx: 1\n")
+    (tmp_path / "b.yaml").write_text("import: [a.yaml]\ny: 2\n")
+    with pytest.raises(ValueError, match="import cycle"):
+        config.load_yaml(str(tmp_path / "a.yaml"))
+
+
+def test_ref_resolution(tmp_path):
+    f = tmp_path / "r.yaml"
+    f.write_text("shared:\n  cs: {alphabet: abc}\nuser:\n  charset: '$ref:shared.cs'\n"
+                 "chain: $ref:user.charset\n")
+    cfg = config.Config.load(str(f))
+    assert cfg["user"]["charset"] == {"alphabet": "abc"} == cfg["chain"]
+    assert cfg == jax_config.Config.load(str(f))
+
+
+@COMPONENTS.register
+class _PortLeaf:
+    def __init__(self, value=0):
+        self.value = value
+
+
+@COMPONENTS.register
+class _PortNode:
+    def __init__(self, child=None, items=()):
+        self.child, self.items = child, items
+
+
+def test_instantiate_builds_nested_class_nodes():
+    obj = config.instantiate({"class": "_PortNode", "child": {"class": "_PortLeaf", "value": 3},
+                              "items": [{"class": "_PortLeaf", "value": 1}, 7]})
+    assert isinstance(obj, _PortNode) and obj.child.value == 3
+    assert obj.items[0].value == 1 and obj.items[1] == 7
+
+
+ARGV = [
+    ["--train.lr", "1e-3", "--validate", "--name", "foo"],
+    ["--a", "1.0e-3", "--b", "7", "--c", "0x10", "--d", "-2", "--e", "1_000"],
+    ["--a", "true", "--b", "yes", "--c", "off", "--d", "null", "--e", "~", "--f", ""],
+    ["--a", "'quoted'", "--b", '"1e-3"', "--c", "[640, 640]", "--d", "{k: v}"],
+    ["--a", "inf", "--b", "nan", "--c", "1e5", "--d", "cpu", "--e", "a b"],
+    ["--flag", "--x.y.z", "3"],
+]
+
+
+@pytest.mark.parametrize("argv", ARGV, ids=lambda a: " ".join(a))
+def test_parse_cli_overrides_matches_jax(argv):
+    got, ref = config.parse_cli_overrides(argv), jax_config.parse_cli_overrides(argv)
+    assert got.keys() == ref.keys()
+    for k in ref:
+        if isinstance(ref[k], float) and math.isnan(ref[k]):
+            assert math.isnan(got[k])
+        else:
+            assert got[k] == ref[k] and type(got[k]) is type(ref[k]), k
+    with pytest.raises(ValueError, match="expected --key"):
+        config.parse_cli_overrides(["value"])
+
+
+def test_registry_refuses_duplicates_and_names_unknown_keys():
+    reg = Registry("test")
+
+    class A:
+        pass
+
+    class B:
+        pass
+
+    reg.register(A)
+    reg.register(A)  # the same class again is fine
+    with pytest.raises(KeyError, match="duplicate registration for 'A'"):
+        reg.register(B, name="A")
+    with pytest.raises(KeyError, match="unknown component 'C'. Known: A"):
+        reg.get("C")
+    assert "A" in reg and list(reg) == ["A"]
+
+
+def test_port_registry_is_its_own():
+    import megreader_tpu_torch.all  # noqa: F401
+    from megreader_tpu.core.registry import COMPONENTS as JAX_COMPONENTS
+
+    assert COMPONENTS is not JAX_COMPONENTS
+    assert COMPONENTS.get("Experiment") is Experiment
+    assert JAX_COMPONENTS.get("Experiment") is JaxExperiment
+    # every JAX component name resolves in the port, ported or as a stub
+    # (names with a leading underscore are other tests' own classes)
+    assert {n for n in JAX_COMPONENTS if not n.startswith("_")} <= set(COMPONENTS)
+
+
+def _flax_shapes(tree):
+    return {"/".join(str(k.key) for k in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("path", EXPERIMENTS, ids=_name)
+def test_from_yaml_builds_or_names_its_item(path):
+    name = _name(path)
+    if name in REFUSED_ITEM:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1 item {REFUSED_ITEM[name]}\\)"):
+            Experiment.from_yaml(path, CPU)
+        return
+    exp = Experiment.from_yaml(path, CPU)
+    ref = JaxExperiment.from_yaml(path)
+    assert exp.task == ref.task == BUILT[name]
+    assert (exp.name, exp.seed, exp.epochs, exp.crop_hw) == (ref.name, ref.seed, ref.epochs,
+                                                             ref.crop_hw)
+    assert exp.workspace == ref.workspace
+    for loader in ("train_loader", "eval_loader"):
+        got, want = getattr(exp, loader), getattr(ref, loader)
+        assert got.batch_size == want.batch_size
+        assert (len(got.dataset), got.dataset.seed) == (len(want.dataset), want.dataset.seed)
+    assert vars(exp.optimizer) == vars(ref.optimizer)
+    assert type(exp.charset).__name__ == type(ref.charset).__name__
+    hw = (1, 64, 64, 3) if name == "seg_detector_synth" else (1, *ref.crop_hw, 3)
+    abstract = jax.eval_shape(ref.model.init, jax.random.PRNGKey(0), jnp.zeros(hw))
+    exported = export_flax_variables(exp.model.net)
+    for col in abstract:
+        assert _flax_shapes(exported[col]) == _flax_shapes(abstract[col]), col
+
+
+def test_from_yaml_seeds_the_weights():
+    path = os.path.join(REPO, "experiments", "ctc2d_resnet18_synth.yaml")
+    a, b = (Experiment.from_yaml(path, CPU).model.net.state_dict() for _ in range(2))
+    c = Experiment.from_yaml(path, {**CPU, "experiment.seed": 1}).model.net.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not all(torch.equal(a[k], c[k]) for k in a)
+
+
+def test_from_yaml_refuses_options_left_out(tmp_path):
+    path = os.path.join(REPO, "experiments", "ctc2d_resnet18_synth.yaml")
+    for key, item in (("augment", 7), ("use_mesh", 14)):
+        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
+            Experiment.from_yaml(path, {**CPU, f"experiment.{key}": True}).make_trainer()
+    with pytest.raises(NotImplementedError, match="item 7\\)"):
+        Experiment.from_yaml(path, {**CPU, "experiment.loader_worker_mode": "process"})
+    f = tmp_path / "no_experiment.yaml"
+    f.write_text("model:\n  class: Charset\n")
+    with pytest.raises(ValueError, match="must define an 'experiment:' node"):
+        Experiment.from_yaml(str(f))
+
+
+def test_from_yaml_self_registers_in_fresh_process():
+    """``from_yaml`` fills the registry itself: a fresh interpreter that
+    imports nothing else builds config #1."""
+    code = ("from megreader_tpu_torch.experiment import Experiment;"
+            "e = Experiment.from_yaml('experiments/ctc_resnet18_synth.yaml',"
+            "{'experiment.model.device': 'cpu'});"
+            "import sys; print('OK', e.task, 'jax' in sys.modules, 'yaml' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "OK CTCRecognizer False False" in out.stdout

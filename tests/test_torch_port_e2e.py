@@ -63,13 +63,13 @@ def _jax_models():
     return det, rec, det_vars, rec_vars
 
 
-def _run_pair(rectify, unclip, extract_impl="auto"):
+def _run_pair(rectify, unclip, extract_impl="auto", **extra):
     det, rec, det_vars, rec_vars = _jax_models()
     pages = _pages(3)
     prob = np.asarray(det.apply(det_vars, jax_normalize(jnp.asarray(pages)),
                                 heads=("prob",))["prob"])
     opts = dict(max_regions=K, box_thresh=0.0, bin_thresh=_threshold(prob),
-                rectify=rectify, unclip=unclip, extract_impl=extract_impl)
+                rectify=rectify, unclip=unclip, extract_impl=extract_impl, **extra)
     jpipe = JaxE2EPipeline(det, rec, **opts)
     ref = {k: np.asarray(v) for k, v in jpipe.build()(det_vars, rec_vars, pages).items()}
 
@@ -146,12 +146,23 @@ def test_e2e_predict_strings_match_jax(slice_pair):
     {"rec_mode": "beam"}, {"ccl_multigrid": True},
 ], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(opt):
-    """Every option here is refused, but ``rec_mode='beam'`` and
-    ``bf16=True``, which are ported: the first pipeline decodes crops by the
-    recognizer's beam of width ``beam_width`` (the beam is held to JAX by
-    ``tests/test_torch_port_ctc_beam.py``), and an unknown mode raises; the
-    second serves a bf16 copy of the recognizer on bf16 crops (held to JAX by
-    ``tests/test_torch_port_bf16.py``)."""
+    """``rectify='chain'`` is refused; the other options here are ported.
+    ``rec_mode='beam'`` decodes crops by the recognizer's beam of width
+    ``beam_width`` (the beam is held to JAX by
+    ``tests/test_torch_port_ctc_beam.py``), and an unknown mode raises;
+    ``bf16=True`` serves a bf16 copy of the recognizer on bf16 crops (held to
+    JAX by ``tests/test_torch_port_bf16.py``); ``rectify='deskew'``, the
+    legacy ``deskew=True`` (which turns the default perspective mode into
+    deskew) and ``ccl_multigrid=True`` run the whole slice against the JAX
+    pipeline with the same option."""
+    if opt in ({"rectify": "deskew"}, {"deskew": True}, {"ccl_multigrid": True}):
+        pair = _run_pair(opt.get("rectify", "perspective"), "inverse",
+                         **{k: v for k, v in opt.items() if k != "rectify"})
+        want = "deskew" if opt != {"ccl_multigrid": True} else "perspective"
+        assert pair["tpipe"].rectify == pair["jpipe"].rectify == want
+        assert pair["tpipe"].ccl_multigrid == pair["jpipe"].ccl_multigrid
+        _assert_run_matches(pair)
+        return
     rec = CTCRecognizer(37, hidden=8, num_encoder_layers=1, device="cpu")
     if opt == {"bf16": True}:
         pipe = E2EPipeline(None, rec, device="cpu", **opt)

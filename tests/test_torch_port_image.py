@@ -101,3 +101,49 @@ def test_rectify_bilinear_warp_is_not_ported():
     with pytest.raises(NotImplementedError, match="chain"):
         image.rectify_quads_mxu(torch.zeros(1, 8, 8, 3), torch.zeros(1, 1, 4, 2), (4, 8),
                                 warp="bilinear")
+
+
+THETAS = [0.0, 0.1, -0.1, 0.5, -0.5]
+
+
+@pytest.mark.parametrize("theta", THETAS)
+def test_rotate_crops_matches_jax(theta):
+    """The three-shear deskew on smooth 32x100 crops: each crop turned by
+    ``theta`` and by a mix of the angles, within ATOL_PX of JAX."""
+    crops = _pages(7, shape=(5, 32, 100, 3))
+    for th in (np.full(5, theta, np.float32), np.roll(np.array(THETAS, np.float32),
+                                                      THETAS.index(theta))):
+        ref = jax_image.rotate_crops(jnp.asarray(crops), jnp.asarray(th))
+        got = image.rotate_crops(torch.from_numpy(crops), torch.from_numpy(th))
+        assert got.shape == crops.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=ATOL_PX)
+
+
+@pytest.mark.parametrize("axis", ["x", "y"])
+def test_shears_match_jax(axis):
+    crops = _pages(8, shape=(3, 24, 40, 3))
+    n = crops.shape[1] if axis == "x" else crops.shape[2]
+    shift = np.random.default_rng(9).uniform(-6, 6, (3, n)).astype(np.float32)
+    jfn = getattr(jax_image, f"_shear_{axis}")
+    fn = getattr(image, f"_shear_{axis}")
+    ref = jfn(jnp.asarray(crops), jnp.asarray(shift))
+    got = fn(torch.from_numpy(crops), torch.from_numpy(shift))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=ATOL_PX)
+
+
+def test_rotate_crops_deskews_with_plus_theta():
+    """The sign: a bar drawn along +theta comes out level (all its mass in
+    few rows), and -theta tilts it further."""
+    H, W = 32, 100
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    th = 0.3
+    v = -(xx - (W - 1) / 2) * np.sin(th) + (yy - (H - 1) / 2) * np.cos(th)
+    bar = np.repeat((np.abs(v) <= 2.0).astype(np.float32)[None, ..., None] * 255, 3, -1)
+    level = image.rotate_crops(torch.from_numpy(bar), torch.tensor([th]))[0, ..., 0]
+    worse = image.rotate_crops(torch.from_numpy(bar), torch.tensor([-th]))[0, ..., 0]
+
+    def rows(img):  # rows that hold the bar in the middle columns
+        mass = img[:, 30:70].sum(1)
+        return int((mass > 0.25 * mass.max()).sum())
+
+    assert rows(level) <= 7 < rows(worse)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``megreader_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax, msgpack (the card's machine has none; the
-port reads flax's msgpack files with its own decoder) or the JAX package
+``chip_smoke.py`` imports JAX, flax, msgpack or PyYAML (the card's machine has
+none; the port reads flax's msgpack files and the YAML configs with its own
+readers) or the JAX package
 (checked on the AST of every file), and ``chip_smoke.py`` refuses to run
 without a CUDA device or outside the repository."""
 
@@ -13,7 +14,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "megreader_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "megreader_tpu")
 FILES = sorted((ROOT / "megreader_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -54,6 +55,13 @@ def test_detection_slice_modules_are_checked(module):
 @pytest.mark.parametrize("module", ["ops/precision.py", "compat/msgpack.py",
                                     "pipelines/predictors.py", "pipelines/e2e.py"])
 def test_bf16_slice_modules_are_checked(module):
+    assert ROOT / "megreader_tpu_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", ["cli/__init__.py", "cli/train.py", "cli/eval.py",
+                                    "cli/pipeline.py", "core/config.py", "core/registry.py",
+                                    "all.py", "data/imageio.py"])
+def test_chassis_slice_modules_are_checked(module):
     assert ROOT / "megreader_tpu_torch" / module in FILES
 
 

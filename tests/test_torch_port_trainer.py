@@ -146,7 +146,17 @@ def test_validate_hook_runs_every_n_steps(tmp_path):
                                   "validation"])
 def test_left_out_options_raise(tmp_path, what):
     """The options and tasks left out raise. ``validation`` is ported: a
-    validation with the beam decode runs and measures every eval crop."""
+    validation with the beam decode runs and measures every eval crop.
+    ``yaml`` is ported: ``from_yaml`` builds config #1, and a YAML that names
+    an unported dataset (``ctc_hard.yaml``, the hard tier) raises naming item
+    7."""
+    if what == "yaml":
+        exp = Experiment.from_yaml("experiments/ctc_resnet18_synth.yaml",
+                                   {"experiment.model.device": "cpu"})
+        assert exp.task == "CTCRecognizer" and exp.train_loader.batch_size == 64
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+            Experiment.from_yaml("experiments/ctc_hard.yaml", {"experiment.model.device": "cpu"})
+        return
     if what == "validation":
         exp = _experiment(tmp_path, eval_dataset=SyntheticRecognitionDataset(n=8),
                           validate_every_steps=2)
@@ -158,8 +168,6 @@ def test_left_out_options_raise(tmp_path, what):
             _experiment(tmp_path, augment=True)
         elif what == "mesh":
             _experiment(tmp_path, use_mesh=True).make_trainer()
-        elif what == "yaml":
-            Experiment.from_yaml("experiments/ctc_resnet18_synth.yaml")
         elif what == "task":  # the text spotter is not ported (item 13)
             Experiment(type("RoITextSpotter", (), {})(), SyntheticRecognitionDataset(n=8))
         else:
