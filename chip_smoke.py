@@ -5,8 +5,9 @@ recognizer, the training and batched decode of the config-#2 2D-CTC
 recognizer, the training and detection evaluation of the config-#4
 detector, the training and decodes of the config-#3 attention recognizer,
 serving with beam decodes, the CTC prefix beam search, bf16 serving of
-the trained detector with mixed-precision training of all four configs, and
-the entry points (train, eval, page pipeline) on the repo's YAML files.
+the trained detector with mixed-precision training of all four configs,
+the entry points (train, eval, page pipeline) on the repo's YAML files, and
+training configs #1 and #4 from PNG files on disk.
 
     python3 chip_smoke.py
 
@@ -176,6 +177,32 @@ Phases (any failure exits non-zero):
     from float64 there). Every kernel must launch through the entry points
     (``launches_cli`` in the kernels line).
 
+16. data: training from files on disk, as the disk YAML files read them.
+    256 ``WordCrops`` crops in a list file and 32 + 8 ``TextPages`` pages of
+    640x640 in an ICDAR dir pair (one ``###`` line a page), written as PNG
+    (Sub rows), and 8 pages more with Paeth rows. The PNG decode of a page
+    (Sub against Paeth) and the loaders alone on the host (config #1's
+    train loader, the Sub, Paeth and augmented pages; processes against
+    threads: seconds to the first batch, which pays the process pool's
+    start, and items/s), their batches equal bit for bit across the two
+    kinds of workers. ``cli.train experiments/ctc_listfile_disk.yaml``
+    (config #1 at full width: batch 64, bf16 mixed precision, device
+    augmentation) for 8 steps with process workers and 4 more after a
+    resume, and 8 with threads: one CTC alpha and beta launch a step, the
+    first step's loss equal across the two runs. ms a step by CUDA events and
+    on the host clock with augment on and off, threads and processes; 4
+    mini-steps with ``accumulate_steps`` 2 (constant rate): the weights
+    still at mini-steps 1 and 3 and moved at 2 and 4, the BatchNorm
+    statistics moved at each. ``augment_resize_apply`` and
+    ``augment_images_apply`` on a batch on the card against the CPU from one
+    set of draws, within twice the CPU's float32 distance from float64 (at
+    least 1e-3). ``cli.train experiments/seg_detector_icdar_disk.yaml`` with
+    host augmentation and process workers for 4 steps of 8 pages, then
+    ``cli.eval`` of it on the 8 eval pages (the CCL kernel; random weights,
+    so its P/R/H has no bar). Every number with the card's name and power
+    limit; the CTC and CCL kernels must launch (``launches_data`` in the
+    kernels line).
+
 Prints a JSON line of per-kernel numbers (all eight kernels), then, as the
 last line, ``{"ok": true, "device": {...}}``. Needs a CUDA device; exits 1
 without one.
@@ -193,7 +220,12 @@ import tempfile
 import time
 
 import numpy as np
-import torch
+
+if __name__ != "__mp_main__":
+    # the data loader's process workers start from a forkserver, which runs
+    # this file's top level again in each worker (as __mp_main__); they read
+    # files with numpy and never need torch
+    import torch
 
 # H100 SXM peaks at the 700 W limit. HBM3 bandwidth: NVIDIA data sheet. The
 # kernel's compares, mins and selects are INT32 instructions: 132 SMs x 64
@@ -208,6 +240,8 @@ FP32_OPS_PER_S = 67e12
 # extraction kernels' float64 sums and projections
 FP64_OPS_PER_S = 34e12
 SEED = 0
+#: the card's name and power limit as nvidia-smi gives them (set by phase setup)
+CARD = "not read"
 
 
 def log(msg: str) -> None:
@@ -278,6 +312,8 @@ def phase_setup():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    global CARD
+    CARD = smi
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     from megreader_tpu_torch import kernels
@@ -2676,11 +2712,11 @@ def kernel_counters():
             "ctc2d_alpha": ctc2d.ctc2d_alpha_cuda, "ctc2d_beta": ctc2d.ctc2d_beta_cuda}
 
 
-def run_cli(name, main, argv, total):
+def run_cli(name, main, argv, total, phase: str = "cli"):
     """An entry point's ``main(argv)`` with every kernel's count set to 0 just
     before it; its launches are added to ``total``. Returns (its result, its
     launches, its seconds on the host clock, the JSON lines it printed); what
-    it printed is logged with a prefix."""
+    it printed is logged with a prefix naming ``phase``."""
     import contextlib
     import io
 
@@ -2698,8 +2734,8 @@ def run_cli(name, main, argv, total):
         total[n] += v
     lines = buf.getvalue().splitlines()
     for line in lines:
-        log(f"cli phase, {name} | {line}")
-    log(f"cli phase, {name}: {wall:.2f} s (host clock), launches "
+        log(f"{phase} phase, {name} | {line}")
+    log(f"{phase} phase, {name}: {wall:.2f} s (host clock) [{CARD}], launches "
         + json.dumps({n: v for n, v in got.items() if v}))
     return out, got, wall, [json.loads(line) for line in lines if line.startswith("{")]
 
@@ -2988,6 +3024,366 @@ def phase_cli(B: int = 8, hw: int = 640, rec_B: int = 64, per_epoch: int = 4):
     return total
 
 
+def write_word_list(root: str, data, indices) -> str:
+    """The tight crops of ``data``'s items ``indices`` as PNG files (Sub
+    rows) under ``root/crops`` and their list file ``root/list.txt``
+    (``path<TAB>text``); returns the list file's path."""
+    from megreader_tpu_torch.data.imageio import write_png
+
+    os.makedirs(os.path.join(root, "crops"), exist_ok=True)
+    lines = []
+    for i in indices:
+        item = data[i]
+        h, w = (int(v) for v in item["size"])
+        rel = f"crops/word_{i:05d}.png"
+        write_png(os.path.join(root, rel), item["image"][:h, :w])
+        lines.append(f"{rel}\t{item['text']}")
+    path = os.path.join(root, "list.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def write_icdar(root: str, pages, indices, filters=(1,)):
+    """``pages``' items ``indices`` as an ICDAR dir pair under ``root``:
+    ``images/page_XXXXX.png`` with the row filters ``filters``, and
+    ``gts/gt_page_XXXXX.txt`` with one ``x1,y1,...,x4,y4,text`` line a word
+    (corners rounded to pixels), the first word of a page written as a
+    ``###`` region. Returns (image dir, GT dir)."""
+    from megreader_tpu_torch.data.imageio import write_png
+
+    img_dir, gt_dir = os.path.join(root, "images"), os.path.join(root, "gts")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(gt_dir, exist_ok=True)
+    for i in indices:
+        item = pages[i]
+        name = f"page_{i:05d}"
+        write_png(os.path.join(img_dir, name + ".png"), item["image"], filters=filters)
+        lines = [",".join(str(int(round(v))) for v in np.asarray(poly).reshape(-1))
+                 + f",{'###' if k == 0 or ign else text}"
+                 for k, (poly, ign, text) in enumerate(zip(item["polygons"], item["ignore"],
+                                                           item["texts"]))]
+        with open(os.path.join(gt_dir, f"gt_{name}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return img_dir, gt_dir
+
+
+def time_loader(loader, epochs: int = 2):
+    """Iterate ``epochs`` epochs of ``loader`` on the host clock: seconds to
+    the first batch, items a second over the batches after it (None when
+    there is one batch) and over all of them, and the batches."""
+    t0 = time.perf_counter()
+    batches, first = [], None
+    for _ in range(epochs):
+        for b in loader:
+            batches.append(b)
+            if first is None:
+                first = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    n = [len(b["image"]) for b in batches]
+    after = sum(n[1:]) / (wall - first) if len(n) > 1 else None
+    return first, after, sum(n) / wall, batches
+
+
+def batches_equal(a, b) -> bool:
+    """Whether two loaders' batch lists are equal bit for bit (arrays by
+    dtype and value, lists by value)."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if x.keys() != y.keys():
+            return False
+        for k in x:
+            if isinstance(x[k], np.ndarray):
+                if x[k].dtype != y[k].dtype or not np.array_equal(x[k], y[k]):
+                    return False
+            elif k in ("polygons",):
+                if [[p.tobytes() for p in q] for q in x[k]] != [[p.tobytes() for p in q]
+                                                                for q in y[k]]:
+                    return False
+            elif x[k] != y[k]:
+                return False
+    return True
+
+
+def hooked_train(exp, total, on_step=None):
+    """``exp``'s trainer run from scratch with a hook after every step (its
+    validation hook, every step): a CUDA event and the host clock at each
+    step's end, and ``on_step(model, state)``. Returns (the state, ms a step
+    by events and by the host clock, each the median over steps 2 on, the
+    kernels' launches in the run, which are added to ``total``)."""
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    trainer = exp.make_trainer()
+    stamps = []
+
+    def hook(model, state):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        stamps.append((ev, time.perf_counter()))
+        if on_step is not None:
+            on_step(model, state)
+        return {}
+
+    trainer.validate_every_steps, trainer.validate_fn = 1, hook
+    state = trainer.train(resume=False)
+    torch.cuda.synchronize()
+    exp.train_loader.close()
+    got = {n: k.launches for n, k in counters.items()}
+    for n, v in got.items():
+        total[n] += v
+    events = [a[0].elapsed_time(b[0]) for a, b in zip(stamps, stamps[1:])]
+    host = [(b[1] - a[1]) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    return state, statistics.median(events), statistics.median(host), got
+
+
+def phase_data(rec_n: int = 256, pages: int = 32, eval_pages: int = 8, paeth_pages: int = 8,
+               hw: int = 640, workers: int = 4):
+    """Training from files on disk, as the YAML disk configs read them: word
+    crops in a list file and ICDAR page pairs written as PNG, configs #1 and
+    #4 at full width through ``cli.train`` and ``cli.eval`` with host and
+    device augmentation, process workers and gradient accumulation. Returns
+    every kernel's launches in the phase's training and evaluation runs."""
+    import gc
+
+    from megreader_tpu_torch.cli import eval as cli_eval
+    from megreader_tpu_torch.cli import train as cli_train
+    from megreader_tpu_torch.data.datasets import DetectionICDARDataset
+    from megreader_tpu_torch.data.imageio import read_image
+    from megreader_tpu_torch.data.loader import Loader, detection_collate_polys
+    from megreader_tpu_torch.experiment import Experiment
+    from megreader_tpu_torch.ops import image as image_ops
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernel_counters(), 0)
+    cfg1 = os.path.join(ROOT, "experiments", "ctc_listfile_disk.yaml")
+    cfg4 = os.path.join(ROOT, "experiments", "seg_detector_icdar_disk.yaml")
+    card = f"[{CARD}]"
+
+    def expect(name, got, want):
+        bad = {n: v for n, v in got.items() if v != want.get(n, 0)}
+        if bad:
+            raise AssertionError(f"data phase, {name}: launches {got}, expected {want}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        words = WordCrops(rec_n + 64, SEED + 70)
+        train_list = write_word_list(os.path.join(tmp, "rec", "train"), words, range(rec_n))
+        eval_list = write_word_list(os.path.join(tmp, "rec", "eval"), words,
+                                    range(rec_n, rec_n + 64))
+        tp = TextPages(pages + eval_pages + paeth_pages, SEED + 71, (hw, hw))
+        det_train = write_icdar(os.path.join(tmp, "det", "train"), tp, range(pages))
+        det_eval = write_icdar(os.path.join(tmp, "det", "eval"), tp,
+                               range(pages, pages + eval_pages))
+        det_paeth = write_icdar(os.path.join(tmp, "det", "paeth"), tp,
+                                range(pages + eval_pages, pages + eval_pages + paeth_pages),
+                                filters=(4,))
+        log(f"data phase: wrote {rec_n} + 64 word crops and {pages} + {eval_pages} + "
+            f"{paeth_pages} (Paeth rows) {hw}x{hw} pages as PNG in "
+            f"{time.perf_counter() - t0:.2f} s (host clock)")
+
+        # the loaders alone, on the host: processes first, so that the first
+        # batch pays the forkserver's start
+        decode = {}
+        for label, img_dir in (("Sub", det_eval[0]), ("Paeth", det_paeth[0])):
+            files = sorted(os.listdir(img_dir))
+            t0 = time.perf_counter()
+            for f in files:
+                read_image(os.path.join(img_dir, f))
+            decode[label] = (time.perf_counter() - t0) * 1e3 / len(files)
+        log(f"data phase, PNG decode of a {hw}x{hw} RGB page on one host thread (ms, mean of "
+            f"{eval_pages} / {paeth_pages} pages) {card}: Sub rows {decode['Sub']}, Paeth rows "
+            f"{decode['Paeth']}")
+        rates = {}
+        base = {"experiment.train_dataset.list_path": train_list,
+                "experiment.eval_dataset.list_path": eval_list, "experiment.epochs": 2,
+                "experiment.log_every": 1, "experiment.workspace": tmp}
+
+        def crops_loader(mode):  # config #1's own train loader, as cli.train builds it
+            exp = Experiment.from_yaml(cfg1, {**base, "experiment.loader_worker_mode": mode,
+                                              "experiment.loader_workers": workers})
+            return exp.train_loader
+
+        sets = [("crops (config #1's train loader)", crops_loader, 2)]
+        for label, (img_dir, gt_dir), augment, epochs in (
+                ("pages Sub", det_eval, False, 2), ("pages Paeth", det_paeth, False, 1),
+                ("pages Sub augmented", det_train, True, 1)):
+            ds = DetectionICDARDataset(img_dir, gt_dir, target_hw=(hw, hw), augment=augment,
+                                       gt_maps=False)
+            sets.append((label, lambda mode, ds=ds: Loader(
+                ds, 8, detection_collate_polys, shuffle=True, drop_last=False,
+                workers=workers, worker_mode=mode), epochs))
+        for label, make_loader, epochs in sets:
+            runs = {}
+            for mode in ("process", "thread"):
+                loader = make_loader(mode)
+                first, after, overall, runs[mode] = time_loader(loader, epochs)
+                loader.close()
+                rates[f"{label}, {mode}"] = {"first_batch_s": first, "items_per_s": after,
+                                             "items_per_s_all": overall}
+            if not batches_equal(runs["process"], runs["thread"]):
+                raise AssertionError(f"data phase: process and thread batches of {label} "
+                                     "differ")
+        log(f"data phase, loaders alone ({workers} workers, host clock; seconds to the first "
+            f"batch, items/s after it and overall; batches equal bit for bit across the two "
+            f"kinds of workers) {card}: " + json.dumps(rates))
+
+        # config #1 through cli.train: processes 8 steps, 4 resumed, threads 8
+        rec_data = ["--experiment.train_dataset.list_path", train_list,
+                    "--experiment.eval_dataset.list_path", eval_list,
+                    "--experiment.log_every", "1"]
+        per_epoch = rec_n // 64
+        runs = {}
+        for mode in ("process", "thread"):
+            ws = os.path.join(tmp, f"ctc_{mode}")
+            name = f"cli.train ctc_listfile_disk.yaml ({mode} workers)"
+            state, got, wall, _ = run_cli(name, cli_train.main, [
+                cfg1, "--no-resume", "--experiment.workspace", ws, "--experiment.epochs", "2",
+                "--experiment.loader_worker_mode", mode, *rec_data], total, phase="data")
+            gc.collect()
+            expect(name, got, {"ctc_alpha": 2 * per_epoch, "ctc_beta": 2 * per_epoch})
+            if state.step != 2 * per_epoch:
+                raise AssertionError(f"data phase: {name} stopped at step {state.step}")
+            runs[mode] = step_seconds(ws)
+            if mode == "process":
+                state, got, _, _ = run_cli(f"{name}, resumed", cli_train.main, [
+                    cfg1, "--experiment.workspace", ws, "--experiment.epochs", "3",
+                    "--experiment.loader_worker_mode", mode, *rec_data], total, phase="data")
+                gc.collect()
+                expect(f"{name}, resumed", got, {"ctc_alpha": per_epoch, "ctc_beta": per_epoch})
+                _, losses, logged = step_seconds(ws)
+                if state.step != 3 * per_epoch or logged != list(range(1, state.step + 1)) or (
+                        not np.all(np.isfinite(losses))):
+                    raise AssertionError(f"data phase: resumed to step {state.step}, logged "
+                                         f"{logged}, losses {losses}")
+        (dt_p, loss_p, _), (dt_t, loss_t, _) = runs["process"], runs["thread"]
+        log(f"data phase, config #1 from disk through cli.train (bf16, augment) {card}: "
+            f"s between logged steps 2-{2 * per_epoch} (host clock, median) processes "
+            f"{statistics.median(dt_p[1:])}, threads {statistics.median(dt_t[1:])}; first "
+            f"losses {loss_p[0]} / {loss_t[0]}; losses processes {loss_p}, threads {loss_t}")
+        if loss_p[0] != loss_t[0]:
+            raise AssertionError(f"data phase: the first step's loss {loss_p[0]} with "
+                                 f"processes, {loss_t[0]} with threads")
+
+        # ms a step by events and on the host clock: augment on and off,
+        # threads and processes
+        step_ms = {}
+        for augment in (True, False):
+            for mode in ("thread", "process"):
+                with tempfile.TemporaryDirectory() as ws:
+                    exp = Experiment.from_yaml(cfg1, {
+                        **base, "experiment.workspace": ws, "experiment.augment": augment,
+                        "experiment.loader_worker_mode": mode})
+                    _, ev_ms, host_ms, got = hooked_train(exp, total)
+                    del exp
+                    gc.collect()
+                expect("config #1 timing run", got, {"ctc_alpha": 2 * per_epoch,
+                                                     "ctc_beta": 2 * per_epoch})
+                step_ms[f"augment {augment}, {mode}"] = {"events": ev_ms, "host": host_ms}
+        log(f"data phase, config #1 ms a step (bf16, batch 64, Trainer with a hook at each "
+            f"step's end; median of steps 2-{2 * per_epoch}; the logged loss synchronises each "
+            f"step) {card}: " + json.dumps(step_ms))
+
+        # gradient accumulation: 4 mini-steps, 2 an update (constant rate,
+        # so that the first update moves the weights)
+        with tempfile.TemporaryDirectory() as ws:
+            exp = Experiment.from_yaml(cfg1, {
+                **base, "experiment.workspace": ws, "experiment.epochs": 1,
+                "experiment.optimizer.accumulate_steps": 2,
+                "experiment.optimizer.schedule": "constant",
+                "experiment.optimizer.warmup_steps": 0})
+            net = exp.model.net
+            snap = lambda: ([p.detach().clone() for p in net.parameters()],  # noqa: E731
+                            [b.detach().clone() for n, b in net.named_buffers()
+                             if n.endswith("running_mean")])
+            snaps = [snap()]
+            state, _, _, got = hooked_train(exp, total, lambda m, s: snaps.append(snap()))
+            del exp
+            gc.collect()
+        expect("accumulation run", got, {"ctc_alpha": per_epoch, "ctc_beta": per_epoch})
+
+        def same(a, b):
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+
+        moved = [not same(a[0], b[0]) for a, b in zip(snaps, snaps[1:])]
+        stats = [not same(a[1], b[1]) for a, b in zip(snaps, snaps[1:])]
+        log(f"data phase, accumulate_steps 2 over {per_epoch} mini-steps: weights moved "
+            f"{moved}, BatchNorm statistics moved {stats}, updates {state.optimizer.count}, "
+            f"launches {json.dumps(got)}")
+        if moved != [i % 2 == 1 for i in range(per_epoch)] or not all(stats) or (
+                state.optimizer.count != per_epoch // 2):
+            raise AssertionError(f"data phase: accumulation moved the weights {moved}, the "
+                                 f"statistics {stats}")
+
+        # device augmentation on the card against the CPU, from one set of
+        # draws (drawn on the CPU)
+        exp = Experiment.from_yaml(cfg1, {**base, "experiment.workspace": tmp,
+                                          "experiment.loader_workers": 1})
+        raw = next(iter(exp.train_loader))
+        del exp
+        images = torch.from_numpy(np.asarray(raw["image"])).float()
+        sizes = torch.from_numpy(np.asarray(raw["size"]))
+        gen = torch.Generator().manual_seed(SEED + 72)
+        draws = image_ops.resize_draws(gen, len(images))
+        crops64, _ = image_ops.resize_with_aspect_pad(images.double(), sizes, (32, 100))
+        idraws = image_ops.images_draws(gen, len(images))
+        errs = {}
+        for name, fn, args in (
+                ("augment_resize_apply", lambda x, d: image_ops.augment_resize_apply(
+                    x, sizes.to(x.device), (32, 100), d)[0], images),
+                ("augment_images_apply", lambda x, d: image_ops.augment_images_apply(x, d),
+                 crops64.float())):
+            d = draws if name == "augment_resize_apply" else idraws
+            card_out = fn(args.cuda(), {k: v.cuda() for k, v in d.items()}).cpu().double()
+            cpu = fn(args, d).double()
+            exact = fn(args.double(), {k: v.double() for k, v in d.items()})
+            errs[name] = {"card_vs_cpu": float((card_out - cpu).abs().max()),
+                          "card_vs_float64": float((card_out - exact).abs().max()),
+                          "cpu_vs_float64": float((cpu - exact).abs().max())}
+        log(f"data phase, device augmentation of {len(images)} crops on the card against the "
+            f"CPU from one set of draws (max |err| on 0-255 values; bound: twice the CPU's "
+            f"float32 distance from float64, at least 1e-3) {card}: " + json.dumps(errs))
+        for name, e in errs.items():
+            if not e["card_vs_float64"] <= max(1e-3, 2 * e["cpu_vs_float64"]):
+                raise AssertionError(f"data phase: {name} on the card {e['card_vs_float64']} "
+                                     f"from float64, the CPU's float32 {e['cpu_vs_float64']}")
+
+        # config #4 from disk: host augmentation, processes, 4 steps of 8
+        # pages, then cli.eval on the eval pages (CCL on the card)
+        ws4 = os.path.join(tmp, "det")
+        det_data = ["--experiment.train_dataset.image_dir", det_train[0],
+                    "--experiment.train_dataset.gt_dir", det_train[1],
+                    "--experiment.eval_dataset.image_dir", det_eval[0],
+                    "--experiment.eval_dataset.gt_dir", det_eval[1]]
+        name = "cli.train seg_detector_icdar_disk.yaml (augment, processes)"
+        state, got, wall, _ = run_cli(name, cli_train.main, [
+            cfg4, "--no-resume", "--experiment.workspace", ws4, "--experiment.epochs", "1",
+            "--experiment.log_every", "1", "--experiment.train_dataset.augment", "true",
+            "--experiment.loader_worker_mode", "process", *det_data], total, phase="data")
+        gc.collect()
+        expect(name, got, {})
+        dt4, loss4, _ = step_seconds(ws4)
+        if state.step != pages // 8 or not np.all(np.isfinite(loss4)):
+            raise AssertionError(f"data phase: config #4 stopped at {state.step}, losses {loss4}")
+        _, got, wall_eval, printed = run_cli("cli.eval seg_detector_icdar_disk.yaml",
+                                             cli_eval.main, [cfg4, "--experiment.workspace",
+                                                             ws4, *det_data], total,
+                                             phase="data")
+        if not got["ccl"] or len(printed) != 1 or printed[0]["step"] != pages // 8:
+            raise AssertionError(f"data phase: cli.eval printed {printed}, launches {got}")
+        log(f"data phase, config #4 from disk (bf16, batch 8 of {hw}x{hw}, host augmentation, "
+            f"{workers} process workers) {card}: s between logged steps 2-{pages // 8} (host "
+            f"clock) {dt4} (median {statistics.median(dt4[1:] or dt4)}); losses {loss4}; cli.eval "
+            f"P/R/H {printed[0]} in {wall_eval:.2f} s (random weights: no bar)")
+
+    log(f"data phase: {time.perf_counter() - t_phase:.1f} s (host clock) [{CARD}]; kernel "
+        "launches in its training and evaluation runs " + json.dumps(total))
+    for n in ("ccl", "ctc_alpha", "ctc_beta"):
+        if not total[n]:
+            raise AssertionError(f"data phase: kernel {n} did not launch")
+    return total
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3009,10 +3405,12 @@ def main() -> int:
     phase_beam()
     bf16 = phase_bf16()
     cli = phase_cli()
+    data = phase_data()
     rows = [ccl_row, *extract_rows, alpha_row, beta_row, alpha2d_row, beta2d_row]
     for row in rows:
         row["launches_bf16"] = bf16[row["name"].removeprefix("extract_")]
         row["launches_cli"] = cli[row["name"].removeprefix("extract_")]
+        row["launches_data"] = data[row["name"].removeprefix("extract_")]
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -11,7 +11,14 @@ nothing twice.
 
 from .core.charset import AttentionCharset, Charset
 from .core.registry import COMPONENTS
-from .data.datasets import SyntheticDetectionDataset, SyntheticRecognitionDataset
+from .data.datasets import (
+    DetectionICDARDataset,
+    MixtureDataset,
+    RecognitionListDataset,
+    SyntheticDetectionDataset,
+    SyntheticRecognitionDataset,
+)
+from .data.hard_synth import HardSyntheticDetectionDataset, HardSyntheticRecognitionDataset
 from .data.loader import Loader
 from .experiment import Experiment
 from .models.attention import AttentionRecognizer
@@ -30,7 +37,8 @@ from .utils.signal_monitor import SignalMonitor
 
 PORTED = (
     Charset, AttentionCharset, SyntheticRecognitionDataset, SyntheticDetectionDataset,
-    Loader, Experiment, CTCRecognizer, Ctc2dRecognizer, AttentionRecognizer, SegDetector,
+    RecognitionListDataset, DetectionICDARDataset, MixtureDataset,
+    HardSyntheticRecognitionDataset, HardSyntheticDetectionDataset, Loader, Experiment, CTCRecognizer, Ctc2dRecognizer, AttentionRecognizer, SegDetector,
     E2EPipeline, RecognizerPredictor, DetectorPredictor, SegDetectorRepresenter,
     DetectionMeasurer, DetEvalMeasurer, RecognitionMeasurer, CheckpointManager, Logger,
     OptimizerConfig, Trainer, SignalMonitor,
@@ -38,11 +46,6 @@ PORTED = (
 
 #: JAX component name -> (ROADMAP Queue 1 item, what it is)
 NOT_PORTED = {
-    "HardSyntheticRecognitionDataset": (7, "the hard synthetic tier (data/hard_synth.py)"),
-    "HardSyntheticDetectionDataset": (7, "the hard synthetic tier (data/hard_synth.py)"),
-    "RecognitionListDataset": (7, "the list-file disk dataset"),
-    "DetectionICDARDataset": (7, "the ICDAR disk dataset"),
-    "MixtureDataset": (7, "the dataset mixture"),
     "RoITextSpotter": (13, "the RoI text spotter"),
     "SharedTrunkSpotter": (13, "the shared-trunk spotter"),
     "SpotterE2EPipeline": (13, "the spotter's page pipeline"),

@@ -9,7 +9,9 @@ evaluation does not depend on the optimizer a checkpoint was trained with)
 from the latest, or the given, step of the workspace, evaluates on the
 experiment's eval set and prints one JSON line: the step and the metrics.
 ``--representer poly`` (curved text, ROADMAP Queue 1 item 11) and ``--int8``
-(item 12) are refused.
+(item 12) are refused. torch and the experiment are imported inside ``main``,
+as in ``cli/train.py`` (the loader's process workers run this module's top
+level again).
 """
 
 from __future__ import annotations
@@ -18,13 +20,14 @@ import argparse
 import json
 
 from ..core.config import parse_cli_overrides
-from ..evaluation import evaluate
-from ..experiment import Experiment
-from ..train.checkpoint import CheckpointManager
 
 
 def main(argv=None):
     """Returns the printed dict."""
+    from ..evaluation import evaluate
+    from ..experiment import Experiment
+    from ..train.checkpoint import CheckpointManager
+
     ap = argparse.ArgumentParser(prog="python -m megreader_tpu_torch.cli.eval")
     ap.add_argument("config")
     ap.add_argument("--step", type=int, default=None)

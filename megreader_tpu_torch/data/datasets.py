@@ -1,21 +1,155 @@
-"""Synthetic word crops and pages for training and tests.
+"""Datasets: disk data (list files, ICDAR dir pairs), their mixture, and
+synthetic word crops and pages for training and tests.
 
-``SyntheticRecognitionDataset`` and ``SyntheticDetectionDataset`` are ports of
-the JAX package's datasets of the same names: the same words, the same
-per-index random streams, and cv2 text rendering (cv2 is imported on first
-use, so the module imports without it). A recognition item is a uint8 canvas
+Ports of the JAX package's datasets of the same names
+(``megreader_tpu/data/datasets.py``). A recognition item is a uint8 canvas
 with the word in its top-left ``size`` region; a detection item is a page with
-its words' exact quads and, unless ``gt_maps`` is off, its host GT maps.
+its words' polygons and, unless ``gt_maps`` is off, its host GT maps.
+
+* ``RecognitionListDataset`` and ``DetectionICDARDataset`` read their images
+  with ``imageio.read_image`` (PNG: the card's machine has no cv2) and resize
+  with ``imageio.resize_linear`` (cv2's bilinear geometry, within one grey
+  level of cv2); everything else equals the JAX items.
+* ``MixtureDataset`` interleaves its parts by fractional position.
+* The synthetic datasets draw the same words from the same per-index
+  streams and render them with cv2, imported on first use, so the module
+  imports without it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..core.charset import Charset
-from .processes import make_border_maps, make_seg_maps
+from .imageio import read_image, resize_linear
+from .processes import make_border_maps, make_seg_maps, parse_icdar_gt
+
+
+class RecognitionListDataset:
+    """Word crops listed one a line as ``relative/path<TAB>transcript``,
+    relative to ``image_root`` (default: the list file's directory). Crops
+    larger than ``canvas_hw`` are shrunk to fit, aspect kept."""
+
+    def __init__(self, list_path: str, image_root: Optional[str] = None,
+                 canvas_hw: Tuple[int, int] = (64, 256)):
+        self.image_root = image_root or os.path.dirname(os.path.abspath(list_path))
+        with open(list_path) as f:
+            self.items = [line.rstrip("\n").split("\t", 1) for line in f if line.strip()]
+        self.canvas_hw = canvas_hw
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i: int) -> Dict:
+        path, text = self.items[i]
+        img = read_image(os.path.join(self.image_root, path))
+        H, W = self.canvas_hw
+        h, w = img.shape[:2]
+        if h > H or w > W:
+            s = min(H / h, W / w)
+            img = resize_linear(img, (max(1, int(w * s)), max(1, int(h * s))))
+            h, w = img.shape[:2]
+        canvas = np.zeros((H, W, 3), np.uint8)
+        canvas[:h, :w] = img
+        return {"image": canvas, "size": np.array([h, w], np.int32), "text": text}
+
+
+_PAGE_EXTS = (".jpg", ".png", ".jpeg")
+
+
+class DetectionICDARDataset:
+    """An ICDAR dir pair: pages in ``image_dir``, and for page ``name`` the
+    file ``gt_name.txt`` or ``name.txt`` in ``gt_dir`` (utf-8, a BOM
+    allowed), one ``x1,y1,...,x4,y4,transcript`` line a word, ``###`` a
+    region to ignore.
+
+    Each page is resized to ``target_hw`` (its polygons with it, and
+    ``scale`` maps them back) or, with ``augment``, flipped, scaled and
+    cropped by ``det_augment.augment_detection_sample`` from the numpy
+    stream of ``seed * 7_919 + i`` (texts then empty: the crop drops the
+    pairing). ``gt_maps`` adds the host GT maps."""
+
+    def __init__(self, image_dir: str, gt_dir: str, target_hw: Tuple[int, int] = (640, 640),
+                 shrink_ratio: float = 0.4, augment: bool = False, seed: int = 0,
+                 gt_maps: bool = True):
+        self.image_dir = image_dir
+        self.gt_dir = gt_dir
+        self.target_hw = target_hw
+        self.shrink_ratio = shrink_ratio
+        self.augment = augment
+        self.seed = seed
+        self.gt_maps = gt_maps
+        self.names = sorted(os.path.splitext(n)[0] for n in os.listdir(image_dir)
+                            if n.lower().endswith(_PAGE_EXTS))
+
+    def __len__(self):
+        return len(self.names)
+
+    def _gt_path(self, name: str) -> str:
+        for pat in (f"gt_{name}.txt", f"{name}.txt"):
+            p = os.path.join(self.gt_dir, pat)
+            if os.path.exists(p):
+                return p
+        raise FileNotFoundError(f"no GT for {name}")
+
+    def __getitem__(self, i: int) -> Dict:
+        name = self.names[i]
+        for ext in _PAGE_EXTS:
+            p = os.path.join(self.image_dir, name + ext)
+            if os.path.exists(p):
+                break
+        img = read_image(p)
+        with open(self._gt_path(name), encoding="utf-8-sig") as f:
+            polys, ignored, texts = parse_icdar_gt(f.readlines())
+
+        H, W = self.target_hw
+        if self.augment:
+            from .det_augment import augment_detection_sample
+
+            rng = np.random.default_rng(self.seed * 7_919 + i)
+            out = augment_detection_sample(rng, img, polys, ignored, (H, W))
+            img, polys, ignored = out["image"], out["polygons"], out["ignore"]
+            texts = [""] * len(polys)
+            sx = sy = 1.0
+        else:
+            h, w = img.shape[:2]
+            sx, sy = W / w, H / h
+            img = resize_linear(img, (W, H))
+            polys = [p * np.array([sx, sy], np.float32) for p in polys]
+
+        out = {"image": img, "polygons": polys, "ignore": ignored, "texts": texts,
+               "scale": np.array([1.0 / sx, 1.0 / sy], np.float32), "filename": name}
+        if self.gt_maps:
+            seg = make_seg_maps(polys, ignored, (H, W), self.shrink_ratio)
+            border = make_border_maps(polys, ignored, (H, W), self.shrink_ratio)
+            out.update(gt=seg["gt"], mask=seg["mask"], thresh_map=border["thresh_map"],
+                       thresh_mask=border["thresh_mask"])
+        return out
+
+
+class MixtureDataset:
+    """Every sample of every part, interleaved by fractional position: part
+    k's j-th sample sits at (j + 0.5) / len(part k), ties by part order, so
+    each stretch of an epoch holds the parts in proportion."""
+
+    def __init__(self, parts: Sequence):
+        self.parts = list(parts)
+        pos = []
+        for k, p in enumerate(self.parts):
+            n = len(p)
+            pos.extend(((j + 0.5) / n, k, j) for j in range(n))
+        pos.sort()
+        self._index = [(k, j) for _, k, j in pos]
+
+    def __len__(self):
+        return len(self._index)
+
+    def __getitem__(self, i: int) -> Dict:
+        k, j = self._index[i]
+        return self.parts[k][j]
 
 _WORDS = (
     "the quick brown fox jumps over lazy dog reading tpu jax pallas text "

@@ -5,10 +5,15 @@ collates (``detection_collate`` stacks host GT maps in compact wire types;
 ``detection_collate_polys`` pads polygon lists for the device GT maps), and
 the same shuffle (``np.random.default_rng(seed + epoch)``, the epoch counted
 from 1 at each ``iter``), so both packages visit a dataset in the same order, index for
-index; ``drop_last``; a thread pool that fetches the samples of a batch; a
-background thread that keeps ``prefetch`` batches ready. Batches stay numpy
-(images uint8): the train step's prepare moves them to the card and casts
-there.
+index; ``drop_last``; a pool that fetches the samples of a batch, of threads
+or (``worker_mode='process'``) of processes; a background thread that keeps
+``prefetch`` batches ready. Batches stay numpy (images uint8): the train
+step's prepare moves them to the card and casts there.
+
+Process workers start from a ``forkserver`` (never ``fork``: the parent runs
+torch's threads by then), and each receives the dataset once, through the
+pool's initializer, so a dataset must pickle. They run the dataset's numpy
+code only and never touch the card.
 """
 
 from __future__ import annotations
@@ -79,6 +84,19 @@ def detection_collate_polys(samples: Sequence[Dict], max_polys: int = 16) -> Dic
     return batch
 
 
+#: the dataset of a process worker, set once by the pool's initializer
+_worker_dataset = None
+
+
+def _init_worker(dataset) -> None:
+    global _worker_dataset
+    _worker_dataset = dataset
+
+
+def _worker_get(i: int) -> Dict:
+    return _worker_dataset[i]
+
+
 def _world_size() -> int:
     import torch.distributed as dist
 
@@ -90,7 +108,8 @@ class Loader:
 
     ``host_shard`` is the identity in one process; with a process group of
     several ranks it raises (multi-GPU data parallelism is ROADMAP Queue 1
-    item 14). ``worker_mode='process'`` raises (ROADMAP Queue 1 item 7)."""
+    item 14). ``worker_mode`` is ``'thread'`` or ``'process'``; either gives
+    the same batches."""
 
     def __init__(
         self,
@@ -105,11 +124,8 @@ class Loader:
         workers: int = 4,
         worker_mode: str = "thread",
     ):
-        if worker_mode != "thread":
-            raise NotImplementedError(
-                f"worker_mode={worker_mode!r}: only the thread pool is ported "
-                "(ROADMAP Queue 1 item 7)"
-            )
+        if worker_mode not in ("thread", "process"):
+            raise ValueError(f"unknown worker_mode {worker_mode!r}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate = collate
@@ -119,6 +135,7 @@ class Loader:
         self.prefetch = prefetch
         self.host_shard = host_shard
         self.workers = workers
+        self.worker_mode = worker_mode
         self._pool = None
         self.epoch = 0
 
@@ -127,6 +144,12 @@ class Loader:
         if self._pool is not None:
             self._pool.shutdown(wait=False, cancel_futures=True)
             self._pool = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # interpreter teardown
+            pass
 
     def _indices(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
@@ -143,13 +166,24 @@ class Loader:
         n = len(self._indices())
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    def _make_pool(self):
+        if self.worker_mode == "process":
+            import multiprocessing
+            from concurrent.futures import ProcessPoolExecutor
+
+            return ProcessPoolExecutor(max_workers=self.workers,
+                                       mp_context=multiprocessing.get_context("forkserver"),
+                                       initializer=_init_worker, initargs=(self.dataset,))
+        from concurrent.futures import ThreadPoolExecutor
+
+        return ThreadPoolExecutor(max_workers=self.workers)
+
     def _fetch(self, chunk) -> Dict:
         if self.workers > 1:
             if self._pool is None:
-                from concurrent.futures import ThreadPoolExecutor
-
-                self._pool = ThreadPoolExecutor(max_workers=self.workers)
-            samples = list(self._pool.map(self.dataset.__getitem__, [int(i) for i in chunk]))
+                self._pool = self._make_pool()
+            get = _worker_get if self.worker_mode == "process" else self.dataset.__getitem__
+            samples = list(self._pool.map(get, [int(i) for i in chunk]))
         else:
             samples = [self.dataset[int(i)] for i in chunk]
         return self.collate(samples)
@@ -167,17 +201,35 @@ class Loader:
             return
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         done = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
 
         def worker():
             try:
                 for b in self._batches():
-                    q.put(b)
+                    if not put(b):
+                        return
+            except BaseException as e:  # raised in the consumer, not lost here
+                put(e)
             finally:
-                q.put(done)
+                put(done)
 
         threading.Thread(target=worker, daemon=True).start()
-        while True:
-            item = q.get()
-            if item is done:
-                break
-            yield item
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()  # a consumer that stops early releases the thread

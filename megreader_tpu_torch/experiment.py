@@ -6,7 +6,12 @@ built from Python objects.
 * Recognition: ``recognition_collate`` on the host (uint8 canvases, encoded
   labels), and a prepare function that moves each batch to the model's
   device, casts it there, resizes each crop to ``crop_hw`` with its aspect
-  kept (``resize_with_aspect_pad``) and normalizes it.
+  kept (``resize_with_aspect_pad``) and normalizes it. With ``augment``,
+  the resize carries random geometric and photometric jitter
+  (``augment_resize_with_aspect_pad``) from a ``torch.Generator`` on the
+  model's device seeded by (``seed``, the train step) alone: the JAX
+  package's ``fold_in(PRNGKey(seed), step)``, pure in both, so no state
+  lives between calls. The detection task ignores ``augment``, as in JAX.
 * Detection (``SegDetector``): with ``device_gt`` (the default), the host
   ships pages and padded polygon buffers (``detection_collate_polys``, at
   least ``max_polys`` slots) and the prepare function rasterizes the GT maps
@@ -26,6 +31,7 @@ through the port's registry (``all.py``, ``core/config.py``).
 from __future__ import annotations
 
 import functools
+import inspect
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -35,7 +41,7 @@ from .data.loader import Loader, detection_collate, detection_collate_polys, rec
 from .core.config import Config
 from .evaluation import evaluate
 from .ops.gt_maps import make_detection_gt
-from .ops.image import normalize, resize_with_aspect_pad
+from .ops.image import augment_resize_with_aspect_pad, normalize, resize_with_aspect_pad
 from .pipelines.predictors import default_charset
 from .train.train_step import OptimizerConfig
 from .train.trainer import Trainer
@@ -46,17 +52,37 @@ DETECTION_TASKS = {"SegDetector"}
 _GT_ATTRS = ("shrink_ratio", "min_text_size", "thresh_min", "thresh_max")
 
 
-def _recognition_prepare(batch: Dict, crop_hw=(32, 100), device="cuda") -> Dict:
+def augment_generator(seed: int, step: int, device) -> torch.Generator:
+    """A fresh generator on ``device`` whose stream is a function of (seed,
+    step) alone: the two are mixed by numpy's ``SeedSequence``."""
+    key = np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(key))
+    return gen
+
+
+def _recognition_prepare(batch: Dict, crop_hw=(32, 100), device="cuda",
+                         augment_gen: Optional[torch.Generator] = None) -> Dict:
     """Host batch (numpy) -> model batch on ``device``: uint8 over the wire,
-    cast on the device."""
+    cast on the device; with ``augment_gen``, the augmented resize."""
     images = torch.as_tensor(np.asarray(batch["image"])).to(device).float()
     sizes = torch.as_tensor(np.asarray(batch["size"])).to(device)
-    img, _w = resize_with_aspect_pad(images, sizes, tuple(crop_hw))
+    if augment_gen is not None:
+        img, _w = augment_resize_with_aspect_pad(augment_gen, images, sizes, tuple(crop_hw))
+    else:
+        img, _w = resize_with_aspect_pad(images, sizes, tuple(crop_hw))
     return {
         "image": normalize(img),
         "label": torch.as_tensor(np.asarray(batch["label"])).to(device),
         "label_length": torch.as_tensor(np.asarray(batch["label_length"])).to(device),
     }
+
+
+def _recognition_prepare_augmented(batch: Dict, step: int = 0, crop_hw=(32, 100),
+                                   device="cuda", seed: int = 0) -> Dict:
+    """``_recognition_prepare`` with the augmentation stream of (seed, step)."""
+    return _recognition_prepare(batch, crop_hw, device,
+                                augment_gen=augment_generator(seed, step, device))
 
 
 def _detection_prepare(batch: Dict, device="cuda") -> Dict:
@@ -80,6 +106,21 @@ def _detection_prepare_device(batch: Dict, gt_kwargs: Optional[Dict] = None,
         hw=(image.shape[1], image.shape[2]), **(gt_kwargs or {}),
     )
     return {"image": normalize(image), **maps}
+
+
+def _model_takes_crop_hw(node: Dict) -> None:
+    """Give the model node the experiment's ``crop_hw`` where its class
+    takes one and the node sets none: flax infers the 2D and attention
+    nets' feature height from the first batch, the port builds it from
+    ``crop_hw``."""
+    from .core.registry import COMPONENTS
+
+    model = node.get("model")
+    if "crop_hw" not in node or not isinstance(model, dict) or "crop_hw" in model:
+        return
+    name = model.get("class")
+    if name in COMPONENTS and "crop_hw" in inspect.signature(COMPONENTS.get(name)).parameters:
+        model["crop_hw"] = node["crop_hw"]
 
 
 class Experiment:
@@ -118,18 +159,14 @@ class Experiment:
                 f"task {self.task}: only the recognizers' and the detector's training is "
                 "ported (ROADMAP Queue 1 item 13)"
             )
-        if augment:
-            raise NotImplementedError(
-                "augment=True: device augmentation is not ported (ROADMAP Queue 1 item 7)"
-            )
         self.workspace = workspace
         self.name = name
-        #: the seed of the initial weights' draw. The JAX trainer draws them
-        #: from PRNGKey(seed) (and its device augmentation, not ported, keys
-        #: on it); here the model exists before the experiment, so
-        #: ``from_yaml`` builds the YAML's graph under ``torch.manual_seed``
-        #: of it. Nothing else reads it.
+        #: the seed of the initial weights' draw and of the augmentation
+        #: stream. The JAX trainer draws the weights from PRNGKey(seed); here
+        #: the model exists before the experiment, so ``from_yaml`` builds
+        #: the YAML's graph under ``torch.manual_seed`` of it.
         self.seed = seed
+        self.augment = augment
         self.crop_hw = tuple(crop_hw)
         self.charset = charset or default_charset(model)
         device = next(model.net.parameters()).device
@@ -137,8 +174,12 @@ class Experiment:
             self.collate = functools.partial(
                 recognition_collate, charset=self.charset, max_label_len=max_label_len
             )
-            self.prepare = functools.partial(_recognition_prepare, crop_hw=self.crop_hw,
-                                             device=device)
+            if augment:
+                self.prepare = functools.partial(_recognition_prepare_augmented,
+                                                 crop_hw=self.crop_hw, device=device, seed=seed)
+            else:
+                self.prepare = functools.partial(_recognition_prepare, crop_hw=self.crop_hw,
+                                                 device=device)
         elif device_gt:
             self.collate = functools.partial(detection_collate_polys, max_polys=max_polys)
             gt_kwargs = {a: float(getattr(train_dataset, a)) for a in _GT_ATTRS
@@ -198,6 +239,8 @@ class Experiment:
         cfg = Config.load(path, overrides)
         node = cfg.get("experiment")
         seed = node.get("seed", 0) if isinstance(node, dict) else 0
+        if isinstance(node, dict):
+            _model_takes_crop_hw(node)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(int(seed))
             graph = Config.compile(cfg)

@@ -1,15 +1,24 @@
 """Page and crop resampling: normalize, box crops, perspective rectification,
-three-shear deskew.
+three-shear deskew, and train-time augmentation on the device.
 
 Channels-last (NHWC) at every public function, as in the JAX package. The
 resamplers are separable tent-weight contractions (``einsum``/``matmul``):
 the tent relu(1 - |s - i|) is the bilinear kernel, with cv2's pixel-centre
 convention ``src = (dst + 0.5) * scale - 0.5`` and edge clamping.
+``warp_bilinear`` is the one gather resampler (an arbitrary 3x3 map, for
+the affine augmentation).
+
+Each random augmentation takes a ``torch.Generator`` and is two steps: a
+``*_draws`` function draws its uniforms with that generator on the
+images' device, and a pure function applies the drawn values. The JAX
+package draws with ``jax.random``, whose streams torch cannot reproduce, so
+the arithmetic is held to it on JAX's own draws.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,14 +42,20 @@ def _tent(src: torch.Tensor, n_in: int) -> torch.Tensor:
 
 
 def resize_with_aspect_pad(images: torch.Tensor, sizes: torch.Tensor,
-                           out_hw: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+                           out_hw: Tuple[int, int],
+                           jitter: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Aspect-preserving resize of each image's valid region onto a canvas.
 
     images (B, H, W, C) canvases whose top-left ``sizes[b] = (h, w)`` region
     holds the pixels; the height fits ``Ho`` exactly, the width follows the
     aspect ratio (``round`` halves to even, as ``jnp.round``; at most ``Wo``)
-    and the rest of each row is zero. Source coordinates are clamped to the
-    valid region. Returns (out (B, Ho, Wo, C), valid widths (B,) int32)."""
+    and the rest of each row is zero. ``jitter`` = (scale (B, 2), shift
+    (B, 2)), axes (y, x): the source coordinates are scaled about the valid
+    region's centre and shifted by ``shift`` source pixels (train-time
+    geometric augmentation riding the resize's weights). Source coordinates
+    are then clamped to the valid region. Returns (out (B, Ho, Wo, C), valid
+    widths (B,) int32)."""
     B, Hi, Wi, C = images.shape
     Ho, Wo = out_hw
     dev, dt = images.device, images.dtype
@@ -53,6 +68,12 @@ def resize_with_aspect_pad(images: torch.Tensor, sizes: torch.Tensor,
     ox = torch.arange(Wo, dtype=dt, device=dev).view(1, Wo)
     src_y = (oy + 0.5) * scale.view(B, 1) - 0.5
     src_x = (ox + 0.5) * sx.view(B, 1) - 0.5
+    if jitter is not None:
+        jscale, jshift = jitter
+        cy = ((h - 1.0) / 2.0).view(B, 1)
+        cx = ((w - 1.0) / 2.0).view(B, 1)
+        src_y = (src_y - cy) * jscale[:, 0:1] + cy + jshift[:, 0:1]
+        src_x = (src_x - cx) * jscale[:, 1:2] + cx + jshift[:, 1:2]
     Wy = _tent(torch.minimum(torch.clamp(src_y, min=0.0),
                              torch.clamp(h - 1.0, min=0.0).view(B, 1)), Hi)  # (B, Ho, Hi)
     Wx = _tent(torch.minimum(torch.clamp(src_x, min=0.0),
@@ -279,3 +300,173 @@ def rotate_crops(crops: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     out = _shear_x(crops, -t_half[:, None] * y_rel)
     out = _shear_y(out, s[:, None] * x_rel)
     return _shear_x(out, -t_half[:, None] * y_rel)
+
+
+# ---------------------------------------------------------------------------
+# Train-time augmentation on the device
+# ---------------------------------------------------------------------------
+
+
+def _bilinear_gather(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                     border: str = "zero") -> torch.Tensor:
+    """Sample images (B, H, W, C) at float coordinates x, y (each (B, Ho,
+    Wo)). ``border='zero'`` reads 0 outside the image; ``'clamp'`` repeats
+    its edges."""
+    if border not in ("zero", "clamp"):
+        raise ValueError(f"unknown border {border!r}")
+    B, H, W, C = images.shape
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    dx = (x - x0)[..., None]
+    dy = (y - y0)[..., None]
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    bidx = torch.arange(B, device=images.device).view(B, 1, 1)
+
+    def at(yi, xi):
+        v = images[bidx, torch.clamp(yi, 0, H - 1), torch.clamp(xi, 0, W - 1)]
+        if border == "clamp":
+            return v
+        inside = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        return torch.where(inside[..., None], v, torch.zeros((), dtype=v.dtype, device=v.device))
+
+    v00 = at(y0i, x0i)
+    v01 = at(y0i, x0i + 1)
+    v10 = at(y0i + 1, x0i)
+    v11 = at(y0i + 1, x0i + 1)
+    top = v00 * (1 - dx) + v01 * dx
+    bot = v10 * (1 - dx) + v11 * dx
+    return top * (1 - dy) + bot * dy
+
+
+def warp_bilinear(images: torch.Tensor, matrices: torch.Tensor, out_hw: Tuple[int, int],
+                  border: str = "zero") -> torch.Tensor:
+    """Batched inverse warp: out[p] = image[M @ p], bilinear.
+
+    images (B, H, W, C); matrices (B, 3, 3) map output (x, y, 1) to input
+    coordinates; returns (B, Ho, Wo, C). The coordinates are products and
+    sums written out, as in the JAX package (no matmul)."""
+    B = images.shape[0]
+    Ho, Wo = out_hw
+    dev, dt = images.device, images.dtype
+    ys = torch.arange(Ho, dtype=dt, device=dev).view(1, Ho, 1)
+    xs = torch.arange(Wo, dtype=dt, device=dev).view(1, 1, Wo)
+    M = matrices.to(dt).view(B, 9, 1, 1).unbind(1)
+    w = M[6] * xs + M[7] * ys + M[8]
+    w = torch.where(torch.abs(w) < 1e-8, torch.full_like(w, 1e-8), w)
+    sx = (M[0] * xs + M[1] * ys + M[2]) / w
+    sy = (M[3] * xs + M[4] * ys + M[5]) / w
+    return _bilinear_gather(images, sx, sy, border=border)
+
+
+def _uniform(gen: torch.Generator, shape, lo: float, hi: float, device) -> torch.Tensor:
+    """U[lo, hi) float32 of ``shape`` from ``gen`` on ``device``."""
+    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+    return lo + (hi - lo) * u
+
+
+def affine_draws(gen: torch.Generator, batch: int, device=None, max_rotate: float = 10.0,
+                 max_scale: float = 0.2, max_shift: float = 0.05) -> Dict[str, torch.Tensor]:
+    """The draws of ``augment_affine_matrix``: angle (degrees), scale offset
+    and the two shifts (fractions of the image), each (B,)."""
+    return {"angle": _uniform(gen, (batch,), -max_rotate, max_rotate, device),
+            "scale": _uniform(gen, (batch,), -max_scale, max_scale, device),
+            "tx": _uniform(gen, (batch,), -max_shift, max_shift, device),
+            "ty": _uniform(gen, (batch,), -max_shift, max_shift, device)}
+
+
+def affine_matrix(draws: Dict[str, torch.Tensor],
+                  center_hw: Tuple[float, float] = (16.0, 50.0)) -> torch.Tensor:
+    """Inverse affine maps (B, 3, 3): rotate and scale about the centre, then
+    shift, from ``affine_draws``' values."""
+    ang = draws["angle"] * (math.pi / 180.0)
+    sc = 1.0 + draws["scale"]
+    cy, cx = center_hw
+    a = torch.cos(ang) / sc
+    b = torch.sin(ang) / sc
+    tx = draws["tx"] * 2 * cx
+    ty = draws["ty"] * 2 * cy
+    zero, one = torch.zeros_like(a), torch.ones_like(a)
+    return torch.stack([
+        torch.stack([a, b, cx - a * cx - b * cy + tx], -1),
+        torch.stack([-b, a, cy + b * cx - a * cy + ty], -1),
+        torch.stack([zero, zero, one], -1),
+    ], 1)
+
+
+def augment_affine_matrix(gen: torch.Generator, batch: int, max_rotate: float = 10.0,
+                          max_scale: float = 0.2, max_shift: float = 0.05,
+                          center_hw: Tuple[float, float] = (16.0, 50.0),
+                          device=None) -> torch.Tensor:
+    """Random inverse affine maps (B, 3, 3) about the image centre."""
+    return affine_matrix(affine_draws(gen, batch, device, max_rotate, max_scale, max_shift),
+                         center_hw)
+
+
+def resize_draws(gen: torch.Generator, batch: int, device=None, max_scale_jitter: float = 0.12,
+                 max_shift: float = 1.5, brightness: float = 0.15,
+                 contrast: float = 0.15) -> Dict[str, torch.Tensor]:
+    """The draws of ``augment_resize_with_aspect_pad``: jitter scale and
+    shift (B, 2), brightness in 0-255 units and contrast factor (B, 1, 1, 1)."""
+    return {
+        "jscale": 1.0 + _uniform(gen, (batch, 2), -max_scale_jitter, max_scale_jitter, device),
+        "jshift": _uniform(gen, (batch, 2), -max_shift, max_shift, device),
+        "brightness": _uniform(gen, (batch, 1, 1, 1), -brightness, brightness, device) * 255.0,
+        "contrast": 1.0 + _uniform(gen, (batch, 1, 1, 1), -contrast, contrast, device),
+    }
+
+
+def _photometric(out: torch.Tensor, brightness: torch.Tensor,
+                 contrast: torch.Tensor) -> torch.Tensor:
+    """Contrast about each image's mean, then brightness."""
+    mean = torch.mean(out, dim=(1, 2, 3), keepdim=True)
+    return (out - mean) * contrast + mean + brightness
+
+
+def augment_resize_apply(images: torch.Tensor, sizes: torch.Tensor, out_hw: Tuple[int, int],
+                         draws: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``augment_resize_with_aspect_pad`` on drawn values: the jittered
+    resize, then brightness and contrast about each image's mean."""
+    out, widths = resize_with_aspect_pad(images, sizes, out_hw,
+                                         jitter=(draws["jscale"], draws["jshift"]))
+    return _photometric(out, draws["brightness"], draws["contrast"]), widths
+
+
+def augment_resize_with_aspect_pad(gen: torch.Generator, images: torch.Tensor,
+                                   sizes: torch.Tensor, out_hw: Tuple[int, int],
+                                   max_scale_jitter: float = 0.12, max_shift: float = 1.5,
+                                   brightness: float = 0.15, contrast: float = 0.15,
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Recognition ingest with augmentation: geometric jitter on the resize's
+    weights (no extra pass), photometric jitter after."""
+    draws = resize_draws(gen, images.shape[0], images.device, max_scale_jitter, max_shift,
+                         brightness, contrast)
+    return augment_resize_apply(images, sizes, out_hw, draws)
+
+
+def images_draws(gen: torch.Generator, batch: int, device=None, brightness: float = 0.2,
+                 contrast: float = 0.2, max_rotate: float = 8.0) -> Dict[str, torch.Tensor]:
+    """The draws of ``augment_images``: ``affine_draws``' four (at
+    ``max_rotate``), then brightness and contrast (B, 1, 1, 1)."""
+    return {**affine_draws(gen, batch, device, max_rotate=max_rotate),
+            "brightness": _uniform(gen, (batch, 1, 1, 1), -brightness, brightness, device),
+            "contrast": 1.0 + _uniform(gen, (batch, 1, 1, 1), -contrast, contrast, device)}
+
+
+def augment_images_apply(images: torch.Tensor, draws: Dict[str, torch.Tensor],
+                         out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``augment_images`` on drawn values: the affine warp (zero border) about
+    the centre, then brightness and contrast about each image's mean."""
+    _, H, W, _ = images.shape
+    out_hw = out_hw or (H, W)
+    M = affine_matrix(draws, center_hw=(H / 2, W / 2))
+    out = warp_bilinear(images, M, out_hw)
+    return _photometric(out, draws["brightness"], draws["contrast"])
+
+
+def augment_images(gen: torch.Generator, images: torch.Tensor,
+                   out_hw: Optional[Tuple[int, int]] = None, brightness: float = 0.2,
+                   contrast: float = 0.2, max_rotate: float = 8.0) -> torch.Tensor:
+    """Geometric and photometric train-time augmentation on the device."""
+    draws = images_draws(gen, images.shape[0], images.device, brightness, contrast, max_rotate)
+    return augment_images_apply(images, draws, out_hw)

@@ -2,9 +2,14 @@
 
 A checkpoint is one ``torch.save`` file, ``checkpoints/state_XXXXXXXX.pt``
 under the workspace, holding the step, the module's state dict and the
-optimizer's (the port's own format: JAX msgpack checkpoints are not read,
-ROADMAP Queue 1 item 7). Saves are synchronous, written to a temporary name
-and renamed, and the newest ``keep`` files are kept.
+optimizer's (the port's own format). Saves are synchronous, written to a
+temporary name and renamed, and the newest ``keep`` files are kept.
+
+``restore_jax_variables`` reads the weights of the JAX package's msgpack
+checkpoints (``checkpoints/state_XXXXXXXX.msgpack``, what its
+``CheckpointManager(use_orbax=False)`` writes): ``params`` and
+``batch_stats`` through ``compat/weights.py``'s name maps, never the optax
+state. Its orbax checkpoints are not read.
 """
 
 from __future__ import annotations
@@ -15,9 +20,12 @@ from typing import Optional
 
 import torch
 
+from ..compat.msgpack import msgpack_restore
+from ..compat.weights import load_flax_variables
 from .train_step import TrainState
 
 _NAME = re.compile(r"state_(\d{8})\.pt$")
+_JAX_NAME = re.compile(r"state_(\d+)\.msgpack$")
 
 
 class CheckpointManager:
@@ -78,6 +86,40 @@ class CheckpointManager:
             return module
         module.load_state_dict(self._read(step, module)["module"])
         return module
+
+    def restore_jax_variables(self, module, jax_workspace: Optional[str] = None,
+                              step: Optional[int] = None) -> int:
+        """Load the weights of a JAX package checkpoint into ``module`` in
+        place and return its step.
+
+        Reads ``checkpoints/state_XXXXXXXX.msgpack`` at ``step`` (default:
+        the latest) under ``jax_workspace`` (default: this manager's
+        workspace), decoded by ``compat/msgpack.py``; its ``params`` and
+        ``batch_stats`` load through ``compat/weights.py``, which raises on a
+        missing or leftover name or a shape that differs. The optax state is
+        not read. An orbax checkpoint raises ``NotImplementedError``; no
+        checkpoint at all ``FileNotFoundError``."""
+        ckdir = self.dir if jax_workspace is None else os.path.join(jax_workspace, "checkpoints")
+        names = os.listdir(ckdir) if os.path.isdir(ckdir) else []
+        steps = {int(m.group(1)): f for f in names if (m := _JAX_NAME.match(f))}
+        if step is None and steps:
+            step = max(steps)
+        if step not in steps:
+            if any(f.isdigit() and os.path.isdir(os.path.join(ckdir, f)) for f in names):
+                raise NotImplementedError(
+                    f"{ckdir}: an orbax checkpoint; only the JAX package's msgpack checkpoints "
+                    "are read (orbax and tensorstore are not installed with the port)")
+            raise FileNotFoundError(f"{ckdir}: no JAX msgpack checkpoint"
+                                    + ("" if step is None else f" at step {step}"))
+        with open(os.path.join(ckdir, steps[step]), "rb") as f:
+            tree = msgpack_restore(f.read())
+        if not isinstance(tree, dict) or "params" not in tree:
+            raise ValueError(f"{steps[step]}: not a JAX train state")
+        variables = {"params": tree["params"]}
+        if tree.get("batch_stats"):
+            variables["batch_stats"] = tree["batch_stats"]
+        load_flax_variables(module, variables)
+        return int(tree["step"])
 
     def _read(self, step: int, module) -> dict:
         """The checkpoint at ``step``, its tensors on ``module``'s device."""

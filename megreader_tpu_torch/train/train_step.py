@@ -14,13 +14,21 @@ A port of ``megreader_tpu/train/train_step.py`` with optax's update rules:
   0.999, eps 1e-8, decay on every parameter: optax's ``adamw``), with the
   learning rate set to ``schedule(n)`` before the n-th update (n from 0, as
   optax counts).
+* ``accumulate_steps = k > 1`` is optax's ``MultiSteps(tx, k)``: each
+  mini-step folds its gradients into a running mean (``acc + (g - acc) /
+  (n + 1)``, MultiSteps' own arithmetic); every k-th mini-step clips,
+  schedules and updates on that mean and counts one update, and between
+  those the parameters stay as they are.
 
 A train step is prepare -> loss -> backward -> clip -> update, eagerly on the
 module's device; its metrics stay on the device until a caller reads them.
+A prepare function that declares a ``step`` parameter gets the train state's
+step (the JAX trainer's rule for step-keyed augmentation streams).
 """
 
 from __future__ import annotations
 
+import inspect
 import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, Optional, Tuple
@@ -98,10 +106,6 @@ class OptimizerConfig:
         return base
 
     def make(self, params: Iterable[nn.Parameter]) -> "Optimizer":
-        if self.accumulate_steps > 1:
-            raise NotImplementedError(
-                "accumulate_steps > 1 (optax.MultiSteps) is not ported (ROADMAP Queue 1 item 7)"
-            )
         params = list(params)
         if self.name == "sgd":
             inner = torch.optim.SGD(params, lr=0.0, momentum=self.momentum,
@@ -111,7 +115,7 @@ class OptimizerConfig:
                                       weight_decay=self.weight_decay)
         else:
             raise ValueError(f"unknown optimizer {self.name!r}")
-        return Optimizer(inner, self.make_schedule(), self.grad_clip)
+        return Optimizer(inner, self.make_schedule(), self.grad_clip, self.accumulate_steps)
 
 
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -120,15 +124,25 @@ def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 class Optimizer:
-    """A torch optimizer driven by optax's schedule count and global-norm clip."""
+    """A torch optimizer driven by optax's schedule count and global-norm clip,
+    with MultiSteps' gradient accumulation when ``accumulate_steps > 1``."""
 
     def __init__(self, inner: torch.optim.Optimizer, schedule: Schedule,
-                 grad_clip: Optional[float] = None):
+                 grad_clip: Optional[float] = None, accumulate_steps: int = 1):
         self.inner = inner
         self.schedule = schedule
         self.grad_clip = grad_clip
+        self.accumulate_steps = accumulate_steps
         #: updates applied so far (optax's schedule count)
         self.count = 0
+        #: mini-steps folded into ``acc`` since the last update
+        self.mini_step = 0
+        #: the running mean of the cycle's gradients, one per parameter
+        #: (None until the first mini-step)
+        self.acc: Optional[list] = None
+
+    def _params(self):
+        return [p for group in self.inner.param_groups for p in group["params"]]
 
     def zero_grad(self):
         self.inner.zero_grad(set_to_none=True)
@@ -136,10 +150,34 @@ class Optimizer:
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         """Clip, set the learning rate, update; returns the global norm of the
-        gradients before clipping (a device scalar)."""
-        grads = [p.grad for group in self.inner.param_groups for p in group["params"]
-                 if p.grad is not None]
+        gradients before clipping (a device scalar). Under accumulation it
+        folds the gradients into the cycle's mean, updates on that mean at
+        the cycle's last mini-step only, and returns the mini-batch's norm."""
+        if self.accumulate_steps <= 1:
+            grads = [p.grad for p in self._params() if p.grad is not None]
+            norm = global_norm(grads)
+            self._update(grads, norm)
+            return norm
+        params = self._params()
+        # a parameter without a gradient takes zeros, as a flax tree has them
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         norm = global_norm(grads)
+        if self.acc is None:
+            self.acc = [torch.zeros_like(p) for p in params]
+        for a, g in zip(self.acc, grads):
+            a.add_((g - a) / (self.mini_step + 1))
+        self.mini_step += 1
+        if self.mini_step == self.accumulate_steps:
+            for p, a in zip(params, self.acc):
+                p.grad = a.clone()
+            mean = [p.grad for p in params]
+            self._update(mean, global_norm(mean))
+            for a in self.acc:
+                a.zero_()
+            self.mini_step = 0
+        return norm
+
+    def _update(self, grads, norm: torch.Tensor) -> None:
         if self.grad_clip:
             keep = norm < self.grad_clip
             for g in grads:
@@ -149,14 +187,21 @@ class Optimizer:
             group["lr"] = lr
         self.inner.step()
         self.count += 1
-        return norm
 
     def state_dict(self) -> Dict:
-        return {"count": self.count, "inner": self.inner.state_dict()}
+        state = {"count": self.count, "inner": self.inner.state_dict()}
+        if self.accumulate_steps > 1:
+            state["mini_step"] = self.mini_step
+            state["acc"] = [a.clone() for a in self.acc] if self.acc is not None else None
+        return state
 
     def load_state_dict(self, state: Dict) -> None:
         self.count = int(state["count"])
         self.inner.load_state_dict(state["inner"])
+        self.mini_step = int(state.get("mini_step", 0))
+        acc = state.get("acc")
+        self.acc = None if acc is None else [
+            a.to(device=p.device, dtype=p.dtype).clone() for a, p in zip(acc, self._params())]
 
 
 @dataclass
@@ -174,16 +219,28 @@ def create_train_state(model, optimizer: OptimizerConfig) -> TrainState:
     return TrainState(step=0, module=model.net, optimizer=optimizer.make(model.net.parameters()))
 
 
+def wants_step(prepare: Optional[Callable]) -> bool:
+    """Whether a prepare function declares a ``step`` parameter."""
+    if prepare is None:
+        return False
+    try:
+        return "step" in inspect.signature(prepare).parameters
+    except (TypeError, ValueError):
+        return False
+
+
 def make_train_step(model, prepare: Optional[Callable[[Dict], Dict]] = None
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
-    """``step(state, batch) -> (state, metrics)``: prepare, the loss in train
-    mode, backward, clip, update. Metrics: ``loss`` and ``grad_norm`` (before
-    clipping), device scalars. The state's module is the model's net and is
-    updated in place."""
+    """``step(state, batch) -> (state, metrics)``: prepare (given
+    ``step=state.step`` when it declares ``step``), the loss in train mode,
+    backward, clip, update. Metrics: ``loss`` and ``grad_norm`` (the
+    mini-batch's, before clipping), device scalars. The state's module is the
+    model's net and is updated in place."""
+    with_step = wants_step(prepare)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         if prepare is not None:
-            batch = prepare(batch)
+            batch = prepare(batch, step=state.step) if with_step else prepare(batch)
         state.optimizer.zero_grad()
         loss, metrics = model.loss(batch, train=True)
         loss.backward()

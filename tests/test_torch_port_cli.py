@@ -197,7 +197,7 @@ def test_write_png_every_filter_read_by_cv2(tmp_path, channels):
 
 @pytest.mark.parametrize("src,size", [((50, 70), (640, 640)), ((123, 457), (100, 300)),
                                       ((640, 640), (320, 320)), ((640, 640), (17, 32)),
-                                      ((60, 80), (80, 60))])
+                                      ((60, 80), (80, 60)), ((96, 128), (128, 96))])
 def test_resize_linear_within_one_grey_level_of_cv2(src, size):
     img = cv2.GaussianBlur(np.random.default_rng(3).integers(0, 256, (*src, 3), dtype=np.uint8),
                            (5, 5), 2)

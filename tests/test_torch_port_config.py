@@ -3,8 +3,9 @@ and config loader (``core/config.py``, no PyYAML) on every file of
 ``experiments/``, ``import:``, cycles, ``$ref:``, dotted overrides and the
 command line's values; its registry (``core/registry.py``, filled by
 ``all.py``); and ``Experiment.from_yaml`` on all 20 experiments, which either
-build with the JAX experiment's hyperparameters and parameter shapes or
-refuse naming a ROADMAP item. The models are built on the CPU by a plain
+build with the JAX experiment's hyperparameters, datasets and parameter
+shapes (the two disk experiments on data written to a temporary directory)
+or refuse naming a ROADMAP item. The models are built on the CPU by a plain
 dotted override (``experiment.model.device: cpu``)."""
 
 import glob
@@ -33,12 +34,15 @@ CPU = {"experiment.model.device": "cpu"}
 #: the experiments the port builds; every other one names its ROADMAP item
 BUILT = {"ctc_resnet18_synth": "CTCRecognizer", "ctc2d_resnet18_synth": "Ctc2dRecognizer",
          "attention_resnet18_synth": "AttentionRecognizer",
-         "seg_detector_synth": "SegDetector"}
+         "seg_detector_synth": "SegDetector", "attention_hard": "AttentionRecognizer",
+         "ctc2d_curved_ab": "Ctc2dRecognizer", "ctc2d_hard": "Ctc2dRecognizer",
+         "ctc_curved_ab": "CTCRecognizer", "ctc_hard": "CTCRecognizer",
+         "ctc_hard48": "CTCRecognizer", "ctc_hard_mix": "CTCRecognizer",
+         "ctc_hard_mix_long": "CTCRecognizer", "ctc_hard_small": "CTCRecognizer",
+         "ctc_listfile_disk": "CTCRecognizer", "seg_detector_hard": "SegDetector",
+         "seg_detector_icdar_disk": "SegDetector"}
 REFUSED_ITEM = {
-    "attention_hard": 7, "ctc2d_curved_ab": 7, "ctc2d_hard": 7, "ctc_curved_ab": 7,
-    "ctc_hard": 7, "ctc_hard48": 7, "ctc_hard_mix": 7, "ctc_hard_mix_long": 7,
-    "ctc_hard_small": 7, "ctc_listfile_disk": 7, "seg_detector_hard": 7,
-    "seg_detector_icdar_disk": 7, "roi_spotter_synth": 13, "seg_detector_dcn_synth": 13,
+    "roi_spotter_synth": 13, "seg_detector_dcn_synth": 13,
     "shared_spotter_hard": 13, "shared_spotter_synth": 13,
 }
 
@@ -204,16 +208,48 @@ def _flax_shapes(tree):
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
+def _disk_data(root):
+    """The disk experiments' data, written to ``root`` by
+    ``scripts/make_disk_dataset.py``'s exporters, and the dotted overrides
+    that point both packages at it."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from make_disk_dataset import export_detection, export_recognition
+
+    from megreader_tpu.data import SyntheticDetectionDataset, SyntheticRecognitionDataset
+
+    over = {}
+    for split, n in (("train", 3), ("eval", 2)):
+        rec, det = os.path.join(root, "rec", split), os.path.join(root, "det", split)
+        export_recognition(SyntheticRecognitionDataset(n=n, seed=n), rec)
+        export_detection(SyntheticDetectionDataset(n=n, hw=(96, 96), seed=n, gt_maps=False),
+                         det)
+        over[f"experiment.{split}_dataset.list_path"] = os.path.join(rec, "list.txt")
+        over[f"experiment.{split}_dataset.image_dir"] = os.path.join(det, "images")
+        over[f"experiment.{split}_dataset.gt_dir"] = os.path.join(det, "gts")
+    return over
+
+
+def _dataset_key(ds):
+    """What a dataset is: its class, length, seed (if it has one) and parts."""
+    return (type(ds).__name__, len(ds), getattr(ds, "seed", None),
+            [_dataset_key(p) for p in getattr(ds, "parts", ())])
+
+
 @pytest.mark.parametrize("path", EXPERIMENTS, ids=_name)
-def test_from_yaml_builds_or_names_its_item(path):
+def test_from_yaml_builds_or_names_its_item(path, tmp_path):
     name = _name(path)
     if name in REFUSED_ITEM:
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP Queue 1 item {REFUSED_ITEM[name]}\\)"):
             Experiment.from_yaml(path, CPU)
         return
-    exp = Experiment.from_yaml(path, CPU)
-    ref = JaxExperiment.from_yaml(path)
+    over = {}
+    if name.endswith("_disk"):
+        disk = _disk_data(str(tmp_path))
+        kind = "list_path" if name.startswith("ctc") else "_dir"
+        over = {k: v for k, v in disk.items() if k.endswith(kind)}
+    exp = Experiment.from_yaml(path, {**CPU, **over})
+    ref = JaxExperiment.from_yaml(path, over)
     assert exp.task == ref.task == BUILT[name]
     assert (exp.name, exp.seed, exp.epochs, exp.crop_hw) == (ref.name, ref.seed, ref.epochs,
                                                              ref.crop_hw)
@@ -221,10 +257,11 @@ def test_from_yaml_builds_or_names_its_item(path):
     for loader in ("train_loader", "eval_loader"):
         got, want = getattr(exp, loader), getattr(ref, loader)
         assert got.batch_size == want.batch_size
-        assert (len(got.dataset), got.dataset.seed) == (len(want.dataset), want.dataset.seed)
+        assert got.worker_mode == want.worker_mode
+        assert _dataset_key(got.dataset) == _dataset_key(want.dataset)
     assert vars(exp.optimizer) == vars(ref.optimizer)
     assert type(exp.charset).__name__ == type(ref.charset).__name__
-    hw = (1, 64, 64, 3) if name == "seg_detector_synth" else (1, *ref.crop_hw, 3)
+    hw = (1, 64, 64, 3) if ref.task == "SegDetector" else (1, *ref.crop_hw, 3)
     abstract = jax.eval_shape(ref.model.init, jax.random.PRNGKey(0), jnp.zeros(hw))
     exported = export_flax_variables(exp.model.net)
     for col in abstract:
@@ -240,12 +277,15 @@ def test_from_yaml_seeds_the_weights():
 
 
 def test_from_yaml_refuses_options_left_out(tmp_path):
+    """``use_mesh`` (item 14) is refused; ``augment`` and process workers
+    (item 7) build."""
     path = os.path.join(REPO, "experiments", "ctc2d_resnet18_synth.yaml")
-    for key, item in (("augment", 7), ("use_mesh", 14)):
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            Experiment.from_yaml(path, {**CPU, f"experiment.{key}": True}).make_trainer()
-    with pytest.raises(NotImplementedError, match="item 7\\)"):
-        Experiment.from_yaml(path, {**CPU, "experiment.loader_worker_mode": "process"})
+    with pytest.raises(NotImplementedError, match="item 14\\)"):
+        Experiment.from_yaml(path, {**CPU, "experiment.use_mesh": True}).make_trainer()
+    exp = Experiment.from_yaml(path, {**CPU, "experiment.augment": True,
+                                      "experiment.loader_worker_mode": "process"})
+    assert exp.augment and exp.train_loader.worker_mode == "process"
+    assert exp.make_trainer().prepare_batch is exp.prepare
     f = tmp_path / "no_experiment.yaml"
     f.write_text("model:\n  class: Charset\n")
     with pytest.raises(ValueError, match="must define an 'experiment:' node"):

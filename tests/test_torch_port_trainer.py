@@ -147,15 +147,20 @@ def test_validate_hook_runs_every_n_steps(tmp_path):
 def test_left_out_options_raise(tmp_path, what):
     """The options and tasks left out raise. ``validation`` is ported: a
     validation with the beam decode runs and measures every eval crop.
-    ``yaml`` is ported: ``from_yaml`` builds config #1, and a YAML that names
-    an unported dataset (``ctc_hard.yaml``, the hard tier) raises naming item
-    7."""
+    ``yaml`` is ported: ``from_yaml`` builds config #1 and the hard tier's
+    ``ctc_hard.yaml``, and a YAML that names the text spotter raises naming
+    item 13. ``augment`` and ``process_workers`` are ported: a two-step run
+    with each trains to finite losses."""
     if what == "yaml":
         exp = Experiment.from_yaml("experiments/ctc_resnet18_synth.yaml",
                                    {"experiment.model.device": "cpu"})
         assert exp.task == "CTCRecognizer" and exp.train_loader.batch_size == 64
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-            Experiment.from_yaml("experiments/ctc_hard.yaml", {"experiment.model.device": "cpu"})
+        hard = Experiment.from_yaml("experiments/ctc_hard.yaml",
+                                    {"experiment.model.device": "cpu"})
+        assert type(hard.train_loader.dataset).__name__ == "HardSyntheticRecognitionDataset"
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+            Experiment.from_yaml("experiments/roi_spotter_synth.yaml",
+                                 {"experiment.model.device": "cpu"})
         return
     if what == "validation":
         exp = _experiment(tmp_path, eval_dataset=SyntheticRecognitionDataset(n=8),
@@ -163,15 +168,19 @@ def test_left_out_options_raise(tmp_path, what):
         metrics = evaluate_recognition(exp, mode="beam")
         assert metrics["n"] == 8 and 0.0 <= metrics["ned"] <= 1.0
         return
+    if what in ("augment", "process_workers"):
+        kw = {"augment": True} if what == "augment" else {"loader_worker_mode": "process"}
+        exp = _experiment(tmp_path, epochs=1, **kw)
+        state = exp.make_trainer().train(resume=False)
+        exp.train_loader.close()
+        assert state.step == 2
+        assert all(np.isfinite(r["loss"]) for r in _metrics(tmp_path))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        if what == "augment":
-            _experiment(tmp_path, augment=True)
-        elif what == "mesh":
+        if what == "mesh":
             _experiment(tmp_path, use_mesh=True).make_trainer()
-        elif what == "task":  # the text spotter is not ported (item 13)
+        else:  # the text spotter is not ported (item 13)
             Experiment(type("RoITextSpotter", (), {})(), SyntheticRecognitionDataset(n=8))
-        else:
-            _experiment(tmp_path, loader_worker_mode="process")
 
 
 def test_average_meter():
