@@ -6,8 +6,10 @@ recognizer, the training and detection evaluation of the config-#4
 detector, the training and decodes of the config-#3 attention recognizer,
 serving with beam decodes, the CTC prefix beam search, bf16 serving of
 the trained detector with mixed-precision training of all four configs,
-the entry points (train, eval, page pipeline) on the repo's YAML files, and
-training configs #1 and #4 from PNG files on disk.
+the entry points (train, eval, page pipeline) on the repo's YAML files,
+training configs #1 and #4 from PNG files on disk, config #1 with the
+transformer and the other encoder variants, chain (curved-text) serving and
+bucketed serving of pages of any size.
 
     python3 chip_smoke.py
 
@@ -203,9 +205,43 @@ Phases (any failure exits non-zero):
     limit; the CTC and CCL kernels must launch (``launches_data`` in the
     kernels line).
 
-Prints a JSON line of per-kernel numbers (all eight kernels), then, as the
-last line, ``{"ok": true, "device": {...}}``. Needs a CUDA device; exits 1
-without one.
+17. encoders: config #1 with ``encoder='transformer'`` at full width
+    (hidden 256: width 512, 2 layers, 8 heads, MLP 2048, T 25; batch 64 of
+    32x100 ``WordCrops``, the optimizer of phase 7) through
+    ``Experiment``/``Trainer`` for 24 steps in float32 and 24 in mixed
+    precision (its step-0 loss within rtol 0.05 of float32's, float32
+    parameters), then ``encoder='none'`` and ``height_collapse='reshape'``
+    for 4 steps each: finite losses (falling over the 24-step runs), one
+    launch of each CTC kernel a step. The first step's loss and gradients
+    in float64 on 8 crops against the CPU (loss rtol 1e-4, each leaf within
+    1e-3 of its scale plus 1e-5 of the largest leaf's); each variant's
+    greedy decode of 64 crops against the CPU (logits within 1e-4 of their
+    scale, ids equal on every crop of clear-margin frames) and its crops/s;
+    ms a step, kernel-busy and the idle share of each variant beside the
+    BiLSTM's.
+18. chains: 8 pages of 640x640 numpy sine-band masks (20 curved bands a
+    page): the CCL kernel's labels equal to the plain ones, then
+    ``extract_regions`` under each ``extract_impl``, ``extract_chains``,
+    band quads and polygons on the card against the CPU (valid, areas,
+    roots and live bands equal; ``CHAIN_TOL``). Then
+    ``E2EPipeline(rectify='chain', n_bands=8)`` with the trained detector of
+    ``assets/bench_det_fp16.msgpack`` and the config-#1 recognizer on 8
+    ``TextPages`` in float32 ('xla', 'pallas_full') and bf16: each batch's
+    launches, valid regions against the words drawn, the float32 and bf16
+    pipelines held to the CPU on 2 pages (``serving_cross_check``, polygons
+    by ``POLYGON_TOL``); the chain stage's ms beside perspective's on the
+    same batch; ``detect_polygons_device`` on the prob maps against the CPU.
+19. buckets: ``BucketedE2E`` (batch 4) over 12 ``TextPages`` of
+    ``BUCKET_PAGES``' sizes, three a default bucket (one downscaled past
+    1152, pages padded at their own scale): one CCL launch a bucket batch;
+    detections per page, polygons in the pages' own pixels and texts on
+    clear-margin crops against the same on the CPU; each bucket batch's CCL
+    labels bit-exact to the plain CCL on the card (launch shapes 640x1152,
+    1152x640, 1152x1152); pages/s by bucket.
+
+Prints a JSON line of per-kernel numbers (all eight kernels, with their
+launches in each phase that drives a path), then, as the last line,
+``{"ok": true, "device": {...}}``. Needs a CUDA device; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -2413,6 +2449,13 @@ ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
 #: bound must take the same class on both devices
 BF16_TOL = {False: {"prob": 1e-3, "mask": 1e-5, "quad": 1e-2, "logits": 1e-4},
             True: {"prob": 7.5e-2, "mask": 5e-4, "quad": 1.5, "logits": None}}
+#: chain mode's matched polygons: in float32 their vertices within 2 px (an
+#: ulp of a region's statistics can move a pixel on a band boundary to the
+#: next band, ``CHAIN_TOL``); in bf16, whose prob map moves mask pixels and
+#: the quads by up to 1.5 px, and the chains' extrapolated ends with them
+#: (2.82 px in PR 15's call 2), their intersection over union at least 0.9
+POLYGON_TOL = {False: 2.0, True: None}
+POLYGON_MIN_IOU = 0.9
 
 
 def serving_cross_check(pipe, det_net, rec_net, pages_np) -> dict:
@@ -2446,7 +2489,7 @@ def serving_cross_check(pipe, det_net, rec_net, pages_np) -> dict:
             "mask": float(((prob_d > pipe.bin_thresh) != (prob_c > pipe.bin_thresh))
                           .float().mean()),
             "logits": float((logits_d - logits_c).abs().max())}
-    where = f"serving cross-check (bf16={pipe.bf16})"
+    where = f"serving cross-check (bf16={pipe.bf16}, rectify={pipe.rectify})"
     if not gaps["prob"] <= tol["prob"] * max(1.0, float(prob_c.abs().max())):
         raise AssertionError(f"{where}: prob maps differ by {gaps['prob']}")
     if not gaps["mask"] <= tol["mask"]:
@@ -2464,6 +2507,22 @@ def serving_cross_check(pipe, det_net, rec_net, pages_np) -> dict:
     gaps["quad_px"] = quad
     if not quad <= tol["quad"]:
         raise AssertionError(f"{where}: matched quads differ by {quad} px")
+    if "polygons" in out_c:  # chain mode
+        from megreader_tpu_torch.postproc.measurers import polygon_iou
+
+        poly, iou = 0.0, 1.0
+        for b in range(len(n_c)):
+            pc = out_c["polygons"][b][out_c["valid"][b]]
+            pd = out_d["polygons"][b][out_d["valid"][b]]
+            if len(pc):
+                d = (pd[None] - pc[:, None]).abs().amax((2, 3))  # (cpu, card)
+                poly = max(poly, float(d.amin(1).max()))
+                for i, j in enumerate(d.argmin(1).tolist()):
+                    iou = min(iou, polygon_iou(pc[i].numpy(), pd[j].numpy()))
+        gaps["polygon_px"], gaps["polygon_min_iou"] = poly, iou
+        bound = POLYGON_TOL[pipe.bf16]
+        if not (poly <= bound if bound is not None else iou >= POLYGON_MIN_IOU):
+            raise AssertionError(f"{where}: matched polygons {poly} px apart, IoU {iou}")
     gaps["logits_cpu_vs_float32"] = float((logits_c - logits_32).abs().max())
     bound = (gaps["logits_cpu_vs_float32"] if tol["logits"] is None
              else tol["logits"] * max(1.0, float(logits_c.abs().max())))
@@ -3385,6 +3444,523 @@ def phase_data(rec_n: int = 256, pages: int = 32, eval_pages: int = 8, paeth_pag
     return total
 
 
+# --- ROADMAP Queue 1 items 3b and 11: the encoder variants, chains, buckets ----
+
+
+def zeroed_counters():
+    """Every kernel's wrapper with its count set to 0."""
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    return counters
+
+
+def add_counts(total, counters) -> dict:
+    """Adds the counters' launches to ``total``; returns them."""
+    got = {n: k.launches for n, k in counters.items()}
+    for n, v in got.items():
+        total[n] += v
+    return got
+
+
+def encoder_train(name, model, data, opt, B, steps, total, falls=True):
+    """``model`` (on the card) through Experiment/Trainer for ``steps`` steps of
+    ``B``: finite losses (falling ones where ``falls``), one launch of each CTC
+    kernel a step (the counts set to 0 just before and read just after, added
+    to ``total``). Returns (the experiment, the losses)."""
+    from megreader_tpu_torch.experiment import Experiment
+
+    with tempfile.TemporaryDirectory() as ws:
+        exp = Experiment(model, data, optimizer=opt, workspace=ws, batch_size=B,
+                         epochs=steps * B // len(data), log_every=1)
+        counters = zeroed_counters()
+        t0 = time.perf_counter()
+        state = exp.make_trainer().train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = add_counts(total, counters)
+        with open(os.path.join(ws, "train_metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f if '"loss"' in line]
+    k = min(4, steps // 2)
+    first, last = statistics.mean(losses[:k]), statistics.mean(losses[-k:])
+    log(f"encoders phase, {name}: {state.step} steps of {B} crops in {wall:.2f} s (host "
+        f"clock, loader and logging included) [{CARD}]; launches "
+        + json.dumps({n: v for n, v in got.items() if v}) + f"; loss mean of the first {k} "
+        f"steps {first:.4f}, of the last {k} {last:.4f}; losses {losses}")
+    if state.step != steps or len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"encoders phase, {name}: {state.step} steps, losses {losses}")
+    if falls and not last < first:
+        raise AssertionError(f"encoders phase, {name}: the loss did not fall")
+    if (got["ctc_alpha"], got["ctc_beta"]) != (steps, steps) or any(
+            v for n, v in got.items() if not n.startswith("ctc_")):
+        raise AssertionError(f"encoders phase, {name}: launches {got} in {steps} steps")
+    return exp, losses
+
+
+def encoder_step_time(name, model, exp, raw, opt):
+    """ms a train step (make_train_step, CUDA events, median of 10), kernel-busy
+    ms and the device idle share; logged and returned."""
+    from megreader_tpu_torch.train.train_step import create_train_state, make_train_step
+
+    state = create_train_state(model, opt)
+    step_fn = make_train_step(model, prepare=exp.prepare)
+    busy = device_busy_ms(lambda: step_fn(state, raw))
+    step_ms = cuda_ms(lambda: step_fn(state, raw), reps=10)
+    idle = None if busy is None else 1.0 - busy / step_ms
+    log(f"encoders phase, {name} step (make_train_step, CUDA events, median of 10) [{CARD}]: "
+        f"{step_ms} ms = {len(raw['text']) / step_ms * 1e3:.1f} crops/s; kernel-busy {busy} "
+        f"ms; device idle share {'not measured' if idle is None else f'{idle:.4f}'}")
+    return {"ms": step_ms, "busy_ms": busy, "idle": idle}
+
+
+def encoder_parity(name, model, batch, n: int = 8):
+    """One train-mode loss and its gradients on the card against the CPU, in
+    float64 (the nets; both CTC losses take float32 logits: the CUDA kernels
+    on the card, the plain version on the CPU) on the first ``n`` crops of
+    ``batch``: loss rtol 1e-4, every gradient leaf within 1e-3 of its largest
+    magnitude plus 1e-5 of the largest over all leaves (the float32 loss's
+    noise: a leaf whose gradient is zero in exact arithmetic, as the
+    attention keys' bias, holds only that noise)."""
+    from megreader_tpu_torch.ops.ctc import ctc_loss
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        net = copy.deepcopy(model.net).to(dev).double().train()
+        logits = net(batch["image"][:n].to(dev).double())
+        lengths = torch.full((n,), logits.shape[1], dtype=torch.int32, device=dev)
+        loss = ctc_loss(logits, lengths, batch["label"][:n].to(dev),
+                        batch["label_length"][:n].to(dev))
+        loss.backward()
+        res[dev] = (loss.item(), {k: p.grad.cpu() for k, p in net.named_parameters()})
+    (loss_d, g_d), (loss_c, g_c) = res["cuda"], res["cpu"]
+    top = max(float(g.abs().max()) for g in g_c.values())
+    ratio = {k: float((g_d[k] - g).abs().max()) / (1e-3 * float(g.abs().max()) + 1e-5 * top)
+             for k, g in g_c.items()}
+    worst = max(ratio, key=ratio.get)
+    log(f"encoders phase, {name} first step on the card against the CPU (float64 nets, "
+        f"{n} crops): loss {loss_d} / {loss_c}; largest gradient {top:.4g}; worst leaf "
+        f"{worst}: max |diff| {float((g_d[worst] - g_c[worst]).abs().max()):.3g}, its max "
+        f"|CPU| {float(g_c[worst].abs().max()):.3g} ({ratio[worst]:.3g} of the bound) over "
+        f"{len(g_c)} leaves")
+    if not abs(loss_d - loss_c) <= 1e-4 * abs(loss_c):
+        raise AssertionError(f"encoders phase, {name}: loss {loss_d} on the card, {loss_c} on "
+                             "the CPU")
+    if not ratio[worst] <= 1.0:
+        raise AssertionError(f"encoders phase, {name}: gradient {worst} differs from the CPU's")
+
+
+def encoder_decode(name, model, crops):
+    """Greedy decode of ``crops`` (on the CPU, normalized) on the card against
+    the same weights on the CPU: logits within 1e-4 of their largest
+    magnitude, the same class on every frame the CPU decides by more than
+    twice that, the same ids on every crop all of whose frames are so
+    decided; the decode's crops/s."""
+    net_cpu = copy.deepcopy(model.net).cpu().eval()
+    with torch.no_grad():
+        logits_c = net_cpu(crops)
+        logits_d = model.net.eval()(crops.cuda()).cpu()
+        ids_d, len_d = model.decode(crops.cuda())
+    bound = 1e-4 * max(1.0, float(logits_c.abs().max()))
+    diff = float((logits_d - logits_c).abs().max())
+    top2 = logits_c.topk(2, -1).values
+    clear = top2[..., 0] - top2[..., 1] > 2 * bound
+    from megreader_tpu_torch.ops.ctc import ctc_greedy_decode
+
+    lengths = torch.full((len(crops),), logits_c.shape[1], dtype=torch.int32)
+    ids_c, len_c = ctc_greedy_decode(logits_c, lengths)
+    same = (ids_d.cpu() == ids_c).all(1) & (len_d.cpu() == len_c)
+    ms = cuda_ms(lambda: model.decode(crops.cuda()), reps=10)
+    log(f"encoders phase, {name} greedy decode of {len(crops)} crops [{CARD}]: logits max "
+        f"|card - CPU| {diff:.3g} (bound {bound:.3g}); {int(clear.sum())} of {clear.numel()} "
+        f"frames clear; ids equal on {int(same.sum())} crops, on all "
+        f"{int(clear.all(1).sum())} crops of clear frames; {ms} ms = "
+        f"{len(crops) / ms * 1e3:.1f} crops/s (CUDA events, median of 10)")
+    if not diff <= bound:
+        raise AssertionError(f"encoders phase, {name}: logits differ by {diff}")
+    if not bool((logits_c.argmax(-1) == logits_d.argmax(-1))[clear].all()) or not bool(
+            same[clear.all(1)].all()):
+        raise AssertionError(f"encoders phase, {name}: ids differ on clear-margin crops")
+
+
+def phase_encoders(B: int = 64, steps: int = 24, short: int = 4):
+    """Config #1 with the transformer encoder (hidden 256: width 512, 2 layers,
+    8 heads, MLP 2048, T 25) at full width through Experiment/Trainer, in
+    float32 and in mixed precision; then ``encoder='none'`` and
+    ``height_collapse='reshape'`` for a few steps each; each variant's
+    decode against the CPU; the steps' times beside the BiLSTM's. Returns
+    every kernel's launches in the phase's training runs."""
+    from megreader_tpu_torch.models.recognizer import CTCRecognizer
+    from megreader_tpu_torch.models.sequence import TransformerEncoder
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernel_counters(), 0)
+    opt = adam_warmup_cosine()
+    data = WordCrops(B * steps // 6, SEED + 60)
+
+    def make(seed, **kw):
+        m = CTCRecognizer(num_classes=37, device="cuda", **kw)
+        seeded_weights(m.net, seed)
+        return m
+
+    rec = make(SEED + 61, encoder="transformer")
+    enc = rec.net.encoder
+    if not isinstance(enc, TransformerEncoder) or enc.seq_len != 25 or enc.pos_embed.shape[-1] != 512:
+        raise AssertionError(f"encoders phase: the encoder is {enc}")
+    exp, _ = encoder_train("transformer, float32", rec, data, opt, B, steps, total)
+    raw = exp.collate([data[i] for i in range(B)])
+    batch = exp.prepare(raw)
+    crops = batch["image"].cpu()
+    fresh = make(SEED + 61, encoder="transformer")
+    encoder_parity("transformer", fresh, exp.prepare(raw))
+    encoder_decode("transformer", rec, crops)
+    times = {"transformer": encoder_step_time("transformer, float32", rec, exp, raw, opt)}
+
+    mixed = make(SEED + 62, encoder="transformer", compute_dtype="bfloat16")
+    ref32 = make(SEED + 62, encoder="transformer")
+    with torch.no_grad():
+        l16 = mixed.loss(batch, train=False)[0].item()
+        l32 = ref32.loss(batch, train=False)[0].item()
+    log(f"encoders phase, transformer mixed precision: step-0 loss (eval mode) bf16 {l16:.6f}, "
+        f"float32 {l32:.6f}")
+    if not abs(l16 - l32) <= 0.05 * abs(l32):
+        raise AssertionError(f"encoders phase: mixed-precision loss {l16} vs float32 {l32}")
+    del ref32
+    exp16, _ = encoder_train("transformer, mixed precision", mixed, data, opt, B, steps, total)
+    if {p.dtype for p in mixed.net.parameters()} != {torch.float32}:
+        raise AssertionError("encoders phase: mixed precision changed the parameters' dtype")
+    times["transformer, mixed"] = encoder_step_time("transformer, mixed precision", mixed,
+                                                    exp16, raw, opt)
+    del mixed, exp16
+
+    for name, kw in (("encoder='none'", {"encoder": "none"}),
+                     ("height_collapse='reshape'", {"height_collapse": "reshape"})):
+        m = make(SEED + 63, **kw)
+        e, _ = encoder_train(name, m, data, opt, B, short, total, falls=False)
+        encoder_decode(name, m, crops)
+        times[name] = encoder_step_time(name, m, e, raw, opt)
+        del m, e
+    bilstm = make(SEED + 64)
+    times["bilstm"] = encoder_step_time("BiLSTM (config #1 as it is)", bilstm, exp, raw, opt)
+    del bilstm, rec
+    torch.cuda.empty_cache()
+    log(f"encoders phase: steps of batch {B} [{CARD}] " + json.dumps(times)
+        + f"; {time.perf_counter() - t_phase:.1f} s (host clock); kernel launches in its "
+        "training runs " + json.dumps(total))
+    return total
+
+
+def sine_band_masks(rng, B: int, H: int, W: int, n: int = 20) -> np.ndarray:
+    """Curved word masks: ``n`` constant-thickness bands a page along half a
+    sine period (``tests/test_chains.py``'s shape), of random lengths,
+    arcs, thicknesses and heights."""
+    out = np.zeros((B, H, W), bool)
+    for b in range(B):
+        for _ in range(n):
+            x0 = int(rng.integers(0, W - 80))
+            x1 = min(W, x0 + int(rng.integers(60, 260)))
+            amp, half_h = float(rng.uniform(-25, 25)), int(rng.integers(3, 11))
+            cy = int(rng.integers(30, H - 30))
+            xs = np.arange(x0, x1)
+            centres = cy + amp * np.sin((xs - x0) / (x1 - x0) * np.pi)
+            for x, c in zip(xs, centres):
+                lo, hi = int(round(c - half_h)), int(round(c + half_h))
+                out[b, max(lo, 0):max(hi + 1, 0), x] = True
+    return out
+
+
+#: chains on the card against the CPU: on slots whose every band holds the
+#: same pixel count on both, points and half-heights within 1e-3 px (float32
+#: in another order); a slot where an ulp of u moved a boundary pixel to the
+#: next band within 1 px (a band's v range moves by at most about a pixel),
+#: its polygon within 2 px
+CHAIN_TOL = {"same": 1e-3, "flip": 1.0, "flip_polygon": 2.0}
+
+
+def chains_cross_check(labels_d, labels_c, scores_d, scores_c, K: int, impl: str) -> dict:
+    """``extract_regions`` (``impl``), ``extract_chains``, band quads and
+    polygons on the card against the CPU from the same labels: valid, area
+    and the slots' roots bit-equal, then ``CHAIN_TOL``."""
+    from megreader_tpu_torch.ops import chains
+    from megreader_tpu_torch.ops.ccl import extract_regions, unclip_distance_inverse
+
+    out = {}
+    for dev, labels, scores in (("cuda", labels_d, scores_d), ("cpu", labels_c, scores_c)):
+        stats = extract_regions(labels, scores, max_regions=K, impl=impl)
+        roots = chains.chain_roots(labels, K, impl)
+        ch = chains.extract_chains(labels, stats, n_bands=8, extract_impl=impl)
+        count = chains._band_stats(labels, stats, roots, 8)[0]
+        d = unclip_distance_inverse(stats)
+        out[dev] = {"valid": stats["valid"], "area": stats["area"], "roots": roots,
+                    "count": count, "polygons": chains.chains_to_polygons(ch, d),
+                    "band_quads": chains.chains_to_band_quads(ch, d + 2.0), **ch}
+        out[dev] = {k: v.cpu() for k, v in out[dev].items()}
+    g, c = out["cuda"], out["cpu"]
+    for k in ("valid", "area", "roots", "band_alive"):
+        if not torch.equal(g[k], c[k]):
+            raise AssertionError(f"chains phase, {impl}: {k} differs between the card and the CPU")
+    same = (g["count"] == c["count"]).all(-1)  # (B, K)
+    gaps = {"slots": int(c["valid"].sum()), "slots_with_a_moved_pixel": int((~same).sum())}
+    for k in ("points", "half_h", "polygons", "band_quads"):
+        diff = (g[k] - c[k]).abs().flatten(2).amax(-1)  # (B, K)
+        gaps[k] = float(diff[same].max()) if same.any() else 0.0
+        gaps[k + "_moved"] = float(diff[~same].max()) if (~same).any() else 0.0
+        flip = CHAIN_TOL["flip" if k in ("points", "half_h") else "flip_polygon"]
+        if not (gaps[k] <= CHAIN_TOL["same"] * (1.0 if k != "band_quads" else 2.0)
+                and gaps[k + "_moved"] <= flip):
+            raise AssertionError(f"chains phase, {impl}: {k} differ by {gaps}")
+    return gaps
+
+
+def phase_chains(det, rec, B: int = 8, hw: int = 640, K: int = 32):
+    """Curved serving: the chain functions on numpy sine-band masks, card
+    against CPU, under each ``extract_impl``; ``E2EPipeline(rectify='chain')``
+    with the trained detector on ``TextPages`` in float32 ('xla' and
+    'pallas_full') and bf16, held to the CPU, its chain stage's ms beside
+    perspective's; ``detect_polygons_device`` on the prob maps. Returns every
+    kernel's launches on the chain paths."""
+    from megreader_tpu_torch.ops.ccl import (
+        connected_components_cuda,
+        connected_components_reference,
+    )
+    from megreader_tpu_torch.pipelines.e2e import E2EPipeline
+    from megreader_tpu_torch.postproc.detection import detect_polygons_device
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernel_counters(), 0)
+    rng = np.random.default_rng(SEED + 70)
+    masks = sine_band_masks(rng, B, hw, hw)
+    m_d = torch.from_numpy(masks).cuda()
+    labels_d = connected_components_cuda(m_d, 64)
+    labels_c = connected_components_reference(torch.from_numpy(masks), 64)
+    if not torch.equal(labels_d.cpu(), labels_c):
+        raise AssertionError("chains phase: the CCL kernel's labels differ from the plain ones")
+    scores_c = torch.from_numpy(np.where(masks, 0.9, 0.1).astype(np.float32))
+    for impl in ("xla", "pallas", "pallas_full"):
+        gaps = chains_cross_check(labels_d, labels_c, scores_c.cuda(), scores_c, K, impl)
+        log(f"chains phase, sine bands ({B}x{hw}x{hw}, 20 a page, K {K}), {impl}: valid, "
+            f"areas, roots and live bands equal on the card and the CPU; max |card - CPU| "
+            + json.dumps(gaps))
+
+    items = [TextPages(B, 7, (hw, hw))[i] for i in range(B)]
+    pages_np = np.stack([it["image"] for it in items]).astype(np.float32)
+    words = [len(it["polygons"]) for it in items]
+    pages = torch.from_numpy(pages_np).cuda()
+    pipes = {}
+    outs = {}
+    for bf16, impl in ((False, "xla"), (False, "pallas_full"), (True, "xla")):
+        name = f"{'bf16' if bf16 else 'f32'} {impl}"
+        pipe = pipes[name] = E2EPipeline(det, rec, max_regions=K, rectify="chain", n_bands=8,
+                                         bf16=bf16, extract_impl=impl, device="cuda")
+        pipe.run(None, None, pages)  # warm-up; makes the bf16 copies
+        torch.cuda.synchronize()
+        counters = zeroed_counters()
+        out = outs[name] = pipe.run(None, None, pages)
+        torch.cuda.synchronize()
+        got = add_counts(total, counters)
+        want = {"ccl": 1, "candidates": int(impl == "pallas_full"),
+                "moments": int(impl != "xla"), "extents": int(impl != "xla")}
+        if {n: got[n] for n in want} != want or any(got[n] for n in got if n not in want):
+            raise AssertionError(f"chains phase, {name}: launches {got}, expected {want}")
+        valid = out["valid"].sum(1).tolist()
+        if tuple(out["polygons"].shape) != (B, K, 18, 2) or any(
+                v < w for v, w in zip(valid, words)):
+            raise AssertionError(f"chains phase, {name}: polygons "
+                                 f"{tuple(out['polygons'].shape)}, valid per page {valid}, "
+                                 f"words drawn {words}")
+        if not torch.isfinite(out["polygons"][out["valid"]]).all():
+            raise AssertionError(f"chains phase, {name}: polygons not finite")
+        log(f"chains phase, chain serving {name}: launches "
+            + json.dumps({n: v for n, v in got.items() if v}) + f"; valid regions per page "
+            f"{valid}, words drawn {words}")
+        if impl == "xla":
+            serving_cross_check(pipe, det.net, rec.net, pages_np[:2])
+    a, b = outs["f32 xla"], outs["f32 pallas_full"]
+    poly = float((a["polygons"] - b["polygons"])[a["valid"]].abs().max())
+    log(f"chains phase: 'pallas_full' against 'xla' chain serving: valid equal "
+        f"{torch.equal(a['valid'], b['valid'])}, polygons within {poly} px")
+    if not torch.equal(a["valid"], b["valid"]) or not poly <= CHAIN_TOL["flip_polygon"]:
+        raise AssertionError(f"chains phase: 'pallas_full' polygons {poly} px from 'xla'")
+
+    # the chain stage beside perspective's, in the same batch
+    persp = E2EPipeline(det, rec, max_regions=K, rectify="perspective", device="cuda")
+    chain = pipes["f32 xla"]
+    with torch.no_grad():
+        prob = chain.detect(det.net, pages)
+        labels = chain.label(prob)
+        stage = {}
+        for name, pipe in (("chain", chain), ("perspective", persp)):
+            reg = pipe.regions(labels, prob)
+            stage[name] = {
+                "regions_ms": cuda_ms(lambda: pipe.regions(labels, prob), reps=5),
+                "crops_ms": cuda_ms(lambda: pipe.crops(pages, reg), reps=5),
+                "regions_busy_ms": device_busy_ms(lambda: pipe.regions(labels, prob)),
+                "crops_busy_ms": device_busy_ms(lambda: pipe.crops(pages, reg)),
+                "batch_ms": cuda_ms(lambda: pipe.run(None, None, pages), reps=5),
+            }
+            stage[name]["pages_per_s"] = B / stage[name]["batch_ms"] * 1e3
+    log(f"chains phase, stage times on one batch of {B} {hw}x{hw} pages (CUDA events, median "
+        f"of 5; busy by torch.profiler) [{CARD}]: " + json.dumps(stage))
+
+    counters = zeroed_counters()
+    polys_d = detect_polygons_device(prob, box_thresh=0.5, max_regions=K)
+    torch.cuda.synchronize()
+    got = add_counts(total, counters)
+    polys_c = detect_polygons_device(prob.cpu(), box_thresh=0.5, max_regions=K)
+    v = polys_c["valid"]
+    err = float((polys_d["polygons"].cpu() - polys_c["polygons"])[v].abs().max())
+    log(f"chains phase, detect_polygons_device on the prob maps: launches "
+        + json.dumps({n: c for n, c in got.items() if c}) + f"; {int(v.sum())} polygons, "
+        f"valid equal {torch.equal(polys_d['valid'].cpu(), v)}, within {err} px of the CPU's")
+    if got["ccl"] != 1 or not torch.equal(polys_d["valid"].cpu(), v) or not (
+            err <= CHAIN_TOL["flip_polygon"]) or not bool(v.any()):
+        raise AssertionError(f"chains phase: detect_polygons_device gave {err} px, {got}")
+    log(f"chains phase: {time.perf_counter() - t_phase:.1f} s (host clock) [{CARD}]; kernel "
+        "launches on the chain paths " + json.dumps(total))
+    return total
+
+
+#: (h, w) of the bucket phase's pages: three for each default bucket, two of
+#: them smaller than it (one below 640 x 640: padded at its own scale), one
+#: past 1152 (downscaled)
+BUCKET_PAGES = ((500, 560), (300, 420), (640, 640), (600, 1100), (520, 900), (610, 1000),
+                (1100, 600), (900, 500), (1000, 610), (800, 800), (1152, 1152), (1500, 1400))
+
+
+def bucket_cross_check(pipe, rec_net, chunks) -> dict:
+    """Each bucket batch's CCL labels bit-exact against the plain CCL on the
+    card (new launch shapes: 640 x 1152, 1152 x 640, 1152 x 1152), then
+    which of the card's detections the CPU's recognizer decides by a clear
+    margin (logits on the card's crops within 1e-4 of their scale, every
+    frame's top-2 margin over 1e-3 of it). Returns {page index: clear flag
+    per kept detection} and the bucket batches' times."""
+    from megreader_tpu_torch.ops.ccl import (
+        connected_components_cuda,
+        connected_components_reference,
+    )
+
+    rec_cpu = copy.deepcopy(rec_net).cpu().eval()
+    clear, times = {}, {}
+    for bucket, (idxs, canvases, fitted) in chunks.items():
+        x = torch.from_numpy(canvases).cuda()
+        with torch.no_grad():
+            prob = pipe.detect(pipe.detector.net, x)
+            mask = (prob > pipe.bin_thresh).contiguous()
+            if not torch.equal(connected_components_cuda(mask, pipe.ccl_iters),
+                               connected_components_reference(mask, pipe.ccl_iters)):
+                raise AssertionError(f"buckets phase: CCL labels differ at {tuple(mask.shape)}")
+            reg = pipe.regions(pipe.label(prob), prob)
+            crops = pipe.crops(x, reg)
+            logits_d = rec_net.eval()(crops).float().cpu()
+            logits_c = rec_cpu(crops.cpu()).float()
+        scale = max(1.0, float(logits_c.abs().max()))
+        if not float((logits_d - logits_c).abs().max()) <= 1e-4 * scale:
+            raise AssertionError(f"buckets phase: logits differ at {bucket}")
+        top2 = logits_c.topk(2, -1).values
+        sure = (top2[..., 0] - top2[..., 1] > 1e-3 * scale).all(-1).reshape(len(idxs), -1)
+        valid, quads = reg["valid"].cpu(), reg["quads"].cpu()
+        for j, i in enumerate(idxs):
+            nh, nw = fitted[j]["valid_hw"]
+            keep = [k for k in range(valid.shape[1]) if valid[j, k]
+                    and quads[j, k, :, 0].mean() < nw and quads[j, k, :, 1].mean() < nh]
+            clear[i] = [bool(sure[j, k]) for k in keep]
+        times[f"{bucket[0]}x{bucket[1]}"] = {
+            "pages": len(idxs),
+            "batch_ms": cuda_ms(lambda: pipe.run(None, None, x), reps=5)}
+        times[f"{bucket[0]}x{bucket[1]}"]["pages_per_s"] = (
+            len(idxs) / times[f"{bucket[0]}x{bucket[1]}"]["batch_ms"] * 1e3)
+    return clear, times
+
+
+def phase_buckets(det, rec, batch: int = 4):
+    """Variable-size serving: ``BucketedE2E`` over 12 ``TextPages`` of mixed
+    sizes (every default bucket; one page downscaled, pages padded) with the
+    trained detector, against the same on the CPU: detections per page,
+    polygons in the pages' own pixels, texts on the clear-margin crops; the
+    CCL labels bit-exact at each bucket shape; pages/s by bucket. Returns
+    every kernel's launches in the bucketed run."""
+    from megreader_tpu_torch.data.bucketing import DEFAULT_BUCKETS, fit_to_bucket, pick_bucket
+    from megreader_tpu_torch.pipelines.bucketed import BucketedE2E
+    from megreader_tpu_torch.pipelines.e2e import E2EPipeline
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernel_counters(), 0)
+    pages = [TextPages(1, 80 + i, hw)[0]["image"] for i, hw in enumerate(BUCKET_PAGES)]
+    pipe = E2EPipeline(det, rec, max_regions=32, device="cuda")
+    bucketed = BucketedE2E(pipe, batch=batch)
+    fitted = [fit_to_bucket(np.asarray(p, np.float32), pick_bucket(*p.shape[:2]))
+              for p in pages]
+    chunks = {}
+    for i, f in enumerate(fitted):
+        chunks.setdefault(f["image"].shape[:2], []).append(i)
+    if sorted(chunks) != sorted(DEFAULT_BUCKETS) or any(len(v) > batch for v in chunks.values()):
+        raise AssertionError(f"buckets phase: pages per bucket {chunks}")
+    bucketed.predict(None, None, pages)  # warm-up
+    torch.cuda.synchronize()
+    counters = zeroed_counters()
+    t0 = time.perf_counter()
+    got_pages = bucketed.predict(None, None, pages)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = add_counts(total, counters)
+    if got["ccl"] != len(chunks) or any(v for n, v in got.items() if n != "ccl"):
+        raise AssertionError(f"buckets phase: launches {got} for {len(chunks)} bucket batches")
+
+    det_cpu, rec_cpu = copy.deepcopy(det), copy.deepcopy(rec)
+    det_cpu.net.cpu()
+    rec_cpu.net.cpu()
+    want_pages = BucketedE2E(E2EPipeline(det_cpu, rec_cpu, max_regions=32, device="cpu"),
+                             batch=batch).predict(None, None, pages)
+    clear, times = bucket_cross_check(pipe, rec.net, {
+        b: (idxs, np.stack([fitted[i]["image"] for i in idxs]), [fitted[i] for i in idxs])
+        for b, idxs in chunks.items()})
+    err, same, n, n_clear = 0.0, 0, 0, 0
+    for i, (page, want) in enumerate(zip(got_pages, want_pages)):
+        if len(page) != len(want) or len(page) != len(clear[i]):
+            raise AssertionError(f"buckets phase, page {i} {BUCKET_PAGES[i]}: {len(page)} "
+                                 f"detections on the card, {len(want)} on the CPU")
+        for d, w, sure in zip(page, want, clear[i]):
+            err = max(err, float(np.abs(d["polygon"] - w["polygon"]).max()))
+            same += d["text"] == w["text"]
+            n += 1
+            n_clear += sure
+            if sure and d["text"] != w["text"]:
+                raise AssertionError(f"buckets phase, page {i}: {d['text']!r} on the card, "
+                                     f"{w['text']!r} on the CPU, on a clear-margin crop")
+    scales = [float(f["scale"][0]) for f in fitted]
+    log(f"buckets phase: {len(pages)} pages of {list(BUCKET_PAGES)} (scales to their buckets "
+        f"{[round(1 / s, 4) for s in scales]}) in {len(chunks)} bucket batches of at most "
+        f"{batch}: launches " + json.dumps({k: v for k, v in got.items() if v})
+        + f"; {n} detections on both, polygons within {err} px of the CPU's (the pages' own "
+        f"pixels); {same} of {n} strings equal, all {n_clear} of the clear-margin crops; CCL "
+        f"labels bit-exact at every bucket shape; {wall * 1e3:.1f} ms for the {len(pages)} "
+        f"pages (host clock, fit and map included)")
+    if not err <= 1e-2 * max(scales) or n < len(pages):
+        raise AssertionError(f"buckets phase: polygons {err} px from the CPU's, {n} detections")
+    log(f"buckets phase, bucket batches (pipe.run on the canvases, CUDA events, median of 5) "
+        f"[{CARD}]: " + json.dumps(times) + f"; {time.perf_counter() - t_phase:.1f} s (host "
+        "clock)")
+    return total
+
+
+def phase_curved():
+    """The trained detector and the config-#1 recognizer (seeded), then the
+    chain and bucket phases. Returns their launches."""
+    from megreader_tpu_torch.compat.msgpack import load_flax_msgpack
+    from megreader_tpu_torch.compat.weights import load_flax_variables
+    from megreader_tpu_torch.models.detector import SegDetector
+    from megreader_tpu_torch.models.recognizer import CTCRecognizer
+
+    det = SegDetector(device="cuda")
+    load_flax_variables(det.net, load_flax_msgpack(ASSET)[0])
+    rec = CTCRecognizer(num_classes=37, device="cuda")
+    seeded_weights(rec.net, SEED + 3)
+    chains = phase_chains(det, rec)
+    buckets = phase_buckets(det, rec)
+    del det, rec
+    torch.cuda.empty_cache()
+    return chains, buckets
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -3406,11 +3982,22 @@ def main() -> int:
     bf16 = phase_bf16()
     cli = phase_cli()
     data = phase_data()
+    encoders = phase_encoders()
+    chains, buckets = phase_curved()
+    for name, total, needed in (("encoders", encoders, ("ctc_alpha", "ctc_beta")),
+                                ("chains", chains, ("ccl", "candidates", "moments", "extents")),
+                                ("buckets", buckets, ("ccl",))):
+        if not all(total[n] for n in needed):
+            raise AssertionError(f"{name} phase: a kernel of its path did not launch: {total}")
     rows = [ccl_row, *extract_rows, alpha_row, beta_row, alpha2d_row, beta2d_row]
     for row in rows:
-        row["launches_bf16"] = bf16[row["name"].removeprefix("extract_")]
-        row["launches_cli"] = cli[row["name"].removeprefix("extract_")]
-        row["launches_data"] = data[row["name"].removeprefix("extract_")]
+        key = row["name"].removeprefix("extract_")
+        row["launches_bf16"] = bf16[key]
+        row["launches_cli"] = cli[key]
+        row["launches_data"] = data[key]
+        row["launches_encoders"] = encoders[key]
+        row["launches_chains"] = chains[key]
+        row["launches_buckets"] = buckets[key]
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

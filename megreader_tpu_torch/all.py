@@ -25,6 +25,7 @@ from .models.attention import AttentionRecognizer
 from .models.detector import SegDetector
 from .models.recognizer import CTCRecognizer
 from .models.recognizer2d import Ctc2dRecognizer
+from .pipelines.bucketed import BucketedE2E
 from .pipelines.e2e import E2EPipeline
 from .pipelines.predictors import DetectorPredictor, RecognizerPredictor
 from .postproc.detection import SegDetectorRepresenter
@@ -39,7 +40,7 @@ PORTED = (
     Charset, AttentionCharset, SyntheticRecognitionDataset, SyntheticDetectionDataset,
     RecognitionListDataset, DetectionICDARDataset, MixtureDataset,
     HardSyntheticRecognitionDataset, HardSyntheticDetectionDataset, Loader, Experiment, CTCRecognizer, Ctc2dRecognizer, AttentionRecognizer, SegDetector,
-    E2EPipeline, RecognizerPredictor, DetectorPredictor, SegDetectorRepresenter,
+    E2EPipeline, BucketedE2E, RecognizerPredictor, DetectorPredictor, SegDetectorRepresenter,
     DetectionMeasurer, DetEvalMeasurer, RecognitionMeasurer, CheckpointManager, Logger,
     OptimizerConfig, Trainer, SignalMonitor,
 )
@@ -49,7 +50,6 @@ NOT_PORTED = {
     "RoITextSpotter": (13, "the RoI text spotter"),
     "SharedTrunkSpotter": (13, "the shared-trunk spotter"),
     "SpotterE2EPipeline": (13, "the spotter's page pipeline"),
-    "BucketedE2E": (11, "variable-size (bucketed) serving"),
     "DetectionVisualizer": (15, "the detection visualizer"),
 }
 

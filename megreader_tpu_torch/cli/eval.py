@@ -1,15 +1,15 @@
 """Evaluate a checkpoint:
 
     python -m megreader_tpu_torch.cli.eval experiments/<exp>.yaml [--step N]
-        [--mode greedy|beam] [--protocol icdar2015|deteval] [--representer quad]
+        [--mode greedy|beam] [--protocol icdar2015|deteval] [--representer quad|poly]
         [--experiment.<key> value ...]
 
 Restores the module's weights only (``CheckpointManager.restore_variables``:
 evaluation does not depend on the optimizer a checkpoint was trained with)
 from the latest, or the given, step of the workspace, evaluates on the
 experiment's eval set and prints one JSON line: the step and the metrics.
-``--representer poly`` (curved text, ROADMAP Queue 1 item 11) and ``--int8``
-(item 12) are refused. torch and the experiment are imported inside ``main``,
+``--representer poly`` scores a detector's chain polygons (curved text);
+``--int8`` (ROADMAP Queue 1 item 12) is refused. torch and the experiment are imported inside ``main``,
 as in ``cli/train.py`` (the loader's process workers run this module's top
 level again).
 """
@@ -34,14 +34,11 @@ def main(argv=None):
     ap.add_argument("--mode", default="greedy", choices=["greedy", "beam"])
     ap.add_argument("--protocol", default="icdar2015", choices=["icdar2015", "deteval"])
     ap.add_argument("--representer", default="quad", choices=["quad", "poly"],
-                    help="detection output: min-area quads (chain polygons are not "
-                         "ported)")
+                    help="detection output: min-area quads or chain polygons (curved "
+                         "text)")
     ap.add_argument("--int8", action="store_true",
                     help="int8 serving quality gate (not ported)")
     args, rest = ap.parse_known_args(argv)
-    if args.representer == "poly":
-        raise NotImplementedError("--representer poly: chain polygons are not ported yet "
-                                  "(ROADMAP Queue 1 item 11)")
     if args.int8:
         raise NotImplementedError("--int8: int8 serving is not ported yet "
                                   "(ROADMAP Queue 1 item 12)")

@@ -4,14 +4,16 @@ each page's word quads and strings, one JSON line a page.
     python -m megreader_tpu_torch.cli.pipeline \
         --detector experiments/seg_detector_synth.yaml --det-workspace W1 \
         --recognizer experiments/ctc_resnet18_synth.yaml --rec-workspace W2 \
-        --images page1.png page2.png [--rectify box|deskew|perspective] \
+        --images page1.png page2.png [--rectify box|deskew|perspective] [--bucketed] \
         [--experiment.<key> value ...]
 
 Pages are PNG files (``data/imageio.py``: the card's machine has no cv2),
-resized to ``--page-size`` square with cv2's bilinear geometry; quads come
-back in the page's own pixels. Trailing dotted overrides apply to both
-experiments. ``--out-dir`` (the visualizer, ROADMAP Queue 1 item 15) and
-``--bucketed`` (variable-size serving, item 11) are refused.
+resized to ``--page-size`` square with cv2's bilinear geometry, or with
+``--bucketed`` each scaled (never up) into the smallest of the default
+canvases that keeps it largest (``pipelines/bucketed.py``); quads come back
+in the page's own pixels. Trailing dotted overrides apply to both
+experiments. ``--out-dir`` (the visualizer, ROADMAP Queue 1 item 15) is
+refused.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 from ..core.config import parse_cli_overrides
 from ..data.imageio import read_image, resize_linear
 from ..experiment import Experiment
+from ..pipelines.bucketed import BucketedE2E
 from ..pipelines.e2e import E2EPipeline
 from ..train.checkpoint import CheckpointManager
 
@@ -68,14 +71,13 @@ def main(argv=None):
                     help="region statistics: plain torch ('auto', 'xla') or the CUDA "
                          "extraction kernels")
     ap.add_argument("--bucketed", action="store_true",
-                    help="variable-size serving (not ported)")
+                    help="variable-size serving: each page scaled into the smallest default "
+                         "canvas bucket that keeps it largest, instead of a square "
+                         "--page-size resize")
     args, rest = ap.parse_known_args(argv)
     if args.out_dir:
         raise NotImplementedError("--out-dir: the detection visualizer is not ported yet "
                                   "(ROADMAP Queue 1 item 15)")
-    if args.bucketed:
-        raise NotImplementedError("--bucketed: variable-size serving is not ported yet "
-                                  "(ROADMAP Queue 1 item 11)")
     overrides = parse_cli_overrides(rest)
 
     det_exp = _load(args.detector, args.det_workspace, overrides)
@@ -97,9 +99,16 @@ def main(argv=None):
     for path in args.images:
         img = read_image(path)
         h, w = img.shape[:2]
-        pages.append(resize_linear(img, (S, S)).astype(np.float32))
-        scales.append((w / S, h / S))
-    results = pipe.predict(None, None, np.stack(pages))
+        if args.bucketed:  # BucketedE2E scales the polygons itself
+            pages.append(img.astype(np.float32))
+            scales.append((1.0, 1.0))
+        else:
+            pages.append(resize_linear(img, (S, S)).astype(np.float32))
+            scales.append((w / S, h / S))
+    if args.bucketed:
+        results = BucketedE2E(pipe).predict(None, None, pages)
+    else:
+        results = pipe.predict(None, None, np.stack(pages))
 
     out = []
     for path, page, (sx, sy) in zip(args.images, results, scales):

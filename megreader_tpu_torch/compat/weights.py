@@ -15,6 +15,10 @@ arrays) maps onto a port module's parameters and buffers by name:
 * ``BatchNorm2d`` ``weight``/``bias`` <- ``scale``/``bias`` in params,
   ``running_mean``/``running_var`` <- ``mean``/``var`` in batch_stats;
 * LSTM and GRU cell ``w_ih``/``w_hh``/``b_ih``/``b_hh`` as they are;
+* ``LayerNorm`` ``weight``/``bias`` <- ``scale``/``bias``; the attention's
+  ``DenseGeneral`` ``kernel``/``bias`` (query, key, value (D, heads,
+  head_dim), out (heads, head_dim, D)) as they are; the transformer
+  encoder's ``pos_embed`` as it is;
 * the root module's own parameter ``pos2d`` (the attention net's, which flax
   makes inside ``encode``) <- ``params/pos2d``, as it is.
 
@@ -33,7 +37,7 @@ import torch
 import torch.nn as nn
 
 from ..models.attention import GRUCellTorchlike
-from ..models.sequence import LSTM
+from ..models.sequence import LSTM, DenseGeneral, TransformerEncoder
 
 Path = Tuple[str, ...]
 
@@ -77,6 +81,14 @@ def _entries(module: nn.Module):
                 yield pre + "bias", "params", path + ("bias",), None
         elif isinstance(m, nn.Embedding):
             yield pre + "weight", "params", path + ("embedding",), None
+        elif isinstance(m, nn.LayerNorm):
+            yield pre + "weight", "params", path + ("scale",), None
+            yield pre + "bias", "params", path + ("bias",), None
+        elif isinstance(m, DenseGeneral):
+            yield pre + "kernel", "params", path + ("kernel",), None
+            yield pre + "bias", "params", path + ("bias",), None
+        elif isinstance(m, TransformerEncoder):
+            yield pre + "pos_embed", "params", path + ("pos_embed",), None
         elif isinstance(m, nn.BatchNorm2d):
             yield pre + "weight", "params", path + ("scale",), None
             yield pre + "bias", "params", path + ("bias",), None
@@ -160,8 +172,8 @@ def export_flax_variables(module: nn.Module,
 
 def seeded_flax_variables(variables: Mapping, seed: int) -> Dict:
     """A copy of a flax variables tree with every leaf redrawn from a numpy
-    generator: kernels, LSTM and GRU weights N(0, 1/fan_in), embeddings and
-    ``pos2d`` N(0, 1/D) (D their last axis), biases N(0, 0.05²),
+    generator: kernels, LSTM and GRU weights N(0, 1/fan_in), embeddings,
+    ``pos2d`` and ``pos_embed`` N(0, 1/D) (D their last axis), biases N(0, 0.05²),
     BN scale 1 + N(0, 0.1²), BN mean N(0, 0.05²), BN var U(0.5, 1.5).
 
     Random weights that both packages can share, made without a framework's
@@ -177,8 +189,11 @@ def seeded_flax_variables(variables: Mapping, seed: int) -> Dict:
             a = 1.0 + 0.1 * rng.standard_normal(shape)
         elif name in ("bias", "b_ih", "b_hh"):
             a = 0.05 * rng.standard_normal(shape)
-        else:  # kernel (..., in, out), w_ih / w_hh (gates x H, in), embedding, pos2d
+        else:  # kernel (..., in, out), w_ih / w_hh (gates x H, in), embedding, pos2d,
+            # pos_embed
             fan_in = int(np.prod(shape[:-1])) if name == "kernel" else shape[-1]
+            if name == "kernel" and len(shape) == 3 and shape[1] * shape[2] == shape[0]:
+                fan_in = shape[0]  # the attention's query/key/value (D, heads, head_dim)
             a = rng.standard_normal(shape) / np.sqrt(fan_in)
         return a.astype(np.float32)
 

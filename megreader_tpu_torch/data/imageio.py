@@ -13,8 +13,11 @@ here, with the standard library's ``zlib`` and numpy:
 * ``write_png``: (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 -> a PNG
   file, each row with a filter from ``filters`` in turn.
 * ``resize_linear``: cv2's ``INTER_LINEAR`` geometry (half-pixel centres,
-  edge clamping, no antialiasing when shrinking); cv2 rounds its fixed-point
-  weights, so a value may differ from cv2's by one grey level.
+  edge clamping, no antialiasing when shrinking). On uint8 cv2 rounds its
+  fixed-point weights, so a value may differ from cv2's by one grey level;
+  on float32 the port takes cv2's own steps (rows first, then columns, each
+  ``a + f * (b - a)`` with one rounding and f the float64 weight rounded to
+  float32), and equals it bit for bit.
 """
 
 from __future__ import annotations
@@ -180,15 +183,27 @@ def _taps(n_out: int, n_in: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return i0, i1, frac
 
 
+def _lerp32(a: np.ndarray, b: np.ndarray, f: np.ndarray) -> np.ndarray:
+    """float32 ``a + f * (b - a)`` rounded once (a fused multiply-add: the
+    float64 product of two float32 values is exact)."""
+    return (f.astype(np.float32).astype(np.float64) * (b - a) + a).astype(np.float32)
+
+
 def resize_linear(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """(H, W, C) uint8 -> (size[1], size[0], C) uint8, ``size`` = (width,
-    height) as ``cv2.resize`` takes it, with cv2's INTER_LINEAR geometry."""
+    """(H, W, C) uint8 or float32 -> (size[1], size[0], C) of the same type,
+    ``size`` = (width, height) as ``cv2.resize`` takes it, with cv2's
+    INTER_LINEAR geometry (and on float32 its arithmetic)."""
     w_out, h_out = size
     h, w = image.shape[:2]
     if (h_out, w_out) == (h, w):  # every tap lands on its own pixel: cv2 copies
         return image.copy()
     y0, y1, fy = _taps(h_out, h)
     x0, x1, fx = _taps(w_out, w)
+    if image.dtype == np.float32:
+        cols = _lerp32(image[:, x0], image[:, x1], fx[None, :, None])
+        return _lerp32(cols[y0], cols[y1], fy[:, None, None])
+    if image.dtype != np.uint8:
+        raise TypeError(f"resize_linear takes uint8 or float32 images, got {image.dtype}")
     img = image.astype(np.float64)
     rows = img[y0] * (1.0 - fy)[:, None, None] + img[y1] * fy[:, None, None]
     out = rows[:, x0] * (1.0 - fx)[None, :, None] + rows[:, x1] * fx[None, :, None]

@@ -1,5 +1,6 @@
-"""Page and crop resampling: normalize, box crops, perspective rectification,
-three-shear deskew, and train-time augmentation on the device.
+"""Page and crop resampling: normalize, box crops, perspective and
+ruled-surface rectification, three-shear deskew, and train-time augmentation
+on the device.
 
 Channels-last (NHWC) at every public function, as in the JAX package. The
 resamplers are separable tent-weight contractions (``einsum``/``matmul``):
@@ -200,6 +201,46 @@ def _perspective_two_pass(crops: torch.Tensor, Hmats: torch.Tensor,
     return out * inside[..., None]
 
 
+def _bilinear_two_pass(crops: torch.Tensor, qcs: torch.Tensor,
+                       out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Ruled-surface (bilinear patch) rectification of small crops.
+
+    crops (K, Hc, Wc, C); qcs (K, 4, 2) corners TL TR BR BL in crop pixels;
+    returns (K, Ho, Wo, C). Output pixel (x, y) samples P(X, Y) = TL (1-X)(1-Y)
+    + TR X (1-Y) + BL (1-X) Y + BR X Y at X = x / (Wo - 1), Y = y / (Ho - 1):
+    corners to corners and edges linearly, so edge midpoints stay midpoints
+    (a homography through a trapezoid's corners sags its spine toward the
+    longer edge) and bands that share an edge map it alike. Pass 1 solves
+    u(X, Y) = j for X (u is linear in X at fixed Y) and resamples each crop
+    column at v(X, Y); pass 2 resamples the columns at u. Zero outside the
+    crop."""
+    K, Hc, Wc, C = crops.shape
+    Ho, Wo = out_hw
+    dev, dt = crops.device, crops.dtype
+    TL, TR, BR, BL = qcs[:, 0], qcs[:, 1], qcs[:, 2], qcs[:, 3]
+    a = torch.stack([TL, TR - TL, BL - TL, TL - TR - BL + BR], 1)  # (K, 4, 2): 1, X, Y, XY
+    au = [t[:, None, None] for t in a[..., 0].unbind(1)]
+    av = [t[:, None, None] for t in a[..., 1].unbind(1)]
+
+    Y = torch.arange(Ho, dtype=dt, device=dev).view(1, Ho, 1) / max(Ho - 1, 1)
+    js = torch.arange(Wc, dtype=dt, device=dev).view(1, 1, Wc)
+    denom = au[1] + au[3] * Y  # du/dX at this Y
+    denom = torch.where(torch.abs(denom) < 1e-6, torch.sign(denom) * 1e-6 + 1e-12, denom)
+    X_at = (js - au[0] - au[2] * Y) / denom  # (K, Ho, Wc)
+    v_star = av[0] + av[1] * X_at + av[2] * Y + av[3] * X_at * Y
+    Wy = _tent(torch.clamp(v_star, 0.0, Hc - 1.0), Hc)  # (K, Ho, Wc, Hc)
+    tmp = torch.einsum("kowi,kiwc->kowc", Wy, crops)
+
+    X = torch.arange(Wo, dtype=dt, device=dev).view(1, 1, Wo) / max(Wo - 1, 1)
+    Yo = torch.arange(Ho, dtype=dt, device=dev).view(1, Ho, 1) / max(Ho - 1, 1)
+    u = au[0] + au[1] * X + au[2] * Yo + au[3] * X * Yo  # (K, Ho, Wo)
+    v_full = av[0] + av[1] * X + av[2] * Yo + av[3] * X * Yo
+    Wx = _tent(torch.clamp(u, 0.0, Wc - 1.0), Wc)  # (K, Ho, Wo, Wc)
+    out = torch.einsum("koxj,kojc->koxc", Wx, tmp)
+    inside = (u >= -0.5) & (u <= Wc - 0.5) & (v_full >= -0.5) & (v_full <= Hc - 0.5)
+    return out * inside[..., None]
+
+
 def rectify_quads_mxu(images: torch.Tensor, quads: torch.Tensor,
                       out_hw: Tuple[int, int], crop_hw: Tuple[int, int] = (48, 160),
                       chunk: int = 32, aspect: str = "stretch",
@@ -212,12 +253,19 @@ def rectify_quads_mxu(images: torch.Tensor, quads: torch.Tensor,
     output rectangle to crop coordinates is solved per quad, and
     ``_perspective_two_pass`` warps ``chunk`` crops at a time (bounding the
     (chunk, Ho, Wc, Hc) tent tensors). ``aspect='preserve_h'`` sizes each
-    quad's output width from its mean edge lengths, left-aligned."""
-    if warp != "perspective":
-        raise NotImplementedError(
-            f"warp={warp!r}: the ruled-surface warp belongs to chain mode "
-            "(ROADMAP Queue 1, curved/variable-size serving)"
-        )
+    quad's output width from its mean edge lengths, left-aligned.
+
+    ``warp='bilinear'`` maps the ruled surface through the same corners
+    instead of the homography (``_bilinear_two_pass``): chain mode's band
+    quads, whose spine it keeps on the output's midline. It stretches only
+    (``aspect='preserve_h'`` raises). The JAX function pads its last chunk
+    with unit quads (identity homographies on the perspective path) to keep
+    ``lax.map``'s shapes static; here the last chunk is shorter, which gives
+    the same crops."""
+    if warp not in ("perspective", "bilinear"):
+        raise ValueError(f"unknown warp {warp!r}")
+    if warp == "bilinear" and aspect == "preserve_h":
+        raise ValueError("warp='bilinear' supports aspect='stretch' only")
     if aspect not in ("stretch", "preserve_h"):
         raise ValueError(f"unknown aspect mode {aspect!r}")
     B, K = quads.shape[:2]
@@ -239,6 +287,14 @@ def rectify_quads_mxu(images: torch.Tensor, quads: torch.Tensor,
     qc_y = (quads[..., 1] - y0[..., None] + 0.5) / sy[..., None] - 0.5
     qc = torch.stack([qc_x, qc_y], -1).reshape(B * K, 4, 2)
 
+    flat = crops.reshape(B * K, Hc, Wc, C)
+    if warp == "bilinear":
+        out = torch.cat([
+            _bilinear_two_pass(flat[i:i + chunk], qc[i:i + chunk], out_hw)
+            for i in range(0, B * K, chunk)
+        ])
+        return out.reshape(B, K, Ho, Wo, C)
+
     if aspect == "preserve_h":
         edge = lambda i, j: torch.linalg.norm(quads[..., i, :] - quads[..., j, :], dim=-1)  # noqa: E731
         qw = 0.5 * (edge(1, 0) + edge(2, 3))
@@ -248,7 +304,6 @@ def rectify_quads_mxu(images: torch.Tensor, quads: torch.Tensor,
     else:
         Hmats = perspective_matrix_from_quad(qc, out_hw)
 
-    flat = crops.reshape(B * K, Hc, Wc, C)
     out = torch.cat([
         _perspective_two_pass(flat[i:i + chunk], Hmats[i:i + chunk], out_hw)
         for i in range(0, B * K, chunk)

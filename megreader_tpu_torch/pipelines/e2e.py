@@ -4,8 +4,9 @@
       -> SegDetectorNet prob map (B, H, W)
       -> binarize + connected components (CUDA kernel on the card; with
          ``ccl_multigrid`` a half-resolution launch seeds a full one)
-      -> K fixed region slots per page -> word quads (B, K, 4, 2)
-      -> perspective, box or deskewed box crops (B*K, 32, 100, 3) -> CTC,
+      -> K fixed region slots per page -> word quads (B, K, 4, 2); in chain
+         mode also each region's chain of S bands and its polygon
+      -> perspective, box, deskewed box or chain crops (B*K, 32, 100, 3) -> CTC,
          2D-CTC or attention recognizer -> its decode (``rec_mode`` 'greedy'
          or 'beam' of width ``beam_width``; Viterbi for Markov heights)
       -> ids/lengths; ``predict`` looks the strings up on the host.
@@ -37,6 +38,13 @@ from ..ops.ccl import (
     unclip_distance_for,
     unclip_distance_inverse,
 )
+from ..ops.chains import (
+    chain_arc_length,
+    chains_to_band_quads,
+    chains_to_polygons,
+    extract_chains,
+    resample_width,
+)
 from ..ops.image import crop_resize_boxes, normalize, rectify_quads_mxu, rotate_crops
 from ..ops.precision import cast_floats
 from .predictors import RECOGNIZERS, default_charset
@@ -64,6 +72,7 @@ class E2EPipeline:
         box_margin: float = 4.0,
         deskew: bool = False,
         rectify: str = "perspective",
+        n_bands: int = 8,
         ccl_iters: int = 24,
         ccl_multigrid: bool = False,
         bf16: bool = False,
@@ -76,9 +85,7 @@ class E2EPipeline:
             raise _not_ported(f"recognizer {type(recognizer).__name__}", "item 13")
         # the legacy flag upgrades an unspecified rectify mode only
         rectify = "deskew" if (deskew and rectify == "perspective") else rectify
-        if rectify == "chain":
-            raise _not_ported("rectify='chain'", "item 11, curved-text serving")
-        if rectify not in ("perspective", "box", "deskew"):
+        if rectify not in ("perspective", "box", "deskew", "chain"):
             raise ValueError(f"unknown rectify mode {rectify!r}")
         if rec_mode not in ("greedy", "beam"):
             raise ValueError(f"unknown rec_mode {rec_mode!r}")
@@ -98,9 +105,12 @@ class E2EPipeline:
         self.crop_hw = tuple(crop_hw)
         self.box_margin = box_margin
         #: crop geometry: 'box' (axis-aligned box), 'deskew' (the box turned
-        #: level by the region's principal angle, ``rotate_crops``) or
-        #: 'perspective' (the rotated quad rectified, ``rectify_quads_mxu``)
+        #: level by the region's principal angle, ``rotate_crops``),
+        #: 'perspective' (the rotated quad rectified, ``rectify_quads_mxu``) or
+        #: 'chain' (curved text: each region's chain of ``n_bands`` bands
+        #: unwarped band by band, ``ops/chains.py``)
         self.rectify = rectify
+        self.n_bands = n_bands
         self.ccl_iters = ccl_iters
         #: seed the full-resolution labels from a half-resolution solve
         #: (``connected_components(multigrid=True)``): the same labels
@@ -152,7 +162,9 @@ class E2EPipeline:
                                     multigrid=self.ccl_multigrid)
 
     def regions(self, labels: torch.Tensor, prob: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Labels + prob -> stats, word quads (B, K, 4, 2), boxes, valid."""
+        """Labels + prob -> stats, the unclip distance ``d`` (B, K), word quads
+        (B, K, 4, 2), boxes, valid; in chain mode also the ``chains`` and the
+        ``polygons`` (B, K, 2(S + 1), 2), unclipped by ``d``."""
         H, W = prob.shape[1:]
         stats = extract_regions(labels, prob, max_regions=self.max_regions,
                                 impl=self.resolved_impls["extract"])
@@ -169,7 +181,12 @@ class E2EPipeline:
             torch.clamp(quads[..., 0].amax(-1) + m, 1, W),
             torch.clamp(quads[..., 1].amax(-1) + m, 1, H),
         ], -1)
-        return {"stats": stats, "quads": quads, "boxes": boxes, "valid": valid}
+        out = {"stats": stats, "d": d, "quads": quads, "boxes": boxes, "valid": valid}
+        if self.rectify == "chain":
+            out["chains"] = extract_chains(labels, stats, n_bands=self.n_bands,
+                                           extract_impl=self.resolved_impls["extract"])
+            out["polygons"] = chains_to_polygons(out["chains"], d)
+        return out
 
     def crops(self, pages: torch.Tensor, regions: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Word crops (B*K, Ho, Wo, 3), normalized for the recognizer (bf16
@@ -182,12 +199,36 @@ class E2EPipeline:
             c = quads.mean(-2, keepdim=True)
             qm = quads + torch.sign(quads - c) * (self.box_margin * 0.5)
             crops = rectify_quads_mxu(pages, qm, (Ho, Wo), aspect="preserve_h")
+        elif self.rectify == "chain":
+            crops = self._chain_crops(pages, regions)
         else:
             crops = crop_resize_boxes(pages, regions["boxes"], (Ho, Wo), aspect="preserve_h")
         crops = crops.reshape(B * K, Ho, Wo, 3)
         if self.rectify == "deskew":
             crops = rotate_crops(crops, regions["stats"]["theta"].reshape(B * K))
         return self._input(normalize(crops))
+
+    def _chain_crops(self, pages: torch.Tensor, regions: Dict[str, torch.Tensor]
+                     ) -> torch.Tensor:
+        """Chain mode's crops (B, K, Ho, Wo, 3): each band quad (unclip plus
+        half the box margin) unwarped by the ruled surface onto a (Ho, Wb)
+        slice, Wb = max(Wo // S, 8), the S slices side by side, then the word
+        squeezed onto its arc length's width at the crop's height."""
+        chains = regions["chains"]
+        B, K = regions["quads"].shape[:2]
+        Ho, Wo = self.crop_hw
+        S = self.n_bands
+        dm = regions["d"] + self.box_margin * 0.5
+        band_quads = chains_to_band_quads(chains, dm)
+        Wb = max(Wo // S, 8)
+        slices = rectify_quads_mxu(pages, band_quads.reshape(B, K * S, 4, 2), (Ho, Wb),
+                                   crop_hw=(48, 64), aspect="stretch", warp="bilinear")
+        stretched = (slices.reshape(B, K, S, Ho, Wb, 3).permute(0, 1, 3, 2, 4, 5)
+                     .reshape(B, K, Ho, S * Wb, 3))
+        L = chain_arc_length(chains, dm)
+        th = 2.0 * (chains["half_h"].mean(-1) + dm)
+        tw = torch.clamp(torch.round(L * Ho / torch.clamp(th, min=1.0)), 2.0, float(Wo))
+        return resample_width(stretched, tw, Wo)
 
     def recognize(self, rec_module, crops: torch.Tensor):
         """Crops -> (ids (B*K, T) int32, lengths (B*K,) int32), by the
@@ -206,7 +247,8 @@ class E2EPipeline:
     def run(self, det_module, rec_module, pages) -> Dict[str, torch.Tensor]:
         """The page program: modules (``None``: the wrappers' own) and
         (B, H, W, 3) pages -> dict of ids (B, K, T), lengths, quads, boxes,
-        scores, valid, as the JAX pipeline's ``build()`` program returns."""
+        scores, valid (and in chain mode polygons), as the JAX pipeline's
+        ``build()`` program returns."""
         det_module = self.detector.net if det_module is None else det_module
         rec_module = self.recognizer.net if rec_module is None else rec_module
         pages = self._pages(pages)
@@ -216,7 +258,7 @@ class E2EPipeline:
         labels = self.label(prob)
         reg = self.regions(labels, prob)
         ids, lens = self.recognize(rec_module, self.crops(pages, reg))
-        return {
+        out = {
             "ids": ids.reshape(B, K, -1),
             "lengths": lens.reshape(B, K),
             "quads": reg["quads"],
@@ -224,6 +266,9 @@ class E2EPipeline:
             "scores": reg["stats"]["score"],
             "valid": reg["valid"],
         }
+        if "polygons" in reg:
+            out["polygons"] = reg["polygons"]
+        return out
 
     def build(self, mesh=None):
         """The JAX pipeline's ``build()`` surface: returns ``run``."""
@@ -232,8 +277,11 @@ class E2EPipeline:
         return self.run
 
     def predict(self, det_module, rec_module, pages) -> List[List[Dict]]:
-        """pages (B, H, W, 3) float32 [0, 255] -> per-page detection dicts."""
+        """pages (B, H, W, 3) float32 [0, 255] -> per-page detection dicts;
+        a detection's ``polygon`` is its chain outline in chain mode, else its
+        quad."""
         out = {k: v.cpu().numpy() for k, v in self.run(det_module, rec_module, pages).items()}
+        polys = out.get("polygons", out["quads"])
         results: List[List[Dict]] = []
         for b in range(out["ids"].shape[0]):
             page = []
@@ -241,7 +289,7 @@ class E2EPipeline:
                 if not out["valid"][b, k]:
                     continue
                 page.append({
-                    "polygon": out["quads"][b, k],
+                    "polygon": polys[b, k],
                     "quad": out["quads"][b, k],
                     "text": self.charset.decode(out["ids"][b, k][: out["lengths"][b, k]]),
                     "score": float(out["scores"][b, k]),

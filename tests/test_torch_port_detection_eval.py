@@ -79,8 +79,13 @@ def test_representer_matches_jax():
         assert g["polygons"].dtype == np.float32 and g["polygons"].shape == r["polygons"].shape
         np.testing.assert_allclose(g["polygons"], r["polygons"], rtol=0, atol=2e-3)
         np.testing.assert_allclose(g["scores"], r["scores"], rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        detection.SegDetectorRepresenter(mode="poly")
+    # the poly mode is ported (held to JAX in test_torch_port_chains.py): one
+    # outline of 2(n_bands + 1) points a detection, the quad mode's valid set
+    poly = detection.SegDetectorRepresenter(box_thresh=0.6, max_regions=8, mode="poly",
+                                            n_bands=4).represent(torch.from_numpy(PROB))
+    for g, r in zip(poly, ref):
+        assert g["polygons"].shape == (len(r["polygons"]), 10, 2)
+        np.testing.assert_allclose(g["scores"], r["scores"], rtol=0, atol=1e-5)
 
 
 def _quad(x0, y0, w, h, rot=0.0):

@@ -110,6 +110,9 @@ def _assert_run_matches(pair):
     np.testing.assert_allclose(got["quads"][valid], ref["quads"][valid], rtol=0, atol=1e-3)
     np.testing.assert_allclose(got["boxes"][valid], ref["boxes"][valid], rtol=0, atol=1e-3)
     np.testing.assert_allclose(got["scores"][valid], ref["scores"][valid], rtol=0, atol=1e-5)
+    if "polygons" in ref:  # chain mode
+        np.testing.assert_allclose(got["polygons"][valid], ref["polygons"][valid], rtol=0,
+                                   atol=1e-3)
     for k in ref:
         assert got[k].shape == ref[k].shape, k
 
@@ -146,19 +149,22 @@ def test_e2e_predict_strings_match_jax(slice_pair):
     {"rec_mode": "beam"}, {"ccl_multigrid": True},
 ], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(opt):
-    """``rectify='chain'`` is refused; the other options here are ported.
-    ``rec_mode='beam'`` decodes crops by the recognizer's beam of width
-    ``beam_width`` (the beam is held to JAX by
+    """Each option runs: ``rectify='chain'`` (curved text: ids, quads and the
+    chain polygons against the JAX pipeline's, polygons within 1e-3 px) and
+    ``rectify='deskew'``, the legacy ``deskew=True`` (which turns the default
+    perspective mode into deskew) and ``ccl_multigrid=True`` run the whole
+    slice against the JAX pipeline with the same option. ``rec_mode='beam'``
+    decodes crops by the recognizer's beam of width ``beam_width`` (the beam
+    is held to JAX by
     ``tests/test_torch_port_ctc_beam.py``), and an unknown mode raises;
     ``bf16=True`` serves a bf16 copy of the recognizer on bf16 crops (held to
-    JAX by ``tests/test_torch_port_bf16.py``); ``rectify='deskew'``, the
-    legacy ``deskew=True`` (which turns the default perspective mode into
-    deskew) and ``ccl_multigrid=True`` run the whole slice against the JAX
-    pipeline with the same option."""
-    if opt in ({"rectify": "deskew"}, {"deskew": True}, {"ccl_multigrid": True}):
+    JAX by ``tests/test_torch_port_bf16.py``)."""
+    if opt in ({"rectify": "deskew"}, {"deskew": True}, {"ccl_multigrid": True},
+               {"rectify": "chain"}):
         pair = _run_pair(opt.get("rectify", "perspective"), "inverse",
                          **{k: v for k, v in opt.items() if k != "rectify"})
-        want = "deskew" if opt != {"ccl_multigrid": True} else "perspective"
+        want = {"ccl_multigrid": "perspective", "rectify": opt.get("rectify")}.get(
+            next(iter(opt)), "deskew")
         assert pair["tpipe"].rectify == pair["jpipe"].rectify == want
         assert pair["tpipe"].ccl_multigrid == pair["jpipe"].ccl_multigrid
         _assert_run_matches(pair)

@@ -98,9 +98,24 @@ def test_rectify_quads_mxu_matches_jax(aspect, chunk):
 
 
 def test_rectify_bilinear_warp_is_not_ported():
-    with pytest.raises(NotImplementedError, match="chain"):
+    """The ruled-surface warp is ported (against JAX on the smooth pages here;
+    on chain band quads in ``test_torch_port_chains.py``); what it still
+    refuses, as the JAX function does, is ``aspect='preserve_h'``, and an
+    unknown warp raises."""
+    p = _pages(5)
+    q = _quads(6)
+    ref = jax_image.rectify_quads_mxu(jnp.asarray(p), jnp.asarray(q), (32, 100), chunk=4,
+                                      warp="bilinear")
+    got = image.rectify_quads_mxu(torch.from_numpy(p), torch.from_numpy(q), (32, 100),
+                                  chunk=4, warp="bilinear")
+    assert got.shape == (2, 5, 32, 100, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=ATOL_PX)
+    with pytest.raises(ValueError, match="stretch"):
         image.rectify_quads_mxu(torch.zeros(1, 8, 8, 3), torch.zeros(1, 1, 4, 2), (4, 8),
-                                warp="bilinear")
+                                warp="bilinear", aspect="preserve_h")
+    with pytest.raises(ValueError, match="unknown warp"):
+        image.rectify_quads_mxu(torch.zeros(1, 8, 8, 3), torch.zeros(1, 1, 4, 2), (4, 8),
+                                warp="thin_plate")
 
 
 THETAS = [0.0, 0.1, -0.1, 0.5, -0.5]
