@@ -8,8 +8,9 @@ serving with beam decodes, the CTC prefix beam search, bf16 serving of
 the trained detector with mixed-precision training of all four configs,
 the entry points (train, eval, page pipeline) on the repo's YAML files,
 training configs #1 and #4 from PNG files on disk, config #1 with the
-transformer and the other encoder variants, chain (curved-text) serving and
-bucketed serving of pages of any size.
+transformer and the other encoder variants, chain (curved-text) serving,
+bucketed serving of pages of any size, int8 serving and data-parallel
+training and serving over a process group.
 
     python3 chip_smoke.py
 
@@ -238,6 +239,22 @@ Phases (any failure exits non-zero):
     clear-margin crops against the same on the CPU; each bucket batch's CCL
     labels bit-exact to the plain CCL on the card (launch shapes 640x1152,
     1152x640, 1152x1152); pages/s by bucket.
+20. int8: the int32 accumulators of the trained detector's stem and of a
+    3x3x512 conv (layer 4) on a page, on the card against an exact float64
+    conv of the same int8 operands on the CPU (bit-equal); the trained
+    detector at 8x640x640 and a seeded config-#1 recognizer (64 crops of
+    32x100) in float32, bf16 and int8 (``int8_context``): forward ms, greedy
+    crops/s, the maps' and ids' agreement with float32; ``cli.eval --int8``
+    of ``seg_detector_synth.yaml`` with the asset on 8 ``TextPages`` beside
+    float32's H-mean. The CCL kernel must launch (``launches_int8``).
+21. parallel: a world-size-1 NCCL process group (``file://`` rendezvous):
+    config #1 at full width through ``Experiment``/``Trainer`` with
+    ``use_mesh=True`` for 4 steps of 64, its losses and parameters bit-equal
+    to ``use_mesh=False``'s from the same weights (deterministic cuDNN in
+    both); one batch of 8 ``TextPages`` through ``E2EPipeline.build(mesh)``
+    against ``run`` (ids, lengths and valid equal, floats within 1e-3).
+    The CTC and CCL kernels must launch (``launches_parallel``); the group
+    is destroyed.
 
 Prints a JSON line of per-kernel numbers (all eight kernels, with their
 launches in each phase that drives a path), then, as the last line,
@@ -246,6 +263,7 @@ launches in each phase that drives a path), then, as the last line,
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -3961,6 +3979,355 @@ def phase_curved():
     return chains, buckets
 
 
+# --- ROADMAP Queue 1 items 12 and 14: int8 serving, data parallelism ---------
+
+
+def int8_accumulators(net, pages_norm):
+    """The int32 accumulators of the detector's stem and of one 3x3x512 conv
+    (layer 4's last conv2) on the first page, on the card against the CPU:
+    an exact float64 conv of the same int8 operands, rounded. Returns
+    {layer: (equal, max |acc|, shape)}."""
+    import torch.nn.functional as F
+
+    from megreader_tpu_torch.ops import quantize as q
+
+    conv = net.backbone.layer4_block1.conv2
+    seen = {}
+    hook = conv.register_forward_hook(lambda m, i, o: seen.setdefault("x", i[0].detach()))
+    with torch.no_grad():
+        net.eval()(pages_norm[:1], heads=("prob",))
+    hook.remove()
+    out = {}
+    for name, mod, x in (("stem 7x7/2 3->64", net.backbone.stem_conv,
+                          pages_norm[:1].permute(0, 3, 1, 2)),
+                         ("layer4 conv2 3x3 512->512", conv, seen["x"])):
+        xq, _ = q.qtensor(x)
+        wq, _ = q.qweight(mod.weight.detach())
+        acc = q.conv_int8_acc(xq, wq, mod.stride, mod.padding).cpu()
+        ref = torch.round(F.conv2d(xq.cpu().double(), wq.cpu().double(), stride=mod.stride,
+                                   padding=mod.padding)).to(torch.int32)
+        out[name] = (acc.dtype == torch.int32 and torch.equal(acc, ref),
+                     int(ref.abs().max()), tuple(acc.shape))
+    return out
+
+
+def int8_dense_accumulators(rec_net, crops):
+    """The int32 accumulators of ``int_mm`` (cuBLASLt ``_int_mm`` with its
+    padding) on the card against the CPU's exact int64 product of the same
+    int8 operands: config #1's classifier on its input from ``crops``, and
+    the attention decoder's per-step shapes at 4 rows (``attn_v``'s one
+    output, ``out``'s 512 -> 39) on seeded operands. Returns {case: (equal,
+    max |acc|, shape)}."""
+    from megreader_tpu_torch.ops import quantize as q
+
+    seen = {}
+    hook = rec_net.classifier.register_forward_hook(
+        lambda m, i, o: seen.setdefault("x", i[0].detach()))
+    with torch.no_grad():
+        rec_net.eval()(crops)
+    hook.remove()
+    x = seen["x"]
+    rng = np.random.default_rng(SEED + 81)
+    draw = lambda *shape: torch.as_tensor(  # noqa: E731
+        rng.integers(-127, 128, shape).astype(np.int8)).cuda()
+    cases = {
+        f"classifier {x.shape[-1]}->{rec_net.classifier.out_features} at M "
+        f"{x.numel() // x.shape[-1]}": (q.qtensor(x)[0].reshape(-1, x.shape[-1]),
+                                        q.qweight(rec_net.classifier.weight.detach())[0]),
+        "attn_v 256->1 at M 4": (draw(4, 256), draw(1, 256)),
+        "out 512->39 at M 4": (draw(4, 512), draw(39, 512)),
+    }
+    out = {}
+    for name, (a, b) in cases.items():
+        acc = q.int_mm(a, b).cpu()
+        ref = (a.cpu().long() @ b.cpu().long().t()).to(torch.int32)
+        out[name] = (acc.dtype == torch.int32 and torch.equal(acc, ref),
+                     int(ref.abs().max()), tuple(acc.shape))
+    return out
+
+
+#: the card's int8 output lies within this factor of the CPU's int8 noise
+#: (largest and mean |diff| from the CPU's float32 output). The card's
+#: float32 activations differ from the CPU's by about 1e-6; where that moves
+#: an int8 rounding, the change cascades through the next layers' roundings
+#: and draws their int8 noise anew, so the card's int8 output is an int8
+#: rendition of the net as the CPU's is, not a copy of it (PR 16, call 3:
+#: 0.052 apart where each lies 0.063 from float32). Each int8 layer is held
+#: bit-equal to the CPU's on the input it saw on the card.
+INT8_NOISE_FACTOR = 2.0
+
+
+def int8_card_against_cpu(what: str, net, x, fwd):
+    """``fwd(net, x)`` in int8 on the card against a CPU copy of ``net``
+    (same weights, same input): every int8 layer's output bit-equal to the
+    CPU layer's on the input that layer saw on the card, and the card's
+    int8 output as far from the CPU's float32 as the CPU's int8 is, within
+    ``INT8_NOISE_FACTOR``. Returns the gaps {name: (max, mean)}."""
+    from megreader_tpu_torch.ops import quantize as q
+
+    cpu_net, xc = copy.deepcopy(net).cpu(), x.cpu()
+    cpu_layers = dict(q.int8_layers(cpu_net))
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda m, i, o, name=name: seen.append((name, i[0].detach(), o.detach())))
+        for name, m in q.int8_layers(net)]
+    with torch.no_grad():
+        with q.int8_context(net):
+            card8 = fwd(net, x).float().cpu()
+        for h in hooks:
+            h.remove()
+        card32 = fwd(net, x).float().cpu()
+        unequal = []
+        for name, xin, out in seen:
+            mod = cpu_layers[name]
+            fn = q.conv_int8 if isinstance(mod, q.Conv2d) else q.dense_int8
+            ref = fn(mod, xin.cpu())
+            got = out.cpu()
+            if got.dtype != ref.dtype or not torch.equal(got, ref):
+                unequal.append((name, float((got.float() - ref.float()).abs().max())))
+        with q.int8_context(cpu_net):
+            cpu8 = fwd(cpu_net, xc).float()
+        cpu32 = fwd(cpu_net, xc).float()
+    calls = len(seen)
+    del cpu_net, seen
+
+    def gap(a, b):
+        d = (a - b).abs()
+        return float(d.max()), float(d.mean())
+
+    gaps = {"card int8 vs CPU float32": gap(card8, cpu32),
+            "CPU int8 vs CPU float32": gap(cpu8, cpu32),
+            "card int8 vs CPU int8": gap(card8, cpu8),
+            "card float32 vs CPU float32": gap(card32, cpu32)}
+    log(f"int8 phase, {what}: {calls - len(unequal)} of the {calls} int8 layer calls on the "
+        f"card bit-equal to the CPU's on the same inputs"
+        f"{'' if not unequal else ', differing: ' + json.dumps(unequal)}; "
+        f"(max |diff|, mean |diff|) {json.dumps(gaps)}")
+    (cmax, cmean), (nmax, nmean) = gaps["card int8 vs CPU float32"], gaps["CPU int8 vs CPU float32"]
+    if unequal:
+        raise AssertionError(f"int8 phase: {what}: int8 layers differ from the CPU's: {unequal}")
+    if not (torch.isfinite(card8).all() and 0 < nmax and cmax <= INT8_NOISE_FACTOR * nmax
+            and cmean <= INT8_NOISE_FACTOR * nmean):
+        raise AssertionError(f"int8 phase: the card's int8 {what} lies more than "
+                             f"{INT8_NOISE_FACTOR} x the CPU's int8 noise from float32: {gaps}")
+    return gaps
+
+
+#: the int8 H-mean of the asset lies within this of float32's
+INT8_HMEAN_GAP = 0.02
+
+
+def phase_int8(B: int = 8, hw: int = 640, rec_B: int = 64, reps: int = 5, cpu_pages: int = 2):
+    """int8 serving (``ops/quantize.py``): the trained detector of the asset
+    at the serving shape and a seeded config-#1 recognizer, each in float32,
+    bf16 and int8; the int32 accumulators of convs and of ``int_mm`` against
+    the CPU; the int8 prob map (on ``cpu_pages`` pages: the CPU's time) and
+    recognizer logits against a CPU copy of each net; ``cli.eval --int8`` of
+    the asset on 8 ``TextPages`` within ``INT8_HMEAN_GAP`` of float32.
+    Returns every kernel's launches in the phase."""
+    from megreader_tpu_torch.cli import eval as cli_eval
+    from megreader_tpu_torch.compat.msgpack import load_flax_msgpack
+    from megreader_tpu_torch.compat.weights import load_flax_variables
+    from megreader_tpu_torch.core.registry import COMPONENTS
+    from megreader_tpu_torch.models.detector import SegDetector
+    from megreader_tpu_torch.models.recognizer import CTCRecognizer
+    from megreader_tpu_torch.ops.image import normalize
+    from megreader_tpu_torch.ops.precision import cast_floats
+    from megreader_tpu_torch.ops.quantize import int8_context, int8_layers
+    from megreader_tpu_torch.train.checkpoint import CheckpointManager
+    from megreader_tpu_torch.train.train_step import OptimizerConfig, create_train_state
+
+    t_phase = time.perf_counter()
+    counters = zeroed_counters()
+    total = dict.fromkeys(counters, 0)
+    variables, asset_step = load_flax_msgpack(ASSET)
+    det = SegDetector(device="cuda")
+    load_flax_variables(det.net, variables)
+    pages_np = np.stack([TextPages(B, 5, (hw, hw))[i]["image"] for i in range(B)])
+    x = normalize(torch.as_tensor(pages_np).cuda().float())
+
+    for name, (equal, peak, shape) in int8_accumulators(det.net, x).items():
+        log(f"int8 phase, int32 accumulators of the {name} on page 0 {shape}: card "
+            f"{'equal to' if equal else 'DIFFER from'} the CPU's (exact float64 conv of the "
+            f"same int8 operands), largest |acc| {peak}")
+        if not equal:
+            raise AssertionError(f"int8 phase: the {name}'s int32 accumulators differ")
+
+    times = {}
+    net = det.net.eval()
+    with torch.no_grad():
+        probs = {}
+        for mode in ("float32", "bf16", "int8"):
+            m, xi = (cast_floats(net), x.bfloat16()) if mode == "bf16" else (net, x)
+            with int8_context(net) if mode == "int8" else contextlib.nullcontext():
+                fwd = lambda: m(xi, heads=("prob",))["prob"]  # noqa: E731
+                probs[mode] = fwd().float()
+                times[f"det_fwd_ms_{mode}"] = cuda_ms(fwd, reps)
+        for mode in ("bf16", "int8"):
+            gap = float((probs[mode] - probs["float32"]).abs().max())
+            masks = float(((probs[mode] > 0.3) != (probs["float32"] > 0.3)).float().mean())
+            log(f"int8 phase, detector prob map in {mode} against float32: max |diff| {gap}, "
+                f"pixels on the other side of 0.3 {masks}")
+            if not torch.isfinite(probs[mode]).all():
+                raise AssertionError(f"int8 phase: the {mode} prob map is not finite")
+        int8_card_against_cpu(f"detector prob map of {cpu_pages} pages", net, x[:cpu_pages],
+                              lambda m, xi: m(xi, heads=("prob",))["prob"])
+
+        rec = CTCRecognizer(num_classes=37, device="cuda")
+        seeded_weights(rec.net, SEED + 3)
+        crops = torch.as_tensor(np.random.default_rng(SEED + 80).standard_normal(
+            (rec_B, 32, 100, 3)).astype(np.float32)).cuda()
+        for name, (equal, peak, shape) in int8_dense_accumulators(rec.net, crops).items():
+            log(f"int8 phase, int32 accumulators of int_mm, {name} {shape}: card "
+                f"{'equal to' if equal else 'DIFFER from'} the CPU's (exact int64 product), "
+                f"largest |acc| {peak}")
+            if not equal:
+                raise AssertionError(f"int8 phase: int_mm's accumulators differ ({name})")
+        int8_card_against_cpu(f"config-#1 logits of {rec_B} crops", rec.net, crops,
+                              lambda m, xi: m.eval()(xi))
+        ids = {}
+        for mode in ("float32", "bf16", "int8"):
+            rnet, xi = ((cast_floats(rec.net), crops.bfloat16()) if mode == "bf16"
+                        else (rec.net, crops))
+            with int8_context(rec.net) if mode == "int8" else contextlib.nullcontext():
+                dec = lambda: rec.decode(xi, net=rnet)  # noqa: E731
+                ids[mode] = dec()[0].cpu()
+                ms = cuda_ms(dec, reps)
+            times[f"rec_decode_ms_{mode}"] = ms
+            times[f"crops_per_sec_{mode}"] = rec_B / (ms / 1e3)
+        agree = {m: float((ids[m] == ids["float32"]).all(1).float().mean())
+                 for m in ("bf16", "int8")}
+        log(f"int8 phase, config #1 greedy ids (seeded weights, {rec_B} crops) equal to "
+            f"float32's on a share of the crops: {json.dumps(agree)}; "
+            f"{len(list(int8_layers(rec.net)))} of the recognizer's layers and "
+            f"{len(list(int8_layers(det.net)))} of the detector's run int8")
+    log(f"int8 phase [{CARD}]: detector forward at {B}x{hw}x{hw} (prob head, CUDA events, "
+        f"median of {reps}) and config-#1 greedy decode of {rec_B} 32x100 crops: "
+        + json.dumps(times))
+    add_counts(total, counters)  # run_cli counts its own runs from here on
+
+    with tempfile.TemporaryDirectory() as tmp:
+        COMPONENTS.register(TextPages)
+        CheckpointManager(tmp).save(create_train_state(det, OptimizerConfig()), asset_step,
+                                    force=True)
+        argv = [os.path.join(ROOT, "experiments", "seg_detector_synth.yaml"),
+                "--experiment.workspace", tmp,
+                "--experiment.eval_dataset", node("TextPages", n=B, seed=5),
+                "--experiment.batch_size", str(B)]
+        hmean = {}
+        for mode, extra in (("float32", []), ("int8", ["--int8"])):
+            _, got, _, printed = run_cli(f"cli.eval {mode} (trained detector)", cli_eval.main,
+                                         [*argv, *extra], total, phase="int8")
+            if not got["ccl"] or len(printed) != 1:
+                raise AssertionError(f"int8 phase: cli.eval {mode} printed {printed}, "
+                                     f"launches {got}")
+            hmean[mode] = printed[0]["hmean"]
+    log(f"int8 phase [{CARD}]: the asset's H-mean on {B} TextPages, float32 "
+        f"{hmean['float32']} (0.9677 in the cli phase of PR 13), int8 {hmean['int8']}")
+    if not abs(hmean["int8"] - hmean["float32"]) <= INT8_HMEAN_GAP:
+        raise AssertionError(f"int8 phase: the int8 H-mean {hmean['int8']} is not within "
+                             f"{INT8_HMEAN_GAP} of float32's {hmean['float32']}")
+    if not total["ccl"]:
+        raise AssertionError(f"int8 phase: the CCL kernel did not launch: {total}")
+    log(f"int8 phase: launches {json.dumps(total)}; {time.perf_counter() - t_phase:.1f} s "
+        "(host clock)")
+    del det, rec
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_parallel(B: int = 64, steps: int = 4, pages: int = 8, hw: int = 640):
+    """Data parallelism (``parallel/mesh.py``) at world size 1 over NCCL:
+    config #1 through ``Experiment``/``Trainer`` with ``use_mesh=True``
+    against ``use_mesh=False`` from the same weights and batches (losses and
+    parameters bit-equal), then one serving batch through
+    ``E2EPipeline.build(mesh)`` against ``run``. Returns every kernel's
+    launches in the phase."""
+    import torch.distributed as dist
+
+    from megreader_tpu_torch.compat.msgpack import load_flax_msgpack
+    from megreader_tpu_torch.compat.weights import load_flax_variables
+    from megreader_tpu_torch.experiment import Experiment
+    from megreader_tpu_torch.models.detector import SegDetector
+    from megreader_tpu_torch.models.recognizer import CTCRecognizer
+    from megreader_tpu_torch.parallel import init_mesh
+    from megreader_tpu_torch.pipelines.e2e import E2EPipeline
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernel_counters(), 0)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the two runs' convs alike
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = init_mesh(f"file://{os.path.join(tmp, 'rendezvous')}", 1, 0, device="cuda")
+        try:
+            log(f"parallel phase: process group {dist.get_backend()}, rank {mesh.rank} of "
+                f"{mesh.world_size} on {mesh.device}")
+            runs = {}
+            for use_mesh in (False, True):
+                rec = CTCRecognizer(num_classes=37, device="cuda")
+                seeded_weights(rec.net, SEED + 70)
+                ws = os.path.join(tmp, f"mesh_{use_mesh}")
+                exp = Experiment(rec, WordCrops(B * steps, SEED + 71),
+                                 optimizer=adam_warmup_cosine(), workspace=ws, batch_size=B,
+                                 epochs=1, log_every=1, use_mesh=use_mesh)
+                counters = zeroed_counters()
+                t0 = time.perf_counter()
+                state = exp.make_trainer().train(resume=False)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = add_counts(total, counters)
+                if got["ctc_alpha"] != steps or got["ctc_beta"] != steps:
+                    raise AssertionError(f"parallel phase: use_mesh={use_mesh} launched {got}")
+                _, losses, _ = step_seconds(ws)
+                runs[use_mesh] = (losses, {k: v.clone() for k, v in
+                                           state.module.state_dict().items()})
+                log(f"parallel phase, config #1 use_mesh={use_mesh}: {steps} steps of {B} in "
+                    f"{wall:.2f} s (host clock, the loader's start included) [{CARD}], losses "
+                    f"{losses}")
+            (l0, p0), (l1, p1) = runs[False], runs[True]
+            same = l0 == l1 and all(torch.equal(v, p1[k]) for k, v in p0.items())
+            log(f"parallel phase: use_mesh=True losses and parameters "
+                f"{'bit-equal to' if same else 'DIFFER from'} use_mesh=False's")
+            if not same:
+                raise AssertionError("parallel phase: the mesh step differs at world size 1")
+
+            det = SegDetector(device="cuda")
+            load_flax_variables(det.net, load_flax_msgpack(ASSET)[0])
+            pipe = E2EPipeline(det, rec, device="cuda")
+            pages_np = np.stack([TextPages(pages, 5, (hw, hw))[i]["image"]
+                                 for i in range(pages)]).astype(np.float32)
+            counters = zeroed_counters()
+            want = pipe.run(None, None, pages_np)
+            got_out = pipe.build(mesh)(None, None, pages_np)
+            torch.cuda.synchronize()
+            add_counts(total, counters)
+            worst = {}
+            for k, v in want.items():
+                g = got_out[k]
+                if g.shape != v.shape or g.dtype != v.dtype:
+                    raise AssertionError(f"parallel phase: build(mesh) {k} {g.shape} {g.dtype}")
+                if v.is_floating_point():
+                    worst[k] = float((g - v).abs().max())
+                elif not torch.equal(g, v):
+                    raise AssertionError(f"parallel phase: build(mesh) {k} differs from run")
+            log(f"parallel phase: build(mesh) on {pages} pages: ids, lengths and valid equal "
+                f"to run's ({int(want['valid'].sum())} valid regions), float outputs' max "
+                f"|diff| {json.dumps(worst)}")
+            if max(worst.values()) > 1e-3:
+                raise AssertionError(f"parallel phase: build(mesh) floats differ: {worst}")
+        finally:
+            dist.destroy_process_group()
+            torch.backends.cudnn.deterministic = deterministic
+    for n in ("ctc_alpha", "ctc_beta", "ccl"):
+        if not total[n]:
+            raise AssertionError(f"parallel phase: kernel {n} did not launch: {total}")
+    log(f"parallel phase: launches {json.dumps(total)}; {time.perf_counter() - t_phase:.1f} s "
+        "(host clock)")
+    del det, rec, pipe
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -3984,9 +4351,12 @@ def main() -> int:
     data = phase_data()
     encoders = phase_encoders()
     chains, buckets = phase_curved()
+    int8 = phase_int8()
+    parallel = phase_parallel()
     for name, total, needed in (("encoders", encoders, ("ctc_alpha", "ctc_beta")),
                                 ("chains", chains, ("ccl", "candidates", "moments", "extents")),
-                                ("buckets", buckets, ("ccl",))):
+                                ("buckets", buckets, ("ccl",)), ("int8", int8, ("ccl",)),
+                                ("parallel", parallel, ("ctc_alpha", "ctc_beta"))):
         if not all(total[n] for n in needed):
             raise AssertionError(f"{name} phase: a kernel of its path did not launch: {total}")
     rows = [ccl_row, *extract_rows, alpha_row, beta_row, alpha2d_row, beta2d_row]
@@ -3998,6 +4368,8 @@ def main() -> int:
         row["launches_encoders"] = encoders[key]
         row["launches_chains"] = chains[key]
         row["launches_buckets"] = buckets[key]
+        row["launches_int8"] = int8[key]
+        row["launches_parallel"] = parallel[key]
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

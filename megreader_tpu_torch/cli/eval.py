@@ -9,7 +9,8 @@ evaluation does not depend on the optimizer a checkpoint was trained with)
 from the latest, or the given, step of the workspace, evaluates on the
 experiment's eval set and prints one JSON line: the step and the metrics.
 ``--representer poly`` scores a detector's chain polygons (curved text);
-``--int8`` (ROADMAP Queue 1 item 12) is refused. torch and the experiment are imported inside ``main``,
+``--int8`` serves a detector through int8 layers (``ops/quantize.py``).
+torch and the experiment are imported inside ``main``,
 as in ``cli/train.py`` (the loader's process workers run this module's top
 level again).
 """
@@ -37,18 +38,15 @@ def main(argv=None):
                     help="detection output: min-area quads or chain polygons (curved "
                          "text)")
     ap.add_argument("--int8", action="store_true",
-                    help="int8 serving quality gate (not ported)")
+                    help="int8 serving path (ops/quantize.py) quality gate (detection)")
     args, rest = ap.parse_known_args(argv)
-    if args.int8:
-        raise NotImplementedError("--int8: int8 serving is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
 
     exp = Experiment.from_yaml(args.config, parse_cli_overrides(rest))
     mgr = CheckpointManager(exp.workspace)
     step = args.step if args.step is not None else mgr.latest_step()
     mgr.restore_variables(exp.model.net, step=step)
     metrics = evaluate(exp, mode=args.mode, protocol=args.protocol,
-                       representer_mode=args.representer)
+                       representer_mode=args.representer, int8=args.int8)
     out = {"step": int(step or 0), **metrics}
     print(json.dumps(out))
     return out

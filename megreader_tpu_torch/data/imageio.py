@@ -183,6 +183,40 @@ def _taps(n_out: int, n_in: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return i0, i1, frac
 
 
+def _fracs(n_out: int, n_in: int, zero_edges: bool) -> Tuple[np.ndarray, ...]:
+    """cv2's INTER_LINEAR taps along one axis in its float32 arithmetic:
+    (i0, i1, weight of i1). Along x a tap past either edge is clamped and
+    takes all the weight on one pixel; along y (``zero_edges=False``) only
+    the row indices are clamped, so the weight stays split between two
+    copies of one row."""
+    scale = n_in / n_out
+    f = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    i0 = np.floor(f).astype(np.int64)
+    f = f - i0.astype(np.float32)
+    if zero_edges:
+        f = np.where((i0 < 0) | (i0 >= n_in - 1), np.float32(0), f)
+    return np.clip(i0, 0, n_in - 1), np.clip(i0 + 1, 0, n_in - 1), f
+
+
+def _taps_fixed(n_out: int, n_in: int, zero_edges: bool) -> Tuple[np.ndarray, ...]:
+    """``_fracs`` with the weights in cv2's 11-bit fixed point, each rounded
+    on its own: (i0, i1, w0, w1)."""
+    i0, i1, f = _fracs(n_out, n_in, zero_edges)
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int64)
+    return i0, i1, w0, w1
+
+
+def _resize_one_row(image: np.ndarray, w_out: int, h_out: int) -> np.ndarray:
+    """cv2's float32 route for a one-row source: float32 taps, a product
+    and a sum each rounded to float32 along x, and along y the row weighed
+    twice, as ``S * b0 + S * b1``."""
+    x0, x1, fx = _fracs(w_out, image.shape[1], zero_edges=True)
+    _, _, fy = _fracs(h_out, 1, zero_edges=False)
+    row = image[0, x0] * (np.float32(1) - fx)[:, None] + image[0, x1] * fx[:, None]
+    return row[None] * (np.float32(1) - fy)[:, None, None] + row[None] * fy[:, None, None]
+
+
 def _lerp32(a: np.ndarray, b: np.ndarray, f: np.ndarray) -> np.ndarray:
     """float32 ``a + f * (b - a)`` rounded once (a fused multiply-add: the
     float64 product of two float32 values is exact)."""
@@ -190,21 +224,33 @@ def _lerp32(a: np.ndarray, b: np.ndarray, f: np.ndarray) -> np.ndarray:
 
 
 def resize_linear(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """(H, W, C) uint8 or float32 -> (size[1], size[0], C) of the same type,
+    """(H, W, C) or (H, W) uint8 or float32 -> (size[1], size[0], C) or
+    (size[1], size[0]) of the same type,
     ``size`` = (width, height) as ``cv2.resize`` takes it, with cv2's
-    INTER_LINEAR geometry (and on float32 its arithmetic)."""
+    INTER_LINEAR geometry and arithmetic (on uint8 its fixed-point passes)."""
+    if image.ndim == 2:
+        return resize_linear(image[..., None], size)[..., 0]
     w_out, h_out = size
     h, w = image.shape[:2]
     if (h_out, w_out) == (h, w):  # every tap lands on its own pixel: cv2 copies
         return image.copy()
-    y0, y1, fy = _taps(h_out, h)
-    x0, x1, fx = _taps(w_out, w)
+    if image.dtype == np.float32 and h == 1:
+        return _resize_one_row(image, w_out, h_out)
     if image.dtype == np.float32:
+        y0, y1, fy = _taps(h_out, h)
+        x0, x1, fx = _taps(w_out, w)
         cols = _lerp32(image[:, x0], image[:, x1], fx[None, :, None])
         return _lerp32(cols[y0], cols[y1], fy[:, None, None])
     if image.dtype != np.uint8:
         raise TypeError(f"resize_linear takes uint8 or float32 images, got {image.dtype}")
-    img = image.astype(np.float64)
-    rows = img[y0] * (1.0 - fy)[:, None, None] + img[y1] * fy[:, None, None]
-    out = rows[:, x0] * (1.0 - fx)[None, :, None] + rows[:, x1] * fx[None, :, None]
-    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    x0, x1, a0, a1 = _taps_fixed(w_out, w, zero_edges=True)
+    y0, y1, b0, b1 = _taps_fixed(h_out, h, zero_edges=False)
+    img = image.astype(np.int64)
+    rows = np.unique(np.concatenate([y0, y1]))  # the horizontal pass, on used rows only
+    s = np.zeros((h, w_out, image.shape[2]), np.int64)
+    s[rows] = img[rows][:, x0] * a0[:, None] + img[rows][:, x1] * a1[:, None]
+    # the vertical pass rounds as cv2's SIMD path does: each product's top
+    # 16 bits of (weight * (S >> 4)), then (sum + 2) >> 2
+    b0, b1 = b0[:, None, None], b1[:, None, None]
+    out = (((b0 * (s[y0] >> 4)) >> 16) + ((b1 * (s[y1] >> 4)) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Iterator, Sequence
+from typing import Callable, Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 
@@ -97,19 +97,21 @@ def _worker_get(i: int) -> Dict:
     return _worker_dataset[i]
 
 
-def _world_size() -> int:
+def _rank_and_world() -> Tuple[int, int]:
     import torch.distributed as dist
 
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 class Loader:
     """Iterate a dataset in batches with optional shuffle and prefetch.
 
-    ``host_shard`` is the identity in one process; with a process group of
-    several ranks it raises (multi-GPU data parallelism is ROADMAP Queue 1
-    item 14). ``worker_mode`` is ``'thread'`` or ``'process'``; either gives
-    the same batches."""
+    ``host_shard`` gives each rank of the process group that is up every
+    ``world``-th index of the (shuffled) order from its rank on, as the JAX
+    loader gives each host; the identity in one process. ``worker_mode`` is
+    ``'thread'`` or ``'process'``; either gives the same batches."""
 
     def __init__(
         self,
@@ -156,10 +158,9 @@ class Loader:
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self.epoch)
             rng.shuffle(idx)
-        if self.host_shard and _world_size() > 1:
-            raise NotImplementedError(
-                "host_shard across ranks needs multi-GPU data parallelism (ROADMAP Queue 1 item 14)"
-            )
+        if self.host_shard:
+            rank, world = _rank_and_world()
+            idx = idx[rank::world]
         return idx
 
     def __len__(self):

@@ -4,6 +4,7 @@ predictor, then the measurer, over the experiment's eval set."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -11,6 +12,7 @@ import torch
 import torch.nn as nn
 
 from .ops.image import normalize
+from .ops.quantize import int8_context
 from .pipelines.predictors import RecognizerPredictor
 from .postproc.detection import SegDetectorRepresenter
 from .postproc.measurers import DetectionMeasurer, DetEvalMeasurer, RecognitionMeasurer
@@ -35,21 +37,23 @@ def evaluate_detection(exp, net: nn.Module = None,
                        protocol: str = "icdar2015", int8: bool = False) -> Dict[str, float]:
     """Precision, recall and H-mean of the detector's quads over
     ``exp.eval_loader`` (``protocol`` 'icdar2015' or 'deteval'); ``net``
-    (None: the model's own module) gives the prob maps, in eval mode."""
-    if int8:
-        raise NotImplementedError("int8=True: int8 serving is not ported (ROADMAP Queue 1 item 12)")
+    (None: the model's own module) gives the prob maps, in eval mode, and
+    under ``int8`` through int8 serving's layers (``ops/quantize.py``), the
+    quality gate of that path."""
     if protocol not in ("icdar2015", "deteval"):
         raise ValueError(f"unknown detection protocol {protocol!r}")
     if exp.eval_loader is None:
         raise ValueError("experiment has no eval dataset")
     representer = representer or SegDetectorRepresenter()
     measurer = DetEvalMeasurer() if protocol == "deteval" else DetectionMeasurer()
-    device = next(exp.model.net.parameters()).device
+    net = exp.model.net if net is None else net
+    device = next(net.parameters()).device
     raws = []
     for batch in exp.eval_loader:
         # the pixels only: the prepare function's GT maps are not needed here
         x = normalize(torch.as_tensor(np.asarray(batch["image"])).to(device).float())
-        prob = exp.model.predict_maps(x, net=net, heads=("prob",))["prob"]
+        with int8_context(net) if int8 else contextlib.nullcontext():
+            prob = exp.model.predict_maps(x, net=net, heads=("prob",))["prob"]
         scales = np.asarray(batch["scale"])
         for b, res in enumerate(representer.represent(prob, scales=scales)):
             gt = [p * scales[b][None, :] for p in batch["polygons"][b]]
@@ -59,7 +63,9 @@ def evaluate_detection(exp, net: nn.Module = None,
 
 def evaluate(exp, net: nn.Module = None, mode: str = "greedy", protocol: str = "icdar2015",
              representer_mode: str = "quad", int8: bool = False) -> Dict[str, float]:
-    """The task's evaluation: detection for ``SegDetector``, else recognition."""
+    """The task's evaluation: detection for ``SegDetector`` (``int8`` as
+    there), else recognition, which ignores ``int8`` as the JAX package's
+    does."""
     if exp.task != "SegDetector":
         return evaluate_recognition(exp, net, mode=mode)
     return evaluate_detection(exp, net, representer=SegDetectorRepresenter(mode=representer_mode),

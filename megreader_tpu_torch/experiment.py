@@ -127,7 +127,13 @@ class Experiment:
     """Model + dataset + optimizer + trainer wiring, for ``CTCRecognizer``,
     ``Ctc2dRecognizer`` and ``AttentionRecognizer`` (whose nets must be built
     for the same ``crop_hw``; the attention task's charset defaults to
-    ``AttentionCharset``) and ``SegDetector``."""
+    ``AttentionCharset``) and ``SegDetector``.
+
+    ``use_mesh`` goes to the trainer: data parallelism over the process
+    group that is up (``parallel/mesh.py``), each rank on its share of the
+    train set (``host_shard``). Its default stays False where the JAX
+    package's is True: with no process group the mesh step is the plain
+    step, and no YAML file sets it, so ``from_yaml`` needs no other."""
 
     def __init__(
         self,

@@ -35,6 +35,7 @@ import torch.nn as nn
 from ..core.charset import AttentionCharset
 from ..ops.ctc import NEG_INF, stable_top_k
 from ..ops.precision import Linear, at_least_float32, matmul_t, parse_compute_dtype
+from ..parallel.mesh import batch_sum
 from .recognizer2d import rec2d_feature_height
 from .resnet import resnet_variant
 
@@ -158,7 +159,8 @@ class AttentionRecognizer:
         tok_ll = torch.gather(logp, 2, labels.unsqueeze(-1))[..., 0]
         mask = (torch.arange(T, device=labels.device).view(1, T)
                 < batch["label_length"].view(B, 1)).to(logp.dtype)
-        loss = -(tok_ll * mask).sum() / mask.sum().clamp(min=1.0)
+        num, den = batch_sum(torch.stack([(tok_ll * mask).sum(), mask.sum()]))
+        loss = -num / den.clamp(min=1.0)
         return loss, {"loss": loss.detach()}
 
     def decode(self, images: torch.Tensor, mode: str = "greedy", net: nn.Module = None,

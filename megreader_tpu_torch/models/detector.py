@@ -73,9 +73,11 @@ class MapHead(nn.Module):
         super().__init__()
         self.conv = Conv2d(in_ch, dim, 3, 1, 1, bias=False, compute_dtype=dtype)
         self.bn = BatchNorm2d(dim)
-        self.up1 = Conv2d(dim, dim // 2, 3, 1, 1, bias=False, compute_dtype=dtype)
+        # the JAX head's up1/up2 are _UpConv modules (fused_upsample=True),
+        # which int8 serving leaves in float
+        self.up1 = Conv2d(dim, dim // 2, 3, 1, 1, bias=False, compute_dtype=dtype, int8=False)
         self.bn1 = BatchNorm2d(dim // 2)
-        self.up2 = Conv2d(dim // 2, 1, 3, 1, 1, compute_dtype=dtype)
+        self.up2 = Conv2d(dim // 2, 1, 3, 1, 1, compute_dtype=dtype, int8=False)
 
     def forward(self, x):
         y = F.relu(self.bn(self.conv(x)))

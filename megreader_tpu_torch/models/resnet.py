@@ -47,10 +47,16 @@ class BatchNorm2d(nn.BatchNorm2d):
     input, the statistics and the affine as they are stored, and return the
     input's dtype: the JAX package's ``_bn`` (a float32 BatchNorm cast back to
     the surrounding compute dtype) under mixed precision and under the bf16
-    serving cast alike."""
+    serving cast alike.
+
+    With a ``process_group`` of several ranks (``parallel.sync_batch_norm``)
+    train mode takes the statistics of the ranks' batches together, as flax
+    does over the global batch under SPMD: the sum and the sum of squares
+    are all-reduced (their gradients too) and ``var = E[x^2] - E[x]^2``."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.99):
         super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
+        self.process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # torch's batch norm computes a bf16 input in float32 and returns
@@ -59,12 +65,32 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
+        if self.process_group is not None:
+            return self._forward_synced(x)
         with torch.no_grad():
             y = x.to(torch.promote_types(x.dtype, torch.float32))
             var, mean = torch.var_mean(y, dim=(0, 2, 3), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _forward_synced(self, x: torch.Tensor) -> torch.Tensor:
+        from ..parallel.mesh import all_reduce_sum
+
+        y = x.to(torch.promote_types(x.dtype, torch.float32))
+        C = y.shape[1]
+        count = torch.full((1,), y.numel() // C, dtype=y.dtype, device=y.device)
+        sums = all_reduce_sum(torch.cat([y.sum((0, 2, 3)), (y * y).sum((0, 2, 3)), count]),
+                              self.process_group)
+        mean = sums[:C] / sums[2 * C]
+        var = torch.clamp(sums[C:2 * C] / sums[2 * C] - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+        shape = (1, C, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(y.dtype)
+        out = (y - mean.reshape(shape)) * mul.reshape(shape) + self.bias.to(y.dtype).reshape(shape)
+        return out.to(x.dtype)
 
 
 def _pair(s):

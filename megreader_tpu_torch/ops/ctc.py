@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..parallel.mesh import batch_mean, batch_sum
 
 NEG_INF = -1e30
 
@@ -359,9 +360,9 @@ def _reduce(nll: torch.Tensor, label_lengths: torch.Tensor, reduction: str) -> t
     if reduction == "none":
         return nll
     if reduction == "sum":
-        return nll.sum()
+        return batch_sum(nll.sum())
     if reduction == "mean":
-        return (nll / label_lengths.to(nll.device).clamp(min=1).to(nll.dtype)).mean()
+        return batch_mean(nll / label_lengths.to(nll.device).clamp(min=1).to(nll.dtype))
     raise ValueError(f"unknown reduction {reduction!r}")
 
 

@@ -5,11 +5,17 @@ JAX package's static-shape form: the k-th largest negative loss (k =
 ``negative_ratio`` x positives, at least 1, at most the negatives) is read
 from a descending sort, and every negative at or above it is kept, ties
 included.
+
+The batch reductions go through ``parallel.batch_sum`` / ``batch_mean``: in
+a data-parallel step (``parallel.global_batch``) each loss is the global
+batch's, as the JAX package's SPMD step takes it.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel.mesh import batch_mean, batch_sum
 
 EPS = 1e-6
 
@@ -37,16 +43,17 @@ def balanced_bce_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
     pos_sum = (bce_f * pos_f).sum(1)
     neg_sum = torch.where(neg_keep, bce_f, 0.0).sum(1)
     denom = n_pos + neg_keep.sum(1) + EPS
-    return ((pos_sum + neg_sum) / denom).mean()
+    return batch_mean((pos_sum + neg_sum) / denom)
 
 
 def dice_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """1 - 2|X n Y| / (|X| + |Y|) over the masked pixels (the binary map's loss)."""
-    inter = (pred * gt * mask).sum()
-    union = (pred * pred * mask).sum() + (gt * gt * mask).sum() + EPS
-    return 1.0 - 2.0 * inter / union
+    inter, pp, gg = batch_sum(torch.stack(
+        [(pred * gt * mask).sum(), (pred * pred * mask).sum(), (gt * gt * mask).sum()]))
+    return 1.0 - 2.0 * inter / (pp + gg + EPS)
 
 
 def masked_l1_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean |pred - gt| over the mask's support (the threshold map's loss)."""
-    return (torch.abs(pred - gt) * mask).sum() / (mask.sum() + EPS)
+    num, den = batch_sum(torch.stack([(torch.abs(pred - gt) * mask).sum(), mask.sum()]))
+    return num / (den + EPS)

@@ -46,11 +46,16 @@ def at_least_float32(x: torch.Tensor) -> torch.Tensor:
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` in ``op_dtype``: input, kernel and bias cast to it."""
+    """``nn.Conv2d`` in ``op_dtype``: input, kernel and bias cast to it.
 
-    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
+    ``int8`` marks a layer whose JAX twin is a flax ``nn.Conv``, which int8
+    serving quantizes (``ops/quantize.py``); other twins pass False."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, int8: bool = True,
+                 **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
+        self.int8 = int8
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = op_dtype(x, self.weight, self.bias, dtype=self.compute_dtype)
@@ -59,11 +64,16 @@ class Conv2d(nn.Conv2d):
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` in ``op_dtype``: input, weight and bias cast to it."""
+    """``nn.Linear`` in ``op_dtype``: input, weight and bias cast to it.
 
-    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
+    ``int8`` marks a layer whose JAX twin is a flax ``nn.Dense`` (see
+    ``Conv2d``)."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, int8: bool = True,
+                 **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
+        self.int8 = int8
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = op_dtype(x, self.weight, self.bias, dtype=self.compute_dtype)

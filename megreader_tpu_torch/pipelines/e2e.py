@@ -47,6 +47,7 @@ from ..ops.chains import (
 )
 from ..ops.image import crop_resize_boxes, normalize, rectify_quads_mxu, rotate_crops
 from ..ops.precision import cast_floats
+from ..parallel.mesh import Mesh, all_gather_batch, batch_sharding
 from .predictors import RECOGNIZERS, default_charset
 
 
@@ -271,10 +272,21 @@ class E2EPipeline:
         return out
 
     def build(self, mesh=None):
-        """The JAX pipeline's ``build()`` surface: returns ``run``."""
-        if mesh is not None:
-            raise _not_ported("sharded serving over a mesh", "item 14, multi-GPU")
-        return self.run
+        """The JAX pipeline's ``build()`` surface: returns ``run``. With
+        ``mesh`` (a ``parallel.Mesh``) each rank runs its contiguous block of
+        the pages (JAX's ``P('data')``) and the ranks all-gather the
+        fixed-shape outputs, so every rank returns what ``run`` returns on
+        all the pages."""
+        if mesh is None:
+            return self.run
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"build(mesh=...) takes a parallel.Mesh, got {type(mesh).__name__}")
+
+        def run_sharded(det_module, rec_module, pages) -> Dict[str, torch.Tensor]:
+            out = self.run(det_module, rec_module, pages[batch_sharding(mesh, len(pages))])
+            return {k: all_gather_batch(v, mesh) for k, v in out.items()}
+
+        return run_sharded
 
     def predict(self, det_module, rec_module, pages) -> List[List[Dict]]:
         """pages (B, H, W, 3) float32 [0, 255] -> per-page detection dicts;

@@ -7,7 +7,9 @@ A port of ``megreader_tpu/pipelines/predictors.py``:
   (``resize_with_aspect_pad``) and normalized on the device, the model
   decodes the batch there (``mode`` 'greedy' or 'beam' of width
   ``beam_width``; Markov heights decode by Viterbi), and only ids and lengths
-  cross to the host.
+  cross to the host. With ``int8`` the whole decode runs under
+  ``int8_context`` of the net (``ops/quantize.py``), as the JAX predictor
+  runs its ``_decode``.
 * ``DetectorPredictor`` for ``SegDetector``: pages are normalized on the
   device, the prob head alone runs, and the representer
   (``postproc/detection.py``, quad mode) turns the maps into scored quads.
@@ -15,6 +17,7 @@ A port of ``megreader_tpu/pipelines/predictors.py``:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -27,6 +30,7 @@ from ..models.detector import SegDetector
 from ..models.recognizer import CTCRecognizer
 from ..models.recognizer2d import Ctc2dRecognizer
 from ..ops.image import normalize, resize_with_aspect_pad
+from ..ops.quantize import int8_context
 from ..postproc.detection import SegDetectorRepresenter
 
 RECOGNIZERS = (CTCRecognizer, Ctc2dRecognizer, AttentionRecognizer)
@@ -43,7 +47,7 @@ class RecognizerPredictor:
     ``AttentionRecognizer``."""
 
     def __init__(self, model, charset=None, crop_hw=(32, 100), mode: str = "greedy",
-                 beam_width: int = 8):
+                 beam_width: int = 8, int8: bool = False):
         if not isinstance(model, RECOGNIZERS):
             raise TypeError(f"{type(model).__name__} is not a recognizer")
         self.model = model
@@ -51,6 +55,7 @@ class RecognizerPredictor:
         self.crop_hw = tuple(crop_hw)
         self.mode = mode
         self.beam_width = beam_width
+        self.int8 = int8
 
     def prepare(self, canvases, sizes) -> torch.Tensor:
         """(B, H, W, 3) canvases with (B, 2) crop sizes -> normalized (B, Ho, Wo, 3)
@@ -63,8 +68,11 @@ class RecognizerPredictor:
 
     def predict(self, net: nn.Module, canvases, sizes) -> List[str]:
         """``net`` (None: the model's own module) decodes the crops."""
-        ids, lengths = self.model.decode(self.prepare(canvases, sizes), mode=self.mode, net=net,
-                                         beam_width=self.beam_width)
+        net = self.model.net if net is None else net
+        images = self.prepare(canvases, sizes)
+        with int8_context(net) if self.int8 else contextlib.nullcontext():
+            ids, lengths = self.model.decode(images, mode=self.mode, net=net,
+                                             beam_width=self.beam_width)
         return self.charset.decode_batch(ids.cpu().numpy(), lengths.cpu().numpy())
 
 

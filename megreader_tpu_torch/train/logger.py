@@ -15,11 +15,7 @@ import time
 from collections import defaultdict
 from typing import Dict
 
-
-def is_primary() -> bool:
-    import torch.distributed as dist
-
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+from ..parallel.mesh import is_primary
 
 
 class AverageMeter:

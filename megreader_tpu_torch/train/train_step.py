@@ -24,6 +24,16 @@ A train step is prepare -> loss -> backward -> clip -> update, eagerly on the
 module's device; its metrics stay on the device until a caller reads them.
 A prepare function that declares a ``step`` parameter gets the train state's
 step (the JAX trainer's rule for step-keyed augmentation streams).
+
+With a mesh (``parallel/mesh.py``) each rank steps on its local batch, and
+the step is the JAX package's SPMD step on the global batch (the ranks'
+batches stacked): the loss runs within ``parallel.global_batch``, so its
+batch reductions (the CTC losses' and the DB loss's per-sample means, the
+attention loss's token-weighted mean, the dice and L1 ratios of sums) sum
+across the ranks and every rank holds the global batch's loss; each rank
+back-propagates ``1 / world_size`` of it (the reductions' backward sums the
+ranks' shares again), and the gradients are summed across the ranks
+before the clip and the update. The metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -229,21 +239,30 @@ def wants_step(prepare: Optional[Callable]) -> bool:
         return False
 
 
-def make_train_step(model, prepare: Optional[Callable[[Dict], Dict]] = None
+def make_train_step(model, prepare: Optional[Callable[[Dict], Dict]] = None, mesh=None
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """``step(state, batch) -> (state, metrics)``: prepare (given
     ``step=state.step`` when it declares ``step``), the loss in train mode,
     backward, clip, update. Metrics: ``loss`` and ``grad_norm`` (the
     mini-batch's, before clipping), device scalars. The state's module is the
-    model's net and is updated in place."""
+    model's net and is updated in place. With ``mesh``, the global batch's
+    step (see the module docstring)."""
+    from ..parallel.mesh import all_reduce_sum_, global_batch
+
     with_step = wants_step(prepare)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         if prepare is not None:
             batch = prepare(batch, step=state.step) if with_step else prepare(batch)
         state.optimizer.zero_grad()
-        loss, metrics = model.loss(batch, train=True)
-        loss.backward()
+        with global_batch(mesh):
+            loss, metrics = model.loss(batch, train=True)
+        if mesh is None:
+            loss.backward()
+        else:
+            (loss / mesh.world_size).backward()
+            all_reduce_sum_([p.grad for p in state.module.parameters() if p.grad is not None],
+                            mesh)
         grad_norm = state.optimizer.step()
         state.step += 1
         return state, {**metrics, "grad_norm": grad_norm}

@@ -1,10 +1,17 @@
-"""Trainer: the epoch loop on one device.
+"""Trainer: the epoch loop on one device, or one device a rank.
 
 restore -> for epoch: for batch: train step (prepare on the card, forward,
 backward, update) -> log every ``log_every`` steps -> validate hook ->
 checkpoint through the manager (which saves every ``save_every_steps``) -> a
 final forced save. ``epochs`` is a total budget: a resumed run trains on
 toward ``epochs * len(loader)`` steps and does nothing once there.
+
+``use_mesh=True`` trains data-parallel over the process group that is up
+(``parallel/mesh.py``; a world of one without a group): rank 0's weights
+replicated after the restore, BatchNorm on the global batch's statistics,
+the global batch's gradient (``make_train_step(mesh=...)``), and the
+checkpoints and logs written by rank 0 alone. The loader gives each rank its
+share (``host_shard``).
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..parallel.mesh import barrier, is_primary, make_mesh, replicated, sync_batch_norm
 from ..utils.signal_monitor import SignalMonitor
 from .checkpoint import CheckpointManager
 from .logger import Logger
@@ -37,11 +45,8 @@ class Trainer:
         prepare_batch: Optional[Callable[[Dict], Dict]] = None,
         debug_nans: bool = False,
     ):
-        if use_mesh:
-            raise NotImplementedError(
-                "use_mesh=True: multi-GPU data parallelism is not ported (ROADMAP Queue 1 item 14)"
-            )
         self.model = model
+        self.mesh = make_mesh(next(model.net.parameters()).device) if use_mesh else None
         self.loader = loader
         self.optimizer = optimizer or OptimizerConfig()
         self.epochs = epochs
@@ -64,11 +69,14 @@ class Trainer:
             state = self.checkpoint.restore(state)
             if state.step > 0:
                 self.logger.info(f"resumed at step {state.step}")
+        if self.mesh is not None:
+            replicated(state.module, self.mesh)
+            sync_batch_norm(state.module, self.mesh)
         # the module is built with its weights, so no batch is drawn to
         # initialize it: the first epoch shuffles with seed + 1 (the JAX
         # trainer's init probe takes one loader pass, so its first epoch
         # shuffles with seed + 2)
-        step_fn = make_train_step(self.model, prepare=self.prepare_batch)
+        step_fn = make_train_step(self.model, prepare=self.prepare_batch, mesh=self.mesh)
         step = state.step
         target_steps = self.epochs * len(self.loader)
         if step >= target_steps:
@@ -77,8 +85,9 @@ class Trainer:
 
         with torch.autograd.set_detect_anomaly(self.debug_nans):
             step = self._loop(state, step_fn, sched, target_steps)
-        self.checkpoint.save(state, step, force=True)
+        self._save(state, step, force=True)
         self.checkpoint.wait()
+        barrier()
         self.logger.info(f"training done at step {step}")
         return state
 
@@ -108,7 +117,11 @@ class Trainer:
                         and step % self.validate_every_steps == 0):
                     self.logger.metrics(step, self.validate_fn(self.model, state))
 
-                self.checkpoint.save(state, step)
+                self._save(state, step)
                 if stop:
                     return step
         return step
+
+    def _save(self, state: TrainState, step: int, force: bool = False) -> None:
+        if self.mesh is None or is_primary(self.mesh):
+            self.checkpoint.save(state, step, force=force)

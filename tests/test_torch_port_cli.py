@@ -63,7 +63,7 @@ def test_from_yaml_batch_and_loss_match_jax():
         np.testing.assert_array_equal(batch[key].numpy(), jbatch[key], err_msg=key)
     np.testing.assert_allclose(batch["image"].numpy(), jbatch["image"], rtol=0, atol=1e-4)
     variables = seeded_flax_variables(
-        jax.device_get(ref.model.init(jax.random.PRNGKey(0), jbatch["image"])), 1)
+        jax.eval_shape(ref.model.init, jax.random.PRNGKey(0), jbatch["image"]), 1)
     load_flax_variables(exp.model.net, variables)
     jloss = float(ref.model.loss(variables, jbatch, train=False)[0])
     with torch.no_grad():
@@ -88,8 +88,9 @@ def test_cli_train_resumes_and_eval_prints_one_json_line(tmp_path, capsys):
         assert got["step"] == 2 and got["n"] == 8 and 0.0 <= got["ned"] <= 1.0
     got = cli_eval.main([CTC, "--step", "1", *_argv(over)])
     assert got["step"] == 1
-    with pytest.raises(NotImplementedError, match="item 12\\)"):
-        cli_eval.main([CTC, "--int8", *_argv(over)])
+    # --int8 is ported; a recognizer's evaluation does not read it (as in the
+    # JAX package), and a detector's is in test_torch_port_quantize.py
+    assert cli_eval.main([CTC, "--step", "1", "--int8", *_argv(over)]) == got
     # --representer poly is ported; a recognizer's evaluation does not read it
     # (as in the JAX package), and a detector's is in test_torch_port_chains.py
     assert cli_eval.main([CTC, "--step", "1", "--representer", "poly", *_argv(over)]) == got
@@ -200,13 +201,34 @@ def test_write_png_every_filter_read_by_cv2(tmp_path, channels):
 @pytest.mark.parametrize("src,size", [((50, 70), (640, 640)), ((123, 457), (100, 300)),
                                       ((640, 640), (320, 320)), ((640, 640), (17, 32)),
                                       ((60, 80), (80, 60)), ((96, 128), (128, 96))])
-def test_resize_linear_within_one_grey_level_of_cv2(src, size):
+def test_resize_linear_equals_cv2(src, size):
     img = cv2.GaussianBlur(np.random.default_rng(3).integers(0, 256, (*src, 3), dtype=np.uint8),
                            (5, 5), 2)
     got = imageio.resize_linear(img, size)
     ref = cv2.resize(img, size)
     assert got.shape == ref.shape and got.dtype == np.uint8
-    assert int(np.abs(got.astype(int) - ref.astype(int)).max()) <= 1
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("src,size", [((300, 420), (457, 327)), ((97, 201), (50, 33)),
+                                      ((1, 50), (30, 7)), ((1, 97), (31, 1)), ((50, 1), (1, 30)),
+                                      ((40, 1), (7, 90)), ((1, 1), (5, 9)), ((3, 5), (2, 2))])
+@pytest.mark.parametrize("channels", [None, 1, 3, 4])
+def test_resize_linear_equals_cv2_on_channels_and_thin_sources(src, size, channels):
+    """uint8 by cv2's fixed-point passes, up and down, on (H, W) and (H, W, C)
+    images and one-row, one-column and 1x1 sources; float32 one-row sources
+    by cv2's separate single-row route."""
+    rng = np.random.default_rng(4)
+    shape = src if channels is None else (*src, channels)
+    images = [rng.integers(0, 256, shape, dtype=np.uint8)]
+    if src[0] == 1:
+        images.append(rng.uniform(0, 255, shape).astype(np.float32))
+    for img in images:
+        got = imageio.resize_linear(img, size)
+        ref = cv2.resize(img, size)
+        assert got.dtype == img.dtype
+        np.testing.assert_array_equal(got, ref.reshape(got.shape))
+        assert got.shape == (size[1], size[0]) + shape[2:]
 
 
 def _png(tmp_path, ihdr):

@@ -277,11 +277,11 @@ def test_from_yaml_seeds_the_weights():
 
 
 def test_from_yaml_refuses_options_left_out(tmp_path):
-    """``use_mesh`` (item 14) is refused; ``augment`` and process workers
-    (item 7) build."""
+    """``use_mesh`` (item 14), ``augment`` and process workers (item 7)
+    build; ``use_mesh`` with no process group is a world of one."""
     path = os.path.join(REPO, "experiments", "ctc2d_resnet18_synth.yaml")
-    with pytest.raises(NotImplementedError, match="item 14\\)"):
-        Experiment.from_yaml(path, {**CPU, "experiment.use_mesh": True}).make_trainer()
+    mesh = Experiment.from_yaml(path, {**CPU, "experiment.use_mesh": True}).make_trainer().mesh
+    assert (mesh.rank, mesh.world_size, mesh.device.type, mesh.group) == (0, 1, "cpu", None)
     exp = Experiment.from_yaml(path, {**CPU, "experiment.augment": True,
                                       "experiment.loader_worker_mode": "process"})
     assert exp.augment and exp.train_loader.worker_mode == "process"

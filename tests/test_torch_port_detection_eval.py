@@ -185,7 +185,13 @@ def test_evaluate_detection_matches_jax(eval_pair, protocol):
 
 
 def test_evaluate_detection_left_outs(eval_pair):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        evaluate_detection(eval_pair["exp"], int8=True)
+    """``int8`` is ported: int8 serving's metrics equal JAX's; an unknown
+    protocol raises."""
+    kw = dict(bin_thresh=eval_pair["bin_thresh"], box_thresh=0.0, max_regions=8)
+    ref = jax_evaluate_detection(eval_pair["jexp"], eval_pair["variables"],
+                                 representer=jax_detection.SegDetectorRepresenter(**kw),
+                                 int8=True)
+    assert evaluate_detection(eval_pair["exp"], representer=detection.SegDetectorRepresenter(**kw),
+                              int8=True) == ref
     with pytest.raises(ValueError, match="protocol"):
         evaluate_detection(eval_pair["exp"], protocol="icdar2013")

@@ -8,6 +8,8 @@ then asserts the other precondition of an exact comparison: on every valid
 slot, the recognizer's top-2 logits differ by more than 1e-3 (the weight
 seeds were picked for it)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,28 +52,33 @@ def _threshold(prob):
     return float(0.5 * (v[j] + v[j + 1]))
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_models():
+    """The JAX models, their seeded weights (drawn on ``init``'s shapes) and
+    the binarization threshold of their prob map on ``_pages(3)``: built once
+    a module, for every pipeline option."""
     det = JaxSegDetector(fpn_dim=32, head_dim=16, width=16)
     rec = JaxCTCRecognizer(num_classes=37, hidden=32, num_encoder_layers=1)
     key = jax.random.PRNGKey(0)
     det_vars = seeded_flax_variables(
-        jax.device_get(det.init(key, jnp.zeros((1, H, W, 3)))), 13)
+        jax.eval_shape(det.init, key, jnp.zeros((1, H, W, 3))), 13)
     rec_vars = seeded_flax_variables(
-        jax.device_get(rec.init(key, jnp.zeros((1, 32, 100, 3)))), 113)
+        jax.eval_shape(rec.init, key, jnp.zeros((1, 32, 100, 3))), 113)
     # logits as sharp as a trained recognizer's (std ~3, not ~0.4)
     rec_vars["params"]["classifier"]["kernel"] *= 8.0
-    return det, rec, det_vars, rec_vars
+    prob = np.asarray(jax.jit(lambda v, p: det.apply(v, jax_normalize(p), heads=("prob",))[
+        "prob"])(det_vars, jnp.asarray(_pages(3))))
+    return det, rec, det_vars, rec_vars, _threshold(prob)
 
 
 def _run_pair(rectify, unclip, extract_impl="auto", **extra):
-    det, rec, det_vars, rec_vars = _jax_models()
+    det, rec, det_vars, rec_vars, thresh = _jax_models()
     pages = _pages(3)
-    prob = np.asarray(det.apply(det_vars, jax_normalize(jnp.asarray(pages)),
-                                heads=("prob",))["prob"])
-    opts = dict(max_regions=K, box_thresh=0.0, bin_thresh=_threshold(prob),
+    opts = dict(max_regions=K, box_thresh=0.0, bin_thresh=thresh,
                 rectify=rectify, unclip=unclip, extract_impl=extract_impl, **extra)
     jpipe = JaxE2EPipeline(det, rec, **opts)
-    ref = {k: np.asarray(v) for k, v in jpipe.build()(det_vars, rec_vars, pages).items()}
+    jpipe._jitted = jpipe.build()  # the program that ``predict`` runs too, compiled once
+    ref = {k: np.asarray(v) for k, v in jpipe._jitted(det_vars, rec_vars, pages).items()}
 
     tdet = SegDetector("resnet18", 32, 16, width=16, device="cpu")
     trec = CTCRecognizer(37, hidden=32, num_encoder_layers=1, device="cpu")
@@ -197,5 +204,7 @@ def test_unported_recognizer_family_and_mesh_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         E2EPipeline(None, object(), device="cpu")
     rec = CTCRecognizer(37, hidden=8, num_encoder_layers=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # sharded serving is ported (tests/test_torch_port_parallel.py); a mesh
+    # that is not a parallel.Mesh raises
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         E2EPipeline(None, rec, device="cpu").build(mesh=object())

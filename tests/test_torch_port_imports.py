@@ -39,7 +39,7 @@ def test_port_file_imports_no_jax(path):
 def test_every_port_module_is_checked():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for sub in ("core", "ops", "models", "compat", "pipelines", "data", "train", "utils",
-                "postproc"):
+                "postproc", "parallel"):
         assert any(n.startswith(f"megreader_tpu_torch/{sub}/") for n in names), sub
     assert "chip_smoke.py" in names
 
@@ -62,6 +62,12 @@ def test_bf16_slice_modules_are_checked(module):
                                     "cli/pipeline.py", "core/config.py", "core/registry.py",
                                     "all.py", "data/imageio.py"])
 def test_chassis_slice_modules_are_checked(module):
+    assert ROOT / "megreader_tpu_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", ["ops/quantize.py", "parallel/__init__.py",
+                                    "parallel/mesh.py"])
+def test_int8_and_parallel_slice_modules_are_checked(module):
     assert ROOT / "megreader_tpu_torch" / module in FILES
 
 

@@ -5,6 +5,8 @@ and carried into the port by ``load_flax_variables``; both sides then see the
 same inputs, made with numpy. Float32 throughout, atol 1e-4: the two
 frameworks sum convolutions and matmuls in another order."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +33,9 @@ def _inputs(seed, shape):
 
 
 def _carry(jax_module, port_module, x, seed, **init_kw):
-    init = jax.device_get(jax_module.init(jax.random.PRNGKey(0), jnp.asarray(x), **init_kw))
+    # the seeded weights need init's shapes only
+    init = jax.eval_shape(functools.partial(jax_module.init, **init_kw),
+                          jax.random.PRNGKey(0), jnp.asarray(x))
     variables = seeded_flax_variables(init, seed)
     return variables, load_flax_variables(port_module.eval(), variables)
 
@@ -104,7 +108,8 @@ def test_weight_carry_checks_every_key(fault):
     jm = JaxCTCRecognizerNet(37, hidden=8, num_encoder_layers=1)
     x = np.zeros((1, 32, 100, 3), np.float32)
     variables = seeded_flax_variables(
-        jax.device_get(jm.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)), 0
+        jax.eval_shape(functools.partial(jm.init, train=False), jax.random.PRNGKey(0),
+                       jnp.asarray(x)), 0
     )
     keys = list(_flat_keys(variables))
     assert any(k[0] == "batch_stats" for k in keys)

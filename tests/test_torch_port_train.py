@@ -99,7 +99,7 @@ def jax_side():
     batch = jax.device_get(jax_recognition_prepare(raw))
     model = JaxCTCRecognizer(num_classes=37, hidden=32, num_encoder_layers=1)
     variables = seeded_flax_variables(
-        jax.device_get(model.init(jax.random.PRNGKey(0), batch["image"])), 1
+        jax.eval_shape(model.init, jax.random.PRNGKey(0), batch["image"]), 1
     )
     batch64 = {**batch, "image": batch["image"].astype(np.float64)}
 

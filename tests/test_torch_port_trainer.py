@@ -150,7 +150,8 @@ def test_left_out_options_raise(tmp_path, what):
     ``yaml`` is ported: ``from_yaml`` builds config #1 and the hard tier's
     ``ctc_hard.yaml``, and a YAML that names the text spotter raises naming
     item 13. ``augment`` and ``process_workers`` are ported: a two-step run
-    with each trains to finite losses."""
+    with each trains to finite losses. ``mesh`` is ported: with no process
+    group, a two-step run with ``use_mesh=True`` equals one without."""
     if what == "yaml":
         exp = Experiment.from_yaml("experiments/ctc_resnet18_synth.yaml",
                                    {"experiment.model.device": "cpu"})
@@ -176,11 +177,19 @@ def test_left_out_options_raise(tmp_path, what):
         assert state.step == 2
         assert all(np.isfinite(r["loss"]) for r in _metrics(tmp_path))
         return
+    if what == "mesh":  # ported: with no process group a world of one, the plain step
+        runs = []
+        for use_mesh in (False, True):
+            exp = _experiment(tmp_path / str(use_mesh), epochs=1, use_mesh=use_mesh)
+            state = exp.make_trainer().train(resume=False)
+            runs.append(([r["loss"] for r in _metrics(tmp_path / str(use_mesh))],
+                         state.module.state_dict()))
+        assert len(runs[0][0]) == 2 and runs[0][0] == runs[1][0]
+        assert all(torch.equal(v, runs[1][1][k]) for k, v in runs[0][1].items())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        if what == "mesh":
-            _experiment(tmp_path, use_mesh=True).make_trainer()
-        else:  # the text spotter is not ported (item 13)
-            Experiment(type("RoITextSpotter", (), {})(), SyntheticRecognitionDataset(n=8))
+        # the text spotter is not ported (item 13)
+        Experiment(type("RoITextSpotter", (), {})(), SyntheticRecognitionDataset(n=8))
 
 
 def test_average_meter():
