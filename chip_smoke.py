@@ -10,7 +10,8 @@ the entry points (train, eval, page pipeline) on the repo's YAML files,
 training configs #1 and #4 from PNG files on disk, config #1 with the
 transformer and the other encoder variants, chain (curved-text) serving,
 bucketed serving of pages of any size, int8 serving and data-parallel
-training and serving over a process group.
+training and serving over a process group, the deformable (DCN) detector
+and the text spotters.
 
     python3 chip_smoke.py
 
@@ -255,6 +256,43 @@ Phases (any failure exits non-zero):
     against ``run`` (ids, lengths and valid equal, floats within 1e-3).
     The CTC and CCL kernels must launch (``launches_parallel``); the group
     is destroyed.
+
+22. dcn: ``seg_detector_dcn_synth.yaml``'s detector (ResNet-18 with
+    deformable stages 3 and 4, FPN 256, heads 64) on seeded weights whose
+    offsets are fractional and partly beyond +-2 (``seed_dcn_offsets``,
+    ``dcn_offset_saturation`` printed): 8 pages of 640x640 on the card
+    against the CPU (prob map within 1e-3, no mask pixel flipped); one
+    deformable conv and its parts (offset conv, sampling, contraction), the
+    3x3 conv it replaces, the DCN and the plain detector by CUDA events;
+    4 mixed-precision steps of the YAML through ``Experiment.from_yaml`` and
+    ``Trainer`` (finite losses, float32 parameters); one ``E2EPipeline``
+    batch with the config-#1 recognizer, the CCL kernel's labels equal to
+    the plain CCL's (``launches_dcn``).
+23. spotter: ``shared_spotter_synth.yaml``'s ``SharedTrunkSpotter`` at full
+    width (ResNet-18, FPN 256, heads 64, bins (4, 32), BiLSTM 256, offset
+    head 128, ``trans_fc2`` non-zero) through ``SpotterE2EPipeline`` (K 32)
+    on 8 pages of 640x640, the prob head calibrated: float32 stage by stage
+    against the CPU (fused map 1e-4 of its largest, prob 1e-3, labels and
+    valid slots equal, quads 1e-3 px; the logits from a float64 reference
+    within 4x the CPU's float32 distance from it, since float32 RoI
+    coordinates at page scale move the pooled features by about 1e-4 of
+    their scale; classes equal on every frame clear by twice that) and whole
+    runs equal in valid slots and clear-margin ids; bf16 on 2 pages against
+    the CPU's bf16 (the prob map, the share of mask pixels flipped and the
+    valid regions per page within twice the CPU's own bf16-vs-float32
+    distance); one
+    ``'pallas_full'`` batch (one launch of each extraction kernel, valid
+    slots equal to ``'xla'``'s, quads within 1e-2 px, statistics equal to
+    the CPU's); stage ms, the RoI pooling's ms and pages/s in float32 and
+    bf16 beside ``E2EPipeline``'s on the same pages; 4 mixed-precision
+    steps each of ``shared_spotter_synth.yaml`` and ``roi_spotter_synth.yaml``
+    (``SpotterPages``: ``TextPages`` with host GT maps), the CTC pair once a
+    step and held against the plain CTC on the step's rows (invalid slots'
+    dummy blank targets included: nll rtol 1e-4, gradient 1e-3) and through
+    one step of a float64 twin on 2 pages (loss rtol 1e-4, each gradient
+    leaf within 1e-3 of its largest plus 1e-5 of the largest leaf),
+    ``evaluate_spotting`` on 16 pages
+    (``launches_spotter``).
 
 Prints a JSON line of per-kernel numbers (all eight kernels, with their
 launches in each phase that drives a path), then, as the last line,
@@ -4328,6 +4366,552 @@ def phase_parallel(B: int = 64, steps: int = 4, pages: int = 8, hw: int = 640):
     return total
 
 
+def seed_dcn_offsets(net, x, seed: int, target: float = 1.5) -> list:
+    """Seeded weights put a deformable conv's offsets near 0. Redraw each
+    ``DeformableConv``'s kernel N(0, 2 / (K C)) and scale its offset rows so
+    that its raw offsets on the normalized pages ``x`` have std ``target``:
+    fractional, and about a sixth beyond +-2. Block by block in trunk order,
+    each measured after the ones before it are set. Returns each block's
+    ``dcn_offset_saturation`` on ``x``."""
+    from megreader_tpu_torch.models.deform import DeformableConv, dcn_offset_saturation
+
+    rng = np.random.default_rng(seed)
+    blocks = [(n, m) for n, m in net.named_modules() if isinstance(m, DeformableConv)]
+    sats = []
+    for name, m in blocks:
+        K = m.kernel_size ** 2
+        seen = []
+        hook = m.offset_conv.register_forward_hook(lambda mod, a, o: seen.append(o[:, :2 * K]))
+        with torch.no_grad():
+            net(x, heads=("prob",))
+            hook.remove()
+            k = m.kernel
+            k.copy_(torch.from_numpy(rng.standard_normal(tuple(k.shape)).astype(np.float32)
+                                     * np.sqrt(2.0 / k.shape[0])))
+            a = target / float(seen[0].std())
+            m.offset_conv.weight[:2 * K] *= a
+            m.offset_conv.bias[:2 * K] *= a
+    for name, m in blocks:
+        seen = []
+        hook = m.offset_conv.register_forward_hook(
+            lambda mod, a, o, K=m.kernel_size ** 2: seen.append(o[:, :2 * K]))
+        with torch.no_grad():
+            net(x, heads=("prob",))
+        hook.remove()
+        sats.append((name, {k: float(v) for k, v in dcn_offset_saturation(seen[0]).items()}))
+    return sats
+
+
+def phase_dcn(B: int = 8, hw: int = 640, steps: int = 4):
+    """``seg_detector_dcn_synth.yaml``'s detector (ResNet-18 with deformable
+    stages 3 and 4, FPN 256, heads 64) at full width on seeded weights whose
+    offsets are fractional and partly beyond +-2: B pages of hw x hw on the
+    card against the CPU, ``dcn_offset_saturation``, one deformable conv
+    (and its parts) and the whole detector by CUDA events beside the plain
+    ones, ``steps`` mixed-precision steps through ``Experiment.from_yaml`` and
+    ``Trainer``, and one ``E2EPipeline`` batch with the config-#1 recognizer
+    (the CCL kernel's labels equal to the plain CCL's). Returns every
+    kernel's launches in the phase."""
+    from megreader_tpu_torch.core.registry import COMPONENTS
+    from megreader_tpu_torch.experiment import Experiment
+    from megreader_tpu_torch.models.deform import deform_sample
+    from megreader_tpu_torch.models.detector import SegDetector
+    from megreader_tpu_torch.models.recognizer import CTCRecognizer
+    from megreader_tpu_torch.ops.ccl import connected_components_reference
+    from megreader_tpu_torch.ops.image import normalize
+    from megreader_tpu_torch.pipelines.e2e import E2EPipeline
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernel_counters(), 0)
+    rng = np.random.default_rng(SEED + 80)
+    pages_np = make_pages(rng, B, hw, hw)
+    pages = torch.from_numpy(pages_np).cuda()
+    x = normalize(pages)
+    det = SegDetector(backbone="resnet18", dcn_stages=(3, 4), fpn_dim=256, head_dim=64, k=50.0,
+                      device="cuda")
+    seeded_weights(det.net, SEED + 81)
+    sats = seed_dcn_offsets(det.net, x, SEED + 82)
+    log(f"dcn phase: dcn_offset_saturation on {B} pages of {hw}x{hw} (max_offset 2), by "
+        "block: " + json.dumps(dict(sats)))
+    if not all(0.0 < v["frac_clipped"] < 0.5 for _, v in sats):
+        raise AssertionError("dcn phase: the seeded offsets must be partly beyond +-2")
+    rec = CTCRecognizer(num_classes=37, device="cuda")
+    seeded_weights(rec.net, SEED + 83)
+    pipe = E2EPipeline(det, rec, max_regions=32, box_thresh=0.3, device="cuda")
+    calibrate_prob_head(pipe, det.net, pages)
+
+    # the card against the CPU on the same weights and pages
+    det_cpu = copy.deepcopy(det.net).cpu()
+    with torch.no_grad():
+        prob = pipe.detect(det.net, pages).cpu()
+        prob_c = pipe.detect(det_cpu, torch.from_numpy(pages_np))
+    gap = float((prob - prob_c).abs().max())
+    flips = float(((prob > pipe.bin_thresh) != (prob_c > pipe.bin_thresh)).float().mean())
+    log(f"dcn phase: prob map at {B}x{hw}x{hw} on the card vs the CPU: max |diff| {gap:.3g} "
+        f"(tolerance 1e-3), mask pixels that differ {flips:.3g} (tolerance 1e-5)")
+    if not gap <= 1e-3 or not flips <= 1e-5:
+        raise AssertionError(f"dcn phase: prob maps differ by {gap}, masks on {flips}")
+    del det_cpu
+
+    # one deformable conv (layer3_block0.conv2, on its input here) and its
+    # parts, the 3x3 conv it replaces, the whole detector and the plain one
+    dcn = det.net.backbone.layer3_block0.conv2
+    seen = []
+    hook = dcn.register_forward_hook(lambda m, a, o: seen.append(a[0]))
+    with torch.no_grad():
+        det.net(x, heads=("prob",))
+    hook.remove()
+    xin = seen[0]
+    plain_conv = torch.nn.Conv2d(xin.shape[1], xin.shape[1], 3, 1, 1, bias=False).cuda()
+    plain_det = SegDetector(backbone="resnet18", fpn_dim=256, head_dim=64, device="cuda")
+    seeded_weights(plain_det.net, SEED + 81)
+    nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
+    with torch.no_grad():
+        off, mod = dcn.offsets_and_modulation(xin)
+        sampled = deform_sample(nhwc(xin), nhwc(off), nhwc(mod))
+        flat = sampled.reshape(*sampled.shape[:3], -1)
+        parts = {
+            "deformable_conv": lambda: dcn(xin),
+            "offset_conv": lambda: dcn.offsets_and_modulation(xin),
+            "sampling": lambda: deform_sample(nhwc(xin), nhwc(off), nhwc(mod)),
+            "contraction": lambda: flat @ dcn.kernel,
+            "plain_3x3_conv": lambda: plain_conv(xin),
+            "dcn_detector": lambda: det.net(x, heads=("prob",)),
+            "plain_detector": lambda: plain_det.net(x, heads=("prob",)),
+        }
+        times = {k: cuda_ms(f, reps=10) for k, f in parts.items()}
+        busy = {k: device_busy_ms(parts[k]) for k in ("deformable_conv", "sampling",
+                                                      "dcn_detector", "plain_detector")}
+    log(f"dcn phase [{CARD}]: ms by CUDA events (median of 10) at {tuple(xin.shape)} (the "
+        f"block) and {B}x{hw}x{hw} (the detectors, prob head): " + json.dumps(times)
+        + "; kernel-busy ms " + json.dumps(busy))
+    del plain_det, plain_conv, sampled, flat
+
+    # mixed precision through the YAML (compute_dtype bfloat16, Adam 3e-4)
+    COMPONENTS.register(TextPages)
+    cfg = os.path.join(ROOT, "experiments", "seg_detector_dcn_synth.yaml")
+    with tempfile.TemporaryDirectory() as ws:
+        exp = Experiment.from_yaml(cfg, {
+            "experiment.model.device": "cuda", "experiment.workspace": ws,
+            "experiment.train_dataset": {"class": "TextPages", "n": B * steps,
+                                         "seed": SEED + 84, "hw": [hw, hw]},
+            "experiment.eval_dataset": {"class": "TextPages", "n": B, "seed": SEED + 85,
+                                        "hw": [hw, hw]},
+            "experiment.batch_size": B, "experiment.epochs": 1, "experiment.log_every": 1})
+        if exp.model.net.backbone.layer4_block1.conv2.__class__.__name__ != "DeformableConv":
+            raise AssertionError("dcn phase: the YAML's detector has no deformable stage 4")
+        t0 = time.perf_counter()
+        state = exp.make_trainer().train(resume=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _, losses, _ = step_seconds(ws)
+    dtypes = {str(t.dtype) for t in (*exp.model.net.parameters(), *exp.model.net.buffers())
+              if t.is_floating_point()}
+    log(f"dcn phase, seg_detector_dcn_synth.yaml (bf16 mixed precision): {state.step} steps of "
+        f"{B} pages in {wall:.2f} s (host clock, loader and device GT maps included) [{CARD}]; "
+        f"losses {losses}; parameter and buffer dtypes {sorted(dtypes)}")
+    if state.step != steps or len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"dcn phase: {state.step} steps, losses {losses}")
+    if dtypes != {"torch.float32"}:
+        raise AssertionError(f"dcn phase: dtypes {dtypes} in the trained model")
+    del exp, state
+
+    # one serving batch: the CCL kernel launches, its labels equal the plain CCL's
+    counters = zeroed_counters()
+    with torch.no_grad():
+        out = pipe.run(None, None, pages)
+        prob = pipe.detect(det.net, pages)
+        labels = pipe.label(prob)
+    torch.cuda.synchronize()
+    got = add_counts(total, counters)
+    want, _ = connected_components_reference(prob > pipe.bin_thresh, pipe.ccl_iters,
+                                             return_sweeps=True)
+    run_ms = cuda_ms(lambda: pipe.run(None, None, pages), reps=5)
+    log(f"dcn phase: E2EPipeline batch with the DCN detector: {int(out['valid'].sum())} valid "
+        f"regions, launches {json.dumps({n: v for n, v in got.items() if v})}, CCL labels "
+        f"{'equal to' if torch.equal(labels, want) else 'DIFFER from'} the plain CCL's; "
+        f"{run_ms} ms a batch by CUDA events = {B / run_ms * 1e3:.2f} pages/s [{CARD}]")
+    if got["ccl"] != 2 or not torch.equal(labels, want) or not bool(out["valid"].any()):
+        raise AssertionError(f"dcn phase: serving launches {got}, labels equal "
+                             f"{torch.equal(labels, want)}, valid {int(out['valid'].sum())}")
+    log(f"dcn phase: launches {json.dumps(total)}; {time.perf_counter() - t_phase:.1f} s "
+        "(host clock)")
+    del det, rec, pipe
+    torch.cuda.empty_cache()
+    return total
+
+
+class SpotterPages(TextPages):
+    """``TextPages`` with the host GT maps the shared-trunk spotter trains its
+    detection heads on (gt, mask, thresh_map, thresh_mask), rasterized by the
+    port's ``make_detection_gt`` on the CPU (the card's machine has no cv2);
+    ``gt_maps`` False (the RoI spotter's experiment sets it) leaves them out."""
+
+    def __init__(self, n: int, seed: int, hw=(640, 640), gt_maps: bool = True):
+        super().__init__(n, seed, hw)
+        self.gt_maps = gt_maps
+
+    def __getitem__(self, i: int):
+        from megreader_tpu_torch.ops.gt_maps import make_detection_gt, pad_polygons
+
+        item = super().__getitem__(i)
+        if self.gt_maps:
+            bufs = pad_polygons(item["polygons"], item["ignore"], max(1, len(item["polygons"])))
+            maps = make_detection_gt(*(torch.from_numpy(a)[None] for a in bufs),
+                                     hw=tuple(self.hw))
+            item.update({k: v[0].numpy() for k, v in maps.items()})
+        return item
+
+
+def spotter_ctc_rows(model, batch):
+    """The spotter's CTC pair held against the plain version on the rows a
+    train step gives it (the invalid slots' dummy blank targets among them):
+    nll rtol 1e-4 and d(sum nll)/d(log-probs) within 1e-3 of its largest
+    magnitude. Returns (rows, invalid rows, nll gap, gradient gap)."""
+    from megreader_tpu_torch.ops.ctc import ctc_nll_cuda, ctc_nll_reference
+
+    with torch.no_grad():
+        out = model.apply(batch["image"], batch["rois"], train=False)
+    logits = out["logits"] if isinstance(out, dict) else out
+    Bq, P, T, C = logits.shape
+    lp = torch.log_softmax(logits.float().reshape(Bq * P, T, C), -1).contiguous()
+    lab_len = batch["label_length"].to(torch.int32).reshape(-1)
+    valid = batch["roi_valid"].reshape(-1) & (lab_len > 0)
+    args = (torch.full((Bq * P,), T, dtype=torch.int32, device=lp.device),
+            batch["label"].to(torch.int32).reshape(Bq * P, -1).contiguous(),
+            torch.where(valid, lab_len, 1).contiguous())
+    res = []
+    for fn in (ctc_nll_cuda, ctc_nll_reference):
+        x = lp.clone().requires_grad_()
+        nll = fn(x, *args)
+        nll.sum().backward()
+        res.append((nll.detach(), x.grad))
+    (n_k, g_k), (n_p, g_p) = res
+    nll_gap = float(((n_k - n_p).abs() / n_p.abs().clamp(min=1e-6)).max())
+    grad_gap = float((g_k - g_p).abs().max()) / float(g_p.abs().max())
+    if not (torch.isfinite(n_k).all() and torch.isfinite(g_k).all()):
+        raise AssertionError("spotter phase: the CTC kernels gave a non-finite row")
+    if not nll_gap <= 1e-4 or not grad_gap <= 1e-3:
+        raise AssertionError(f"spotter phase: CTC kernels vs plain: nll {nll_gap}, "
+                             f"gradient {grad_gap}")
+    return Bq * P, int((~valid).sum()), nll_gap, grad_gap
+
+
+def float64_twin(net):
+    """A float64 copy of ``net`` with every compute dtype cleared (mixed
+    precision's bf16 convs and matmuls then promote to float64)."""
+    twin = copy.deepcopy(net).double()
+    for m in twin.modules():
+        for attr in ("compute_dtype", "dtype"):
+            if isinstance(getattr(m, attr, None), torch.dtype):
+                setattr(m, attr, None)
+    return twin
+
+
+def spotter_step_parity(model, batch, n: int = 2):
+    """One train-mode loss and its gradients through the CTC kernels against
+    the same step with the plain CTC, on the first ``n`` pages of ``batch``
+    with a float64 twin of the net (both CTC losses take float32 logits; in
+    bf16 a gradient's rounding amplifies the two losses' float32 noise
+    through the trunk): loss rtol 1e-4, every gradient leaf within 1e-3 of
+    its largest magnitude plus 1e-5 of the largest over all leaves. Returns
+    the two losses and the worst leaf's share of its bound."""
+    from megreader_tpu_torch.models import spotter as spotter_module
+    from megreader_tpu_torch.ops.ctc import ctc_loss_reference
+
+    batch = {k: (v[:n].double() if v.is_floating_point() else v[:n]) for k, v in batch.items()}
+    res = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for plain in (False, True):
+            m = copy.copy(model)
+            m.net = float64_twin(model.net)
+            saved = spotter_module.ctc_loss
+            if plain:
+                spotter_module.ctc_loss = ctc_loss_reference
+            try:
+                loss, _ = m.loss(batch, train=True)
+                loss.backward()
+            finally:
+                spotter_module.ctc_loss = saved
+            res.append((loss.item(), {k: p.grad.float() for k, p in m.net.named_parameters()
+                                      if p.grad is not None}))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (l_k, g_k), (l_p, g_p) = res
+    top = max(float(g.abs().max()) for g in g_p.values())
+    ratio = {k: float((g_k[k] - g).abs().max()) / (1e-3 * float(g.abs().max()) + 1e-5 * top)
+             for k, g in g_p.items()}
+    worst = max(ratio, key=ratio.get)
+    if not abs(l_k - l_p) <= 1e-4 * abs(l_p) or not ratio[worst] <= 1.0:
+        raise AssertionError(f"spotter phase: step through the kernels {l_k} vs plain {l_p}, "
+                             f"worst leaf {worst} at {ratio[worst]:.3g} of its bound")
+    return l_k, l_p, worst, ratio[worst]
+
+
+def phase_spotter(B: int = 8, hw: int = 640, K: int = 32, steps: int = 4):
+    """``shared_spotter_synth.yaml``'s ``SharedTrunkSpotter`` at full width
+    (ResNet-18, FPN 256, heads 64, bins (4, 32), BiLSTM 256, offset head
+    128, ``trans_fc2`` non-zero) through ``SpotterE2EPipeline`` (K slots) on
+    B pages of hw x hw with the prob head calibrated: float32 and bf16
+    against the CPU, one ``'pallas_full'`` batch against ``'xla'``, pages/s
+    by events beside ``E2EPipeline``'s on the same pages, the RoI pooling's
+    ms; then ``steps`` training steps of ``shared_spotter_synth.yaml`` and of
+    ``roi_spotter_synth.yaml`` through ``Experiment.from_yaml``/``Trainer``
+    (the CTC pair on every step, held against the plain CTC on the step's
+    rows and through a step) and ``evaluate_spotting`` on two eval batches.
+    Returns every kernel's launches in the phase."""
+    import types
+
+    from megreader_tpu_torch.core.registry import COMPONENTS
+    from megreader_tpu_torch.evaluation import evaluate_spotting
+    from megreader_tpu_torch.experiment import Experiment
+    from megreader_tpu_torch.models.detector import SegDetector
+    from megreader_tpu_torch.models.recognizer import CTCRecognizer
+    from megreader_tpu_torch.models.spotter import SharedTrunkSpotter
+    from megreader_tpu_torch.ops.ccl import extract_regions
+    from megreader_tpu_torch.ops.ctc import ctc_greedy_decode
+    from megreader_tpu_torch.pipelines.e2e import E2EPipeline
+    from megreader_tpu_torch.pipelines.spotter_e2e import SpotterE2EPipeline
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernel_counters(), 0)
+    rng = np.random.default_rng(SEED + 90)
+    pages_np = make_pages(rng, B, hw, hw)
+    pages = torch.from_numpy(pages_np).cuda()
+    spot = SharedTrunkSpotter(num_classes=37, backbone="resnet18", fpn_dim=256, head_dim=64,
+                              pool_hw=(4, 32), hidden=256, device="cuda")
+    seeded_weights(spot.net, SEED + 91)
+    pipe = SpotterE2EPipeline(spot, max_regions=K, box_thresh=0.3, device="cuda")
+    calibrate_prob_head(types.SimpleNamespace(
+        detect=lambda net, p: pipe.detect(net, pipe.fused(net, p)), bin_thresh=pipe.bin_thresh),
+        spot.net, pages)
+    net_cpu = copy.deepcopy(spot.net).cpu()
+    spot_cpu = copy.copy(spot)
+    spot_cpu.net = net_cpu
+    pg = torch.from_numpy(pages_np)
+    gaps = {}
+
+    # float32, stage by stage: each card stage fed the CPU's previous output
+    cpu = SpotterE2EPipeline(spot_cpu, max_regions=K, box_thresh=0.3, device="cpu")
+    counters = zeroed_counters()
+    with torch.no_grad():
+        fused_c = cpu.fused(net_cpu, pg)
+        prob_c = cpu.detect(net_cpu, fused_c)
+        labels_c = cpu.label(prob_c)
+        reg_c = cpu.regions(labels_c, prob_c)
+        logits_c = net_cpu.eval().recognize(fused_c, reg_c["boxes"])
+        fused_d = pipe.fused(spot.net, pages)
+        gaps["fused"] = float((fused_d.cpu() - fused_c).abs().max() / fused_c.abs().max())
+        prob_d = pipe.detect(spot.net, fused_c.cuda()).cpu()
+        gaps["prob"] = float((prob_d - prob_c).abs().max())
+        labels_d = pipe.label(prob_c.cuda()).cpu()
+        reg_d = pipe.regions(labels_c.cuda(), prob_c.cuda())
+        found = reg_c["stats"]["valid"]
+        gaps["quads_px"] = float((reg_d["quads"].cpu()[found] - reg_c["quads"][found]).abs().max())
+        logits_d = spot.net.eval().recognize(fused_c.cuda(), reg_c["boxes"].cuda()).cpu()
+        # float32 RoI sampling at page coordinates (an ulp of 6e-5 px at 640)
+        # moves the pooled features by 1e-4 of their scale: the logits are
+        # held to float64 on the CPU, the card within 4x the CPU's float32
+        net64 = copy.deepcopy(net_cpu).double()
+        seen = []
+        hook = net64.classifier.register_forward_hook(lambda m, a, o: seen.append(o))
+        net64.recognize(fused_c.double(), reg_c["boxes"].double())
+        hook.remove()
+        logits_64 = seen[0].reshape(logits_c.shape)
+        del net64
+        scale = float(logits_c.abs().max())
+        gaps["logits"] = float((logits_d - logits_c).abs().max())
+        gaps["logits_card_vs_f64"] = float((logits_d.double() - logits_64).abs().max())
+        gaps["logits_cpu_vs_f64"] = float((logits_c.double() - logits_64).abs().max())
+        out_c = cpu.run(None, pg)
+        out_d = {k: v.cpu() for k, v in pipe.run(None, pages).items()}
+    torch.cuda.synchronize()
+    add_counts(total, counters)
+    logit_bound = 4 * max(gaps["logits_cpu_vs_f64"], 1e-5 * max(1.0, scale))
+    top2 = logits_c.topk(2, -1).values
+    clear_frames = (top2[..., 0] - top2[..., 1]) > 2 * logit_bound  # (B, K, T)
+    frames_same = (logits_c.argmax(-1) == logits_d.argmax(-1))[clear_frames]
+    clear = clear_frames.all(-1)  # (B, K)
+    lengths = torch.full((B * K,), logits_c.shape[2], dtype=torch.int32)
+    ids_c, _ = ctc_greedy_decode(logits_c.reshape(B * K, *logits_c.shape[2:]), lengths)
+    ids_d, _ = ctc_greedy_decode(logits_d.reshape(B * K, *logits_d.shape[2:]), lengths)
+    same = (ids_c == ids_d).all(1).reshape(B, K)
+    run_same = (out_c["ids"] == out_d["ids"]).all(-1) & (out_c["lengths"] == out_d["lengths"])
+    log(f"spotter phase, float32 on the card vs the CPU ({B} pages of {hw}x{hw}, K {K}): "
+        f"max |diff| {json.dumps(gaps)} (fused relative to its largest, tolerances: fused 1e-4, "
+        f"prob 1e-3, quads 1e-3 px, the card's logits from float64 within 4x the CPU's "
+        f"float32 distance, {logit_bound:.3g}; their largest {scale:.4g}); labels "
+        f"{'equal' if torch.equal(labels_d, labels_c) else 'DIFFER'}; valid "
+        f"{int(reg_c['valid'].sum())} of {B * K} slots; the same class on "
+        f"{int(frames_same.sum())} of {int(clear_frames.sum())} frames clear by twice the "
+        f"logits' bound (of {clear_frames.numel()}); greedy ids equal on {int(same.sum())} of "
+        f"{B * K} slots, on all {int(clear.sum())} of clear-margin frames; whole runs: valid "
+        f"{'equal' if torch.equal(out_c['valid'], out_d['valid']) else 'DIFFER'}, ids equal on "
+        f"{int(run_same[out_c['valid'] & clear].sum())} of {int((out_c['valid'] & clear).sum())} "
+        "valid clear-margin slots")
+    if not (gaps["fused"] <= 1e-4 and gaps["prob"] <= 1e-3 and gaps["quads_px"] <= 1e-3
+            and gaps["logits_card_vs_f64"] <= logit_bound):
+        raise AssertionError(f"spotter phase: card vs CPU {gaps}")
+    if not torch.equal(labels_d, labels_c) or not torch.equal(reg_d["valid"].cpu(),
+                                                              reg_c["valid"]):
+        raise AssertionError("spotter phase: labels or valid slots differ from the CPU's")
+    if not bool(frames_same.all()) or not bool(same[clear].all()) or not int(
+            reg_c["valid"].sum()):
+        raise AssertionError("spotter phase: ids differ on clear-margin slots, or no region")
+    if not torch.equal(out_c["valid"], out_d["valid"]) or not bool(
+            run_same[out_c["valid"] & clear].all()):
+        raise AssertionError("spotter phase: the whole run's valid slots or ids differ")
+    del fused_c, fused_d
+
+    # bf16 on 2 pages (the CPU's bf16 convs are slow): the card's against the
+    # CPU's, within twice the CPU's own bf16-vs-float32 distance in the prob
+    # map, in the share of mask pixels flipped and in valid regions per page
+    # (at least 1): a calibrated random head puts many pixels near the
+    # threshold, where bf16 flips them
+    pipe16 = SpotterE2EPipeline(spot, max_regions=K, box_thresh=0.3, bf16=True, device="cuda")
+    cpu16 = SpotterE2EPipeline(spot_cpu, max_regions=K, box_thresh=0.3, bf16=True, device="cpu")
+    with torch.no_grad():
+        prob16_c = cpu16.detect(net_cpu, cpu16.fused(net_cpu, pg[:2]))
+        prob16_d = pipe16.detect(spot.net, pipe16.fused(spot.net, pages[:2])).cpu()
+        out16_c = cpu16.run(None, pg[:2])
+        out16_d = {k: v.cpu() for k, v in pipe16.run(None, pages[:2]).items()}
+    thr = pipe.bin_thresh
+    g16 = {"prob": float((prob16_d - prob16_c).abs().max()),
+           "cpu_bf16_vs_f32": float((prob16_c - prob_c[:2]).abs().max()),
+           "mask": float(((prob16_d > thr) != (prob16_c > thr)).float().mean()),
+           "cpu_mask_bf16_vs_f32": float(((prob16_c > thr) != (prob_c[:2] > thr))
+                                         .float().mean())}
+    n16_c, n16_d = out16_c["valid"].sum(1), out16_d["valid"].sum(1)
+    n32_c = out_c["valid"][:2].sum(1)
+    n_tol = torch.clamp(2 * (n16_c - n32_c).abs(), min=1)
+    log(f"spotter phase, bf16 on the card vs the CPU: {json.dumps(g16)} (tolerances: 2x the "
+        f"CPU's own bf16-vs-float32 distance); valid per page {n16_d.tolist()} on the card, "
+        f"{n16_c.tolist()} on the CPU in bf16, {n32_c.tolist()} in float32 (tolerance "
+        f"{n_tol.tolist()})")
+    if not (g16["prob"] <= 2 * max(g16["cpu_bf16_vs_f32"], 1e-3)
+            and g16["mask"] <= 2 * max(g16["cpu_mask_bf16_vs_f32"], 1e-4)):
+        raise AssertionError(f"spotter phase: bf16 card vs CPU {g16}")
+    if not bool(((n16_c - n16_d).abs() <= n_tol).all()) or not bool(out16_d["valid"].any()):
+        raise AssertionError("spotter phase: bf16 valid regions differ from the CPU's")
+    del net_cpu, spot_cpu, cpu, cpu16
+
+    # 'pallas_full': one launch of each extraction kernel, its statistics
+    # equal to the same call on the CPU, valid slots equal to 'xla''s
+    full = SpotterE2EPipeline(spot, max_regions=K, box_thresh=0.3,
+                              extract_impl="pallas_full", device="cuda")
+    counters = zeroed_counters()
+    with torch.no_grad():
+        out_f = full.run(None, pages)
+    torch.cuda.synchronize()
+    got_f = add_counts(total, counters)
+    with torch.no_grad():
+        st_d = extract_regions(labels_c.cuda(), prob_c.cuda(), max_regions=K,
+                               impl="pallas_full")
+        st_c = extract_regions(labels_c, prob_c, max_regions=K, impl="pallas_full")
+    quad_f = float((out_f["quads"] - out_d["quads"].cuda())[out_d["valid"].cuda()].abs().max())
+    log(f"spotter phase, extract_impl 'pallas_full': launches "
+        f"{json.dumps({n: v for n, v in got_f.items() if v})}; valid "
+        f"{'equal' if torch.equal(out_f['valid'].cpu(), out_d['valid']) else 'DIFFER'} to "
+        f"'xla''s, quads within {quad_f:.3g} px (tolerance 1e-2); statistics on the card vs "
+        f"the CPU: valid and area "
+        f"{'equal' if torch.equal(st_d['valid'].cpu(), st_c['valid']) and torch.equal(st_d['area'].cpu(), st_c['area']) else 'DIFFER'}")
+    if any(got_f[n] != 1 for n in ("candidates", "moments", "extents", "ccl")):
+        raise AssertionError(f"spotter phase: 'pallas_full' launches {got_f}")
+    if not (torch.equal(out_f["valid"].cpu(), out_d["valid"]) and quad_f <= 1e-2
+            and torch.equal(st_d["valid"].cpu(), st_c["valid"])
+            and torch.equal(st_d["area"].cpu(), st_c["area"])):
+        raise AssertionError("spotter phase: 'pallas_full' differs from 'xla' or the CPU")
+
+    # times: the spotter in float32 and bf16 beside E2EPipeline on the same pages
+    det = SegDetector(backbone="resnet18", fpn_dim=256, head_dim=64, device="cuda")
+    rec = CTCRecognizer(num_classes=37, device="cuda")
+    seeded_weights(det.net, SEED + 92)
+    seeded_weights(rec.net, SEED + 93)
+    e2e = E2EPipeline(det, rec, max_regions=K, box_thresh=0.3, device="cuda")
+    calibrate_prob_head(e2e, det.net, pages)
+    e2e16 = E2EPipeline(det, rec, max_regions=K, box_thresh=0.3, bf16=True, device="cuda")
+    with torch.no_grad():
+        fused = pipe.fused(spot.net, pages)
+        prob = pipe.detect(spot.net, fused)
+        labels = pipe.label(prob)
+        reg = pipe.regions(labels, prob)
+        feats = fused.permute(0, 2, 3, 1).float()
+        stage = {
+            "fused_map": lambda: pipe.fused(spot.net, pages),
+            "prob_head": lambda: pipe.detect(spot.net, fused),
+            "ccl": lambda: pipe.label(prob),
+            "extract": lambda: pipe.regions(labels, prob),
+            "roi_pooling": lambda: spot.net.roi_pool(feats, reg["boxes"]),
+            "recognize": lambda: pipe.recognize(spot.net, fused, reg["boxes"]),
+        }
+        stage_ms = {k: cuda_ms(f, reps=5) for k, f in stage.items()}
+        roi_busy = device_busy_ms(stage["roi_pooling"])
+        runs = {"spotter_f32": lambda: pipe.run(None, pages),
+                "spotter_bf16": lambda: pipe16.run(None, pages),
+                "e2e_f32": lambda: e2e.run(None, None, pages),
+                "e2e_bf16": lambda: e2e16.run(None, None, pages)}
+        run_ms = {k: cuda_ms(f, reps=5) for k, f in runs.items()}
+        run_busy = {k: device_busy_ms(f) for k, f in runs.items()}
+    log(f"spotter phase [{CARD}]: stage ms (CUDA events, median of 5; the RoI pooling of "
+        f"{B * K} boxes, kernel-busy {roi_busy} ms): " + json.dumps(stage_ms))
+    log(f"spotter phase [{CARD}]: ms a batch of {B} by CUDA events (median of 5) "
+        + json.dumps(run_ms) + "; pages/s " + json.dumps(
+            {k: B / v * 1e3 for k, v in run_ms.items()}) + "; kernel-busy ms "
+        + json.dumps(run_busy))
+    del det, rec, e2e, e2e16, fused, feats, pipe16, full
+
+    # training: both spotter YAMLs in mixed precision, SpotterPages put in
+    COMPONENTS.register(SpotterPages)
+    data = {"class": "SpotterPages", "n": B * steps, "seed": SEED + 94, "hw": [hw, hw]}
+    eval_data = {"class": "SpotterPages", "n": 2 * B, "seed": SEED + 95, "hw": [hw, hw]}
+    for name in ("shared_spotter_synth", "roi_spotter_synth"):
+        with tempfile.TemporaryDirectory() as ws:
+            exp = Experiment.from_yaml(os.path.join(ROOT, "experiments", f"{name}.yaml"), {
+                "experiment.model.device": "cuda", "experiment.workspace": ws,
+                "experiment.train_dataset": data, "experiment.eval_dataset": eval_data,
+                "experiment.batch_size": B, "experiment.epochs": 1,
+                "experiment.log_every": 1, "experiment.loader_worker_mode": "thread"})
+            counters = zeroed_counters()
+            t0 = time.perf_counter()
+            state = exp.make_trainer().train(resume=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = add_counts(total, counters)
+            _, losses, _ = step_seconds(ws)
+            raw = exp.collate([exp.train_loader.dataset[i] for i in range(B)])
+            batch = exp.prepare(raw)
+            rows = spotter_ctc_rows(exp.model, batch)
+            parity = spotter_step_parity(exp.model, batch)
+            metrics = evaluate_spotting(exp)
+            dtypes = {str(t.dtype) for t in exp.model.net.parameters()}
+        log(f"spotter phase, {name} ({type(exp.model).__name__}, bf16 mixed precision): "
+            f"{state.step} steps of {B} pages in {wall:.2f} s (host clock) [{CARD}]; launches "
+            f"{json.dumps({n: v for n, v in got.items() if v})}; losses {losses}; CTC kernels "
+            f"vs plain on the step's {rows[0]} rows ({rows[1]} invalid, dummy blank targets): "
+            f"nll {rows[2]:.3g}, gradient {rows[3]:.3g} of its largest; a step on 2 pages "
+            f"(float64 twin) through the kernels {parity[0]} vs the plain CTC {parity[1]}, "
+            f"worst leaf {parity[2]} at "
+            f"{parity[3]:.3g} of its bound; evaluate_spotting on {2 * B} pages "
+            f"{json.dumps(metrics)}; parameter dtypes {sorted(dtypes)}")
+        if state.step != steps or len(losses) != steps or not all(np.isfinite(losses)):
+            raise AssertionError(f"spotter phase, {name}: {state.step} steps, losses {losses}")
+        if (got["ctc_alpha"], got["ctc_beta"]) != (steps, steps) or dtypes != {"torch.float32"}:
+            raise AssertionError(f"spotter phase, {name}: launches {got}, dtypes {dtypes}")
+        if not metrics["n"] > 0 or not all(np.isfinite(list(metrics.values()))):
+            raise AssertionError(f"spotter phase, {name}: evaluate_spotting {metrics}")
+        del exp, state, batch
+    for n in ("ccl", "ctc_alpha", "ctc_beta", "candidates", "moments", "extents"):
+        if not total[n]:
+            raise AssertionError(f"spotter phase: kernel {n} did not launch: {total}")
+    log(f"spotter phase: launches {json.dumps(total)}; {time.perf_counter() - t_phase:.1f} s "
+        "(host clock)")
+    del spot, pipe
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -4353,10 +4937,15 @@ def main() -> int:
     chains, buckets = phase_curved()
     int8 = phase_int8()
     parallel = phase_parallel()
+    dcn = phase_dcn()
+    spotter = phase_spotter()
     for name, total, needed in (("encoders", encoders, ("ctc_alpha", "ctc_beta")),
                                 ("chains", chains, ("ccl", "candidates", "moments", "extents")),
                                 ("buckets", buckets, ("ccl",)), ("int8", int8, ("ccl",)),
-                                ("parallel", parallel, ("ctc_alpha", "ctc_beta"))):
+                                ("parallel", parallel, ("ctc_alpha", "ctc_beta")),
+                                ("dcn", dcn, ("ccl",)),
+                                ("spotter", spotter, ("ccl", "ctc_alpha", "ctc_beta",
+                                                      "candidates", "moments", "extents"))):
         if not all(total[n] for n in needed):
             raise AssertionError(f"{name} phase: a kernel of its path did not launch: {total}")
     rows = [ccl_row, *extract_rows, alpha_row, beta_row, alpha2d_row, beta2d_row]
@@ -4370,6 +4959,8 @@ def main() -> int:
         row["launches_buckets"] = buckets[key]
         row["launches_int8"] = int8[key]
         row["launches_parallel"] = parallel[key]
+        row["launches_dcn"] = dcn[key]
+        row["launches_spotter"] = spotter[key]
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

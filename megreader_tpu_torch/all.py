@@ -25,9 +25,11 @@ from .models.attention import AttentionRecognizer
 from .models.detector import SegDetector
 from .models.recognizer import CTCRecognizer
 from .models.recognizer2d import Ctc2dRecognizer
+from .models.spotter import RoITextSpotter, SharedTrunkSpotter
 from .pipelines.bucketed import BucketedE2E
 from .pipelines.e2e import E2EPipeline
 from .pipelines.predictors import DetectorPredictor, RecognizerPredictor
+from .pipelines.spotter_e2e import SpotterE2EPipeline
 from .postproc.detection import SegDetectorRepresenter
 from .postproc.measurers import DetectionMeasurer, DetEvalMeasurer, RecognitionMeasurer
 from .train.checkpoint import CheckpointManager
@@ -39,17 +41,15 @@ from .utils.signal_monitor import SignalMonitor
 PORTED = (
     Charset, AttentionCharset, SyntheticRecognitionDataset, SyntheticDetectionDataset,
     RecognitionListDataset, DetectionICDARDataset, MixtureDataset,
-    HardSyntheticRecognitionDataset, HardSyntheticDetectionDataset, Loader, Experiment, CTCRecognizer, Ctc2dRecognizer, AttentionRecognizer, SegDetector,
-    E2EPipeline, BucketedE2E, RecognizerPredictor, DetectorPredictor, SegDetectorRepresenter,
-    DetectionMeasurer, DetEvalMeasurer, RecognitionMeasurer, CheckpointManager, Logger,
+    HardSyntheticRecognitionDataset, HardSyntheticDetectionDataset, Loader, Experiment,
+    CTCRecognizer, Ctc2dRecognizer, AttentionRecognizer, SegDetector, RoITextSpotter,
+    SharedTrunkSpotter, E2EPipeline, BucketedE2E, SpotterE2EPipeline, RecognizerPredictor,
+    DetectorPredictor, SegDetectorRepresenter, DetectionMeasurer, DetEvalMeasurer, RecognitionMeasurer, CheckpointManager, Logger,
     OptimizerConfig, Trainer, SignalMonitor,
 )
 
 #: JAX component name -> (ROADMAP Queue 1 item, what it is)
 NOT_PORTED = {
-    "RoITextSpotter": (13, "the RoI text spotter"),
-    "SharedTrunkSpotter": (13, "the shared-trunk spotter"),
-    "SpotterE2EPipeline": (13, "the spotter's page pipeline"),
     "DetectionVisualizer": (15, "the detection visualizer"),
 }
 

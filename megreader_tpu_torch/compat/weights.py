@@ -19,6 +19,8 @@ arrays) maps onto a port module's parameters and buffers by name:
   ``DenseGeneral`` ``kernel``/``bias`` (query, key, value (D, heads,
   head_dim), out (heads, head_dim, D)) as they are; the transformer
   encoder's ``pos_embed`` as it is;
+* the deformable conv's ``kernel`` (K * C, F) as it is (its ``offset_conv``
+  is a conv as above);
 * the root module's own parameter ``pos2d`` (the attention net's, which flax
   makes inside ``encode``) <- ``params/pos2d``, as it is.
 
@@ -37,6 +39,7 @@ import torch
 import torch.nn as nn
 
 from ..models.attention import GRUCellTorchlike
+from ..models.deform import DeformableConv
 from ..models.sequence import LSTM, DenseGeneral, TransformerEncoder
 
 Path = Tuple[str, ...]
@@ -87,6 +90,8 @@ def _entries(module: nn.Module):
         elif isinstance(m, DenseGeneral):
             yield pre + "kernel", "params", path + ("kernel",), None
             yield pre + "bias", "params", path + ("bias",), None
+        elif isinstance(m, DeformableConv):
+            yield pre + "kernel", "params", path + ("kernel",), None
         elif isinstance(m, TransformerEncoder):
             yield pre + "pos_embed", "params", path + ("pos_embed",), None
         elif isinstance(m, nn.BatchNorm2d):

@@ -1,8 +1,9 @@
 """Batching loader: dataset dicts -> stacked numpy batches, prefetched.
 
-A port of ``megreader_tpu/data/loader.py``: the recognition and detection
-collates (``detection_collate`` stacks host GT maps in compact wire types;
-``detection_collate_polys`` pads polygon lists for the device GT maps), and
+A port of ``megreader_tpu/data/loader.py``: the recognition, detection and
+spotting collates (``detection_collate`` stacks host GT maps in compact wire
+types; ``detection_collate_polys`` pads polygon lists for the device GT maps,
+and ``spotting_collate`` adds each polygon's transcript), and
 the same shuffle (``np.random.default_rng(seed + epoch)``, the epoch counted
 from 1 at each ``iter``), so both packages visit a dataset in the same order, index for
 index; ``drop_last``; a pool that fetches the samples of a batch, of threads
@@ -81,6 +82,32 @@ def detection_collate_polys(samples: Sequence[Dict], max_polys: int = 16) -> Dic
     for k in _LIST_KEYS:
         if k in samples[0]:
             batch[k] = [s[k] for s in samples]
+    return batch
+
+
+def spotting_collate(samples: Sequence[Dict], charset: Charset, max_polys: int = 16,
+                     max_label_len: int = 16) -> Dict:
+    """RoI spotting: ``detection_collate_polys`` plus each polygon's
+    transcript, encoded in slot order: label (B, P, max_label_len) and
+    label_length (B, P) int32, zero in the empty slots. Host GT maps, where
+    the samples carry them (the shared-trunk spotter's joint training), pass
+    through in ``detection_collate``'s compact types."""
+    batch = detection_collate_polys(samples, max_polys)
+    B, cap = batch["poly_valid"].shape
+    labels = np.zeros((B, cap, max_label_len), np.int32)
+    lengths = np.zeros((B, cap), np.int32)
+    for b, s in enumerate(samples):
+        texts = s.get("texts") or []
+        if texts:
+            enc, lens = charset.encode_batch(texts[:cap], max_label_len)
+            labels[b, :len(enc)] = enc
+            lengths[b, :len(enc)] = lens
+    batch["label"] = labels
+    batch["label_length"] = lengths
+    if "gt" in samples[0]:
+        for k in ("gt", "mask", "thresh_mask"):
+            batch[k] = np.stack([s[k] for s in samples]).astype(np.uint8)
+        batch["thresh_map"] = np.stack([s["thresh_map"] for s in samples]).astype(np.float16)
     return batch
 
 

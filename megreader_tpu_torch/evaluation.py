@@ -1,6 +1,7 @@
-"""Evaluation loops: recognition accuracy / NED and detection P/R/H-mean
-(``megreader_tpu/evaluation.py``): the model's forward, the representer or the
-predictor, then the measurer, over the experiment's eval set."""
+"""Evaluation loops: recognition accuracy / NED, detection P/R/H-mean and
+spotting accuracy / NED on GT boxes (``megreader_tpu/evaluation.py``): the
+model's forward, the representer or the predictor, then the measurer, over
+the experiment's eval set."""
 
 from __future__ import annotations
 
@@ -61,11 +62,34 @@ def evaluate_detection(exp, net: nn.Module = None,
     return measurer.gather(raws)
 
 
+def evaluate_spotting(exp, net: nn.Module = None) -> Dict[str, float]:
+    """A spotter's accuracy, normalized edit distance and count over the
+    valid GT boxes of ``exp.eval_loader`` (recognition given true
+    localization): the prepared RoIs greedy-decoded by ``net`` (None: the
+    model's own module), each valid slot's string against its transcript."""
+    if exp.eval_loader is None:
+        raise ValueError("experiment has no eval dataset")
+    preds, gts = [], []
+    for batch in exp.eval_loader:
+        prepped = exp.prepare(batch)
+        ids, lens = exp.model.decode(prepped["image"], prepped["rois"], net=net)
+        valid = prepped["roi_valid"].cpu().numpy()
+        ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
+        for b, texts in enumerate(batch["texts"]):
+            for k, t in enumerate(texts[:ids.shape[1]]):
+                if valid[b, k]:
+                    preds.append(exp.charset.decode(ids[b, k][:lens[b, k]]))
+                    gts.append(exp.charset.normalize(t))
+    return RecognitionMeasurer().measure(preds, gts)
+
+
 def evaluate(exp, net: nn.Module = None, mode: str = "greedy", protocol: str = "icdar2015",
              representer_mode: str = "quad", int8: bool = False) -> Dict[str, float]:
     """The task's evaluation: detection for ``SegDetector`` (``int8`` as
-    there), else recognition, which ignores ``int8`` as the JAX package's
-    does."""
+    there), spotting for the spotters, else recognition; spotting and
+    recognition ignore ``int8`` as the JAX package's do."""
+    if exp.task in ("RoITextSpotter", "SharedTrunkSpotter"):
+        return evaluate_spotting(exp, net)
     if exp.task != "SegDetector":
         return evaluate_recognition(exp, net, mode=mode)
     return evaluate_detection(exp, net, representer=SegDetectorRepresenter(mode=representer_mode),

@@ -20,9 +20,18 @@ built from Python objects.
   datasets' host maps off; without it, the datasets' host maps travel in
   compact types (``detection_collate``) and are cast on the device.
 
+* Spotting (``RoITextSpotter``, ``SharedTrunkSpotter``): the host ships
+  pages, padded polygon buffers and each polygon's encoded transcript
+  (``spotting_collate``); the prepare function turns the polygons into
+  axis-aligned RoIs with a 2-pixel margin and the valid, unignored slots
+  into ``roi_valid``. The shared-trunk spotter also trains its detection
+  heads on the datasets' host GT maps, which pass through; the RoI spotter
+  turns them off.
+
 With ``validate_every_steps`` and an eval dataset, the trainer runs
 ``evaluation.evaluate`` every so many steps: ``evaluate_recognition``
-(greedy, or Viterbi for Markov heights) or ``evaluate_detection``.
+(greedy, or Viterbi for Markov heights), ``evaluate_detection`` or
+``evaluate_spotting``.
 
 ``Experiment.from_yaml`` builds one from an ``experiments/*.yaml`` file
 through the port's registry (``all.py``, ``core/config.py``).
@@ -37,7 +46,13 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .data.loader import Loader, detection_collate, detection_collate_polys, recognition_collate
+from .data.loader import (
+    Loader,
+    detection_collate,
+    detection_collate_polys,
+    recognition_collate,
+    spotting_collate,
+)
 from .core.config import Config
 from .evaluation import evaluate
 from .ops.gt_maps import make_detection_gt
@@ -48,6 +63,7 @@ from .train.trainer import Trainer
 
 RECOGNITION_TASKS = {"CTCRecognizer", "Ctc2dRecognizer", "AttentionRecognizer"}
 DETECTION_TASKS = {"SegDetector"}
+SPOTTING_TASKS = {"RoITextSpotter", "SharedTrunkSpotter"}
 #: the dataset attributes that set the device GT maps' geometry
 _GT_ATTRS = ("shrink_ratio", "min_text_size", "thresh_min", "thresh_max")
 
@@ -108,6 +124,31 @@ def _detection_prepare_device(batch: Dict, gt_kwargs: Optional[Dict] = None,
     return {"image": normalize(image), **maps}
 
 
+def _spotting_prepare(batch: Dict, box_margin: float = 2.0, device="cuda") -> Dict:
+    """Host spotting batch -> pages, RoIs (B, P, 4) from the polygons'
+    bounds widened by ``box_margin`` and clamped to the page, ``roi_valid``
+    (valid and not ignored), labels; host GT maps, where present, as float32
+    maps."""
+    image = normalize(torch.as_tensor(np.asarray(batch["image"])).to(device).float())
+    polys = torch.as_tensor(np.asarray(batch["polys"])).to(device)  # (B, P, 4, 2)
+    H, W = image.shape[1], image.shape[2]
+    m = box_margin
+    rois = torch.stack([
+        torch.clamp(polys[..., 0].amin(-1) - m, 0, W - 1),
+        torch.clamp(polys[..., 1].amin(-1) - m, 0, H - 1),
+        torch.clamp(polys[..., 0].amax(-1) + m, 1, W),
+        torch.clamp(polys[..., 1].amax(-1) + m, 1, H),
+    ], -1)
+    as_dev = lambda k: torch.as_tensor(np.asarray(batch[k])).to(device)  # noqa: E731
+    out = {"image": image, "rois": rois,
+           "roi_valid": as_dev("poly_valid") & ~as_dev("poly_ignore"),
+           "label": as_dev("label"), "label_length": as_dev("label_length")}
+    for k in ("gt", "mask", "thresh_map", "thresh_mask"):
+        if k in batch:
+            out[k] = as_dev(k).float()
+    return out
+
+
 def _model_takes_crop_hw(node: Dict) -> None:
     """Give the model node the experiment's ``crop_hw`` where its class
     takes one and the node sets none: flax infers the 2D and attention
@@ -127,7 +168,8 @@ class Experiment:
     """Model + dataset + optimizer + trainer wiring, for ``CTCRecognizer``,
     ``Ctc2dRecognizer`` and ``AttentionRecognizer`` (whose nets must be built
     for the same ``crop_hw``; the attention task's charset defaults to
-    ``AttentionCharset``) and ``SegDetector``.
+    ``AttentionCharset``), ``SegDetector``, ``RoITextSpotter`` and
+    ``SharedTrunkSpotter``.
 
     ``use_mesh`` goes to the trainer: data parallelism over the process
     group that is up (``parallel/mesh.py``), each rank on its share of the
@@ -160,11 +202,8 @@ class Experiment:
     ):
         self.model = model
         self.task = model.__class__.__name__
-        if self.task not in RECOGNITION_TASKS | DETECTION_TASKS:
-            raise NotImplementedError(
-                f"task {self.task}: only the recognizers' and the detector's training is "
-                "ported (ROADMAP Queue 1 item 13)"
-            )
+        if self.task not in RECOGNITION_TASKS | DETECTION_TASKS | SPOTTING_TASKS:
+            raise ValueError(f"unknown task for model {self.task}")
         self.workspace = workspace
         self.name = name
         #: the seed of the initial weights' draw and of the augmentation
@@ -186,6 +225,14 @@ class Experiment:
             else:
                 self.prepare = functools.partial(_recognition_prepare, crop_hw=self.crop_hw,
                                                  device=device)
+        elif self.task in SPOTTING_TASKS:
+            self.collate = functools.partial(spotting_collate, charset=self.charset,
+                                             max_polys=max_polys, max_label_len=max_label_len)
+            self.prepare = functools.partial(_spotting_prepare, device=device)
+            if self.task != "SharedTrunkSpotter":  # the joint task trains on host GT maps
+                for ds in (train_dataset, eval_dataset):
+                    if ds is not None and hasattr(ds, "gt_maps"):
+                        ds.gt_maps = False
         elif device_gt:
             self.collate = functools.partial(detection_collate_polys, max_polys=max_polys)
             gt_kwargs = {a: float(getattr(train_dataset, a)) for a in _GT_ATTRS

@@ -91,9 +91,11 @@ class SegDetectorNet(nn.Module):
     """ResNet trunk + FPN + prob/thresh heads; NHWC pages in, (B, H, W) maps out."""
 
     def __init__(self, num_backbone: str = "resnet18", fpn_dim: int = 256,
-                 head_dim: int = 64, k: float = 50.0, width: int = 64, dtype=None):
+                 head_dim: int = 64, k: float = 50.0, width: int = 64, dtype=None,
+                 dcn_stages=()):
         super().__init__()
-        self.backbone = resnet_variant(num_backbone, "det", width, dtype=dtype)
+        self.backbone = resnet_variant(num_backbone, "det", width, dtype=dtype,
+                                       dcn_stages=dcn_stages)
         self.fpn = FPNNeck(self.backbone.out_channels, fpn_dim, fpn_dim, dtype)
         self.prob_head = MapHead(fpn_dim, head_dim, dtype)
         self.thresh_head = MapHead(fpn_dim, head_dim, dtype)
@@ -119,11 +121,14 @@ class SegDetector:
     prob, binary and thresh maps, and map inference. ``apply``, ``loss`` and
     ``predict_maps`` put the net in train or eval mode themselves.
 
-    Not ported, each raising ``NotImplementedError``: ``dcn_stages``
-    (deformable trunk convs, ROADMAP Queue 1 item 13) and the ``stem_s2d`` /
-    ``stem_s2d4`` stems (TPU layout rewrites of the plain stem, item 4). The
-    JAX package's ``fused_upsample`` head is a TPU formulation of the plain
-    resize -> conv head the port runs, and is not an option here."""
+    ``dcn_stages`` (1-based trunk stages, e.g. (3, 4)) swaps those stages'
+    second 3x3 convs for deformable ones (``deform.py``).
+
+    Not ported, raising ``NotImplementedError``: the ``stem_s2d`` /
+    ``stem_s2d4`` stems (TPU layout rewrites of the plain stem, ROADMAP
+    Queue 1 item 4). The JAX package's ``fused_upsample`` head is a TPU
+    formulation of the plain resize -> conv head the port runs, and is not an
+    option here."""
 
     def __init__(self, backbone: str = "resnet18", fpn_dim: int = 256, head_dim: int = 64,
                  k: float = 50.0, bce_scale: float = 5.0, l1_scale: float = 10.0,
@@ -131,18 +136,13 @@ class SegDetector:
                  dcn_stages=(), stem_s2d: bool = False, stem_s2d4: bool = False,
                  device="cuda"):
         dtype = parse_compute_dtype(compute_dtype)
-        if tuple(dcn_stages):
-            raise NotImplementedError(
-                f"dcn_stages={tuple(dcn_stages)}: deformable convs are not ported yet "
-                "(ROADMAP Queue 1 item 13)"
-            )
         if stem_s2d or stem_s2d4:
             raise NotImplementedError(
                 "stem_s2d / stem_s2d4: the space-to-depth stems are not ported "
                 "(ROADMAP Queue 1 item 4)"
             )
-        self.net = SegDetectorNet(backbone, fpn_dim, head_dim, k, width,
-                                  dtype).to(device).eval()
+        self.net = SegDetectorNet(backbone, fpn_dim, head_dim, k, width, dtype,
+                                  tuple(dcn_stages)).to(device).eval()
         self.bce_scale = bce_scale
         self.l1_scale = l1_scale
         self.negative_ratio = negative_ratio

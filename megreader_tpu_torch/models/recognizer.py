@@ -44,16 +44,17 @@ class CTCRecognizerNet(nn.Module):
     'reshape', the rows stacked into channels (B, W', H' * C) with index
     h * C + c, as the JAX net's (B, H', W', C) -> (B, W', H' * C). 'reshape'
     and the transformer need the feature map's size, which the net takes
-    from ``crop_hw`` (flax reads it at its first call)."""
+    from ``crop_hw`` (flax reads it at its first call). ``dcn_stages``:
+    deformable 3x3 convs in those trunk stages (``resnet.py``)."""
 
     def __init__(self, num_classes: int, backbone: str = "resnet18", encoder: str = "bilstm",
                  hidden: int = 256, num_encoder_layers: int = 2,
-                 height_collapse: str = "mean", dtype=None, crop_hw=(32, 100)):
+                 height_collapse: str = "mean", dtype=None, crop_hw=(32, 100), dcn_stages=()):
         super().__init__()
         if height_collapse not in ("mean", "reshape"):
             raise ValueError(f"unknown height_collapse {height_collapse!r}")
         self.height_collapse = height_collapse
-        self.backbone = resnet_variant(backbone, "rec", dtype=dtype)
+        self.backbone = resnet_variant(backbone, "rec", dtype=dtype, dcn_stages=dcn_stages)
         self.feature_hw = rec_feature_hw(crop_hw)
         width = self.backbone.out_channels[-1]
         if height_collapse == "reshape":
@@ -96,10 +97,10 @@ class CTCRecognizer:
     def __init__(self, num_classes: int = 37, backbone: str = "resnet18",
                  encoder: str = "bilstm", hidden: int = 256, num_encoder_layers: int = 2,
                  blank: int = 0, height_collapse: str = "mean", compute_dtype: str = "float32",
-                 crop_hw=(32, 100), device="cuda"):
+                 crop_hw=(32, 100), dcn_stages=(), device="cuda"):
         self.net = CTCRecognizerNet(
             num_classes, backbone, encoder, hidden, num_encoder_layers, height_collapse,
-            parse_compute_dtype(compute_dtype), crop_hw,
+            parse_compute_dtype(compute_dtype), crop_hw, tuple(dcn_stages),
         ).to(device).eval()
         self.num_classes = num_classes
         self.blank = blank

@@ -14,9 +14,15 @@ last feature map.
 variant='rec2d': the 'rec' stem with stage strides (1, (2, 2), (2, 1), (1, 1)),
 keeping height for the 2D-CTC heads: 32x100 -> H=4, W=25; 48x160 -> 6x40.
 
+``dcn_stages`` (1-based) swaps each of those stages' blocks' ``conv2`` for a
+``DeformableConv`` (DCNv2, ``deform.py``).
+
 ``dtype`` is the convs' compute dtype (bf16 for mixed precision; None
 promotes the input and the kernel, ``ops/precision.py``). BatchNorm computes
-in float32 and returns its input's dtype in either case.
+in float32 and returns its input's dtype in either case; each block casts
+its second BatchNorm's output to the block's compute dtype (the JAX
+package's ``_bn(..., dt)``), which matters after a deformable conv: that
+conv takes no dtype and returns float32 under mixed precision.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.precision import Conv2d
+from .deform import DeformableConv
 
 STAGE_SIZES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 
@@ -101,12 +108,16 @@ class BasicBlock(nn.Module):
     """2x(3x3 conv) residual block with a 1x1 projection where the shape changes."""
 
     def __init__(self, in_ch: int, features: int, stride=(1, 1),
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, use_dcn: bool = False):
         super().__init__()
         stride = _pair(stride)
+        self.dtype = dtype
         self.conv1 = Conv2d(in_ch, features, 3, stride, 1, bias=False, compute_dtype=dtype)
         self.bn1 = BatchNorm2d(features)
-        self.conv2 = Conv2d(features, features, 3, 1, 1, bias=False, compute_dtype=dtype)
+        if use_dcn:
+            self.conv2 = DeformableConv(features, features)
+        else:
+            self.conv2 = Conv2d(features, features, 3, 1, 1, bias=False, compute_dtype=dtype)
         self.bn2 = BatchNorm2d(features)
         if in_ch != features or stride != (1, 1):
             self.downsample_conv = Conv2d(in_ch, features, 1, stride, bias=False,
@@ -117,7 +128,7 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+        y = self.bn2(self.conv2(y)).to(self.dtype or x.dtype)
         r = x if self.downsample_conv is None else self.downsample_bn(self.downsample_conv(x))
         return F.relu(y + r)
 
@@ -126,7 +137,8 @@ class ResNet(nn.Module):
     """Configurable BasicBlock trunk (see the module docstring)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2), variant: str = "det",
-                 width: int = 64, in_ch: int = 3, dtype: Optional[torch.dtype] = None):
+                 width: int = 64, in_ch: int = 3, dtype: Optional[torch.dtype] = None,
+                 dcn_stages: Sequence[int] = ()):
         super().__init__()
         if variant == "det":
             self.stem_conv = Conv2d(in_ch, width, 7, 2, 3, bias=False, compute_dtype=dtype)
@@ -148,7 +160,7 @@ class ResNet(nn.Module):
             for j in range(n):
                 name = f"layer{i + 1}_block{j}"
                 self.add_module(name, BasicBlock(ch, width * 2**i, stride if j == 0 else (1, 1),
-                                                 dtype))
+                                                 dtype, use_dcn=(i + 1) in tuple(dcn_stages)))
                 ch = width * 2**i
                 names.append(name)
             self.stages.append(names)
@@ -165,10 +177,10 @@ class ResNet(nn.Module):
 
 
 def resnet_variant(name: str, variant: str = "det", width: int = 64,
-                   dtype: Optional[torch.dtype] = None) -> ResNet:
+                   dtype: Optional[torch.dtype] = None, dcn_stages: Sequence[int] = ()) -> ResNet:
     if name not in STAGE_SIZES:
         raise NotImplementedError(
             f"backbone {name!r}: only the BasicBlock trunks {sorted(STAGE_SIZES)} are ported"
         )
-    return ResNet(STAGE_SIZES[name], variant, width, dtype=dtype)
+    return ResNet(STAGE_SIZES[name], variant, width, dtype=dtype, dcn_stages=dcn_stages)
 

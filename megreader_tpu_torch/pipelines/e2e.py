@@ -51,8 +51,46 @@ from ..parallel.mesh import Mesh, all_gather_batch, batch_sharding
 from .predictors import RECOGNIZERS, default_charset
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, {item})")
+def page_regions(pipe, labels: torch.Tensor, prob: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Labels + prob -> region ``stats`` (``extract_regions`` with
+    ``pipe.resolved_impls['extract']``), the unclip distance ``d`` (B, K),
+    word quads (B, K, 4, 2), their boxes (x0, y0, x1, y1) widened by
+    ``box_margin`` and clamped to the page, and ``valid`` (score at least
+    ``box_thresh``, area at least 8). ``pipe`` gives the settings
+    (``max_regions``, ``unclip``, ``shrink_ratio``, ``unclip_ratio``,
+    ``box_thresh``, ``box_margin``); the page pipeline and the spotter's share
+    it."""
+    H, W = prob.shape[1:]
+    stats = extract_regions(labels, prob, max_regions=pipe.max_regions,
+                            impl=pipe.resolved_impls["extract"])
+    if pipe.unclip == "inverse":
+        d = unclip_distance_inverse(stats, shrink_ratio=pipe.shrink_ratio)
+    else:
+        d = unclip_distance_for(stats, ratio=pipe.unclip_ratio)
+    quads = regions_to_quads(stats, d)
+    valid = stats["valid"] & (stats["score"] >= pipe.box_thresh) & (stats["area"] >= 8.0)
+    m = pipe.box_margin
+    boxes = torch.stack([
+        torch.clamp(quads[..., 0].amin(-1) - m, 0, W - 1),
+        torch.clamp(quads[..., 1].amin(-1) - m, 0, H - 1),
+        torch.clamp(quads[..., 0].amax(-1) + m, 1, W),
+        torch.clamp(quads[..., 1].amax(-1) + m, 1, H),
+    ], -1)
+    return {"stats": stats, "d": d, "quads": quads, "boxes": boxes, "valid": valid}
+
+
+def bf16_serving(pipe, module: nn.Module) -> nn.Module:
+    """The module that serves for ``module`` in ``pipe``: itself, or under
+    ``pipe.bf16`` its bf16-cast copy, kept in ``pipe._cast`` and cast again
+    when ``module``'s weights have changed since."""
+    if not pipe.bf16:
+        return module
+    versions = tuple(t._version for t in (*module.parameters(), *module.buffers()))
+    hit = pipe._cast.get(module)
+    if hit is None or hit[0] != versions:
+        hit = (versions, cast_floats(module, torch.bfloat16))
+        pipe._cast[module] = hit
+    return hit[1]
 
 
 class E2EPipeline:
@@ -83,7 +121,7 @@ class E2EPipeline:
         device="cuda",
     ):
         if not isinstance(recognizer, RECOGNIZERS):
-            raise _not_ported(f"recognizer {type(recognizer).__name__}", "item 13")
+            raise TypeError(f"{type(recognizer).__name__} is not a crop recognizer")
         # the legacy flag upgrades an unspecified rectify mode only
         rectify = "deskew" if (deskew and rectify == "perspective") else rectify
         if rectify not in ("perspective", "box", "deskew", "chain"):
@@ -136,17 +174,8 @@ class E2EPipeline:
     # --- stages -------------------------------------------------------------
 
     def serving(self, module: nn.Module) -> nn.Module:
-        """The module that serves for ``module``: itself, or under ``bf16``
-        its bf16-cast copy, cast again when ``module``'s weights have changed
-        since."""
-        if not self.bf16:
-            return module
-        versions = tuple(t._version for t in (*module.parameters(), *module.buffers()))
-        hit = self._cast.get(module)
-        if hit is None or hit[0] != versions:
-            hit = (versions, cast_floats(module, torch.bfloat16))
-            self._cast[module] = hit
-        return hit[1]
+        """``bf16_serving`` of ``module``."""
+        return bf16_serving(self, module)
 
     def _input(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(torch.bfloat16) if self.bf16 else x
@@ -163,30 +192,14 @@ class E2EPipeline:
                                     multigrid=self.ccl_multigrid)
 
     def regions(self, labels: torch.Tensor, prob: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Labels + prob -> stats, the unclip distance ``d`` (B, K), word quads
-        (B, K, 4, 2), boxes, valid; in chain mode also the ``chains`` and the
-        ``polygons`` (B, K, 2(S + 1), 2), unclipped by ``d``."""
-        H, W = prob.shape[1:]
-        stats = extract_regions(labels, prob, max_regions=self.max_regions,
-                                impl=self.resolved_impls["extract"])
-        if self.unclip == "inverse":
-            d = unclip_distance_inverse(stats, shrink_ratio=self.shrink_ratio)
-        else:
-            d = unclip_distance_for(stats, ratio=self.unclip_ratio)
-        quads = regions_to_quads(stats, d)
-        valid = stats["valid"] & (stats["score"] >= self.box_thresh) & (stats["area"] >= 8.0)
-        m = self.box_margin
-        boxes = torch.stack([
-            torch.clamp(quads[..., 0].amin(-1) - m, 0, W - 1),
-            torch.clamp(quads[..., 1].amin(-1) - m, 0, H - 1),
-            torch.clamp(quads[..., 0].amax(-1) + m, 1, W),
-            torch.clamp(quads[..., 1].amax(-1) + m, 1, H),
-        ], -1)
-        out = {"stats": stats, "d": d, "quads": quads, "boxes": boxes, "valid": valid}
+        """Labels + prob -> ``page_regions``; in chain mode also the
+        ``chains`` and the ``polygons`` (B, K, 2(S + 1), 2), unclipped by
+        ``d``."""
+        out = page_regions(self, labels, prob)
         if self.rectify == "chain":
-            out["chains"] = extract_chains(labels, stats, n_bands=self.n_bands,
+            out["chains"] = extract_chains(labels, out["stats"], n_bands=self.n_bands,
                                            extract_impl=self.resolved_impls["extract"])
-            out["polygons"] = chains_to_polygons(out["chains"], d)
+            out["polygons"] = chains_to_polygons(out["chains"], out["d"])
         return out
 
     def crops(self, pages: torch.Tensor, regions: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -2,11 +2,11 @@
 and config loader (``core/config.py``, no PyYAML) on every file of
 ``experiments/``, ``import:``, cycles, ``$ref:``, dotted overrides and the
 command line's values; its registry (``core/registry.py``, filled by
-``all.py``); and ``Experiment.from_yaml`` on all 20 experiments, which either
+``all.py``); and ``Experiment.from_yaml`` on all 20 experiments, which
 build with the JAX experiment's hyperparameters, datasets and parameter
-shapes (the two disk experiments on data written to a temporary directory)
-or refuse naming a ROADMAP item. The models are built on the CPU by a plain
-dotted override (``experiment.model.device: cpu``)."""
+shapes (the two disk experiments on data written to a temporary directory).
+The models are built on the CPU by a plain dotted override
+(``experiment.model.device: cpu``)."""
 
 import glob
 import math
@@ -40,11 +40,11 @@ BUILT = {"ctc_resnet18_synth": "CTCRecognizer", "ctc2d_resnet18_synth": "Ctc2dRe
          "ctc_hard48": "CTCRecognizer", "ctc_hard_mix": "CTCRecognizer",
          "ctc_hard_mix_long": "CTCRecognizer", "ctc_hard_small": "CTCRecognizer",
          "ctc_listfile_disk": "CTCRecognizer", "seg_detector_hard": "SegDetector",
-         "seg_detector_icdar_disk": "SegDetector"}
-REFUSED_ITEM = {
-    "roi_spotter_synth": 13, "seg_detector_dcn_synth": 13,
-    "shared_spotter_hard": 13, "shared_spotter_synth": 13,
-}
+         "seg_detector_icdar_disk": "SegDetector", "roi_spotter_synth": "RoITextSpotter",
+         "seg_detector_dcn_synth": "SegDetector", "shared_spotter_hard": "SharedTrunkSpotter",
+         "shared_spotter_synth": "SharedTrunkSpotter"}
+#: the tasks whose nets take pages
+PAGE_TASKS = ("SegDetector", "RoITextSpotter", "SharedTrunkSpotter")
 
 
 def _name(path):
@@ -53,7 +53,7 @@ def _name(path):
 
 def test_every_experiment_is_classified():
     assert len(EXPERIMENTS) == 20
-    assert sorted(map(_name, EXPERIMENTS)) == sorted({**BUILT, **REFUSED_ITEM})
+    assert sorted(map(_name, EXPERIMENTS)) == sorted(BUILT)
 
 
 @pytest.mark.parametrize("path", EXPERIMENTS, ids=_name)
@@ -238,11 +238,6 @@ def _dataset_key(ds):
 @pytest.mark.parametrize("path", EXPERIMENTS, ids=_name)
 def test_from_yaml_builds_or_names_its_item(path, tmp_path):
     name = _name(path)
-    if name in REFUSED_ITEM:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 item {REFUSED_ITEM[name]}\\)"):
-            Experiment.from_yaml(path, CPU)
-        return
     over = {}
     if name.endswith("_disk"):
         disk = _disk_data(str(tmp_path))
@@ -261,7 +256,7 @@ def test_from_yaml_builds_or_names_its_item(path, tmp_path):
         assert _dataset_key(got.dataset) == _dataset_key(want.dataset)
     assert vars(exp.optimizer) == vars(ref.optimizer)
     assert type(exp.charset).__name__ == type(ref.charset).__name__
-    hw = (1, 64, 64, 3) if ref.task == "SegDetector" else (1, *ref.crop_hw, 3)
+    hw = (1, 64, 64, 3) if ref.task in PAGE_TASKS else (1, *ref.crop_hw, 3)
     abstract = jax.eval_shape(ref.model.init, jax.random.PRNGKey(0), jnp.zeros(hw))
     exported = export_flax_variables(exp.model.net)
     for col in abstract:

@@ -305,13 +305,27 @@ def test_trained_port_detector_goes_back_to_flax(jax_step, port_step):
                                  {"stem_s2d": True}, {"stem_s2d4": True}],
                          ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_left_out_detector_options_raise(opt):
-    """Every option here is refused, but ``compute_dtype='bfloat16'``, which
-    is ported (held to JAX by ``tests/test_torch_port_bf16.py``): float32
-    parameters, bf16 convs."""
+    """The space-to-depth stems are refused. ``compute_dtype='bfloat16'`` is
+    ported (held to JAX by ``tests/test_torch_port_bf16.py``): float32
+    parameters, bf16 convs. ``dcn_stages`` is ported: the deformable
+    detector's maps on carried weights equal JAX's within 1e-4
+    (``tests/test_torch_port_deform.py`` holds it further)."""
     if opt == {"compute_dtype": "bfloat16"}:
         det = SegDetector(**DET, device="cpu", **opt)
         assert {p.dtype for p in det.net.parameters()} == {torch.float32}
         assert det.net.prob_head.up2.compute_dtype == torch.bfloat16
+        return
+    if "dcn_stages" in opt:
+        det = SegDetector(**DET, device="cpu", **opt)
+        jdet = JaxSegDetector(**DET, **opt)
+        variables = seeded_flax_variables(export_flax_variables(det.net), 3)
+        load_flax_variables(det.net, variables)
+        image = np.random.default_rng(0).standard_normal((1, H, W, 3)).astype(np.float32)
+        ref = jdet.net.apply(variables, image, train=False)
+        got = det.predict_maps(torch.from_numpy(image))
+        for k in ("prob", "thresh", "binary"):
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=0, atol=1e-4,
+                                       err_msg=k)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         SegDetector(**DET, device="cpu", **opt)

@@ -147,11 +147,13 @@ def test_validate_hook_runs_every_n_steps(tmp_path):
 def test_left_out_options_raise(tmp_path, what):
     """The options and tasks left out raise. ``validation`` is ported: a
     validation with the beam decode runs and measures every eval crop.
-    ``yaml`` is ported: ``from_yaml`` builds config #1 and the hard tier's
-    ``ctc_hard.yaml``, and a YAML that names the text spotter raises naming
-    item 13. ``augment`` and ``process_workers`` are ported: a two-step run
-    with each trains to finite losses. ``mesh`` is ported: with no process
-    group, a two-step run with ``use_mesh=True`` equals one without."""
+    ``yaml`` is ported: ``from_yaml`` builds config #1, the hard tier's
+    ``ctc_hard.yaml`` and the RoI text spotter's YAML. ``augment`` and
+    ``process_workers`` are ported: a two-step run with each trains to
+    finite losses. ``mesh`` is ported: with no process group, a two-step run
+    with ``use_mesh=True`` equals one without. ``task``: the spotters are
+    ported (a narrow RoI spotter trains two steps), and a model of no known
+    task is refused."""
     if what == "yaml":
         exp = Experiment.from_yaml("experiments/ctc_resnet18_synth.yaml",
                                    {"experiment.model.device": "cpu"})
@@ -159,9 +161,9 @@ def test_left_out_options_raise(tmp_path, what):
         hard = Experiment.from_yaml("experiments/ctc_hard.yaml",
                                     {"experiment.model.device": "cpu"})
         assert type(hard.train_loader.dataset).__name__ == "HardSyntheticRecognitionDataset"
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-            Experiment.from_yaml("experiments/roi_spotter_synth.yaml",
-                                 {"experiment.model.device": "cpu"})
+        spot = Experiment.from_yaml("experiments/roi_spotter_synth.yaml",
+                                    {"experiment.model.device": "cpu"})
+        assert spot.task == "RoITextSpotter" and spot.train_loader.batch_size == 8
         return
     if what == "validation":
         exp = _experiment(tmp_path, eval_dataset=SyntheticRecognitionDataset(n=8),
@@ -187,9 +189,20 @@ def test_left_out_options_raise(tmp_path, what):
         assert len(runs[0][0]) == 2 and runs[0][0] == runs[1][0]
         assert all(torch.equal(v, runs[1][1][k]) for k, v in runs[0][1].items())
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        # the text spotter is not ported (item 13)
-        Experiment(type("RoITextSpotter", (), {})(), SyntheticRecognitionDataset(n=8))
+    # the text spotter is ported: a narrow RoI spotter takes the spotting
+    # collate and prepare and trains; a model of no known task is refused
+    from megreader_tpu_torch.data.datasets import SyntheticDetectionDataset
+    from megreader_tpu_torch.models.spotter import RoITextSpotter
+
+    spotter = RoITextSpotter(num_classes=37, fpn_dim=32, pool_hw=(2, 16), hidden=16,
+                             device="cpu")
+    exp = Experiment(spotter, SyntheticDetectionDataset(n=4, hw=(128, 128), seed=3),
+                     batch_size=2, epochs=1, log_every=1, max_label_len=16,
+                     workspace=str(tmp_path), loader_workers=1)
+    state = exp.make_trainer().train(resume=False)
+    assert state.step == 2 and all(np.isfinite(r["loss"]) for r in _metrics(tmp_path))
+    with pytest.raises(ValueError, match="unknown task"):
+        Experiment(type("Spotter", (), {"net": spotter.net})(), SyntheticRecognitionDataset(n=8))
 
 
 def test_average_meter():
