@@ -10,8 +10,9 @@ the entry points (train, eval, page pipeline) on the repo's YAML files,
 training configs #1 and #4 from PNG files on disk, config #1 with the
 transformer and the other encoder variants, chain (curved-text) serving,
 bucketed serving of pages of any size, int8 serving and data-parallel
-training and serving over a process group, the deformable (DCN) detector
-and the text spotters.
+training and serving over a process group, the deformable (DCN) detector,
+the text spotters, JPEG files, an LMDB of crops, resuming a JAX train state
+and DB's deformable ResNet-50.
 
     python3 chip_smoke.py
 
@@ -146,7 +147,7 @@ Phases (any failure exits non-zero):
     ``bf16=True`` batches (``'xla'``, ``'pallas_full'``), each with its
     kernel launches, valid regions per page against the words drawn (at
     least one each), CCL sweeps per page, busy ms per stage and pages/s by
-    events; the float32 and the bf16 pipelines held to the CPU on 2 pages
+    events; the float32 and the bf16 pipelines held to the CPU on 1 page
     (``serving_cross_check``). Then configs #1, #2 (Markov heights), #3 and
     #4 with ``compute_dtype='bfloat16'`` through ``Experiment``/``Trainer``
     for 12 steps each (config #4 with ``bench.py``'s Adam 3e-4, the recipe
@@ -172,7 +173,7 @@ Phases (any failure exits non-zero):
     ``--extract-impl pallas_full``: the polygons identical across the
     rectify modes (within 1e-2 px under ``'pallas_full'``), equal to a
     direct ``E2EPipeline.predict`` (strings equal, polygons within 1e-3 px),
-    and on 2 pages to the same entry point on the CPU. Then the trained
+    and on 1 page to the same entry point on the CPU. Then the trained
     detector's masks: multigrid labels equal to flat, CCL flat against
     multigrid, serving pages/s with flat and multigrid CCL, deskew and box in
     turns, and ``rotate_crops`` of 256 smooth crops on the card against
@@ -230,7 +231,7 @@ Phases (any failure exits non-zero):
     ``assets/bench_det_fp16.msgpack`` and the config-#1 recognizer on 8
     ``TextPages`` in float32 ('xla', 'pallas_full') and bf16: each batch's
     launches, valid regions against the words drawn, the float32 and bf16
-    pipelines held to the CPU on 2 pages (``serving_cross_check``, polygons
+    pipelines held to the CPU on 1 page (``serving_cross_check``, polygons
     by ``POLYGON_TOL``); the chain stage's ms beside perspective's on the
     same batch; ``detect_polygons_device`` on the prob maps against the CPU.
 19. buckets: ``BucketedE2E`` (batch 4) over 12 ``TextPages`` of
@@ -294,8 +295,42 @@ Phases (any failure exits non-zero):
     ``evaluate_spotting`` on 16 pages
     (``launches_spotter``).
 
-Prints a JSON line of per-kernel numbers (all eight kernels, with their
-launches in each phase that drives a path), then, as the last line,
+24. jpeg: every committed JPEG of ``assets/jpeg/`` (8 pages of 1280x720,
+    256 word crops, small files in every sampling, grey, restart intervals,
+    optimized tables, an EXIF orientation; ``scripts/make_port_jpeg_assets.py``
+    writes them where cv2 is installed) decoded on the host by the port's
+    ``decode_image``, the RGB digest of each equal to cv2's (the manifest);
+    ms a page beside the PNG decode of the same page.
+25. lmdb: the 256 JPEG crops in an LMDB written by the port's
+    ``write_fixture_lmdb`` (overflow values, leaves under a branch), read
+    back record for record and by ``LMDBRecognitionDataset`` (items equal to
+    the list-file dataset's on the same files); items/s through the
+    ``Loader`` with process and thread workers; config #1 at full width for
+    4 steps from it through ``Experiment.from_yaml`` (finite losses, one
+    launch of each CTC kernel a step: ``launches_lmdb``).
+26. resume: config #1 at full width (AdamW, clip, warm-up cosine,
+    ``accumulate_steps`` 2) for 3 steps, its state written in JAX's layout
+    (``export_jax_state`` + ``msgpack_serialize``: one mini-step pending),
+    resumed by ``Trainer.train(resume=True)`` in a fresh workspace: steps 4
+    and 5 equal bit for bit to the run that never stopped (parameters,
+    buffers, Adam's moments, the accumulator, count, rate;
+    ``launches_resume``).
+27. r50: DB's deformable ResNet-50 (``resnet50``, ``dcn_stages=(2, 3, 4)``,
+    FPN 256, heads 64; seeded, each block's last BatchNorm damped, offsets
+    fractional) in ``E2EPipeline`` with the config-#1 recognizer on 8 pages of
+    640x640: the prob map on 2 pages against a float64 CPU reference
+    (phase dcn's bound), one CCL launch with labels equal to the CPU's on
+    the same mask, one ``'pallas_full'`` batch (one launch of each
+    extraction kernel, valid equal, quads within 1e-2 px); ms a batch,
+    pages/s, busy ms and the split by stage in float32 and bf16 beside the
+    ResNet-18 detector's, in turns; then 4 mixed-precision steps of
+    ``seg_detector_icdar_disk.yaml`` with the deformable ResNet-50 on the
+    committed JPEG pages (process workers) and one ``evaluate_detection``
+    on them through CCL (``launches_r50``).
+
+Prints each phase's seconds on the host clock, a JSON line of per-kernel
+numbers (all eight kernels, with their launches in each phase that drives a
+path), then, as the last line,
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; exits 1 without one.
 """
 
@@ -1935,13 +1970,14 @@ class TextPages:
     ``SyntheticDetectionDataset``: {"image": (H, W, 3) uint8, "polygons":
     exact quads (4, 2) float32, "ignore", "texts", "scale", "filename"}. Each
     page holds 3-8 words, half of them rotated by up to 0.5 rad, as bright
-    strokes (columns of a random glyph pattern) on dark noise; one word in
-    eight is a don't-care ('###') region."""
+    strokes (columns of a random glyph pattern) on dark noise (uniform below
+    ``noise``); one word in eight is a don't-care ('###') region."""
 
-    def __init__(self, n: int, seed: int, hw=(640, 640)):
+    def __init__(self, n: int, seed: int, hw=(640, 640), noise: int = 50):
         self.n = n
         self.seed = seed
         self.hw = hw
+        self.noise = noise
 
     def __len__(self):
         return self.n
@@ -1951,7 +1987,7 @@ class TextPages:
 
         rng = np.random.default_rng(self.seed * 999_983 + i)
         H, W = self.hw
-        img = rng.integers(0, 50, (H, W, 3), dtype=np.uint8)
+        img = rng.integers(0, self.noise, (H, W, 3), dtype=np.uint8)
         yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
         polys, ignore, texts = [], [], []
         for _ in range(int(rng.integers(3, 9))):
@@ -2606,7 +2642,7 @@ def bf16_serving(det, rec, pages, pages_np, words):
     """One float32 batch ('xla') and two bf16 batches ('xla', 'pallas_full')
     of the trained detector: launches, valid regions against the words drawn,
     CCL sweeps, busy ms per stage, pages/s by events; each pipeline held to
-    the CPU on 2 pages. Returns the kernels' launches in the bf16 batches."""
+    the CPU on 1 page. Returns the kernels' launches in the bf16 batches."""
     from megreader_tpu_torch.ops import extract as ex
     from megreader_tpu_torch.ops.ccl import (
         connected_components_cuda,
@@ -2625,7 +2661,7 @@ def bf16_serving(det, rec, pages, pages_np, words):
                                          ccl_iters=24, bf16=bf16, extract_impl=impl,
                                          device="cuda")
         if impl == "xla":
-            serving_cross_check(pipe, det.net, rec.net, pages_np[:2])
+            serving_cross_check(pipe, det.net, rec.net, pages_np[:1])
         pipe.run(None, None, pages)  # warm-up; makes the bf16 copies
         torch.cuda.synchronize()
         for k in kernels.values():
@@ -3054,8 +3090,8 @@ def phase_cli(B: int = 8, hw: int = 640, rec_B: int = 64, per_epoch: int = 4):
         if any(f.shape != x.shape or (f.size and np.abs(f - x).max() > 1e-2)
                for f, x in zip(full, xla)):
             raise AssertionError("cli phase: 'pallas_full' polygons differ from 'xla' ones")
-        cpu, _, _, _ = run_cli("cli.pipeline on the CPU, 2 pages", cli_pipeline.main, [
-            *base, "--images", *paths[:2], "--experiment.model.device", "cpu"], total)
+        cpu, _, _, _ = run_cli("cli.pipeline on the CPU, 1 page", cli_pipeline.main, [
+            *base, "--images", *paths[:1], "--experiment.model.device", "cpu"], total)
         err, same_text, n = 0.0, 0, 0
         for page, want in zip(cpu, served["perspective", "auto"]):
             if len(page["detections"]) != len(want["detections"]):
@@ -3064,7 +3100,7 @@ def phase_cli(B: int = 8, hw: int = 640, rec_B: int = 64, per_epoch: int = 4):
                 err = max(err, float(np.abs(np.array(d["polygon"]) - w["polygon"]).max()))
                 same_text += d["text"] == w["text"]
                 n += 1
-        log(f"cli phase, cli.pipeline card against CPU on 2 pages: polygons within {err} px, "
+        log(f"cli phase, cli.pipeline card against CPU on 1 page: polygons within {err} px, "
             f"{same_text} of {n} strings equal")
         if err > 1e-3:
             raise AssertionError(f"cli phase: card and CPU polygons {err} px apart")
@@ -3829,7 +3865,7 @@ def phase_chains(det, rec, B: int = 8, hw: int = 640, K: int = 32):
             + json.dumps({n: v for n, v in got.items() if v}) + f"; valid regions per page "
             f"{valid}, words drawn {words}")
         if impl == "xla":
-            serving_cross_check(pipe, det.net, rec.net, pages_np[:2])
+            serving_cross_check(pipe, det.net, rec.net, pages_np[:1])
     a, b = outs["f32 xla"], outs["f32 pallas_full"]
     poly = float((a["polygons"] - b["polygons"])[a["valid"]].abs().max())
     log(f"chains phase: 'pallas_full' against 'xla' chain serving: valid equal "
@@ -4155,7 +4191,7 @@ def int8_card_against_cpu(what: str, net, x, fwd):
 INT8_HMEAN_GAP = 0.02
 
 
-def phase_int8(B: int = 8, hw: int = 640, rec_B: int = 64, reps: int = 5, cpu_pages: int = 2):
+def phase_int8(B: int = 8, hw: int = 640, rec_B: int = 64, reps: int = 5, cpu_pages: int = 1):
     """int8 serving (``ops/quantize.py``): the trained detector of the asset
     at the serving shape and a seeded config-#1 recognizer, each in float32,
     bf16 and int8; the int32 accumulators of convs and of ``int_mm`` against
@@ -4912,40 +4948,532 @@ def phase_spotter(B: int = 8, hw: int = 640, K: int = 32, steps: int = 4):
     return total
 
 
+# --- ROADMAP Queue 1 item 15a: JPEG, LMDB, resuming a JAX state, ResNet-50 ---
+
+JPEG_ASSETS = os.path.join(ROOT, "assets", "jpeg")
+
+
+def jpeg_files():
+    """The committed JPEG files' manifest: relative path -> {"sha256" of
+    cv2's RGB decode, "shape", "bytes"} (``scripts/make_port_jpeg_assets.py``)."""
+    with open(os.path.join(JPEG_ASSETS, "manifest.json")) as f:
+        return json.load(f)["files"]
+
+
+def phase_jpeg():
+    """Every committed JPEG decoded on the host by the port (``decode_image``),
+    its RGB digest equal to cv2's from the manifest; ms a page for the
+    1280x720 pages beside the PNG decode of the same page (``write_png``'s
+    Sub rows)."""
+    import hashlib
+
+    from megreader_tpu_torch.data.imageio import decode_image, read_image, write_png
+
+    t_phase = time.perf_counter()
+    files = jpeg_files()
+    bad, ms, page_ms, png_ms = [], {}, [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for rel, want in sorted(files.items()):
+            with open(os.path.join(JPEG_ASSETS, rel), "rb") as f:
+                data = f.read()
+            t0 = time.perf_counter()
+            img = decode_image(data, rel)
+            dt = (time.perf_counter() - t0) * 1e3
+            kind = rel.split("/")[0]
+            ms.setdefault(kind, []).append(dt)
+            if (list(img.shape) != want["shape"]
+                    or hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+                    != want["sha256"]):
+                bad.append(rel)
+            if kind == "pages":
+                page_ms.append(dt)
+                png = os.path.join(tmp, "page.png")
+                write_png(png, img)
+                t0 = time.perf_counter()
+                read_image(png)
+                png_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"jpeg phase: {len(files) - len(bad)} of {len(files)} committed JPEG files decoded on "
+        f"the host with cv2's digest (manifest); ms a file on one host thread by kind (mean, "
+        f"max) " + json.dumps({k: [statistics.mean(v), max(v)] for k, v in ms.items()})
+        + f"; a 1280x720 page: JPEG {page_ms} ms (mean {statistics.mean(page_ms)}), the same "
+        f"page as PNG (Sub rows) {png_ms} ms (mean {statistics.mean(png_ms)}) [{CARD}]; "
+        f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    if bad:
+        raise AssertionError(f"jpeg phase: the port's decode differs from cv2's on {bad}")
+
+
+def lmdb_layout(path: str) -> dict:
+    """Pages of an LMDB data file by kind: meta, branch, leaf, overflow runs
+    and the pages those runs span (from each page header's flags)."""
+    from megreader_tpu_torch.data import lmdb_lite as ll
+
+    with open(os.path.join(path, "data.mdb"), "rb") as f:
+        data = f.read()
+    ps = 4096
+    out = {"meta": 0, "branch": 0, "leaf": 0, "overflow_runs": 0, "overflow_pages": 0}
+    pg = 0
+    while pg * ps < len(data):
+        flags = int.from_bytes(data[pg * ps + 10:pg * ps + 12], "little")
+        step = 1
+        if flags & ll.P_OVERFLOW:
+            step = int.from_bytes(data[pg * ps + 12:pg * ps + 16], "little")
+            out["overflow_runs"] += 1
+            out["overflow_pages"] += step
+        elif flags & ll.P_BRANCH:
+            out["branch"] += 1
+        elif flags & ll.P_LEAF:
+            out["leaf"] += 1
+        elif flags & ll.P_META:
+            out["meta"] += 1
+        pg += step
+    return out
+
+
+def phase_lmdb(B: int = 64, steps: int = 4, workers: int = 4):
+    """The 256 committed JPEG crops in an LMDB written by the port's
+    ``write_fixture_lmdb`` (overflow values, several leaves under a branch),
+    read by ``LMDBRecognitionDataset`` (items equal to the list-file
+    dataset's on the same files), its items/s through the ``Loader``, and
+    config #1 at full width trained ``steps`` steps from it. Returns every
+    kernel's launches in the training run."""
+    import functools
+
+    from megreader_tpu_torch.core.charset import Charset
+    from megreader_tpu_torch.data.datasets import RecognitionListDataset
+    from megreader_tpu_torch.data.lmdb_dataset import LMDBRecognitionDataset
+    from megreader_tpu_torch.data.lmdb_lite import Reader, write_fixture_lmdb
+    from megreader_tpu_torch.data.loader import Loader, recognition_collate
+    from megreader_tpu_torch.experiment import Experiment
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernel_counters(), 0)
+    crops = os.path.join(JPEG_ASSETS, "crops")
+    with open(os.path.join(crops, "list.txt")) as f:
+        items = [line.rstrip("\n").split("\t", 1) for line in f if line.strip()]
+    records = {b"num-samples": str(len(items)).encode()}
+    for i, (rel, text) in enumerate(items):
+        with open(os.path.join(crops, rel), "rb") as f:
+            records[f"image-{i + 1:09d}".encode()] = f.read()
+        records[f"label-{i + 1:09d}".encode()] = text.encode()
+    with tempfile.TemporaryDirectory() as tmp:
+        db = os.path.join(tmp, "crops_lmdb")
+        t0 = time.perf_counter()
+        write_fixture_lmdb(db, records)
+        write_s = time.perf_counter() - t0
+        layout = lmdb_layout(db)
+        reader = Reader(db)
+        read_back = dict(reader.items()) == records
+        depth = reader.depth
+        reader.close()
+        ds = LMDBRecognitionDataset(db)
+        ref = RecognitionListDataset(os.path.join(crops, "list.txt"))
+        same = all(np.array_equal(ds[i]["image"], ref[i]["image"])
+                   and ds[i]["text"] == ref[i]["text"] for i in range(0, len(ds), 15))
+        log(f"lmdb phase: {len(ds)} JPEG crops ({sum(len(v) for v in records.values())} bytes) "
+            f"in an LMDB by the port's writer in {write_s:.3f} s: depth {depth}, pages "
+            f"{json.dumps(layout)}; every record read back {read_back}; items equal to the "
+            f"list-file dataset's on the same files {same}")
+        if not (read_back and same and depth >= 2 and layout["branch"] >= 1
+                and layout["leaf"] >= 2 and layout["overflow_runs"] >= 1):
+            raise AssertionError(f"lmdb phase: depth {depth}, layout {layout}, read back "
+                                 f"{read_back}, items equal {same}")
+        rates = {}
+        for mode in ("process", "thread"):
+            loader = Loader(LMDBRecognitionDataset(db), B,
+                            functools.partial(recognition_collate, charset=Charset()),
+                            shuffle=True, workers=workers, worker_mode=mode)
+            first, after, overall, _ = time_loader(loader, epochs=2)
+            loader.close()
+            rates[mode] = {"first_batch_s": first, "items_per_s": after,
+                           "items_per_s_all": overall}
+        log(f"lmdb phase, LMDBRecognitionDataset through the Loader (batch {B}, {workers} "
+            f"workers, 2 epochs, host clock; JPEG decode, canvas, collate) [{CARD}]: "
+            + json.dumps(rates))
+        node_ = {"class": "LMDBRecognitionDataset", "path": db}
+        with tempfile.TemporaryDirectory() as ws:
+            exp = Experiment.from_yaml(os.path.join(ROOT, "experiments", "ctc_resnet18_synth.yaml"), {
+                "experiment.model.device": "cuda", "experiment.workspace": ws,
+                "experiment.train_dataset": node_, "experiment.eval_dataset": node_,
+                "experiment.batch_size": B, "experiment.epochs": steps * B // len(ds),
+                "experiment.log_every": 1})
+            counters = zeroed_counters()
+            t0 = time.perf_counter()
+            state = exp.make_trainer().train(resume=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = add_counts(total, counters)
+            exp.train_loader.close()
+            _, losses, _ = step_seconds(ws)
+    log(f"lmdb phase, config #1 (ResNet-18 rec + 2x BiLSTM 256, batch {B} of 32x100) from the "
+        f"LMDB: {state.step} steps in {wall:.2f} s (host clock, loader included) [{CARD}]; "
+        f"losses {losses}; launches {json.dumps({n: v for n, v in got.items() if v})}; "
+        f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    if state.step != steps or len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"lmdb phase: {state.step} steps, losses {losses}")
+    if got != {**dict.fromkeys(got, 0), "ctc_alpha": steps, "ctc_beta": steps}:
+        raise AssertionError(f"lmdb phase: launches {got}")
+    del exp, state
+    return total
+
+
+def optimizer_snapshot(state) -> dict:
+    """A copy of everything a train step moves: the module's parameters and
+    buffers, the optimizer's moments, the accumulator, counts and rate."""
+    opt = state.optimizer
+    params = list(state.module.parameters())
+    return {"module": {k: v.detach().clone() for k, v in state.module.state_dict().items()},
+            "moments": [{k: v.clone() for k, v in opt.inner.state.get(p, {}).items()
+                         if torch.is_tensor(v)} for p in params],
+            "acc": [a.clone() for a in opt.acc] if opt.acc is not None else None,
+            "count": opt.count, "mini_step": opt.mini_step, "step": state.step,
+            "lr": [g["lr"] for g in opt.inner.param_groups]}
+
+
+def snapshots_equal(a: dict, b: dict) -> list:
+    """What differs between two ``optimizer_snapshot``s (empty: equal bit for
+    bit)."""
+    bad = [k for k in ("count", "mini_step", "step", "lr") if a[k] != b[k]]
+    bad += [f"module/{k}" for k in a["module"] if not torch.equal(a["module"][k], b["module"][k])]
+    for i, (x, y) in enumerate(zip(a["moments"], b["moments"])):
+        if x.keys() != y.keys() or not all(torch.equal(x[k].cpu(), y[k].cpu()) for k in x):
+            bad.append(f"moments/{i}")
+    if (a["acc"] is None) != (b["acc"] is None) or (
+            a["acc"] is not None and not all(torch.equal(x, y)
+                                             for x, y in zip(a["acc"], b["acc"]))):
+        bad.append("acc")
+    return bad
+
+
+def phase_resume(B: int = 64, per_epoch: int = 3):
+    """Config #1 at full width with AdamW, clip, warm-up cosine and
+    ``accumulate_steps`` 2: a run of 2 epochs of ``per_epoch`` steps
+    (unshuffled) writes its state in JAX's layout after the first epoch (an
+    odd step: one mini-step pending), ``export_flax_variables`` +
+    ``export_optax_state`` + ``msgpack_serialize``; ``Trainer.train(resume=True)``
+    in a fresh workspace takes that file and draws the second epoch's
+    batches: its next two steps equal the run that never stopped, bit for
+    bit (parameters, buffers, moments, accumulator, count, rate). Returns
+    every kernel's launches."""
+    from megreader_tpu_torch.compat.msgpack import msgpack_restore, msgpack_serialize
+    from megreader_tpu_torch.core.registry import COMPONENTS
+    from megreader_tpu_torch.experiment import Experiment
+    from megreader_tpu_torch.train.checkpoint import export_jax_state
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernel_counters(), 0)
+    COMPONENTS.register(WordCrops)
+    cfg = os.path.join(ROOT, "experiments", "ctc_resnet18_synth.yaml")
+    data = {"class": "WordCrops", "n": B * per_epoch, "seed": SEED + 100}
+    k = per_epoch
+    saved, snaps = {}, {"straight": {}, "resumed": {}}
+
+    def run(label, ws):
+        exp = Experiment.from_yaml(cfg, {
+            "experiment.model.device": "cuda", "experiment.workspace": ws,
+            "experiment.train_dataset": data, "experiment.eval_dataset": data,
+            "experiment.batch_size": B, "experiment.epochs": 2, "experiment.log_every": 1,
+            "experiment.loader_workers": 1, "experiment.optimizer.name": "adamw",
+            "experiment.optimizer.weight_decay": 1e-4, "experiment.optimizer.grad_clip": 1.0,
+            "experiment.optimizer.accumulate_steps": 2, "experiment.optimizer.warmup_steps": 2,
+            "experiment.optimizer.total_steps": 100})
+        trainer = exp.make_trainer()
+        trainer.loader.shuffle = False  # each epoch draws the same batches
+
+        def hook(model, state):
+            snaps[label][state.step] = optimizer_snapshot(state)
+            if label == "straight" and state.step == k:
+                saved["bytes"] = msgpack_serialize(export_jax_state(state))
+            return {}
+
+        trainer.validate_every_steps, trainer.validate_fn = 1, hook
+        counters = zeroed_counters()
+        state = trainer.train(resume=True)
+        torch.cuda.synchronize()
+        exp.train_loader.close()
+        return state, add_counts(total, counters)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the two runs' convs alike
+    try:
+        with tempfile.TemporaryDirectory() as ws_a, tempfile.TemporaryDirectory() as ws_b:
+            straight, got_a = run("straight", ws_a)
+            tree = msgpack_restore(saved["bytes"])
+            os.makedirs(os.path.join(ws_b, "checkpoints"))
+            with open(os.path.join(ws_b, "checkpoints", f"state_{k:08d}.msgpack"), "wb") as f:
+                f.write(saved["bytes"])
+            resumed, got_b = run("resumed", ws_b)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    pending = int(tree["opt_state"]["mini_step"])
+    diffs = {s: snapshots_equal(snaps["straight"][s], snaps["resumed"][s])
+             for s in (k + 1, k + 2) if s in snaps["resumed"]}
+    log(f"resume phase, config #1 (AdamW, clip 1.0, warm-up cosine, accumulate_steps 2; batch "
+        f"{B}): the state after step {k} in JAX's layout ({len(saved['bytes'])} bytes; "
+        f"opt_state keys {sorted(tree['opt_state'])}, mini_step {pending}, count "
+        f"{int(tree['opt_state']['gradient_step'])}); resumed by Trainer.train(resume=True) at "
+        f"step {min(snaps['resumed']) - 1}; steps {k + 1}-{k + 2} against the run that never "
+        f"stopped: {json.dumps({s: d[:5] or 'equal bit for bit' for s, d in diffs.items()})}; "
+        f"lr {[snaps['resumed'][s]['lr'][0] for s in sorted(snaps['resumed'])]}, count "
+        f"{[snaps['resumed'][s]['count'] for s in sorted(snaps['resumed'])]}; launches "
+        f"{json.dumps(got_a)} / {json.dumps(got_b)}; {time.perf_counter() - t_phase:.1f} s "
+        "(host clock)")
+    if pending != 1 or sorted(diffs) != [k + 1, k + 2] or any(diffs.values()):
+        raise AssertionError(f"resume phase: mini_step {pending}, differences {diffs}")
+    if straight.step != 2 * k or resumed.step != 2 * k or got_b["ctc_alpha"] != k or (
+            got_a["ctc_alpha"] != 2 * k or got_a["ctc_beta"] != 2 * k or got_b["ctc_beta"] != k):
+        raise AssertionError(f"resume phase: steps {straight.step} / {resumed.step}, "
+                             f"launches {got_a} / {got_b}")
+    return total
+
+
+def damp_residuals(net, scale: float = 0.2) -> None:
+    """Scale each Bottleneck's last BatchNorm by ``scale``: seeded at 1, the
+    16 residual branches of a ResNet-50 add up to activations of std 3.6e5
+    at stage 4 (0.2: about 9), where a trained net keeps them small."""
+    from megreader_tpu_torch.models.resnet import Bottleneck
+
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, Bottleneck):
+                m.bn3.weight.mul_(scale)
+
+
+def phase_r50(B: int = 8, hw: int = 640, steps: int = 4, cpu_pages: int = 2,
+              train_hw: int = 640):
+    """DB's deformable ResNet-50 (``resnet50``, ``dcn_stages=(2, 3, 4)``, FPN
+    256, heads 64) in ``E2EPipeline`` with the config-#1 recognizer, seeded
+    weights with fractional offsets: a batch of B pages of hw x hw in float32
+    and bf16 (ms, pages/s, the split by stage) beside the ResNet-18
+    detector's, in turns; the CCL kernel's labels equal to the CPU's on the
+    same mask; one ``'pallas_full'`` batch; the prob map on ``cpu_pages``
+    pages against a float64 CPU reference (phase dcn's bound). Then
+    ``steps`` mixed-precision steps of ``seg_detector_icdar_disk.yaml`` with
+    the deformable ResNet-50 on the committed 1280x720 JPEG pages (resized to
+    ``train_hw``, the YAML's 640) and one ``evaluate_detection`` on them.
+    Returns every kernel's launches."""
+    from megreader_tpu_torch.evaluation import evaluate_detection
+    from megreader_tpu_torch.experiment import Experiment
+    from megreader_tpu_torch.models.detector import SegDetector
+    from megreader_tpu_torch.models.recognizer import CTCRecognizer
+    from megreader_tpu_torch.ops.ccl import connected_components_reference
+    from megreader_tpu_torch.ops.image import normalize
+    from megreader_tpu_torch.pipelines.e2e import E2EPipeline
+    from megreader_tpu_torch.train.train_step import make_train_step
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernel_counters(), 0)
+    rng = np.random.default_rng(SEED + 110)
+    pages_np = make_pages(rng, B, hw, hw)
+    pages = torch.from_numpy(pages_np).cuda()
+    x = normalize(pages)
+    det = SegDetector(backbone="resnet50", dcn_stages=(2, 3, 4), fpn_dim=256, head_dim=64,
+                      k=50.0, device="cuda")
+    seeded_weights(det.net, SEED + 111)
+    damp_residuals(det.net)
+    sats = seed_dcn_offsets(det.net, x, SEED + 112)
+    n_dcn = len(sats)
+    if n_dcn != 13 or not all(0.0 < v["frac_clipped"] < 0.5 for _, v in sats):
+        raise AssertionError(f"r50 phase: {n_dcn} deformable convs, saturation {sats}")
+    rec = CTCRecognizer(num_classes=37, device="cuda")
+    seeded_weights(rec.net, SEED + 113)
+    pipe = E2EPipeline(det, rec, max_regions=32, box_thresh=0.3, device="cuda")
+    calibrate_prob_head(pipe, det.net, pages)
+    log(f"r50 phase: the deformable ResNet-50 DB detector ({sum(p.numel() for p in det.net.parameters())} "
+        f"parameters, {n_dcn} deformable convs; offsets beyond +-2 by block "
+        f"{[round(v['frac_clipped'], 3) for _, v in sats]})")
+
+    # the prob map against float64 on the CPU
+    det64 = copy.deepcopy(det.net).cpu().double().eval()
+    with torch.no_grad():
+        prob = pipe.detect(det.net, pages[:cpu_pages]).cpu().double()
+        ref = det64(normalize(torch.from_numpy(pages_np[:cpu_pages]).double()),
+                    heads=("prob",))["prob"]
+    gap = float((prob - ref).abs().max())
+    flips = float(((prob > pipe.bin_thresh) != (ref > pipe.bin_thresh)).double().mean())
+    log(f"r50 phase: prob map of {cpu_pages} pages on the card (float32) against float64 on the "
+        f"CPU: max |diff| {gap:.3g} (bound 1e-3), mask pixels that differ {flips:.3g} (bound "
+        "1e-5)")
+    if not gap <= 1e-3 or not flips <= 1e-5:
+        raise AssertionError(f"r50 phase: prob maps differ by {gap}, masks on {flips}")
+    del det64, ref
+
+    # serving: CCL launches and labels against the CPU's, 'pallas_full'
+    counters = zeroed_counters()
+    with torch.no_grad():
+        out = pipe.run(None, None, pages)
+    torch.cuda.synchronize()
+    got = add_counts(total, counters)
+    with torch.no_grad():
+        prob = pipe.detect(det.net, pages)
+        mask = prob > pipe.bin_thresh
+        counters = zeroed_counters()
+        labels = pipe.label(prob)
+        add_counts(total, counters)
+    want = connected_components_reference(mask.cpu(), pipe.ccl_iters)
+    labels_equal = torch.equal(labels.cpu(), want)
+    full = E2EPipeline(det, rec, max_regions=32, box_thresh=0.3, extract_impl="pallas_full",
+                       device="cuda")
+    counters = zeroed_counters()
+    with torch.no_grad():
+        out_f = full.run(None, None, pages)
+    torch.cuda.synchronize()
+    got_f = add_counts(total, counters)
+    quad_f = float((out_f["quads"] - out["quads"]).abs().amax(dim=(-1, -2))[out["valid"]].max())
+    log(f"r50 phase: serving batch launches {json.dumps({n: v for n, v in got.items() if v})}, "
+        f"{int(out['valid'].sum())} valid regions; CCL labels on the card "
+        f"{'equal to' if labels_equal else 'DIFFER from'} the plain CCL's on the CPU (same "
+        f"mask); 'pallas_full' launches {json.dumps({n: v for n, v in got_f.items() if v})}, "
+        f"valid {'equal' if torch.equal(out_f['valid'], out['valid']) else 'DIFFER'}, quads "
+        f"within {quad_f:.3g} px")
+    if got["ccl"] != 1 or not labels_equal or not bool(out["valid"].any()):
+        raise AssertionError(f"r50 phase: launches {got}, labels equal {labels_equal}")
+    if any(got_f[n] != 1 for n in ("ccl", "candidates", "moments", "extents")) or not (
+            torch.equal(out_f["valid"], out["valid"]) and quad_f <= 1e-2):
+        raise AssertionError(f"r50 phase: 'pallas_full' launches {got_f}, quads {quad_f}")
+    del full, out_f
+
+    # times: the deformable ResNet-50 and the ResNet-18 detector, float32
+    # and bf16, in turns; the split by stage
+    r18 = SegDetector(backbone="resnet18", fpn_dim=256, head_dim=64, device="cuda")
+    seeded_weights(r18.net, SEED + 114)
+    pipe18 = E2EPipeline(r18, rec, max_regions=32, box_thresh=0.3, device="cuda")
+    calibrate_prob_head(pipe18, r18.net, pages)
+    pipes = {"r50_f32": pipe, "r18_f32": pipe18,
+             "r50_bf16": E2EPipeline(det, rec, max_regions=32, box_thresh=0.3, bf16=True,
+                                     device="cuda"),
+             "r18_bf16": E2EPipeline(r18, rec, max_regions=32, box_thresh=0.3, bf16=True,
+                                     device="cuda")}
+    turns = {n: [] for n in pipes}
+    split = {}
+    with torch.no_grad():
+        for name, p in pipes.items():
+            net = p.detector.net
+            prob = p.detect(net, pages)
+            labels = p.label(prob)
+            reg = p.regions(labels, prob)
+            crops = p.crops(pages, reg)
+            split[name] = {
+                "detector": cuda_ms(lambda: p.detect(net, pages), reps=5),
+                "ccl": cuda_ms(lambda: p.label(prob), reps=5),
+                "extract": cuda_ms(lambda: p.regions(labels, prob), reps=5),
+                "rectify": cuda_ms(lambda: p.crops(pages, reg), reps=5),
+                "recognizer": cuda_ms(lambda: p.recognize(rec.net, crops), reps=5)}
+        for _ in range(2):
+            for name, p in pipes.items():
+                turns[name].append(cuda_ms(lambda: p.run(None, None, pages), reps=5))
+        busy = {n: device_busy_ms(lambda: p.run(None, None, pages)) for n, p in pipes.items()}
+    log(f"r50 phase [{CARD}]: ms a batch of {B} pages of {hw}x{hw} by CUDA events (median of "
+        f"5, two turns) " + json.dumps(turns) + "; pages/s " + json.dumps(
+            {n: B / min(v) * 1e3 for n, v in turns.items()}) + "; kernel-busy ms "
+        + json.dumps(busy) + "; stage ms (median of 5) " + json.dumps(split))
+    del pipes, pipe18, r18
+
+    # 4 mixed-precision steps of the disk YAML on the committed JPEG pages,
+    # then evaluate_detection on them (CCL on the card)
+    img_dir = os.path.join(JPEG_ASSETS, "pages", "images")
+    gt_dir = os.path.join(JPEG_ASSETS, "pages", "gts")
+    n_pages = len(os.listdir(img_dir))
+    cfg = os.path.join(ROOT, "experiments", "seg_detector_icdar_disk.yaml")
+    with tempfile.TemporaryDirectory() as ws:
+        exp = Experiment.from_yaml(cfg, {
+            "experiment.model.device": "cuda", "experiment.workspace": ws,
+            "experiment.model.backbone": "resnet50", "experiment.model.dcn_stages": [2, 3, 4],
+            "experiment.train_dataset.image_dir": img_dir,
+            "experiment.train_dataset.gt_dir": gt_dir,
+            "experiment.eval_dataset.image_dir": img_dir,
+            "experiment.eval_dataset.gt_dir": gt_dir, "experiment.batch_size": B,
+            "experiment.train_dataset.target_hw": [train_hw, train_hw],
+            "experiment.eval_dataset.target_hw": [train_hw, train_hw],
+            "experiment.epochs": steps * B // n_pages, "experiment.log_every": 1,
+            "experiment.loader_worker_mode": "process"})
+        state, ev_ms, host_ms, got = hooked_train(exp, total)
+        trained = state.step
+        _, losses, _ = step_seconds(ws)
+        # the step alone on one decoded batch: the device's share of it
+        raw = exp.collate([exp.train_loader.dataset[i] for i in range(B)])
+        step_fn = make_train_step(exp.model, prepare=exp.prepare)
+        counters = zeroed_counters()
+        step_ms = cuda_ms(lambda: step_fn(state, raw), reps=3)
+        step_busy = device_busy_ms(lambda: step_fn(state, raw), reps=2)
+        add_counts(total, counters)
+        counters = zeroed_counters()
+        t0 = time.perf_counter()
+        metrics = evaluate_detection(exp)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        got_e = add_counts(total, counters)
+        exp.eval_loader.close()
+        dtypes = {str(t.dtype) for t in exp.model.net.parameters()}
+    log(f"r50 phase, seg_detector_icdar_disk.yaml with the deformable ResNet-50 (bf16 mixed "
+        f"precision, batch {B} of the {n_pages} committed 1280x720 JPEG pages resized to "
+        f"{train_hw}x{train_hw}, process workers) [{CARD}]: {trained} steps, ms a step by CUDA events "
+        f"{ev_ms} and host clock {host_ms} (median of steps 2-{steps}), a step on one decoded "
+        f"batch {step_ms} ms by CUDA events (median of 3; kernel-busy {step_busy} ms: the "
+        f"rest is the loader's); losses {losses}; "
+        f"launches {json.dumps({n: v for n, v in got.items() if v})}; evaluate_detection on the "
+        f"{n_pages} pages {json.dumps(metrics)} in {eval_s:.2f} s, launches "
+        f"{json.dumps({n: v for n, v in got_e.items() if v})} (random weights: no bar); "
+        f"parameter dtypes {sorted(dtypes)}; {time.perf_counter() - t_phase:.1f} s (host clock)")
+    if trained != steps or len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"r50 phase: {trained} steps, losses {losses}")
+    if dtypes != {"torch.float32"} or not got_e["ccl"] or not all(
+            np.isfinite(list(metrics.values()))):
+        raise AssertionError(f"r50 phase: dtypes {dtypes}, eval launches {got_e}, {metrics}")
+    del exp, state, det, rec, pipe
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 1
-    phase_setup()
-    ccl_row = phase_ccl()
-    extract_rows = phase_extract()
-    alpha_row, beta_row = phase_ctc()
-    alpha2d_row, beta2d_row = phase_ctc2d()
-    ccl_row["launches"], extract_launches = phase_e2e()
+    clocks = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        clocks[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("setup", phase_setup)
+    ccl_row = timed("ccl", phase_ccl)
+    extract_rows = timed("extract", phase_extract)
+    alpha_row, beta_row = timed("ctc", phase_ctc)
+    alpha2d_row, beta2d_row = timed("ctc2d", phase_ctc2d)
+    ccl_row["launches"], extract_launches = timed("e2e", phase_e2e)
     for row in extract_rows:
         row["launches"] = extract_launches[row["name"][len("extract_"):]]
-    alpha_row["launches"], beta_row["launches"] = phase_train()
-    alpha2d_row["launches"], beta2d_row["launches"] = phase_train2d()
-    phase_decode2d()
-    phase_traindet()
-    phase_serving(phase_attention())
-    phase_beam()
-    bf16 = phase_bf16()
-    cli = phase_cli()
-    data = phase_data()
-    encoders = phase_encoders()
-    chains, buckets = phase_curved()
-    int8 = phase_int8()
-    parallel = phase_parallel()
-    dcn = phase_dcn()
-    spotter = phase_spotter()
+    alpha_row["launches"], beta_row["launches"] = timed("train", phase_train)
+    alpha2d_row["launches"], beta2d_row["launches"] = timed("train2d", phase_train2d)
+    timed("decode2d", phase_decode2d)
+    timed("traindet", phase_traindet)
+    att = timed("attention", phase_attention)
+    timed("serving", phase_serving, att)
+    timed("beam", phase_beam)
+    bf16 = timed("bf16", phase_bf16)
+    cli = timed("cli", phase_cli)
+    data = timed("data", phase_data)
+    encoders = timed("encoders", phase_encoders)
+    chains, buckets = timed("curved", phase_curved)
+    int8 = timed("int8", phase_int8)
+    parallel = timed("parallel", phase_parallel)
+    dcn = timed("dcn", phase_dcn)
+    spotter = timed("spotter", phase_spotter)
+    timed("jpeg", phase_jpeg)
+    lmdb = timed("lmdb", phase_lmdb)
+    resume = timed("resume", phase_resume)
+    r50 = timed("r50", phase_r50)
     for name, total, needed in (("encoders", encoders, ("ctc_alpha", "ctc_beta")),
                                 ("chains", chains, ("ccl", "candidates", "moments", "extents")),
                                 ("buckets", buckets, ("ccl",)), ("int8", int8, ("ccl",)),
                                 ("parallel", parallel, ("ctc_alpha", "ctc_beta")),
                                 ("dcn", dcn, ("ccl",)),
                                 ("spotter", spotter, ("ccl", "ctc_alpha", "ctc_beta",
-                                                      "candidates", "moments", "extents"))):
+                                                      "candidates", "moments", "extents")),
+                                ("lmdb", lmdb, ("ctc_alpha", "ctc_beta")),
+                                ("resume", resume, ("ctc_alpha", "ctc_beta")),
+                                ("r50", r50, ("ccl", "candidates", "moments", "extents"))):
         if not all(total[n] for n in needed):
             raise AssertionError(f"{name} phase: a kernel of its path did not launch: {total}")
     rows = [ccl_row, *extract_rows, alpha_row, beta_row, alpha2d_row, beta2d_row]
@@ -4961,6 +5489,10 @@ def main() -> int:
         row["launches_parallel"] = parallel[key]
         row["launches_dcn"] = dcn[key]
         row["launches_spotter"] = spotter[key]
+        row["launches_lmdb"] = lmdb[key]
+        row["launches_resume"] = resume[key]
+        row["launches_r50"] = r50[key]
+    log("phase seconds (host clock) " + json.dumps(clocks))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -19,6 +19,7 @@ from .data.datasets import (
     SyntheticRecognitionDataset,
 )
 from .data.hard_synth import HardSyntheticDetectionDataset, HardSyntheticRecognitionDataset
+from .data.lmdb_dataset import LMDBRecognitionDataset  # noqa: F401 (registers itself)
 from .data.loader import Loader
 from .experiment import Experiment
 from .models.attention import AttentionRecognizer
@@ -50,11 +51,11 @@ PORTED = (
 
 #: JAX component name -> (ROADMAP Queue 1 item, what it is)
 NOT_PORTED = {
-    "DetectionVisualizer": (15, "the detection visualizer"),
+    "DetectionVisualizer": ("15b", "the detection visualizer"),
 }
 
 
-def _stub(name: str, item: int, what: str):
+def _stub(name: str, item: str, what: str):
     def refuse(*args, **kwargs):
         raise NotImplementedError(
             f"{name}: {what} is not ported yet (ROADMAP Queue 1 item {item})")

@@ -7,12 +7,12 @@ each page's word quads and strings, one JSON line a page.
         --images page1.png page2.png [--rectify box|deskew|perspective] [--bucketed] \
         [--experiment.<key> value ...]
 
-Pages are PNG files (``data/imageio.py``: the card's machine has no cv2),
+Pages are PNG or JPEG files (``data/imageio.py``: the card's machine has no cv2),
 resized to ``--page-size`` square with cv2's bilinear geometry, or with
 ``--bucketed`` each scaled (never up) into the smallest of the default
 canvases that keeps it largest (``pipelines/bucketed.py``); quads come back
 in the page's own pixels. Trailing dotted overrides apply to both
-experiments. ``--out-dir`` (the visualizer, ROADMAP Queue 1 item 15) is
+experiments. ``--out-dir`` (the visualizer, ROADMAP Queue 1 item 15b) is
 refused.
 """
 
@@ -77,7 +77,7 @@ def main(argv=None):
     args, rest = ap.parse_known_args(argv)
     if args.out_dir:
         raise NotImplementedError("--out-dir: the detection visualizer is not ported yet "
-                                  "(ROADMAP Queue 1 item 15)")
+                                  "(ROADMAP Queue 1 item 15b)")
     overrides = parse_cli_overrides(rest)
 
     det_exp = _load(args.detector, args.det_workspace, overrides)

@@ -1,5 +1,5 @@
 """A msgpack decoder for the files that ``flax.serialization.msgpack_serialize``
-writes, with no third-party package.
+writes, and an encoder that writes them, with no third-party package.
 
 The subset: nil, bool, integers, float32/64, str, bin, array, map, and flax's
 ext types 1 (ndarray: a packed ``(shape, dtype name, C-order bytes)``), 2
@@ -9,6 +9,13 @@ as ``msgpack.unpackb(raw=False)`` gives them; flax's chunked form of arrays
 over 1 GiB is joined back, as ``msgpack_restore`` does. Truncated input,
 trailing bytes, an unknown type byte or ext code, and a dtype numpy does not
 know (flax's ``bfloat16`` included) raise ``ValueError``.
+
+``msgpack_serialize`` gives the bytes flax's function of that name gives
+for the same tree (dicts of str keys, lists, None, bool, int, float, str,
+bytes, numpy arrays and scalars): its keys in sorted order (flax copies the
+tree through ``jax.tree_util``, which sorts them), each item in msgpack's
+shortest form, Python floats as float64, arrays and numpy
+scalars as ext types 1 and 3. An array over flax's 1 GiB chunk size raises.
 
 ``load_flax_msgpack`` reads a variables file such as the JAX package's
 ``assets/bench_det_fp16.msgpack`` (``scripts/export_bench_det.py``).
@@ -141,6 +148,118 @@ def unpackb(data: bytes) -> Any:
     if reader.pos != len(reader.data):
         raise ValueError(f"{len(reader.data) - reader.pos} bytes after the msgpack object")
     return out
+
+
+_MAX_CHUNK = 2 ** 30  # flax's MAX_CHUNK_SIZE
+
+
+def _head(out: bytearray, n: int, fix: int, fix_max: int, wide: Tuple[int, ...]) -> None:
+    """A length header: the fix form below ``fix_max``, else the 8-bit (if
+    any), 16-bit and 32-bit forms, whose type bytes ``wide`` lists."""
+    if n < fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt, limit in zip(wide, (">B", ">H", ">I")[3 - len(wide):],
+                                (1 << 8, 1 << 16, 1 << 32)[3 - len(wide):]):
+        if n < limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} over 2^32")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if -32 <= v < 128:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+    elif v >= 0:
+        for code, fmt, limit in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+                                 (0xCE, ">I", 1 << 32), (0xCF, ">Q", 1 << 64)):
+            if v < limit:
+                out.append(code)
+                out += struct.pack(fmt, v)
+                return
+        raise ValueError(f"integer {v} over msgpack's 64 bits")
+    else:
+        for code, fmt, limit in ((0xD0, ">b", 1 << 7), (0xD1, ">h", 1 << 15),
+                                 (0xD2, ">i", 1 << 31), (0xD3, ">q", 1 << 63)):
+            if v >= -limit:
+                out.append(code)
+                out += struct.pack(fmt, v)
+                return
+        raise ValueError(f"integer {v} over msgpack's 64 bits")
+
+
+def _ext(out: bytearray, code: int, payload: bytes) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(len(payload))
+    if fixed is not None:
+        out.append(fixed)
+    else:
+        _head(out, len(payload), 0, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code) + payload
+
+
+def _ndarray_payload(arr: np.ndarray) -> bytes:
+    """flax's ``_ndarray_to_bytes``: (shape, dtype name, C-order bytes)."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes are not serialized")
+    out = bytearray()
+    _pack(out, [list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+    return bytes(out)
+
+
+def _pack(out: bytearray, v: Any) -> None:
+    if v is None:
+        out.append(0xC0)
+    elif v is True or v is False:
+        out.append(0xC3 if v else 0xC2)
+    elif type(v) is int:
+        _pack_int(out, v)
+    elif type(v) is float:
+        out.append(0xCB)
+        out += struct.pack(">d", v)
+    elif type(v) is str:
+        raw = v.encode("utf-8")
+        _head(out, len(raw), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif type(v) is bytes:
+        _head(out, len(v), 0, 0, (0xC4, 0xC5, 0xC6))
+        out += v
+    elif type(v) is list:
+        _head(out, len(v), 0x90, 16, (0xDC, 0xDD))
+        for x in v:
+            _pack(out, x)
+    elif type(v) is dict:
+        _head(out, len(v), 0x80, 16, (0xDE, 0xDF))
+        for k, x in v.items():
+            _pack(out, k)
+            _pack(out, x)
+    elif isinstance(v, np.ndarray):
+        if v.size * v.dtype.itemsize > _MAX_CHUNK:
+            raise ValueError(f"an array of {v.nbytes} bytes: flax would chunk it")
+        _ext(out, _EXT_NDARRAY, _ndarray_payload(v))
+    elif isinstance(v, np.generic):
+        _ext(out, _EXT_NPSCALAR, _ndarray_payload(np.asarray(v)))
+    elif type(v) is complex:
+        inner = bytearray()
+        _pack(inner, [v.real, v.imag])
+        _ext(out, _EXT_COMPLEX, bytes(inner))
+    else:
+        raise TypeError(f"cannot serialize {type(v).__name__}")
+
+
+def _sorted(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_sorted(x) for x in tree]
+    return tree
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """``flax.serialization.msgpack_serialize`` (see the module's docstring)."""
+    out = bytearray()
+    _pack(out, _sorted(tree))
+    return bytes(out)
 
 
 def _unchunk(tree: Any) -> Any:

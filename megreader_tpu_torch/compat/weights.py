@@ -114,35 +114,46 @@ def _named_tensors(module: nn.Module) -> Dict[str, torch.Tensor]:
     return {**dict(module.named_parameters()), **dict(module.named_buffers())}
 
 
-@torch.no_grad()
-def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
-    """Copy flax ``variables`` into ``module`` in place; returns the module."""
+def port_arrays(module: nn.Module, variables: Mapping,
+                collections: Optional[Tuple[str, ...]] = None) -> Dict[str, np.ndarray]:
+    """flax ``variables`` -> {port name: numpy array in the port's layout}
+    for every entry of ``module`` in ``collections`` (default: all). A
+    missing or leftover flax entry, or a shape that differs, raises."""
     flat = {
         (col,) + path: arr
         for col in variables
         for path, arr in _flatten(variables[col]).items()
     }
-    tensors = _named_tensors(module)
-    used = set()
-    missing = []
+    shapes = {n: tuple(t.shape) for n, t in _named_tensors(module).items()}
+    out, used, missing = {}, set(), []
     for name, col, path, layout in _entries(module):
+        if collections is not None and col not in collections:
+            continue
         key = (col,) + path
         if key not in flat:
             missing.append("/".join(key))
             continue
-        tensor = tensors[name]
         arr = flat[key] if layout is None else _TO_PORT[layout](flat[key])
-        if tuple(arr.shape) != tuple(tensor.shape):
+        if tuple(arr.shape) != shapes[name]:
             raise ValueError(
                 f"{'/'.join(key)}: flax array of shape {flat[key].shape} "
-                f"does not fit {tuple(tensor.shape)}"
+                f"does not fit {shapes[name]}"
             )
-        tensor.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(tensor.dtype))
+        out[name] = np.array(arr, order="C")
         used.add(key)
     leftover = sorted("/".join(k) for k in flat if k not in used)
     if missing or leftover:
         raise KeyError(f"flax variables do not match the module: missing {missing}, "
                        f"leftover {leftover}")
+    return out
+
+
+@torch.no_grad()
+def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
+    """Copy flax ``variables`` into ``module`` in place; returns the module."""
+    tensors = _named_tensors(module)
+    for name, arr in port_arrays(module, variables).items():
+        tensors[name].copy_(torch.from_numpy(arr).to(tensors[name].dtype))
     return module
 
 
@@ -154,8 +165,8 @@ def export_flax_variables(module: nn.Module,
     ``tensors`` maps port names (as ``named_parameters``/``named_buffers``
     give them) to the tensors to export, e.g. ``{n: p.grad for n, p in
     module.named_parameters()}`` for the gradients; entries that are None are
-    left out. Default: the module's own parameters and buffers. A name the
-    module does not map raises."""
+    left out. Default: the module's own parameters and buffers. The arrays
+    are copies. A name the module does not map raises."""
     src = _named_tensors(module) if tensors is None else dict(tensors)
     out: Dict = {}
     known = set()
@@ -168,7 +179,8 @@ def export_flax_variables(module: nn.Module,
         node = out.setdefault(col, {})
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(arr if layout is None else _TO_FLAX[layout](arr))
+        # a copy: the numpy view of a CPU tensor would follow later updates
+        node[path[-1]] = np.array(arr if layout is None else _TO_FLAX[layout](arr), order="C")
     unknown = sorted(n for n in src if n not in known and not n.endswith("num_batches_tracked"))
     if unknown:
         raise KeyError(f"no flax mapping for {unknown}")

@@ -7,9 +7,9 @@ with the word in its top-left ``size`` region; a detection item is a page with
 its words' polygons and, unless ``gt_maps`` is off, its host GT maps.
 
 * ``RecognitionListDataset`` and ``DetectionICDARDataset`` read their images
-  with ``imageio.read_image`` (PNG: the card's machine has no cv2) and resize
-  with ``imageio.resize_linear`` (cv2's bilinear geometry, within one grey
-  level of cv2); everything else equals the JAX items.
+  with ``imageio.read_image`` (PNG or JPEG, bit-equal to cv2's decode: the
+  card's machine has no cv2) and resize with ``imageio.resize_linear``
+  (cv2's bilinear resize, bit for bit); their items equal the JAX items.
 * ``MixtureDataset`` interleaves its parts by fractional position.
 * The synthetic datasets draw the same words from the same per-index
   streams and render them with cv2, imported on first use, so the module

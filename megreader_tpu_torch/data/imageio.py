@@ -1,23 +1,27 @@
-"""Page images without cv2: PNG in and out, and cv2's bilinear resize.
+"""Page images without cv2: PNG and JPEG in, PNG out, and cv2's bilinear
+resize.
 
-The page pipeline's entry point (``cli/pipeline.py``) reads pages with
-``cv2.imread(path, cv2.IMREAD_COLOR)`` and resizes them with ``cv2.resize``
-(``INTER_LINEAR``); the card's machine has no cv2, so the port does both
-here, with the standard library's ``zlib`` and numpy:
+The reference reads pages with ``cv2.imread(path, cv2.IMREAD_COLOR)``,
+LMDB crops with ``cv2.imdecode(buf, cv2.IMREAD_COLOR)``, and resizes with
+``cv2.resize`` (``INTER_LINEAR``); the card's machine has no cv2, so the
+port does all three here, with the standard library's ``zlib`` and numpy:
 
-* ``read_image``: 8-bit, non-interlaced PNG of colour type grey, grey with
-  alpha, RGB or RGBA, with any of the five row filters, -> (H, W, 3) uint8
-  RGB, as ``cv2.imread`` then ``cv2.cvtColor(BGR2RGB)`` give it (grey
-  repeated into the three channels, alpha dropped). Any other file raises
+* ``decode_image`` (bytes) and ``read_image`` (a path) dispatch on the
+  file's signature. PNG: 8-bit, non-interlaced, colour type grey, grey with
+  alpha, RGB or RGBA, any of the five row filters. JPEG: baseline and
+  extended sequential Huffman (``data/jpeg.py``). Either -> (H, W, 3) uint8
+  RGB, bit-equal to ``cv2.imread``/``cv2.imdecode`` then
+  ``cv2.cvtColor(BGR2RGB)`` (grey repeated into the three channels, alpha
+  dropped, a JPEG's EXIF orientation applied). Any other file raises
   ``NotImplementedError``; a damaged one ``ValueError``.
 * ``write_png``: (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 -> a PNG
   file, each row with a filter from ``filters`` in turn.
 * ``resize_linear``: cv2's ``INTER_LINEAR`` geometry (half-pixel centres,
-  edge clamping, no antialiasing when shrinking). On uint8 cv2 rounds its
-  fixed-point weights, so a value may differ from cv2's by one grey level;
-  on float32 the port takes cv2's own steps (rows first, then columns, each
-  ``a + f * (b - a)`` with one rounding and f the float64 weight rounded to
-  float32), and equals it bit for bit.
+  edge clamping, no antialiasing when shrinking), bit-equal to cv2 on uint8
+  (its 11-bit fixed-point passes) and on float32 (cv2's own steps: rows
+  first, then columns, each ``a + f * (b - a)`` with one rounding and f the
+  float64 weight rounded to float32; a one-row source through cv2's
+  separate route).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import zlib
 from typing import Sequence, Tuple
 
 import numpy as np
+
+from .jpeg import decode_jpeg
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 #: PNG colour type -> channels (8-bit samples)
@@ -89,11 +95,20 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int, path: str) -> np.ndarra
 
 
 def read_image(path: str) -> np.ndarray:
-    """A PNG page as (H, W, 3) uint8 RGB (see the module's docstring)."""
+    """A PNG or JPEG file as (H, W, 3) uint8 RGB (see the module's docstring)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_image(f.read(), path)
+
+
+def decode_image(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """Encoded PNG or JPEG bytes -> (H, W, 3) uint8 RGB, the counterpart of
+    ``cv2.imdecode(buf, cv2.IMREAD_COLOR)`` then ``cvtColor(BGR2RGB)``;
+    ``path`` names the source in errors."""
+    data = bytes(data)
+    if data.startswith(b"\xff\xd8"):
+        return decode_jpeg(data, path)
     if not data.startswith(_SIGNATURE):
-        raise NotImplementedError(f"{path}: only PNG pages are read (no cv2 on this machine)")
+        raise NotImplementedError(f"{path}: neither PNG nor JPEG (only those are read)")
     header, idat = None, []
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":

@@ -1,0 +1,504 @@
+"""Baseline JPEG in numpy, bit-equal to ``cv2.imdecode(buf, IMREAD_COLOR)``
+followed by ``cv2.cvtColor(BGR2RGB)``.
+
+The reference reads ICDAR pages with ``cv2.imread`` and LMDB crops with
+``cv2.imdecode``; the card's machine has neither cv2 nor PIL, so the port
+decodes the files itself. cv2 decodes through libjpeg-turbo, whose default
+decompression this module reproduces step for step:
+
+* entropy decoding of one interleaved (or one-component) sequential scan,
+  8-bit samples, Huffman tables (SOF0 and SOF1), restart intervals, byte
+  stuffing and fill bytes. Symbols are read through a table indexed by the
+  next 16 bits that, where the code and its extra bits fit in those bits,
+  also gives the run and the coefficient;
+* the integer "islow" inverse DCT of ``jidctint.c`` (``CONST_BITS`` 13,
+  ``PASS1_BITS`` 2) over all blocks at once in int64, then libjpeg's
+  post-IDCT range-limit table (the sample masked to 10 bits);
+* the upsampling ``jdsample.c`` picks under ``do_fancy_upsampling``:
+  the triangle filters h2v1 and h2v2 (box replication when the component is
+  at most 2 samples wide), h1v2, and box replication for any other integral
+  factor (h4v1 of 4:1:1). Edges replicate the component's last real sample
+  row and column, not the padded block;
+* the fixed-point YCbCr -> RGB tables of ``jdcolor.c`` (``SCALEBITS`` 16),
+  or a grey level repeated into the three channels;
+* the EXIF ``Orientation`` tag of an APP1 segment, applied as cv2 applies
+  it (all eight values).
+
+Anything else raises ``NotImplementedError`` naming what it met:
+progressive (SOF2, ROADMAP Queue 1 item 15b), lossless, arithmetic-coded,
+hierarchical, 12-bit, multi-scan sequential, CMYK/YCCK or RGB-coded files.
+A damaged file (truncated data, a bad Huffman code, a missing table or
+marker) raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import functools
+import re
+import struct
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+#: zigzag position -> natural (row-major) index of an 8x8 block
+ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
+
+_SOF_NAMES = {
+    0xC2: "progressive DCT (SOF2; ROADMAP Queue 1 item 15b)",
+    0xC3: "lossless (SOF3)",
+    0xC5: "differential sequential (SOF5)", 0xC6: "differential progressive (SOF6)",
+    0xC7: "differential lossless (SOF7)",
+    0xC9: "arithmetic-coded sequential (SOF9)", 0xCA: "arithmetic-coded progressive (SOF10)",
+    0xCB: "arithmetic-coded lossless (SOF11)", 0xCD: "arithmetic-coded differential (SOF13)",
+    0xCE: "arithmetic-coded differential progressive (SOF14)",
+    0xCF: "arithmetic-coded differential lossless (SOF15)",
+}
+#: a run past the end of a block: the entry for EOB skips this far
+_EOB = 1000
+_MARKER = re.compile(rb"\xff+([^\x00\xff])")
+
+
+@functools.lru_cache(maxsize=64)
+def _huffman(counts: bytes, symbols: bytes, ac: bool) -> list:
+    """A Huffman table as a 65536-entry list indexed by the next 16 bits
+    (cached: most files carry the same standard tables).
+
+    Entry ``w`` is ``(bits, run, value)`` when the code and its extra bits
+    fit in ``w``: consume ``bits``, skip ``run`` coefficients (``_EOB`` for
+    end of block), store ``value``. Otherwise it is ``(-length, symbol, 0)``
+    for a code of ``length`` bits whose extra bits lie beyond ``w``, or
+    ``(0, 0, 0)`` where no code starts."""
+    n_bits = np.zeros(65536, np.int64)
+    run = np.zeros(65536, np.int64)
+    value = np.zeros(65536, np.int64)
+    window = np.arange(65536, dtype=np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            if code >= 1 << length:
+                raise ValueError("Huffman code lengths oversubscribed")
+            sym = symbols[k]
+            k += 1
+            lo, hi = code << (16 - length), (code + 1) << (16 - length)
+            size = sym & 15
+            skip = (sym >> 4) if ac else 0
+            if ac and size == 0:  # EOB (run != 15) or ZRL: sixteen zeros
+                n_bits[lo:hi] = length
+                run[lo:hi] = 15 if sym >> 4 == 15 else _EOB
+            elif length + size <= 16:
+                bits = (window[lo:hi] >> (16 - length - size)) & ((1 << size) - 1)
+                n_bits[lo:hi] = length + size
+                run[lo:hi] = skip
+                value[lo:hi] = np.where(bits < (1 << size) >> 1,
+                                        bits - (1 << size) + 1, bits) if size else 0
+            else:
+                n_bits[lo:hi] = -length
+                run[lo:hi] = sym
+            code += 1
+        code <<= 1
+    return list(zip(n_bits.tolist(), run.tolist(), value.tolist()))
+
+
+def _extend(bits: int, size: int) -> int:
+    return bits - (1 << size) + 1 if bits < 1 << (size - 1) else bits
+
+
+def _segments(data: bytes, name: str):
+    """(marker, payload) for each marker segment up to the first SOS
+    included, then ("data", offset of the entropy-coded data)."""
+    if data[:2] != b"\xff\xd8":
+        raise ValueError(f"{name}: not a JPEG (no SOI)")
+    pos = 2
+    while True:
+        while pos < len(data) and data[pos] == 0xFF and pos + 1 < len(data) \
+                and data[pos + 1] == 0xFF:
+            pos += 1  # fill bytes
+        if pos + 4 > len(data) or data[pos] != 0xFF:
+            raise ValueError(f"{name}: truncated or damaged JPEG (no marker at byte {pos})")
+        marker = data[pos + 1]
+        if marker == 0xD9:
+            raise ValueError(f"{name}: JPEG ends before its scan")
+        if 0xD0 <= marker <= 0xD7 or marker == 0x01:  # parameterless
+            pos += 2
+            continue
+        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        body = data[pos + 4:pos + 2 + length]
+        if length < 2 or len(body) != length - 2:
+            raise ValueError(f"{name}: truncated JPEG segment {marker:#04x}")
+        yield marker, body
+        pos += 2 + length
+        if marker == 0xDA:
+            yield "data", pos
+            return
+
+
+def _orientation(app1: bytes) -> Optional[int]:
+    """The EXIF Orientation tag (0x0112) of IFD0, or None."""
+    if not app1.startswith(b"Exif\0\0") or len(app1) < 14:
+        return None
+    tiff = app1[6:]
+    order = {b"II": "<", b"MM": ">"}.get(tiff[:2])
+    if order is None:
+        return None
+    try:
+        (ifd,) = struct.unpack(order + "I", tiff[4:8])
+        (n,) = struct.unpack(order + "H", tiff[ifd:ifd + 2])
+        for i in range(n):
+            tag, kind, count = struct.unpack(order + "HHI", tiff[ifd + 2 + 12 * i:ifd + 10 + 12 * i])
+            if tag == 0x0112 and kind == 3 and count == 1:
+                return struct.unpack(order + "H", tiff[ifd + 10 + 12 * i:ifd + 12 + 12 * i])[0]
+    except struct.error:
+        return None
+    return None
+
+
+def apply_orientation(img: np.ndarray, orientation: Optional[int]) -> np.ndarray:
+    """cv2's EXIF orientation transforms (``ExifTransform``)."""
+    if orientation in (5, 6, 7, 8):
+        img = img.transpose(1, 0, 2)
+        orientation = {5: 1, 6: 2, 7: 3, 8: 4}[orientation]
+    if orientation == 2:
+        img = img[:, ::-1]
+    elif orientation == 3:
+        img = img[::-1, ::-1]
+    elif orientation == 4:
+        img = img[::-1]
+    return np.ascontiguousarray(img)
+
+
+# ---------------------------------------------------------------- the IDCT
+_F = dict(f0_298=2446, f0_390=3196, f0_541=4433, f0_765=6270, f0_899=7373, f1_175=9633,
+          f1_501=12299, f1_847=15137, f1_961=16069, f2_053=16819, f2_562=20995, f3_072=25172)
+
+
+def _idct_1d(x: List[np.ndarray]) -> List[np.ndarray]:
+    """``jpeg_idct_islow``'s butterfly on 8 int64 arrays: the 8 outputs
+    before their descale (scaled by 2^13)."""
+    f = _F
+    z1 = (x[2] + x[6]) * f["f0_541"]
+    tmp2 = z1 - x[6] * f["f1_847"]
+    tmp3 = z1 + x[2] * f["f0_765"]
+    tmp0 = (x[0] + x[4]) << 13
+    tmp1 = (x[0] - x[4]) << 13
+    t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    o0, o1, o2, o3 = x[7], x[5], x[3], x[1]
+    z1, z2, z3, z4 = o0 + o3, o1 + o2, o0 + o2, o1 + o3
+    z5 = (z3 + z4) * f["f1_175"]
+    o0 = o0 * f["f0_298"]
+    o1 = o1 * f["f2_053"]
+    o2 = o2 * f["f3_072"]
+    o3 = o3 * f["f1_501"]
+    z1 = z1 * -f["f0_899"]
+    z2 = z2 * -f["f2_562"]
+    z3 = z3 * -f["f1_961"] + z5
+    z4 = z4 * -f["f0_390"] + z5
+    o0 = o0 + z1 + z3
+    o1 = o1 + z2 + z4
+    o2 = o2 + z2 + z3
+    o3 = o3 + z1 + z4
+    return [t10 + o3, t11 + o2, t12 + o1, t13 + o0, t13 - o0, t12 - o1, t11 - o2, t10 - o3]
+
+
+def _range_limit() -> np.ndarray:
+    """libjpeg's post-IDCT table, indexed by the sample & 1023."""
+    i = np.arange(1024)
+    return np.select([i < 128, i < 512, i < 896], [i + 128, 255, 0], i - 896).astype(np.uint8)
+
+
+_LIMIT = _range_limit()
+
+
+def idct_islow(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """(N, 8, 8) quantized coefficients in natural order and an (8, 8)
+    table -> (N, 8, 8) uint8 samples, as ``jpeg_idct_islow`` computes them."""
+    x = coef.astype(np.int64) * quant.astype(np.int64)
+    cols = _idct_1d([x[:, k, :] for k in range(8)])  # pass 1: down each column
+    ws = [(c + (1 << 10)) >> 11 for c in cols]  # DESCALE(CONST_BITS - PASS1_BITS)
+    rows = _idct_1d([np.stack([ws[r][:, k] for r in range(8)], 1) for k in range(8)])
+    out = np.stack([(r + (1 << 17)) >> 18 for r in rows], 2)  # (N, row, col)
+    return _LIMIT[out & 1023]
+
+
+# ---------------------------------------------------------- the upsampling
+def _fancy_h(p: np.ndarray, bias_lo: int, bias_hi: int, shift: int, edge: int) -> np.ndarray:
+    """Triangle filter along the last axis, doubling it: output 2i takes
+    3 p[i] + p[i - 1], output 2i + 1 takes 3 p[i] + p[i + 1]; the two end
+    outputs take 4 p (``edge`` times)."""
+    out = np.empty(p.shape[:-1] + (2 * p.shape[-1],), np.int64)
+    out[..., 2::2] = (3 * p[..., 1:] + p[..., :-1] + bias_lo) >> shift
+    out[..., 1:-1:2] = (3 * p[..., :-1] + p[..., 1:] + bias_hi) >> shift
+    out[..., 0] = (edge * p[..., 0] + bias_lo) >> shift
+    out[..., -1] = (edge * p[..., -1] + bias_hi) >> shift
+    return out
+
+
+def _colsums(p: np.ndarray) -> np.ndarray:
+    """h1v2 / h2v2 context: 3 p[j] + p[j -+ 1] for the upper and lower
+    output row of input row j, edges replicating the first and last row,
+    interleaved into 2 x the rows."""
+    above = np.concatenate([p[:1], p[:-1]])
+    below = np.concatenate([p[1:], p[-1:]])
+    out = np.empty((2 * p.shape[0],) + p.shape[1:], np.int64)
+    out[0::2] = 3 * p + above
+    out[1::2] = 3 * p + below
+    return out
+
+
+def upsample(plane: np.ndarray, fh: int, fv: int) -> np.ndarray:
+    """A component's (downsampled_height, downsampled_width) samples ->
+    (fv x, fh x) as libjpeg-turbo's fancy upsampling gives them."""
+    p = plane.astype(np.int64)
+    w = p.shape[1]
+    if (fh, fv) == (1, 1):
+        return p
+    if (fh, fv) == (2, 1) and w > 2:  # h2v1_fancy_upsample
+        return _fancy_h(p, 1, 2, 2, 4)
+    if (fh, fv) == (1, 2):  # h1v2_fancy_upsample
+        cs = _colsums(p)
+        cs[0::2] += 1
+        cs[1::2] += 2
+        return cs >> 2
+    if (fh, fv) == (2, 2) and w > 2:  # h2v2_fancy_upsample
+        cs = _colsums(p)
+        out = np.empty((cs.shape[0], 2 * w), np.int64)
+        out[:, 2::2] = (3 * cs[:, 1:] + cs[:, :-1] + 8) >> 4
+        out[:, 1:-1:2] = (3 * cs[:, :-1] + cs[:, 1:] + 7) >> 4
+        out[:, 0] = (4 * cs[:, 0] + 8) >> 4
+        out[:, -1] = (4 * cs[:, -1] + 7) >> 4
+        return out
+    return np.repeat(np.repeat(p, fv, 0), fh, 1)  # h2v1/h2v2 box, int_upsample
+
+
+def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """``jdcolor.c``'s fixed-point YCbCr -> RGB (SCALEBITS 16)."""
+    half = 1 << 15
+    cb = cb.astype(np.int64) - 128
+    cr = cr.astype(np.int64) - 128
+    y = y.astype(np.int64)
+    r = y + ((91881 * cr + half) >> 16)
+    g = y + ((-22554 * cb - 46802 * cr + half) >> 16)
+    b = y + ((116130 * cb + half) >> 16)
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+# ----------------------------------------------------------- the decoder
+def _decode_interval(win: list, n_bits: int, blocks: list, coef, name: str) -> None:
+    """Decode one restart interval: ``blocks`` lists (coefficient offset,
+    DC table, AC table, component) in scan order; writes zigzag-ordered
+    coefficients into ``coef`` (an ``array('h')``), DC already summed."""
+    pred: Dict[int, int] = {}
+    pos = 0
+    for base, dct, act, c in blocks:
+        n, size, diff = dct[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+        if n <= 0:  # the code's extra bits lie past the 16-bit window
+            if n == 0:
+                raise ValueError(f"{name}: bad Huffman code in a DC coefficient")
+            pos -= n
+            bits = (win[pos >> 3] >> (32 - (pos & 7) - size)) & ((1 << size) - 1)
+            n, diff = size, _extend(bits, size)
+        pos += n
+        v = pred.get(c, 0) + diff
+        pred[c] = v
+        coef[base] = v
+        k = 1
+        while k < 64:
+            n, r, v = act[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+            if n <= 0:
+                if n == 0:
+                    raise ValueError(f"{name}: bad Huffman code in an AC coefficient")
+                pos -= n
+                size = r & 15
+                bits = (win[pos >> 3] >> (32 - (pos & 7) - size)) & ((1 << size) - 1)
+                n, r, v = size, r >> 4, _extend(bits, size)
+            pos += n
+            k += r
+            if k >= 64:
+                if k < _EOB:
+                    raise ValueError(f"{name}: a coefficient run past the end of its block")
+                break
+            coef[base + k] = v
+            k += 1
+    if pos > n_bits:
+        raise ValueError(f"{name}: truncated JPEG (the scan ends inside its data)")
+
+
+def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """A baseline JPEG -> (H, W, 3) uint8 RGB, equal to cv2's decode (see
+    the module's docstring)."""
+    from array import array
+
+    quant: Dict[int, np.ndarray] = {}
+    tables: Dict[Tuple[int, int], list] = {}
+    frame = None
+    restart = 0
+    orientation = None
+    adobe = None
+    jfif = False
+    scan = None
+    data_start = 0
+    for marker, body in _segments(data, name):
+        if marker == "data":
+            data_start = body
+            break
+        if marker == 0xDB:  # DQT
+            i = 0
+            while i < len(body):
+                pq, tq = body[i] >> 4, body[i] & 15
+                size = 128 if pq else 64
+                raw = body[i + 1:i + 1 + size]
+                if len(raw) != size or pq > 1:
+                    raise ValueError(f"{name}: bad quantization table")
+                zz = np.frombuffer(raw, ">u2" if pq else np.uint8).astype(np.int64)
+                q = np.zeros(64, np.int64)
+                q[ZIGZAG] = zz
+                quant[tq] = q.reshape(8, 8)
+                i += 1 + size
+        elif marker == 0xC4:  # DHT
+            i = 0
+            while i + 17 <= len(body):
+                tc, th = body[i] >> 4, body[i] & 15
+                counts = body[i + 1:i + 17]
+                n = sum(counts)
+                if tc > 1 or i + 17 + n > len(body):
+                    raise ValueError(f"{name}: bad Huffman table segment")
+                try:
+                    tables[tc, th] = _huffman(bytes(counts), body[i + 17:i + 17 + n], bool(tc))
+                except ValueError as e:
+                    raise ValueError(f"{name}: {e}") from None
+                i += 17 + n
+        elif marker in (0xC0, 0xC1):
+            if len(body) < 6:
+                raise ValueError(f"{name}: bad frame header")
+            precision, h, w, nc = struct.unpack(">BHHB", body[:6])
+            if precision != 8:
+                raise NotImplementedError(f"{name}: {precision}-bit JPEG samples (only 8-bit)")
+            if nc == 4:
+                raise NotImplementedError(f"{name}: a 4-component (CMYK/YCCK) JPEG")
+            if nc not in (1, 3):
+                raise NotImplementedError(f"{name}: a JPEG of {nc} components")
+            if h == 0:
+                raise NotImplementedError(f"{name}: a JPEG whose height comes in a DNL marker")
+            if len(body) < 6 + 3 * nc:
+                raise ValueError(f"{name}: bad frame header")
+            comps = []
+            for c in range(nc):
+                cid, hv, tq = body[6 + 3 * c:9 + 3 * c]
+                comps.append((cid, hv >> 4, hv & 15, tq))
+            if any(not (1 <= ch <= 4 and 1 <= cv <= 4) for _, ch, cv, _ in comps):
+                raise ValueError(f"{name}: bad frame header")
+            frame = (h, w, comps)
+        elif marker in _SOF_NAMES:
+            raise NotImplementedError(f"{name}: {_SOF_NAMES[marker]} JPEG: only baseline "
+                                      "and extended sequential Huffman (SOF0, SOF1) are read")
+        elif marker == 0xCC:
+            raise NotImplementedError(f"{name}: arithmetic coding (DAC) is not read")
+        elif marker == 0xDD:
+            if len(body) < 2:
+                raise ValueError(f"{name}: bad restart interval segment")
+            (restart,) = struct.unpack(">H", body[:2])
+        elif marker == 0xE0 and body.startswith(b"JFIF\0"):
+            jfif = True
+        elif marker == 0xE1 and orientation is None:
+            orientation = _orientation(body)
+        elif marker == 0xEE and body.startswith(b"Adobe") and len(body) >= 12:
+            adobe = body[11]
+        elif marker == 0xDA:
+            scan = body
+    if frame is None or scan is None:
+        raise ValueError(f"{name}: JPEG without a frame header")
+    h, w, comps = frame
+    if len(comps) == 3 and not jfif and (
+            adobe == 0 or (adobe is None and [c[0] for c in comps] == [82, 71, 66])):
+        raise NotImplementedError(f"{name}: an RGB-coded JPEG (no YCbCr transform)")
+    ns = scan[0]
+    if ns != len(comps):
+        raise NotImplementedError(f"{name}: a multi-scan sequential JPEG ({ns} of "
+                                  f"{len(comps)} components in its first scan)")
+    if len(scan) < 4 + 2 * ns:
+        raise ValueError(f"{name}: bad scan header")
+    ss, se, ahal = scan[1 + 2 * ns:4 + 2 * ns]
+    if (ss, se, ahal) != (0, 63, 0):
+        raise ValueError(f"{name}: sequential scan with spectral range {ss}-{se}")
+    by_id = {c[0]: i for i, c in enumerate(comps)}
+    hmax = max(c[1] for c in comps)
+    vmax = max(c[2] for c in comps)
+    if any(hmax % c[1] or vmax % c[2] for c in comps):
+        raise NotImplementedError(f"{name}: fractional sampling factors "
+                                  f"{[(c[1], c[2]) for c in comps]}")
+    layout = []  # (frame index, h, v, DC table, AC table) in scan order
+    for j in range(ns):
+        cid, t = scan[1 + 2 * j:3 + 2 * j]
+        if cid not in by_id or (0, t >> 4) not in tables or (1, t & 15) not in tables:
+            raise ValueError(f"{name}: scan names a missing component or Huffman table")
+        ci = by_id[cid]
+        if comps[ci][3] not in quant:
+            raise ValueError(f"{name}: missing quantization table {comps[ci][3]}")
+        hv = (comps[ci][1], comps[ci][2]) if ns > 1 else (1, 1)
+        layout.append((ci,) + hv + (tables[0, t >> 4], tables[1, t & 15]))
+    if ns == 1:  # a one-component scan is not interleaved: one block an MCU
+        mcux, mcuy = -(-w // 8), -(-h // 8)
+    else:
+        mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    # each component's block grid and its offset in one coefficient array,
+    # then the blocks of every MCU in scan order
+    grids, order, kinds, total = [], [], [], 0
+    for ci, ch, cv, dct, act in layout:
+        gy, gx = mcuy * cv, mcux * ch
+        my, mx, by, bx = np.meshgrid(np.arange(mcuy), np.arange(mcux), np.arange(cv),
+                                     np.arange(ch), indexing="ij")
+        order.append((total + ((my * cv + by) * gx + mx * ch + bx) * 64).reshape(-1, cv * ch))
+        kinds += [(dct, act, ci)] * (ch * cv)
+        grids.append((gy, gx, total))
+        total += gy * gx * 64
+    blocks = [(b,) + k for row in np.concatenate(order, 1).tolist() for b, k in zip(row, kinds)]
+
+    # the entropy-coded data, split at its restart markers, unstuffed
+    n_mcu = mcux * mcuy
+    per = restart if restart else n_mcu
+    chunks, start = [], data_start
+    for m in _MARKER.finditer(data, data_start):
+        chunks.append(data[start:m.start()])
+        start = m.end()
+        if not 0xD0 <= m.group(1)[0] <= 0xD7:
+            nxt = m.group(1)[0]
+            break
+    else:
+        raise ValueError(f"{name}: truncated JPEG (no marker after the scan)")
+    if nxt != 0xD9:
+        raise NotImplementedError(f"{name}: a JPEG with more than one scan or a marker "
+                                  f"{nxt:#04x} after its scan")
+    n_intervals = -(-n_mcu // per)
+    if len(chunks) != n_intervals:
+        raise ValueError(f"{name}: {len(chunks)} restart intervals, expected {n_intervals}")
+    coef = array("h", bytes(2 * total))
+    nb = len(blocks) // n_mcu
+    try:
+        for i, chunk in enumerate(chunks):
+            raw = chunk.replace(b"\xff\x00", b"\xff")
+            b = np.frombuffer(raw + b"\0" * 8, np.uint8).astype(np.int64)
+            win = ((b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]).tolist()
+            _decode_interval(win, 8 * len(raw), blocks[i * per * nb:(i + 1) * per * nb],
+                             coef, name)
+    except IndexError:
+        raise ValueError(f"{name}: truncated or damaged JPEG scan") from None
+
+    zig = np.frombuffer(coef, np.int16).reshape(-1, 64)
+    nat = np.empty_like(zig)
+    nat[:, ZIGZAG] = zig
+    planes = [None] * len(comps)
+    for (ci, ch, cv, _, _), (gy, gx, off) in zip(layout, grids):
+        px = idct_islow(nat[off // 64:off // 64 + gy * gx].reshape(-1, 8, 8),
+                        quant[comps[ci][3]])
+        px = px.reshape(gy, gx, 8, 8).transpose(0, 2, 1, 3).reshape(gy * 8, gx * 8)
+        fh, fv = hmax // comps[ci][1], vmax // comps[ci][2]
+        dh, dw = -(-h // fv), -(-w // fh)  # downsampled_height, downsampled_width
+        planes[ci] = upsample(px[:dh, :dw], fh, fv)[:h, :w]
+    if len(comps) == 1:
+        img = np.repeat(planes[0].astype(np.uint8)[..., None], 3, 2)
+    else:
+        img = ycc_to_rgb(*planes)
+    return apply_orientation(img, orientation)

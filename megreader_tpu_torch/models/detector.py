@@ -122,11 +122,14 @@ class SegDetector:
     ``predict_maps`` put the net in train or eval mode themselves.
 
     ``dcn_stages`` (1-based trunk stages, e.g. (3, 4)) swaps those stages'
-    second 3x3 convs for deformable ones (``deform.py``).
+    3x3 ``conv2`` for deformable ones (``deform.py``); ``backbone`` is
+    ``resnet18``/``resnet34`` (BasicBlock) or ``resnet50``/``resnet101``
+    (Bottleneck: DB's deformable ResNet-50 is ``resnet50`` with
+    ``dcn_stages=(2, 3, 4)``).
 
     Not ported, raising ``NotImplementedError``: the ``stem_s2d`` /
     ``stem_s2d4`` stems (TPU layout rewrites of the plain stem, ROADMAP
-    Queue 1 item 4). The JAX package's ``fused_upsample`` head is a TPU
+    Queue 1 item 15b). The JAX package's ``fused_upsample`` head is a TPU
     formulation of the plain resize -> conv head the port runs, and is not an
     option here."""
 
@@ -139,7 +142,7 @@ class SegDetector:
         if stem_s2d or stem_s2d4:
             raise NotImplementedError(
                 "stem_s2d / stem_s2d4: the space-to-depth stems are not ported "
-                "(ROADMAP Queue 1 item 4)"
+                "(ROADMAP Queue 1 item 15b)"
             )
         self.net = SegDetectorNet(backbone, fpn_dim, head_dim, k, width, dtype,
                                   tuple(dcn_stages)).to(device).eval()

@@ -1,4 +1,5 @@
-"""ResNet trunks (BasicBlock: ResNet-18/34), detection and recognition flavors.
+"""ResNet trunks (BasicBlock: ResNet-18/34; Bottleneck: ResNet-50/101),
+detection and recognition flavors.
 
 Modules take and return NCHW tensors. Padding follows the JAX package's
 explicit torch-style padding, and BatchNorm (``BatchNorm2d`` below) has
@@ -15,7 +16,13 @@ variant='rec2d': the 'rec' stem with stage strides (1, (2, 2), (2, 1), (1, 1)),
 keeping height for the 2D-CTC heads: 32x100 -> H=4, W=25; 48x160 -> 6x40.
 
 ``dcn_stages`` (1-based) swaps each of those stages' blocks' ``conv2`` for a
-``DeformableConv`` (DCNv2, ``deform.py``).
+``DeformableConv`` (DCNv2, ``deform.py``); in a strided Bottleneck it carries
+the block's stride (computed dense, subsampled), as in the JAX package. DB's
+deformable ResNet-50 is ``resnet50`` with ``dcn_stages=(2, 3, 4)``.
+
+A Bottleneck (1x1 -> 3x3 -> 1x1, expansion 4, the stride on the 3x3 conv2)
+ends each stage at 4x the stage's features, so ``out_channels`` of
+``resnet50``/``resnet101`` are (256, 512, 1024, 2048) at width 64.
 
 ``dtype`` is the convs' compute dtype (bf16 for mixed precision; None
 promotes the input and the kernel, ``ops/precision.py``). BatchNorm computes
@@ -36,7 +43,9 @@ import torch.nn.functional as F
 from ..ops.precision import Conv2d
 from .deform import DeformableConv
 
-STAGE_SIZES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
+#: trunk name -> stage sizes (resnet50/101 are Bottleneck trunks)
+STAGE_SIZES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3),
+               "resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -133,13 +142,54 @@ class BasicBlock(nn.Module):
         return F.relu(y + r)
 
 
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 -> 1x1 residual block (ResNet-50/101), expansion 4: the
+    stride on conv2, a 1x1 projection where the channels or the stride
+    change; ``use_dcn`` makes conv2 a ``DeformableConv`` with the block's
+    stride."""
+
+    expansion = 4
+
+    def __init__(self, in_ch: int, features: int, stride=(1, 1),
+                 dtype: Optional[torch.dtype] = None, use_dcn: bool = False):
+        super().__init__()
+        stride = _pair(stride)
+        out_ch = features * self.expansion
+        self.dtype = dtype
+        self.conv1 = Conv2d(in_ch, features, 1, 1, 0, bias=False, compute_dtype=dtype)
+        self.bn1 = BatchNorm2d(features)
+        if use_dcn:
+            self.conv2 = DeformableConv(features, features, stride=stride)
+        else:
+            self.conv2 = Conv2d(features, features, 3, stride, 1, bias=False,
+                                compute_dtype=dtype)
+        self.bn2 = BatchNorm2d(features)
+        self.conv3 = Conv2d(features, out_ch, 1, 1, 0, bias=False, compute_dtype=dtype)
+        self.bn3 = BatchNorm2d(out_ch)
+        if in_ch != out_ch or stride != (1, 1):
+            self.downsample_conv = Conv2d(in_ch, out_ch, 1, stride, bias=False,
+                                          compute_dtype=dtype)
+            self.downsample_bn = BatchNorm2d(out_ch)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x):
+        dt = self.dtype or x.dtype
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)).to(dt))
+        y = self.bn3(self.conv3(y))
+        r = x if self.downsample_conv is None else self.downsample_bn(self.downsample_conv(x))
+        return F.relu(y + r.to(dt))
+
+
 class ResNet(nn.Module):
-    """Configurable BasicBlock trunk (see the module docstring)."""
+    """Configurable BasicBlock or Bottleneck trunk (see the module docstring)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2), variant: str = "det",
                  width: int = 64, in_ch: int = 3, dtype: Optional[torch.dtype] = None,
-                 dcn_stages: Sequence[int] = ()):
+                 dcn_stages: Sequence[int] = (), block: type = BasicBlock):
         super().__init__()
+        expansion = getattr(block, "expansion", 1)
         if variant == "det":
             self.stem_conv = Conv2d(in_ch, width, 7, 2, 3, bias=False, compute_dtype=dtype)
             self.pool = nn.MaxPool2d(3, 2, 1)
@@ -159,12 +209,12 @@ class ResNet(nn.Module):
             names = []
             for j in range(n):
                 name = f"layer{i + 1}_block{j}"
-                self.add_module(name, BasicBlock(ch, width * 2**i, stride if j == 0 else (1, 1),
-                                                 dtype, use_dcn=(i + 1) in tuple(dcn_stages)))
-                ch = width * 2**i
+                self.add_module(name, block(ch, width * 2**i, stride if j == 0 else (1, 1),
+                                            dtype, use_dcn=(i + 1) in tuple(dcn_stages)))
+                ch = width * 2**i * expansion
                 names.append(name)
             self.stages.append(names)
-        self.out_channels = [width * 2**i for i in range(len(stage_sizes))]
+        self.out_channels = [width * 2**i * expansion for i in range(len(stage_sizes))]
 
     def forward(self, x):
         y = self.pool(F.relu(self.stem_bn(self.stem_conv(x))))
@@ -179,8 +229,8 @@ class ResNet(nn.Module):
 def resnet_variant(name: str, variant: str = "det", width: int = 64,
                    dtype: Optional[torch.dtype] = None, dcn_stages: Sequence[int] = ()) -> ResNet:
     if name not in STAGE_SIZES:
-        raise NotImplementedError(
-            f"backbone {name!r}: only the BasicBlock trunks {sorted(STAGE_SIZES)} are ported"
-        )
-    return ResNet(STAGE_SIZES[name], variant, width, dtype=dtype, dcn_stages=dcn_stages)
+        raise ValueError(f"unknown backbone {name!r}: one of {sorted(STAGE_SIZES)}")
+    block = Bottleneck if name in ("resnet50", "resnet101") else BasicBlock
+    return ResNet(STAGE_SIZES[name], variant, width, dtype=dtype, dcn_stages=dcn_stages,
+                  block=block)
 

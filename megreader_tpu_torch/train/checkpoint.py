@@ -5,11 +5,14 @@ under the workspace, holding the step, the module's state dict and the
 optimizer's (the port's own format). Saves are synchronous, written to a
 temporary name and renamed, and the newest ``keep`` files are kept.
 
-``restore_jax_variables`` reads the weights of the JAX package's msgpack
-checkpoints (``checkpoints/state_XXXXXXXX.msgpack``, what its
-``CheckpointManager(use_orbax=False)`` writes): ``params`` and
-``batch_stats`` through ``compat/weights.py``'s name maps, never the optax
-state. Its orbax checkpoints are not read.
+The JAX package's msgpack checkpoints (``checkpoints/state_XXXXXXXX.msgpack``,
+what its ``CheckpointManager(use_orbax=False)`` writes: flax's state dict of
+its ``TrainState``) are read two ways: ``restore_jax_variables`` takes the
+weights only (``params`` and ``batch_stats``, through ``compat/weights.py``'s
+name maps), ``restore_jax_state`` the whole train state, the optax state and
+the step included, so a JAX run continues in the port. ``export_jax_state``
+writes a port state in that layout (``compat/msgpack.py::msgpack_serialize``
+turns it into the file). Its orbax checkpoints are not read.
 """
 
 from __future__ import annotations
@@ -18,10 +21,11 @@ import os
 import re
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..compat.msgpack import msgpack_restore
-from ..compat.weights import load_flax_variables
+from ..compat.weights import export_flax_variables, load_flax_variables
 from .train_step import TrainState
 
 _NAME = re.compile(r"state_(\d{8})\.pt$")
@@ -87,6 +91,33 @@ class CheckpointManager:
         module.load_state_dict(self._read(step, module)["module"])
         return module
 
+    def _jax_tree(self, jax_workspace: Optional[str], step: Optional[int]) -> dict:
+        """The JAX msgpack train state at ``step`` (default: the latest) under
+        ``jax_workspace`` (default: this manager's workspace)."""
+        ckdir = self.dir if jax_workspace is None else os.path.join(jax_workspace, "checkpoints")
+        names = os.listdir(ckdir) if os.path.isdir(ckdir) else []
+        steps = {int(m.group(1)): f for f in names if (m := _JAX_NAME.match(f))}
+        if step is None and steps:
+            step = max(steps)
+        if step not in steps:
+            if any(_is_orbax_step(ckdir, f) for f in names):
+                raise NotImplementedError(
+                    f"{ckdir}: an orbax checkpoint; only the JAX package's msgpack checkpoints "
+                    "are read (orbax and tensorstore are not installed with the port)")
+            raise FileNotFoundError(f"{ckdir}: no JAX msgpack checkpoint"
+                                    + ("" if step is None else f" at step {step}"))
+        with open(os.path.join(ckdir, steps[step]), "rb") as f:
+            tree = msgpack_restore(f.read())
+        if not isinstance(tree, dict) or "params" not in tree:
+            raise ValueError(f"{steps[step]}: not a JAX train state")
+        return tree
+
+    def has_jax_state(self) -> bool:
+        """Whether the workspace holds a JAX train state: a msgpack file, or
+        an orbax step directory (which ``restore_jax_state`` refuses)."""
+        return any(_JAX_NAME.match(f) or _is_orbax_step(self.dir, f)
+                   for f in os.listdir(self.dir))
+
     def restore_jax_variables(self, module, jax_workspace: Optional[str] = None,
                               step: Optional[int] = None) -> int:
         """Load the weights of a JAX package checkpoint into ``module`` in
@@ -99,27 +130,25 @@ class CheckpointManager:
         missing or leftover name or a shape that differs. The optax state is
         not read. An orbax checkpoint raises ``NotImplementedError``; no
         checkpoint at all ``FileNotFoundError``."""
-        ckdir = self.dir if jax_workspace is None else os.path.join(jax_workspace, "checkpoints")
-        names = os.listdir(ckdir) if os.path.isdir(ckdir) else []
-        steps = {int(m.group(1)): f for f in names if (m := _JAX_NAME.match(f))}
-        if step is None and steps:
-            step = max(steps)
-        if step not in steps:
-            if any(f.isdigit() and os.path.isdir(os.path.join(ckdir, f)) for f in names):
-                raise NotImplementedError(
-                    f"{ckdir}: an orbax checkpoint; only the JAX package's msgpack checkpoints "
-                    "are read (orbax and tensorstore are not installed with the port)")
-            raise FileNotFoundError(f"{ckdir}: no JAX msgpack checkpoint"
-                                    + ("" if step is None else f" at step {step}"))
-        with open(os.path.join(ckdir, steps[step]), "rb") as f:
-            tree = msgpack_restore(f.read())
-        if not isinstance(tree, dict) or "params" not in tree:
-            raise ValueError(f"{steps[step]}: not a JAX train state")
-        variables = {"params": tree["params"]}
-        if tree.get("batch_stats"):
-            variables["batch_stats"] = tree["batch_stats"]
-        load_flax_variables(module, variables)
+        tree = self._jax_tree(jax_workspace, step)
+        _load_jax_weights(module, tree)
         return int(tree["step"])
+
+    def restore_jax_state(self, state: TrainState, jax_workspace: Optional[str] = None,
+                          step: Optional[int] = None) -> TrainState:
+        """Load a whole JAX train state into ``state`` in place and return it:
+        ``params`` and ``batch_stats`` into the module (as
+        ``restore_jax_variables``), ``opt_state`` into the optimizer
+        (``Optimizer.load_optax_state``: the optimizer must be built as the
+        JAX run's ``OptimizerConfig`` was) and ``step``. The same file
+        lookup and refusals as ``restore_jax_variables``."""
+        tree = self._jax_tree(jax_workspace, step)
+        if "opt_state" not in tree:
+            raise ValueError("the JAX checkpoint holds no opt_state")
+        _load_jax_weights(state.module, tree)
+        state.optimizer.load_optax_state(tree["opt_state"])
+        state.step = int(tree["step"])
+        return state
 
     def _read(self, step: int, module) -> dict:
         """The checkpoint at ``step``, its tensors on ``module``'s device."""
@@ -128,3 +157,26 @@ class CheckpointManager:
 
     def wait(self):
         """Saves are synchronous: nothing to wait for."""
+
+
+def _is_orbax_step(ckdir: str, name: str) -> bool:
+    """Whether ``name`` is one of the step directories orbax writes."""
+    return name.isdigit() and os.path.isdir(os.path.join(ckdir, name))
+
+
+def _load_jax_weights(module, tree: dict) -> None:
+    variables = {"params": tree["params"]}
+    if tree.get("batch_stats"):
+        variables["batch_stats"] = tree["batch_stats"]
+    load_flax_variables(module, variables)
+
+
+def export_jax_state(state: TrainState) -> dict:
+    """A port train state in the JAX package's layout: the state dict flax
+    makes of its ``TrainState`` (``step``, ``params``, ``batch_stats``,
+    ``opt_state``; numpy leaves), which ``msgpack_serialize`` turns into a
+    file that ``restore_jax_state`` reads."""
+    variables = export_flax_variables(state.module)
+    return {"step": np.asarray(state.step, np.int32), "params": variables.get("params", {}),
+            "batch_stats": variables.get("batch_stats", {}),
+            "opt_state": state.optimizer.export_optax_state()}

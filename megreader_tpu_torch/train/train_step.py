@@ -7,7 +7,8 @@ A port of ``megreader_tpu/train/train_step.py`` with optax's update rules:
   for ``warmup_cosine`` or any ``warmup_steps > 0``, a linear warm-up from 0
   joined to the base schedule, which then starts again at 0 (optax's
   ``join_schedules``).
-* ``OptimizerConfig.make(params)`` returns an :class:`Optimizer`: optax's
+* ``OptimizerConfig.make(module)`` returns an :class:`Optimizer` over the
+  module's parameters: optax's
   ``clip_by_global_norm`` written out, then ``torch.optim.SGD`` (decay added to
   the gradient, heavy-ball momentum without dampening: optax's
   ``add_decayed_weights`` + ``sgd``) or ``torch.optim.AdamW`` (b1 0.9, b2
@@ -19,6 +20,18 @@ A port of ``megreader_tpu/train/train_step.py`` with optax's update rules:
   (n + 1)``, MultiSteps' own arithmetic); every k-th mini-step clips,
   schedules and updates on that mean and counts one update, and between
   those the parameters stay as they are.
+* ``Optimizer.load_optax_state(tree)`` takes the optax state of a JAX train
+  state (the tree ``OptimizerConfig.make().init(params)`` builds, as flax's
+  state dict: tuples as {"0": ..., "1": ...}, optax's named tuples as
+  dicts, empty states as {}) and ``export_optax_state()`` gives it back:
+  ``clip_by_global_norm``'s empty state; ``adamw``'s ``ScaleByAdamState(count,
+  mu, nu)`` <-> AdamW's ``step``/``exp_avg``/``exp_avg_sq``; ``sgd``'s
+  ``TraceState(trace)`` <-> the momentum buffer; the schedule's count <->
+  ``count``; ``MultiStepsState(mini_step, gradient_step, inner_opt_state,
+  acc_grads, skip_state)`` <-> ``mini_step``/``acc``. Moments match
+  parameters by their flax paths (``compat/weights.py``'s name maps); a
+  missing or leftover leaf, a shape that differs or counts that disagree
+  raise.
 
 A train step is prepare -> loss -> backward -> clip -> update, eagerly on the
 module's device; its metrics stay on the device until a caller reads them.
@@ -41,8 +54,9 @@ from __future__ import annotations
 import inspect
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -115,8 +129,9 @@ class OptimizerConfig:
             base = _join(_polynomial(0.0, self.lr, 1.0, warm), base, warm)
         return base
 
-    def make(self, params: Iterable[nn.Parameter]) -> "Optimizer":
-        params = list(params)
+    def make(self, module: nn.Module) -> "Optimizer":
+        """An :class:`Optimizer` over ``module``'s parameters."""
+        params = list(module.parameters())
         if self.name == "sgd":
             inner = torch.optim.SGD(params, lr=0.0, momentum=self.momentum,
                                     weight_decay=self.weight_decay)
@@ -125,7 +140,8 @@ class OptimizerConfig:
                                       weight_decay=self.weight_decay)
         else:
             raise ValueError(f"unknown optimizer {self.name!r}")
-        return Optimizer(inner, self.make_schedule(), self.grad_clip, self.accumulate_steps)
+        return Optimizer(inner, module, self.make_schedule(), self.grad_clip,
+                         self.accumulate_steps)
 
 
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -137,9 +153,12 @@ class Optimizer:
     """A torch optimizer driven by optax's schedule count and global-norm clip,
     with MultiSteps' gradient accumulation when ``accumulate_steps > 1``."""
 
-    def __init__(self, inner: torch.optim.Optimizer, schedule: Schedule,
+    def __init__(self, inner: torch.optim.Optimizer, module: nn.Module, schedule: Schedule,
                  grad_clip: Optional[float] = None, accumulate_steps: int = 1):
         self.inner = inner
+        #: the module whose parameters ``inner`` steps, in its order (for the
+        #: optax state's flax paths)
+        self.module = module
         self.schedule = schedule
         self.grad_clip = grad_clip
         self.accumulate_steps = accumulate_steps
@@ -214,6 +233,121 @@ class Optimizer:
             a.to(device=p.device, dtype=p.dtype).clone() for a, p in zip(acc, self._params())]
 
 
+    # -- the optax state of a JAX train state ---------------------------------
+    def _named_params(self) -> List[Tuple[str, nn.Parameter]]:
+        return list(self.module.named_parameters())
+
+    def _per_param(self, tree: Dict) -> List[torch.Tensor]:
+        """A flax params tree -> one tensor a parameter, on its device and dtype."""
+        from ..compat.weights import port_arrays
+
+        named = self._named_params()
+        arrays = port_arrays(self.module, {"params": tree}, ("params",))
+        return [torch.from_numpy(arrays[n]).to(device=p.device, dtype=p.dtype) for n, p in named]
+
+    def _flax_tree(self, tensors: List[torch.Tensor]) -> Dict:
+        from ..compat.weights import export_flax_variables
+
+        named = self._named_params()
+        out = export_flax_variables(self.module, {n: t for (n, _), t in zip(named, tensors)})
+        return out.get("params", {})
+
+    def _tx_layout(self) -> str:
+        if isinstance(self.inner, torch.optim.AdamW):
+            return "adamw"
+        if isinstance(self.inner, torch.optim.SGD):
+            return "sgd"
+        raise ValueError(f"no optax state for {type(self.inner).__name__}")
+
+    @torch.no_grad()
+    def load_optax_state(self, tree: Dict) -> None:
+        """Take a JAX optax state (see the module's docstring) in place."""
+        params = self._params()
+        if self.accumulate_steps > 1:
+            _keys(tree, {"mini_step", "gradient_step", "inner_opt_state", "acc_grads",
+                         "skip_state"}, "MultiStepsState")
+            mini_step = int(tree["mini_step"])
+            acc = self._per_param(tree["acc_grads"])
+            gradient_step = int(tree["gradient_step"])
+            tree = tree["inner_opt_state"]
+        if self.grad_clip:
+            _keys(tree, {"0", "1"}, "chain(clip_by_global_norm, ...)")
+            _keys(tree["0"], set(), "clip_by_global_norm's state")
+            tree = tree["1"]
+        state: Dict[int, Dict] = {}
+        if self._tx_layout() == "adamw":
+            _keys(tree, {"0", "1", "2"}, "adamw's chain")
+            _keys(tree["0"], {"count", "mu", "nu"}, "ScaleByAdamState")
+            _keys(tree["1"], set(), "add_decayed_weights' state")
+            _keys(tree["2"], {"count"}, "ScaleByScheduleState")
+            count = int(tree["2"]["count"])
+            if int(tree["0"]["count"]) != count:
+                raise ValueError(f"Adam's count {int(tree['0']['count'])} is not the "
+                                 f"schedule's {count}")
+            for i, (p, mu, nu) in enumerate(zip(params, self._per_param(tree["0"]["mu"]),
+                                                self._per_param(tree["0"]["nu"]))):
+                state[i] = {"step": torch.tensor(float(count), dtype=_scalar_dtype()),
+                            "exp_avg": mu, "exp_avg_sq": nu}
+        else:
+            _keys(tree, {"0", "1"}, "chain(add_decayed_weights, sgd)")
+            _keys(tree["0"], set(), "add_decayed_weights' state")
+            _keys(tree["1"], {"0", "1"}, "sgd's chain")
+            _keys(tree["1"]["0"], {"trace"}, "TraceState")
+            _keys(tree["1"]["1"], {"count"}, "ScaleByScheduleState")
+            count = int(tree["1"]["1"]["count"])
+            for i, t in enumerate(self._per_param(tree["1"]["0"]["trace"])):
+                state[i] = {"momentum_buffer": t}
+        if self.accumulate_steps > 1:
+            if gradient_step != count:
+                raise ValueError(f"MultiSteps' gradient_step {gradient_step} is not the "
+                                 f"schedule's count {count}")
+            self.mini_step, self.acc = mini_step, acc
+        sd = self.inner.state_dict()
+        sd["state"] = state
+        self.inner.load_state_dict(sd)
+        self.count = count
+
+    @torch.no_grad()
+    def export_optax_state(self) -> Dict:
+        """This optimizer's state as the JAX optax state (numpy leaves, flax
+        layouts): the inverse of ``load_optax_state``."""
+        params = self._params()
+        zeros = [torch.zeros_like(p) for p in params]
+
+        def leaf(i: int, key: str) -> torch.Tensor:
+            return self.inner.state.get(params[i], {}).get(key, zeros[i])
+
+        count = np.asarray(self.count, np.int32)
+        if self._tx_layout() == "adamw":
+            tree = {"0": {"count": count,
+                          "mu": self._flax_tree([leaf(i, "exp_avg") for i in range(len(params))]),
+                          "nu": self._flax_tree([leaf(i, "exp_avg_sq")
+                                                 for i in range(len(params))])},
+                    "1": {}, "2": {"count": count}}
+        else:
+            trace = self._flax_tree([leaf(i, "momentum_buffer") for i in range(len(params))])
+            tree = {"0": {}, "1": {"0": {"trace": trace}, "1": {"count": count}}}
+        if self.grad_clip:
+            tree = {"0": {}, "1": tree}
+        if self.accumulate_steps > 1:
+            tree = {"mini_step": np.asarray(self.mini_step, np.int32),
+                    "gradient_step": count, "inner_opt_state": tree,
+                    "acc_grads": self._flax_tree(self.acc if self.acc is not None else zeros),
+                    "skip_state": {}}
+        return tree
+
+
+def _keys(tree, want: set, what: str) -> None:
+    if not isinstance(tree, dict) or set(tree) != want:
+        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+        raise KeyError(f"{what}: expected keys {sorted(want)}, got {got}")
+
+
+def _scalar_dtype() -> torch.dtype:
+    """The dtype torch's Adam keeps its step count in."""
+    return torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
+
+
 @dataclass
 class TrainState:
     """The step count, the module being trained, and its optimizer (which
@@ -226,7 +360,7 @@ class TrainState:
 
 def create_train_state(model, optimizer: OptimizerConfig) -> TrainState:
     """A fresh state for ``model`` (a task wrapper with ``.net`` and ``.loss``)."""
-    return TrainState(step=0, module=model.net, optimizer=optimizer.make(model.net.parameters()))
+    return TrainState(step=0, module=model.net, optimizer=optimizer.make(model.net))
 
 
 def wants_step(prepare: Optional[Callable]) -> bool:

@@ -6,6 +6,21 @@ checkpoint through the manager (which saves every ``save_every_steps``) -> a
 final forced save. ``epochs`` is a total budget: a resumed run trains on
 toward ``epochs * len(loader)`` steps and does nothing once there.
 
+``train(resume=True)`` restores the latest port checkpoint of the workspace
+or, when there is none and the workspace holds a JAX msgpack train state
+(``checkpoints/state_XXXXXXXX.msgpack``), that state whole: weights, optax
+state and step (``CheckpointManager.restore_jax_state``), so
+``python -m megreader_tpu_torch.cli.train <yaml>`` continues a run the JAX
+package began in the same workspace. What a resumed run draws: neither
+package saves the loader's place, so a resumed run, in either package,
+starts its loader at the top of an epoch. The port's first epoch shuffles
+with seed + 1, its next with seed + 2, ... (the port builds the module
+with its weights and draws no batch to initialize it); a resumed JAX run
+draws one batch for flax's ``init`` first, so its first epoch shuffles with
+seed + 2. A JAX run resumed in the port thus draws the batches a fresh port
+run draws from its first step, and its device augmentation, keyed on
+(seed, step), continues from the restored step as JAX's would.
+
 ``use_mesh=True`` trains data-parallel over the process group that is up
 (``parallel/mesh.py``; a world of one without a group): rank 0's weights
 replicated after the restore, BatchNorm on the global batch's statistics,
@@ -66,9 +81,13 @@ class Trainer:
         sched = self.optimizer.make_schedule()
         state = create_train_state(self.model, self.optimizer)
         if resume:
-            state = self.checkpoint.restore(state)
-            if state.step > 0:
-                self.logger.info(f"resumed at step {state.step}")
+            if self.checkpoint.latest_step() is None and self.checkpoint.has_jax_state():
+                state = self.checkpoint.restore_jax_state(state)
+                self.logger.info(f"resumed the JAX train state at step {state.step}")
+            else:
+                state = self.checkpoint.restore(state)
+                if state.step > 0:
+                    self.logger.info(f"resumed at step {state.step}")
         if self.mesh is not None:
             replicated(state.module, self.mesh)
             sync_batch_norm(state.module, self.mesh)

@@ -261,7 +261,7 @@ def test_accumulation_matches_multisteps(name, k, clip):
             refs.append([np.asarray(r) for r in ref])
 
     tparams = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
-    opt = OptimizerConfig(**cfg).make(tparams)
+    opt = OptimizerConfig(**cfg).make(torch.nn.ParameterList(tparams))
     resumed = None
     for i, g in enumerate(grads):
         before = [p.detach().clone() for p in tparams]
@@ -280,7 +280,7 @@ def test_accumulation_matches_multisteps(name, k, clip):
             np.testing.assert_allclose(p.detach().numpy(), r, rtol=0, atol=1e-8)
         if i == k:  # one mini-step into the second cycle: save and resume
             rparams = [torch.nn.Parameter(p.detach().clone()) for p in tparams]
-            resumed = (rparams, OptimizerConfig(**cfg).make(rparams))
+            resumed = (rparams, OptimizerConfig(**cfg).make(torch.nn.ParameterList(rparams)))
             resumed[1].load_state_dict(copy.deepcopy(opt.state_dict()))
         elif resumed is not None:
             rparams, ropt = resumed

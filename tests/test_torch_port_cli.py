@@ -159,7 +159,7 @@ def test_cli_pipeline_matches_predict(pipeline_run, rectify, capsys):
 def test_cli_pipeline_refuses_what_is_not_ported(pipeline_run):
     base = ["--detector", DET, "--recognizer", CTC, "--images", *pipeline_run["paths"]]
     # --bucketed is ported: test_torch_port_bucketed.py
-    with pytest.raises(NotImplementedError, match="item 15\\)"):
+    with pytest.raises(NotImplementedError, match="item 15b\\)"):
         cli_pipeline.main(base + ["--out-dir", "vis"])
 
 
@@ -245,9 +245,15 @@ def _png(tmp_path, ihdr):
 
 
 def test_read_image_refuses_other_formats(tmp_path):
+    # PNG and JPEG are read (test_torch_port_jpeg.py); a BMP, and a JPEG
+    # coding the port does not decode, are refused by name
+    bmp = tmp_path / "x.bmp"
+    cv2.imwrite(str(bmp), np.zeros((8, 8, 3), np.uint8))
+    with pytest.raises(NotImplementedError, match="neither PNG nor JPEG"):
+        imageio.read_image(str(bmp))
     jpg = tmp_path / "x.jpg"
-    cv2.imwrite(str(jpg), np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="only PNG"):
+    cv2.imwrite(str(jpg), np.zeros((8, 8, 3), np.uint8), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(NotImplementedError, match="progressive"):
         imageio.read_image(str(jpg))
     for ihdr in ((4, 4, 16, 2, 0, 0, 0), (4, 4, 8, 3, 0, 0, 0), (4, 4, 8, 2, 0, 0, 1)):
         with pytest.raises(NotImplementedError, match="only 8-bit, non-interlaced"):

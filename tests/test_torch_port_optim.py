@@ -69,7 +69,7 @@ def test_updates_match_optax(name, clip):
     state = tx.init(ref)
 
     tparams = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
-    opt = OptimizerConfig(**cfg).make(tparams)
+    opt = OptimizerConfig(**cfg).make(torch.nn.ParameterList(tparams))
     clipped = 0
     for g in grads:
         updates, state = tx.update([jnp.asarray(x) for x in g], state, ref)
@@ -94,7 +94,7 @@ def test_global_norm():
 def test_accumulate_steps_and_unknown_names_raise():
     """``accumulate_steps`` builds (``optax.MultiSteps``; held to optax in
     ``test_torch_port_augment.py``); unknown names raise."""
-    p = [torch.nn.Parameter(torch.zeros(2))]
+    p = torch.nn.ParameterList([torch.nn.Parameter(torch.zeros(2))])
     assert OptimizerConfig(accumulate_steps=2).make(p).accumulate_steps == 2
     with pytest.raises(ValueError, match="unknown optimizer"):
         OptimizerConfig(name="lamb").make(p)
@@ -106,13 +106,13 @@ def test_optimizer_state_round_trips():
     params, grads = _params_and_grads(1)
     cfg = OptimizerConfig(name="adamw", lr=0.01, schedule="cosine", total_steps=10)
     a = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
-    opt_a = cfg.make(a)
+    opt_a = cfg.make(torch.nn.ParameterList(a))
     for g in grads[:2]:
         for p, x in zip(a, g):
             p.grad = torch.from_numpy(x.copy())
         opt_a.step()
     b = [torch.nn.Parameter(p.detach().clone()) for p in a]
-    opt_b = cfg.make(b)
+    opt_b = cfg.make(torch.nn.ParameterList(b))
     opt_b.load_state_dict(copy.deepcopy(opt_a.state_dict()))  # as a checkpoint holds it
     assert opt_b.count == 2
     for opt, ps in ((opt_a, a), (opt_b, b)):
