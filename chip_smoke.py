@@ -327,6 +327,22 @@ Phases (any failure exits non-zero):
     ``seg_detector_icdar_disk.yaml`` with the deformable ResNet-50 on the
     committed JPEG pages (process workers) and one ``evaluate_detection``
     on them through CCL (``launches_r50``).
+28. tools: ``cli.pipeline --out-dir`` with the asset detector and the
+    config-#1 recognizer on 8 pages of 640x640, with ``'auto'`` and with
+    ``--extract-impl pallas_full`` (one CCL launch each, one of each
+    extraction kernel with ``pallas_full``), every overlay read back and
+    pixel-equal to the CPU route's drawing (``draw_polygons``) of the
+    card's detections; ``cli.demo`` on one page; ``profiling.trace`` around
+    one serving batch (the trace names the CCL kernel and the ``annotate``
+    region); ``native`` built by g++ on the card's host, the dispatchers
+    ``offset_polygon`` and ``polygon_iou`` held to the numpy routes on 1,000
+    random quads; the stem at 8x640x640 against the CPU and its ms by CUDA
+    events, and the ``stem_s2d`` / ``stem_s2d4`` flags' stem against it;
+    ``resize_bilinear`` and ``rectify_quads`` against the CPU; a
+    torchvision-layout ResNet-50 state dict loaded into a trunk, card
+    against CPU; every progressive JPEG of ``assets/jpeg/progressive/``
+    equal to its digest, and ms for the 1280x720 page beside its baseline
+    twin (``launches_tools``).
 
 Prints each phase's seconds on the host clock, a JSON line of per-kernel
 numbers (all eight kernels, with their launches in each phase that drives a
@@ -5424,6 +5440,304 @@ def phase_r50(B: int = 8, hw: int = 640, steps: int = 4, cpu_pages: int = 2,
     return total
 
 
+def tools_overlays(name, out, paths, vis_dir) -> int:
+    """Each page's overlay as written, read back, against ``draw_polygons``
+    of the page and the printed detections on the host; returns the words."""
+    from megreader_tpu_torch.data.imageio import read_image
+    from megreader_tpu_torch.postproc.visualizer import draw_polygons
+
+    words = 0
+    for path, page in zip(paths, out):
+        got = read_image(os.path.join(vis_dir, os.path.splitext(os.path.basename(path))[0]
+                                      + ".png"))
+        dets = page["detections"]
+        want = draw_polygons(read_image(path), [np.array(d["polygon"]) for d in dets],
+                             [d["text"] for d in dets])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"tools phase, {name}: the overlay of {path} differs from "
+                                 f"the host's drawing in {int((got != want).any(2).sum())} px")
+        words += len(dets)
+    return words
+
+
+def tools_entry_points(B: int, hw: int, total: dict, tmp: str):
+    """``cli.pipeline --out-dir`` ('auto' and 'pallas_full') and ``cli.demo``
+    with the asset detector and a seeded config-#1 recognizer, every overlay
+    read back against the host's drawing; returns the detector, the
+    recognizer and the pages."""
+    from megreader_tpu_torch.cli import demo as cli_demo
+    from megreader_tpu_torch.cli import pipeline as cli_pipeline
+    from megreader_tpu_torch.compat.msgpack import load_flax_msgpack
+    from megreader_tpu_torch.compat.weights import load_flax_variables
+    from megreader_tpu_torch.data.imageio import read_image, write_png
+    from megreader_tpu_torch.models.detector import SegDetector
+    from megreader_tpu_torch.models.recognizer import CTCRecognizer
+    from megreader_tpu_torch.postproc.visualizer import draw_polygons
+    from megreader_tpu_torch.train.checkpoint import CheckpointManager
+    from megreader_tpu_torch.train.train_step import OptimizerConfig, create_train_state
+
+    cfg_det = os.path.join(ROOT, "experiments", "seg_detector_synth.yaml")
+    cfg_rec = os.path.join(ROOT, "experiments", "ctc_resnet18_synth.yaml")
+    ws_det, ws_rec = os.path.join(tmp, "det"), os.path.join(tmp, "rec")
+    variables, asset_step = load_flax_msgpack(ASSET)
+    det = SegDetector(device="cuda")
+    load_flax_variables(det.net, variables)
+    CheckpointManager(ws_det).save(create_train_state(det, OptimizerConfig()), asset_step,
+                                   force=True)
+    torch.manual_seed(SEED + 121)
+    rec = CTCRecognizer(num_classes=37, device="cuda")
+    CheckpointManager(ws_rec).save(create_train_state(rec, OptimizerConfig()), 1, force=True)
+    items = [TextPages(B, 5, (hw, hw))[i] for i in range(B)]
+    paths = []
+    for i, it in enumerate(items):
+        paths.append(os.path.join(tmp, f"page{i}.png"))
+        write_png(paths[-1], it["image"])
+    base = ["--detector", cfg_det, "--det-workspace", ws_det, "--recognizer", cfg_rec,
+            "--rec-workspace", ws_rec, "--page-size", str(hw), "--images", *paths]
+    for impl in ("auto", "pallas_full"):
+        name = f"cli.pipeline --out-dir --extract-impl {impl}"
+        vis_dir = os.path.join(tmp, f"vis_{impl}")
+        out, got, _, _ = run_cli(name, cli_pipeline.main, [
+            *base, "--extract-impl", impl, "--out-dir", vis_dir], total, phase="tools")
+        full = int(impl == "pallas_full")
+        want = {**dict.fromkeys(got, 0), "ccl": 1, "candidates": full, "moments": full,
+                "extents": full}
+        if got != want:
+            raise AssertionError(f"tools phase, {name}: launches {got}, expected {want}")
+        t0 = time.perf_counter()
+        words = tools_overlays(name, out, paths, vis_dir)
+        log(f"tools phase, {name}: {words} words on {B} pages, every overlay read back "
+            f"pixel-equal to the host's drawing of the card's detections "
+            f"({time.perf_counter() - t0:.2f} s to read and draw them again)")
+        if not words:
+            raise AssertionError(f"tools phase, {name}: no word found")
+
+    demo_png = os.path.join(tmp, "demo.png")
+    demo, got, _, _ = run_cli("cli.demo (detector)", cli_demo.main, [
+        cfg_det, "--image", paths[0], "--out", demo_png, "--experiment.workspace", ws_det],
+        total, phase="tools")
+    same = np.array_equal(read_image(demo_png), draw_polygons(read_image(paths[0]),
+                                                              demo["polygons"]))
+    if not got["ccl"] or not len(demo["polygons"]) or not same:
+        raise AssertionError(f"tools phase: cli.demo found {len(demo['polygons'])} regions, "
+                             f"launches {got}, overlay equal to the host's drawing {same}")
+    return det, rec, np.stack([it["image"] for it in items]).astype(np.float32)
+
+
+def tools_trace(det, rec, pages, total: dict, tmp: str) -> None:
+    """``profiling.trace`` around one serving batch: the trace names the CCL
+    kernel and the ``annotate`` region."""
+    from megreader_tpu_torch.pipelines.e2e import E2EPipeline
+    from megreader_tpu_torch.utils import profiling
+
+    pipe = E2EPipeline(det, rec, device="cuda")
+    pipe.predict(None, None, pages)  # warm
+    counters = zeroed_counters()
+    with profiling.trace(os.path.join(tmp, "trace")) as prof:
+        with profiling.annotate("tools_serving_batch"):
+            pipe.predict(None, None, pages)
+        torch.cuda.synchronize()
+    traced = add_counts(total, counters)
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    ccl_names = [n for n in kernels if "ccl" in n]
+    log(f"tools phase: profiling.trace of one serving batch: {len(events)} events, "
+        f"{len(kernels)} distinct device kernels (CCL: {ccl_names}), the annotate region "
+        f"{'present' if 'tools_serving_batch' in names else 'MISSING'}, "
+        f"{os.path.getsize(prof.trace_path)} bytes, launches {traced}")
+    if "tools_serving_batch" not in names or not ccl_names or not traced["ccl"]:
+        raise AssertionError("tools phase: the trace lacks the CCL kernel or the region")
+
+
+def tools_native(rng, quads: int) -> None:
+    """``native`` built by g++ on this host: the dispatchers the program
+    calls (``processes.offset_polygon``, ``measurers.polygon_iou``), on
+    their C++ route, held to the numpy routes."""
+    from megreader_tpu_torch import native
+    from megreader_tpu_torch.data import processes
+    from megreader_tpu_torch.postproc import measurers
+
+    t0 = time.perf_counter()
+    if native.library() is None:
+        raise AssertionError("tools phase: no g++ on the card's host")
+    build_s = time.perf_counter() - t0
+    # convex quads (4 points on a rotated ellipse) and shifted copies: the
+    # pairs the dispatchers clip (a non-convex pair is rasterized instead)
+    ang = np.sort(rng.uniform(0, 2 * np.pi, (quads, 4)), 1)
+    ell = rng.uniform(6, 40, (quads, 1, 2)) * np.stack([np.cos(ang), np.sin(ang)], 2)
+    th = rng.uniform(0, np.pi, (quads, 1))
+    qs = rng.uniform(20, 620, (quads, 1, 2)) + np.stack(
+        [ell[..., 0] * np.cos(th) - ell[..., 1] * np.sin(th),
+         ell[..., 0] * np.sin(th) + ell[..., 1] * np.cos(th)], 2)
+    others = qs + rng.uniform(-15, 15, (quads, 1, 2))
+    if not all(measurers.is_convex(q) for q in qs):
+        raise AssertionError("tools phase: a test quad is not convex")
+    routes = {"native": (processes.offset_polygon, measurers.polygon_iou),
+              "numpy": (processes.offset_polygon_numpy, measurers.polygon_iou_numpy)}
+    got, ms = {}, {}
+    for name, (offset, iou_of) in routes.items():
+        t0 = time.perf_counter()
+        got[name] = ([offset(q, -2.0) for q in qs], [iou_of(q, o) for q, o in zip(qs, others)])
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    off = max(float(np.abs(a - b).max()) for a, b in zip(got["native"][0], got["numpy"][0]))
+    iou = max(abs(a - b) for a, b in zip(got["native"][1], got["numpy"][1]))
+    log(f"tools phase: native built in {build_s:.2f} s ({native.target().name}); on "
+        f"{quads} random convex quads offset within {off:.3g} px of numpy (bound 1e-4), IoU within "
+        f"{iou:.3g} (bound 1e-6); {quads} offsets and IoUs in {ms['native']:.1f} ms by the "
+        f"C++ route, {ms['numpy']:.1f} ms by numpy (host)")
+    if not off <= 1e-4 or not iou <= 1e-6:
+        raise AssertionError(f"tools phase: native differs from numpy by {off}, {iou}")
+
+
+def tools_stems_and_ops(rng, B: int, hw: int, cpu_pages: int):
+    """The stem at B x hw x hw (the ``stem_s2d`` / ``stem_s2d4`` flags run
+    it too) and ``resize_bilinear`` / ``rectify_quads``, card against CPU, ms
+    by CUDA events; returns the normalized pages (NCHW) on the card and
+    their first ``cpu_pages`` on the CPU."""
+    from megreader_tpu_torch.models.resnet import resnet_variant
+    from megreader_tpu_torch.ops.image import normalize, rectify_quads, resize_bilinear
+
+    x_np = make_pages(rng, B, hw, hw)
+    x = normalize(torch.from_numpy(x_np).cuda()).permute(0, 3, 1, 2).contiguous()
+    x_cpu = x[:cpu_pages].cpu()
+    trunk = resnet_variant("resnet18", "det")
+    seeded_weights(trunk, SEED + 122)
+    trunk.eval()
+    with torch.no_grad():
+        cpu = trunk.stem(x_cpu)
+        card = trunk.cuda().stem(x)
+        ms = cuda_ms(lambda: trunk.stem(x), reps=10)
+        flagged = resnet_variant("resnet18", "det", stem_s2d=True, stem_s2d4=True).cuda()
+        flagged.load_state_dict(trunk.state_dict())
+        gap_flags = float((flagged.eval().stem(x) - card).abs().max())
+    gap = float((card[:cpu_pages].cpu() - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    log(f"tools phase: stem on {tuple(x.shape)}: card against CPU max |diff| {gap:.3g} on "
+        f"{cpu_pages} pages (activations up to {scale:.3g}; bound 1e-5 x that), {ms:.3f} ms "
+        f"by CUDA events [{CARD}]; the stem_s2d / stem_s2d4 flags' stem within {gap_flags:.3g} "
+        f"of it on the card")
+    if not gap <= 1e-5 * scale or not gap_flags <= 1e-5 * scale:
+        raise AssertionError(f"tools phase: the stem differs by {gap}, the flags' by "
+                             f"{gap_flags}")
+
+    imgs = torch.from_numpy(x_np).cuda()
+    K = 32  # rotated word boxes a page, some across the page's edge
+    centre = rng.uniform(0, hw, (B, K, 1, 2))
+    corner = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]]) * rng.uniform([10, 4], [100, 20],
+                                                                           (B, K, 1, 2))
+    th = rng.uniform(-0.6, 0.6, (B, K, 1))
+    rot = np.stack([corner[..., 0] * np.cos(th) - corner[..., 1] * np.sin(th),
+                    corner[..., 0] * np.sin(th) + corner[..., 1] * np.cos(th)], -1)
+    quads = torch.from_numpy((centre + rot).astype(np.float32)).cuda()
+    with torch.no_grad():
+        for label, fn in (("resize_bilinear", lambda t, q: resize_bilinear(t, (320, 480))),
+                          ("rectify_quads", lambda t, q: rectify_quads(t, q, (32, 100)))):
+            card = fn(imgs, quads)
+            gap = float((card.cpu() - fn(imgs.cpu(), quads.cpu())).abs().max())
+            ms = cuda_ms(lambda: fn(imgs, quads), reps=10)
+            log(f"tools phase: {label} {tuple(card.shape)} card against CPU max |diff| "
+                f"{gap:.3g} (bound 1e-3 on 0-255 pixels), {ms:.3f} ms by CUDA events [{CARD}]")
+            if not gap <= 1e-3:
+                raise AssertionError(f"tools phase: {label} differs by {gap}")
+    return x, x_cpu
+
+
+def torchvision_keys(trunk) -> dict:
+    """A port 'det' trunk's state dict under torchvision's ResNet names (conv1,
+    bn1, layerI.J, downsample.0/1), as a torchvision checkpoint holds it."""
+    import re
+
+    out = {}
+    for k, v in trunk.state_dict().items():
+        k = k.replace("stem_conv.", "conv1.").replace("stem_bn.", "bn1.")
+        k = re.sub(r"^layer(\d+)_block(\d+)\.", r"layer\1.\2.", k)
+        out[k.replace(".downsample_conv.", ".downsample.0.")
+             .replace(".downsample_bn.", ".downsample.1.")] = v
+    return out
+
+
+def tools_convert(x, x_cpu) -> None:
+    """A torchvision-layout ResNet-50 state dict loaded into a trunk through
+    ``compat/torch_convert.py``: C2-C5 on one page, card against CPU."""
+    from megreader_tpu_torch.compat.torch_convert import (load_torch_state_dict,
+                                                          torchvision_resnet_keys)
+    from megreader_tpu_torch.models.resnet import resnet_variant
+
+    source = resnet_variant("resnet50", "det")
+    seeded_weights(source, SEED + 123)
+    damp_residuals(source)
+    sd = torchvision_keys(source)
+    sd["fc.weight"], sd["fc.bias"] = torch.zeros(1000, 2048), torch.zeros(1000)
+    t0 = time.perf_counter()
+    trunk = load_torch_state_dict(resnet_variant("resnet50", "det"),
+                                  torchvision_resnet_keys(sd)).eval()
+    load_s = time.perf_counter() - t0
+    with torch.no_grad():
+        cpu = trunk(x_cpu[:1])
+        card = trunk.cuda()(x[:1])
+    gaps = [float((c.cpu() - r).abs().max() / r.abs().max()) for c, r in zip(card, cpu)]
+    log(f"tools phase: a torchvision-layout ResNet-50 state dict ({len(sd)} tensors) loaded "
+        f"in {load_s:.2f} s; C2-C5 card against CPU, max |diff| over max |CPU| "
+        f"{[float(f'{g:.3g}') for g in gaps]} (bound 1e-4)")
+    if not max(gaps) <= 1e-4:
+        raise AssertionError(f"tools phase: the converted ResNet-50 differs by {gaps}")
+
+
+PROGRESSIVE_ASSETS = os.path.join(ROOT, "assets", "jpeg", "progressive")
+
+
+def tools_progressive() -> None:
+    """Every progressive JPEG of ``assets/jpeg/progressive/`` and its baseline
+    twin decoded on the host with cv2's digest; ms for the 1280x720 page."""
+    import hashlib
+
+    from megreader_tpu_torch.data.imageio import decode_image
+
+    with open(os.path.join(PROGRESSIVE_ASSETS, "manifest.json")) as f:
+        files = json.load(f)["files"]
+    bad, ms = [], {}
+    for rnd in range(3):
+        for rel, want in sorted(files.items()):
+            if rnd and not rel.startswith("page"):
+                continue
+            with open(os.path.join(PROGRESSIVE_ASSETS, rel), "rb") as f:
+                data = f.read()
+            t0 = time.perf_counter()
+            img = decode_image(data, rel)
+            ms.setdefault(rel, []).append((time.perf_counter() - t0) * 1e3)
+            if hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest() != want["sha256"]:
+                bad.append(rel)
+    prog, base = ms["page_1280x720.jpg"], ms["page_1280x720.base.jpg"]
+    log(f"tools phase: {len(files) - len(set(bad))} of {len(files)} progressive JPEG files "
+        f"and baseline twins decoded on the host with cv2's digest; the 1280x720 page "
+        f"progressive {[round(v, 1) for v in prog]} ms (median {statistics.median(prog):.1f}), "
+        f"its baseline twin {[round(v, 1) for v in base]} ms (median "
+        f"{statistics.median(base):.1f}), one host thread")
+    if bad:
+        raise AssertionError(f"tools phase: the port's decode differs from cv2's on {bad}")
+
+
+def phase_tools(B: int = 8, hw: int = 640, quads: int = 1000, cpu_pages: int = 8):
+    """The tools of ROADMAP item 15b on the card (see the module docstring).
+    Returns every kernel's launches in the entry points' runs and the traced
+    batch."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernel_counters(), 0)
+    rng = np.random.default_rng(SEED + 120)
+    with tempfile.TemporaryDirectory() as tmp:
+        det, rec, pages = tools_entry_points(B, hw, total, tmp)
+        tools_trace(det, rec, pages, total, tmp)
+    del det, rec
+    tools_native(rng, quads)
+    x, x_cpu = tools_stems_and_ops(rng, B, hw, cpu_pages)
+    tools_convert(x, x_cpu)
+    tools_progressive()
+    log(f"tools phase: {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -5464,6 +5778,7 @@ def main() -> int:
     lmdb = timed("lmdb", phase_lmdb)
     resume = timed("resume", phase_resume)
     r50 = timed("r50", phase_r50)
+    tools = timed("tools", phase_tools)
     for name, total, needed in (("encoders", encoders, ("ctc_alpha", "ctc_beta")),
                                 ("chains", chains, ("ccl", "candidates", "moments", "extents")),
                                 ("buckets", buckets, ("ccl",)), ("int8", int8, ("ccl",)),
@@ -5473,7 +5788,8 @@ def main() -> int:
                                                       "candidates", "moments", "extents")),
                                 ("lmdb", lmdb, ("ctc_alpha", "ctc_beta")),
                                 ("resume", resume, ("ctc_alpha", "ctc_beta")),
-                                ("r50", r50, ("ccl", "candidates", "moments", "extents"))):
+                                ("r50", r50, ("ccl", "candidates", "moments", "extents")),
+                                ("tools", tools, ("ccl", "candidates", "moments", "extents"))):
         if not all(total[n] for n in needed):
             raise AssertionError(f"{name} phase: a kernel of its path did not launch: {total}")
     rows = [ccl_row, *extract_rows, alpha_row, beta_row, alpha2d_row, beta2d_row]
@@ -5492,6 +5808,7 @@ def main() -> int:
         row["launches_lmdb"] = lmdb[key]
         row["launches_resume"] = resume[key]
         row["launches_r50"] = r50[key]
+        row["launches_tools"] = tools[key]
     log("phase seconds (host clock) " + json.dumps(clocks))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,12 +1,9 @@
 """Fill the port's component registry (``core/registry.py``): the bootstrap
 that ``Experiment.from_yaml`` and the entry points import.
 
-Every ported component is registered under its JAX package name, so that the
-YAML files of ``experiments/`` read unchanged. Each JAX name that is not
-ported yet is registered as a stub that raises ``NotImplementedError``
-naming its ROADMAP item, so that a YAML naming it fails with that reason
-instead of "unknown component". Importing this module twice registers
-nothing twice.
+Every component of the JAX package's registry is ported and registered
+under its JAX package name, so that the YAML files of ``experiments/`` read
+unchanged. Importing this module twice registers nothing twice.
 """
 
 from .core.charset import AttentionCharset, Charset
@@ -33,6 +30,7 @@ from .pipelines.predictors import DetectorPredictor, RecognizerPredictor
 from .pipelines.spotter_e2e import SpotterE2EPipeline
 from .postproc.detection import SegDetectorRepresenter
 from .postproc.measurers import DetectionMeasurer, DetEvalMeasurer, RecognitionMeasurer
+from .postproc.visualizer import DetectionVisualizer
 from .train.checkpoint import CheckpointManager
 from .train.logger import Logger
 from .train.train_step import OptimizerConfig
@@ -45,26 +43,10 @@ PORTED = (
     HardSyntheticRecognitionDataset, HardSyntheticDetectionDataset, Loader, Experiment,
     CTCRecognizer, Ctc2dRecognizer, AttentionRecognizer, SegDetector, RoITextSpotter,
     SharedTrunkSpotter, E2EPipeline, BucketedE2E, SpotterE2EPipeline, RecognizerPredictor,
-    DetectorPredictor, SegDetectorRepresenter, DetectionMeasurer, DetEvalMeasurer, RecognitionMeasurer, CheckpointManager, Logger,
-    OptimizerConfig, Trainer, SignalMonitor,
+    DetectorPredictor, SegDetectorRepresenter, DetectionMeasurer, DetEvalMeasurer,
+    RecognitionMeasurer, DetectionVisualizer, CheckpointManager, Logger, OptimizerConfig, Trainer,
+    SignalMonitor,
 )
-
-#: JAX component name -> (ROADMAP Queue 1 item, what it is)
-NOT_PORTED = {
-    "DetectionVisualizer": ("15b", "the detection visualizer"),
-}
-
-
-def _stub(name: str, item: str, what: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: {what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-    refuse.__name__ = refuse.__qualname__ = name
-    return refuse
-
 
 for _cls in PORTED:
     COMPONENTS.register(_cls)
-for _name, (_item, _what) in NOT_PORTED.items():
-    COMPONENTS.register(_stub(_name, _item, _what), name=_name)

@@ -5,21 +5,23 @@ each page's word quads and strings, one JSON line a page.
         --detector experiments/seg_detector_synth.yaml --det-workspace W1 \
         --recognizer experiments/ctc_resnet18_synth.yaml --rec-workspace W2 \
         --images page1.png page2.png [--rectify box|deskew|perspective] [--bucketed] \
-        [--experiment.<key> value ...]
+        [--out-dir vis/] [--experiment.<key> value ...]
 
 Pages are PNG or JPEG files (``data/imageio.py``: the card's machine has no cv2),
 resized to ``--page-size`` square with cv2's bilinear geometry, or with
 ``--bucketed`` each scaled (never up) into the smallest of the default
 canvases that keeps it largest (``pipelines/bucketed.py``); quads come back
 in the page's own pixels. Trailing dotted overrides apply to both
-experiments. ``--out-dir`` (the visualizer, ROADMAP Queue 1 item 15b) is
-refused.
+experiments. ``--out-dir`` writes one overlay a page, ``<out-dir>/<page
+name>.png``: the page with its detections' polygons and texts
+(``postproc/visualizer.py``, cv2's drawing in numpy).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 
@@ -28,6 +30,7 @@ from ..data.imageio import read_image, resize_linear
 from ..experiment import Experiment
 from ..pipelines.bucketed import BucketedE2E
 from ..pipelines.e2e import E2EPipeline
+from ..postproc.visualizer import DetectionVisualizer
 from ..train.checkpoint import CheckpointManager
 
 
@@ -48,7 +51,8 @@ def main(argv=None):
     ap.add_argument("--recognizer", required=True)
     ap.add_argument("--rec-workspace", default=None)
     ap.add_argument("--images", nargs="+", required=True)
-    ap.add_argument("--out-dir", default=None, help="visualizations (not ported)")
+    ap.add_argument("--out-dir", default=None,
+                    help="write each page with its polygons and texts to <out-dir>/<name>.png")
     ap.add_argument("--page-size", type=int, default=640)
     ap.add_argument("--max-regions", type=int, default=32)
     ap.add_argument("--box-thresh", type=float, default=0.5)
@@ -75,9 +79,6 @@ def main(argv=None):
                          "canvas bucket that keeps it largest, instead of a square "
                          "--page-size resize")
     args, rest = ap.parse_known_args(argv)
-    if args.out_dir:
-        raise NotImplementedError("--out-dir: the detection visualizer is not ported yet "
-                                  "(ROADMAP Queue 1 item 15b)")
     overrides = parse_cli_overrides(rest)
 
     det_exp = _load(args.detector, args.det_workspace, overrides)
@@ -95,9 +96,10 @@ def main(argv=None):
     )
 
     S = args.page_size
-    pages, scales = [], []
+    pages, scales, originals = [], [], []
     for path in args.images:
         img = read_image(path)
+        originals.append(img)
         h, w = img.shape[:2]
         if args.bucketed:  # BucketedE2E scales the polygons itself
             pages.append(img.astype(np.float32))
@@ -110,12 +112,17 @@ def main(argv=None):
     else:
         results = pipe.predict(None, None, np.stack(pages))
 
+    vis = DetectionVisualizer(args.out_dir) if args.out_dir else None
     out = []
-    for path, page, (sx, sy) in zip(args.images, results, scales):
+    for path, page, (sx, sy), orig in zip(args.images, results, scales, originals):
         dets = [{"polygon": (d["polygon"] * np.array([sx, sy])).tolist(), "text": d["text"],
                  "score": d["score"]} for d in page]
         out.append({"image": path, "detections": dets})
         print(json.dumps(out[-1]))
+        if vis is not None:
+            name = os.path.splitext(os.path.basename(path))[0]
+            vis.visualize(name, orig, [np.array(d["polygon"]) for d in dets],
+                          [d["text"] for d in dets])
     return out
 
 

@@ -8,14 +8,15 @@ port does all three here, with the standard library's ``zlib`` and numpy:
 
 * ``decode_image`` (bytes) and ``read_image`` (a path) dispatch on the
   file's signature. PNG: 8-bit, non-interlaced, colour type grey, grey with
-  alpha, RGB or RGBA, any of the five row filters. JPEG: baseline and
-  extended sequential Huffman (``data/jpeg.py``). Either -> (H, W, 3) uint8
+  alpha, RGB or RGBA, any of the five row filters. JPEG: baseline,
+  extended sequential and progressive Huffman (``data/jpeg.py``). Either -> (H, W, 3) uint8
   RGB, bit-equal to ``cv2.imread``/``cv2.imdecode`` then
   ``cv2.cvtColor(BGR2RGB)`` (grey repeated into the three channels, alpha
   dropped, a JPEG's EXIF orientation applied). Any other file raises
   ``NotImplementedError``; a damaged one ``ValueError``.
-* ``write_png``: (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 -> a PNG
-  file, each row with a filter from ``filters`` in turn.
+* ``encode_png`` / ``write_png``: (H, W) grey, (H, W, 3) RGB or (H, W, 4)
+  RGBA uint8 -> PNG bytes / a PNG file, each row with a filter from
+  ``filters`` in turn.
 * ``resize_linear``: cv2's ``INTER_LINEAR`` geometry (half-pixel centres,
   edge clamping, no antialiasing when shrinking), bit-equal to cv2 on uint8
   (its 11-bit fixed-point passes) and on float32 (cv2's own steps: rows
@@ -132,10 +133,12 @@ def decode_image(data: bytes, path: str = "<bytes>") -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
-def _filter_row(kind: int, cur: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
+def _filter_rows(kind: int, cur: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
+    """Rows (n, L) filtered by ``kind`` against the rows above them (n, L)."""
     c = cur.astype(np.int64)
     b = prev.astype(np.int64)
-    a = np.concatenate([np.zeros(bpp, np.int64), c[:-bpp]])
+    pad = np.zeros(c.shape[:-1] + (bpp,), np.int64)
+    a = np.concatenate([pad, c[..., :-bpp]], -1)
     if kind == 0:
         pred = np.zeros_like(c)
     elif kind == 1:
@@ -145,7 +148,7 @@ def _filter_row(kind: int, cur: np.ndarray, prev: np.ndarray, bpp: int) -> np.nd
     elif kind == 3:
         pred = (a + b) >> 1
     elif kind == 4:
-        cc = np.concatenate([np.zeros(bpp, np.int64), b[:-bpp]])
+        cc = np.concatenate([pad, b[..., :-bpp]], -1)
         p = a + b - cc
         pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
         pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
@@ -154,35 +157,41 @@ def _filter_row(kind: int, cur: np.ndarray, prev: np.ndarray, bpp: int) -> np.nd
     return ((c - pred) % 256).astype(np.uint8)
 
 
-def write_png(path: str, image: np.ndarray, filters: Sequence[int] = (1,)) -> None:
-    """Write (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 as an 8-bit
-    PNG; row y takes the filter ``filters[y % len(filters)]`` (0 None, 1 Sub,
-    2 Up, 3 Average, 4 Paeth)."""
+def encode_png(image: np.ndarray, filters: Sequence[int] = (1,)) -> bytes:
+    """(H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 -> the bytes of an
+    8-bit PNG; row y takes the filter ``filters[y % len(filters)]`` (0 None,
+    1 Sub, 2 Up, 3 Average, 4 Paeth)."""
     image = np.asarray(image)
     if image.dtype != np.uint8:
-        raise TypeError(f"write_png takes uint8, got {image.dtype}")
+        raise TypeError(f"a PNG takes uint8, got {image.dtype}")
     if image.ndim == 2:
         image = image[..., None]
     h, w, ch = image.shape
     colour = {1: 0, 2: 4, 3: 2, 4: 6}.get(ch)
     if colour is None:
-        raise ValueError(f"write_png takes 1-4 channels, got {ch}")
+        raise ValueError(f"a PNG takes 1-4 channels, got {ch}")
     rows = image.reshape(h, w * ch)
-    prev = np.zeros(w * ch, np.uint8)
-    out = bytearray()
-    for y in range(h):
-        kind = filters[y % len(filters)]
-        out.append(kind)
-        out += _filter_row(kind, rows[y], prev, ch).tobytes()
-        prev = rows[y]
+    above = np.concatenate([np.zeros((1, w * ch), np.uint8), rows[:-1]])
+    kinds = np.array([filters[y % len(filters)] for y in range(h)], np.int64)
+    out = np.empty((h, 1 + w * ch), np.uint8)
+    out[:, 0] = kinds
+    for kind in np.unique(kinds).tolist():
+        sel = kinds == kind
+        out[sel, 1:] = _filter_rows(kind, rows[sel], above[sel], ch)
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body)))
 
+    return (_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(out.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_png(path: str, image: np.ndarray, filters: Sequence[int] = (1,)) -> None:
+    """Write ``encode_png(image, filters)`` to ``path``."""
+    data = encode_png(image, filters)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(bytes(out), 6)) + chunk(b"IEND", b""))
+        f.write(data)
 
 
 def _taps(n_out: int, n_in: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -1,5 +1,5 @@
-"""Baseline JPEG in numpy, bit-equal to ``cv2.imdecode(buf, IMREAD_COLOR)``
-followed by ``cv2.cvtColor(BGR2RGB)``.
+"""Baseline and progressive JPEG in numpy, bit-equal to ``cv2.imdecode(buf,
+IMREAD_COLOR)`` followed by ``cv2.cvtColor(BGR2RGB)``.
 
 The reference reads ICDAR pages with ``cv2.imread`` and LMDB crops with
 ``cv2.imdecode``; the card's machine has neither cv2 nor PIL, so the port
@@ -11,6 +11,15 @@ decompression this module reproduces step for step:
   stuffing and fill bytes. Symbols are read through a table indexed by the
   next 16 bits that, where the code and its extra bits fit in those bits,
   also gives the run and the coefficient;
+* or the scans of a progressive file (SOF2, ITU T.81 annex G): spectral
+  selection and successive approximation, DC first and refinement scans
+  (interleaved or not), AC first and refinement scans of one component
+  over that component's own blocks (not the MCU grid), runs of empty blocks
+  (EOBr), restart intervals, and tables and restart intervals redefined
+  between scans. The coefficients must end fully known: libjpeg-turbo
+  smooths the blocks of a file whose scans leave bits unrefined
+  (``decompress_smooth_data``), and such a file is refused; on a complete
+  file it smooths nothing, so its decode is the baseline twin's;
 * the integer "islow" inverse DCT of ``jidctint.c`` (``CONST_BITS`` 13,
   ``PASS1_BITS`` 2) over all blocks at once in int64, then libjpeg's
   post-IDCT range-limit table (the sample masked to 10 bits);
@@ -24,11 +33,11 @@ decompression this module reproduces step for step:
 * the EXIF ``Orientation`` tag of an APP1 segment, applied as cv2 applies
   it (all eight values).
 
-Anything else raises ``NotImplementedError`` naming what it met:
-progressive (SOF2, ROADMAP Queue 1 item 15b), lossless, arithmetic-coded,
-hierarchical, 12-bit, multi-scan sequential, CMYK/YCCK or RGB-coded files.
-A damaged file (truncated data, a bad Huffman code, a missing table or
-marker) raises ``ValueError``.
+Anything else raises ``NotImplementedError`` naming what it met: lossless,
+arithmetic-coded, hierarchical, 12-bit, multi-scan sequential, CMYK/YCCK or
+RGB-coded files, and progressive files with unrefined bits. A damaged file
+(truncated data, a bad Huffman code, a missing table or marker, progressive
+scans out of order) raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from __future__ import annotations
 import functools
 import re
 import struct
+from array import array
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -48,7 +58,6 @@ ZIGZAG = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
 
 _SOF_NAMES = {
-    0xC2: "progressive DCT (SOF2; ROADMAP Queue 1 item 15b)",
     0xC3: "lossless (SOF3)",
     0xC5: "differential sequential (SOF5)", 0xC6: "differential progressive (SOF6)",
     0xC7: "differential lossless (SOF7)",
@@ -68,8 +77,9 @@ def _huffman(counts: bytes, symbols: bytes, ac: bool) -> list:
     (cached: most files carry the same standard tables).
 
     Entry ``w`` is ``(bits, run, value)`` when the code and its extra bits
-    fit in ``w``: consume ``bits``, skip ``run`` coefficients (``_EOB`` for
-    end of block), store ``value``. Otherwise it is ``(-length, symbol, 0)``
+    fit in ``w``: consume ``bits``, skip ``run`` coefficients (``_EOB + r``
+    for an end of block: of r's band of blocks, in progressive scans), store
+    ``value``. Otherwise it is ``(-length, symbol, 0)``
     for a code of ``length`` bits whose extra bits lie beyond ``w``, or
     ``(0, 0, 0)`` where no code starts."""
     n_bits = np.zeros(65536, np.int64)
@@ -86,9 +96,9 @@ def _huffman(counts: bytes, symbols: bytes, ac: bool) -> list:
             lo, hi = code << (16 - length), (code + 1) << (16 - length)
             size = sym & 15
             skip = (sym >> 4) if ac else 0
-            if ac and size == 0:  # EOB (run != 15) or ZRL: sixteen zeros
+            if ac and size == 0:  # ZRL (sixteen zeros) or EOB: _EOB + r for EOBr
                 n_bits[lo:hi] = length
-                run[lo:hi] = 15 if sym >> 4 == 15 else _EOB
+                run[lo:hi] = 15 if sym >> 4 == 15 else _EOB + (sym >> 4)
             elif length + size <= 16:
                 bits = (window[lo:hi] >> (16 - length - size)) & ((1 << size) - 1)
                 n_bits[lo:hi] = length + size
@@ -107,21 +117,22 @@ def _extend(bits: int, size: int) -> int:
     return bits - (1 << size) + 1 if bits < 1 << (size - 1) else bits
 
 
-def _segments(data: bytes, name: str):
-    """(marker, payload) for each marker segment up to the first SOS
-    included, then ("data", offset of the entropy-coded data)."""
+def _segments(data: bytes, name: str, pos: int = 2):
+    """(marker, payload) for each marker segment from ``pos`` (after SOI) up
+    to the next SOS included, then ("data", offset of its entropy-coded
+    data); or ("eoi", offset) where EOI comes first."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG (no SOI)")
-    pos = 2
     while True:
         while pos < len(data) and data[pos] == 0xFF and pos + 1 < len(data) \
                 and data[pos + 1] == 0xFF:
             pos += 1  # fill bytes
+        if pos + 2 <= len(data) and data[pos:pos + 2] == b"\xff\xd9":
+            yield "eoi", pos
+            return
         if pos + 4 > len(data) or data[pos] != 0xFF:
             raise ValueError(f"{name}: truncated or damaged JPEG (no marker at byte {pos})")
         marker = data[pos + 1]
-        if marker == 0xD9:
-            raise ValueError(f"{name}: JPEG ends before its scan")
         if 0xD0 <= marker <= 0xD7 or marker == 0x01:  # parameterless
             pos += 2
             continue
@@ -134,6 +145,25 @@ def _segments(data: bytes, name: str):
         if marker == 0xDA:
             yield "data", pos
             return
+
+
+def _scan_chunks(data: bytes, start: int, name: str) -> Tuple[List[bytes], int]:
+    """The entropy-coded data from ``start``, split at its restart markers,
+    and the offset of the marker that ends it."""
+    chunks = []
+    for m in _MARKER.finditer(data, start):
+        chunks.append(data[start:m.start()])
+        start = m.end()
+        if not 0xD0 <= m.group(1)[0] <= 0xD7:
+            return chunks, m.end() - 2
+    raise ValueError(f"{name}: truncated JPEG (no marker after the scan)")
+
+
+def _windows(chunk: bytes) -> Tuple[list, int]:
+    """An unstuffed chunk as its 32-bit windows at each byte, and its bits."""
+    raw = chunk.replace(b"\xff\x00", b"\xff")
+    b = np.frombuffer(raw + b"\0" * 8, np.uint8).astype(np.int64)
+    return ((b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]).tolist(), 8 * len(raw)
 
 
 def _orientation(app1: bytes) -> Optional[int]:
@@ -326,14 +356,323 @@ def _decode_interval(win: list, n_bits: int, blocks: list, coef, name: str) -> N
         raise ValueError(f"{name}: truncated JPEG (the scan ends inside its data)")
 
 
-def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """A baseline JPEG -> (H, W, 3) uint8 RGB, equal to cv2's decode (see
-    the module's docstring)."""
-    from array import array
+def _table_segment(marker: int, body: bytes, quant: Dict, tables: Dict, name: str) -> None:
+    """Read a DQT (0xDB) or DHT (0xC4) segment into ``quant`` / ``tables``."""
+    i = 0
+    if marker == 0xDB:
+        while i < len(body):
+            pq, tq = body[i] >> 4, body[i] & 15
+            size = 128 if pq else 64
+            raw = body[i + 1:i + 1 + size]
+            if len(raw) != size or pq > 1:
+                raise ValueError(f"{name}: bad quantization table")
+            zz = np.frombuffer(raw, ">u2" if pq else np.uint8).astype(np.int64)
+            q = np.zeros(64, np.int64)
+            q[ZIGZAG] = zz
+            quant[tq] = q.reshape(8, 8)
+            i += 1 + size
+        return
+    while i + 17 <= len(body):
+        tc, th = body[i] >> 4, body[i] & 15
+        counts = body[i + 1:i + 17]
+        n = sum(counts)
+        if tc > 1 or i + 17 + n > len(body):
+            raise ValueError(f"{name}: bad Huffman table segment")
+        try:
+            tables[tc, th] = _huffman(bytes(counts), body[i + 17:i + 17 + n], bool(tc))
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
+        i += 17 + n
 
+
+def _frame(body: bytes, name: str):
+    """A SOF segment -> (height, width, [(id, h, v, quant table)])."""
+    if len(body) < 6:
+        raise ValueError(f"{name}: bad frame header")
+    precision, h, w, nc = struct.unpack(">BHHB", body[:6])
+    if precision != 8:
+        raise NotImplementedError(f"{name}: {precision}-bit JPEG samples (only 8-bit)")
+    if nc == 4:
+        raise NotImplementedError(f"{name}: a 4-component (CMYK/YCCK) JPEG")
+    if nc not in (1, 3):
+        raise NotImplementedError(f"{name}: a JPEG of {nc} components")
+    if h == 0:
+        raise NotImplementedError(f"{name}: a JPEG whose height comes in a DNL marker")
+    if len(body) < 6 + 3 * nc:
+        raise ValueError(f"{name}: bad frame header")
+    comps = []
+    for c in range(nc):
+        cid, hv, tq = body[6 + 3 * c:9 + 3 * c]
+        comps.append((cid, hv >> 4, hv & 15, tq))
+    if any(not (1 <= ch <= 4 and 1 <= cv <= 4) for _, ch, cv, _ in comps):
+        raise ValueError(f"{name}: bad frame header")
+    return h, w, comps
+
+
+def _scan_components(scan: bytes, comps, name: str) -> List[Tuple[int, int]]:
+    """A scan header's (frame index, table byte) for each of its components."""
+    ns = scan[0] if scan else 0
+    if not 1 <= ns <= len(comps) or len(scan) < 4 + 2 * ns:
+        raise ValueError(f"{name}: bad scan header")
+    by_id = {c[0]: i for i, c in enumerate(comps)}
+    out = []
+    for j in range(ns):
+        cid, t = scan[1 + 2 * j:3 + 2 * j]
+        if cid not in by_id:
+            raise ValueError(f"{name}: scan names a missing component")
+        out.append((by_id[cid], t))
+    return out
+
+
+def _block_orders(comps, members, h: int, w: int, hmax: int, vmax: int, grids):
+    """Coefficient offsets of a scan's blocks in coding order, one row an
+    MCU: interleaved, each MCU's blocks component by component; a
+    one-component scan covers that component's own blocks (its samples'
+    8x8 cover, not the MCU grid) in raster order, one block an MCU."""
+    if len(members) == 1:
+        ci = members[0]
+        gy, gx, off = grids[ci]
+        if len(comps) == 1:
+            bh, bw = gy, gx
+        else:
+            bh = -(-(-(-h * comps[ci][2] // vmax)) // 8)
+            bw = -(-(-(-w * comps[ci][1] // hmax)) // 8)
+        by, bx = np.meshgrid(np.arange(bh), np.arange(bw), indexing="ij")
+        return (off + (by * gx + bx) * 64).reshape(-1, 1), [ci]
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    order, kinds = [], []
+    for ci in members:
+        ch, cv = comps[ci][1], comps[ci][2]
+        gy, gx, off = grids[ci]
+        my, mx, by, bx = np.meshgrid(np.arange(mcuy), np.arange(mcux), np.arange(cv),
+                                     np.arange(ch), indexing="ij")
+        order.append((off + ((my * cv + by) * gx + mx * ch + bx) * 64).reshape(-1, cv * ch))
+        kinds += [ci] * (ch * cv)
+    return np.concatenate(order, 1), kinds
+
+
+def _grids(comps, h: int, w: int, hmax: int, vmax: int):
+    """Each component's block grid (rows, columns, coefficient offset) in one
+    coefficient array: the MCU grid of an interleaved scan (a lone
+    component's 8x8 cover), and the total coefficient count."""
+    grids, total = [], 0
+    if len(comps) == 1:
+        mcux, mcuy, hv = -(-w // 8), -(-h // 8), [(1, 1)]
+    else:
+        mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+        hv = [(c[1], c[2]) for c in comps]
+    for ch, cv in hv:
+        grids.append((mcuy * cv, mcux * ch, total))
+        total += mcuy * cv * mcux * ch * 64
+    return grids, total
+
+
+def _intervals(order: np.ndarray, kinds: list, restart: int, chunks: list, name: str):
+    """Split a scan's blocks into restart intervals of (offset, component)
+    lists, one per chunk of data."""
+    n_mcu = order.shape[0]
+    per = restart if restart else n_mcu
+    n_intervals = -(-n_mcu // per)
+    if len(chunks) != n_intervals:
+        raise ValueError(f"{name}: {len(chunks)} restart intervals, expected {n_intervals}")
+    rows = order.tolist()
+    return [[(b, k) for row in rows[i * per:(i + 1) * per] for b, k in zip(row, kinds)]
+            for i in range(n_intervals)]
+
+
+def _dc_symbol(win: list, pos: int, dct: list, name: str) -> Tuple[int, int]:
+    """(bits consumed, DC difference) of the DC code at ``pos``."""
+    n, size, diff = dct[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+    if n <= 0:  # the code's extra bits lie past the 16-bit window
+        if n == 0:
+            raise ValueError(f"{name}: bad Huffman code in a DC coefficient")
+        bits = (win[(pos - n) >> 3] >> (32 - ((pos - n) & 7) - size)) & ((1 << size) - 1)
+        return size - n, _extend(bits, size)
+    return n, diff
+
+
+def _ac_symbol(win: list, pos: int, act: list, name: str) -> Tuple[int, int, int]:
+    """(bits consumed, run, value) of the AC code at ``pos`` (see ``_huffman``)."""
+    n, r, v = act[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+    if n <= 0:
+        if n == 0:
+            raise ValueError(f"{name}: bad Huffman code in an AC coefficient")
+        size = r & 15
+        bits = (win[(pos - n) >> 3] >> (32 - ((pos - n) & 7) - size)) & ((1 << size) - 1)
+        return size - n, r >> 4, _extend(bits, size)
+    return n, r, v
+
+
+def _bits(win: list, pos: int, n: int) -> int:
+    return (win[pos >> 3] >> (32 - (pos & 7) - n)) & ((1 << n) - 1)
+
+
+def _progressive_scan(coef, blocks, win: list, n_bits: int, ss: int, se: int, ah: int,
+                      al: int, tabs: Dict, name: str) -> None:
+    """Decode one restart interval of a progressive scan (ITU T.81 G.1.2)
+    into ``coef`` (zigzag order): DC first (``coef = (sum of differences) <<
+    al``), DC refinement (one bit each), AC first (band ss..se, runs of
+    empty blocks by EOBr) and AC refinement (a correction bit for each
+    coefficient already nonzero, new coefficients of +-1 << al). ``tabs``:
+    each component's Huffman table (none for a DC refinement)."""
+    pos = 0
+    if ss == 0:
+        if ah == 0:
+            pred: Dict[int, int] = {}
+            for base, c in blocks:
+                n, diff = _dc_symbol(win, pos, tabs[c], name)
+                pos += n
+                v = pred.get(c, 0) + diff
+                pred[c] = v
+                coef[base] = v << al
+        else:
+            bit = 1 << al
+            for base, _ in blocks:
+                if (win[pos >> 3] >> (31 - (pos & 7))) & 1:
+                    coef[base] |= bit
+                pos += 1
+    elif ah == 0:
+        (act,) = tabs.values()
+        eobrun = 0
+        for base, _ in blocks:
+            if eobrun:
+                eobrun -= 1
+                continue
+            k = ss
+            while k <= se:
+                n, r, v = _ac_symbol(win, pos, act, name)
+                pos += n
+                if r >= _EOB:  # EOBr: this block and 2^r - 1 + (r bits) more
+                    r -= _EOB
+                    eobrun = (1 << r) - 1 + (_bits(win, pos, r) if r else 0)
+                    pos += r
+                    break
+                k += r
+                if k > se:
+                    raise ValueError(f"{name}: a coefficient run past the end of its band")
+                coef[base + k] = v << al  # a ZRL writes its sixteenth zero
+                k += 1
+    else:
+        (act,) = tabs.values()
+        p1, m1 = 1 << al, -1 << al
+        eobrun = 0
+        for base, _ in blocks:
+            k = ss
+            if not eobrun:
+                while k <= se:
+                    n, r, v = _ac_symbol(win, pos, act, name)
+                    pos += n
+                    if r >= _EOB:
+                        r -= _EOB
+                        eobrun = (1 << r) + (_bits(win, pos, r) if r else 0)
+                        pos += r
+                        break
+                    if v not in (-1, 0, 1):
+                        raise ValueError(f"{name}: a refinement coefficient beyond +-1")
+                    new = p1 if v > 0 else (m1 if v < 0 else 0)
+                    # correct the nonzero coefficients up to the r+1-th zero one
+                    while k <= se:
+                        c = coef[base + k]
+                        if c:
+                            if (win[pos >> 3] >> (31 - (pos & 7))) & 1 and not c & p1:
+                                coef[base + k] = c + (p1 if c >= 0 else m1)
+                            pos += 1
+                        elif r:
+                            r -= 1
+                        else:
+                            break
+                        k += 1
+                    if new:
+                        if k > se:
+                            raise ValueError(f"{name}: a coefficient run past the end of its band")
+                        coef[base + k] = new
+                    k += 1
+            if eobrun:
+                while k <= se:
+                    c = coef[base + k]
+                    if c:
+                        if (win[pos >> 3] >> (31 - (pos & 7))) & 1 and not c & p1:
+                            coef[base + k] = c + (p1 if c >= 0 else m1)
+                        pos += 1
+                    k += 1
+                eobrun -= 1
+    if pos > n_bits:
+        raise ValueError(f"{name}: truncated JPEG (the scan ends inside its data)")
+
+
+def _progressive(data: bytes, scan: bytes, data_start: int, frame, quant: Dict, tables: Dict,
+                 restart: int, name: str):
+    """Every scan of a progressive JPEG -> (zigzag coefficients, grids). The
+    coefficients must end fully known (each coefficient's last scan at
+    successive-approximation bit 0): libjpeg smooths the blocks of a file
+    that leaves bits unrefined, and such a file is refused."""
+    h, w, comps = frame
+    hmax = max(c[1] for c in comps)
+    vmax = max(c[2] for c in comps)
+    grids, total = _grids(comps, h, w, hmax, vmax)
+    coef = array("h", bytes(2 * total))
+    coef_bits = np.full((len(comps), 64), -1, np.int64)
+    while True:
+        members = _scan_components(scan, comps, name)
+        ns = len(members)
+        ss, se, ahal = scan[1 + 2 * ns:4 + 2 * ns]
+        ah, al = ahal >> 4, ahal & 15
+        if ss > se or se > 63 or (ss == 0 and se != 0) or (ss > 0 and ns != 1) or al > 13:
+            raise ValueError(f"{name}: bad progressive scan ({ss}-{se}, {ah}/{al})")
+        for ci, _ in members:
+            band = coef_bits[ci, ss:se + 1]
+            if (band != (-1 if ah == 0 else ah)).any():
+                raise ValueError(f"{name}: a progressive scan out of order (component {ci}, "
+                                 f"coefficients {ss}-{se}, bits {ah}/{al})")
+            band[:] = al
+        tabs = {}
+        if not (ss == 0 and ah):  # a DC refinement reads raw bits
+            for ci, t in members:
+                key = (0, t >> 4) if ss == 0 else (1, t & 15)
+                if key not in tables:
+                    raise ValueError(f"{name}: scan names a missing Huffman table")
+                tabs[ci] = tables[key]
+        order, kinds = _block_orders(comps, [ci for ci, _ in members], h, w, hmax, vmax, grids)
+        chunks, end = _scan_chunks(data, data_start, name)
+        try:
+            for blocks, chunk in zip(_intervals(order, kinds, restart, chunks, name), chunks):
+                win, n_bits = _windows(chunk)
+                _progressive_scan(coef, blocks, win, n_bits, ss, se, ah, al, tabs, name)
+        except IndexError:
+            raise ValueError(f"{name}: truncated or damaged JPEG scan") from None
+        # the segments up to the next scan, or the end
+        scan = None
+        for marker, body in _segments(data, name, end):
+            if marker == "eoi":
+                break
+            if marker == "data":
+                data_start = body
+                break
+            if marker in (0xDB, 0xC4):
+                _table_segment(marker, body, quant, tables, name)
+            elif marker == 0xDD:
+                if len(body) < 2:
+                    raise ValueError(f"{name}: bad restart interval segment")
+                (restart,) = struct.unpack(">H", body[:2])
+            elif marker == 0xDA:
+                scan = body
+            elif 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+                raise ValueError(f"{name}: a second frame header")
+        if scan is None:
+            break
+    if (coef_bits != 0).any():
+        raise NotImplementedError(f"{name}: a progressive JPEG whose scans leave coefficient "
+                                  "bits unrefined (libjpeg would smooth its blocks)")
+    return coef, grids
+
+
+def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """A baseline or progressive JPEG -> (H, W, 3) uint8 RGB, equal to cv2's
+    decode (see the module's docstring)."""
     quant: Dict[int, np.ndarray] = {}
     tables: Dict[Tuple[int, int], list] = {}
     frame = None
+    progressive = False
     restart = 0
     orientation = None
     adobe = None
@@ -341,59 +680,20 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     scan = None
     data_start = 0
     for marker, body in _segments(data, name):
+        if marker == "eoi":
+            raise ValueError(f"{name}: JPEG ends before its scan")
         if marker == "data":
             data_start = body
             break
-        if marker == 0xDB:  # DQT
-            i = 0
-            while i < len(body):
-                pq, tq = body[i] >> 4, body[i] & 15
-                size = 128 if pq else 64
-                raw = body[i + 1:i + 1 + size]
-                if len(raw) != size or pq > 1:
-                    raise ValueError(f"{name}: bad quantization table")
-                zz = np.frombuffer(raw, ">u2" if pq else np.uint8).astype(np.int64)
-                q = np.zeros(64, np.int64)
-                q[ZIGZAG] = zz
-                quant[tq] = q.reshape(8, 8)
-                i += 1 + size
-        elif marker == 0xC4:  # DHT
-            i = 0
-            while i + 17 <= len(body):
-                tc, th = body[i] >> 4, body[i] & 15
-                counts = body[i + 1:i + 17]
-                n = sum(counts)
-                if tc > 1 or i + 17 + n > len(body):
-                    raise ValueError(f"{name}: bad Huffman table segment")
-                try:
-                    tables[tc, th] = _huffman(bytes(counts), body[i + 17:i + 17 + n], bool(tc))
-                except ValueError as e:
-                    raise ValueError(f"{name}: {e}") from None
-                i += 17 + n
-        elif marker in (0xC0, 0xC1):
-            if len(body) < 6:
-                raise ValueError(f"{name}: bad frame header")
-            precision, h, w, nc = struct.unpack(">BHHB", body[:6])
-            if precision != 8:
-                raise NotImplementedError(f"{name}: {precision}-bit JPEG samples (only 8-bit)")
-            if nc == 4:
-                raise NotImplementedError(f"{name}: a 4-component (CMYK/YCCK) JPEG")
-            if nc not in (1, 3):
-                raise NotImplementedError(f"{name}: a JPEG of {nc} components")
-            if h == 0:
-                raise NotImplementedError(f"{name}: a JPEG whose height comes in a DNL marker")
-            if len(body) < 6 + 3 * nc:
-                raise ValueError(f"{name}: bad frame header")
-            comps = []
-            for c in range(nc):
-                cid, hv, tq = body[6 + 3 * c:9 + 3 * c]
-                comps.append((cid, hv >> 4, hv & 15, tq))
-            if any(not (1 <= ch <= 4 and 1 <= cv <= 4) for _, ch, cv, _ in comps):
-                raise ValueError(f"{name}: bad frame header")
-            frame = (h, w, comps)
+        if marker in (0xDB, 0xC4):
+            _table_segment(marker, body, quant, tables, name)
+        elif marker in (0xC0, 0xC1, 0xC2):
+            frame = _frame(body, name)
+            progressive = marker == 0xC2
         elif marker in _SOF_NAMES:
-            raise NotImplementedError(f"{name}: {_SOF_NAMES[marker]} JPEG: only baseline "
-                                      "and extended sequential Huffman (SOF0, SOF1) are read")
+            raise NotImplementedError(f"{name}: {_SOF_NAMES[marker]} JPEG: only baseline, "
+                                      "extended sequential and progressive Huffman (SOF0, "
+                                      "SOF1, SOF2) are read")
         elif marker == 0xCC:
             raise NotImplementedError(f"{name}: arithmetic coding (DAC) is not read")
         elif marker == 0xDD:
@@ -414,83 +714,23 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if len(comps) == 3 and not jfif and (
             adobe == 0 or (adobe is None and [c[0] for c in comps] == [82, 71, 66])):
         raise NotImplementedError(f"{name}: an RGB-coded JPEG (no YCbCr transform)")
-    ns = scan[0]
-    if ns != len(comps):
-        raise NotImplementedError(f"{name}: a multi-scan sequential JPEG ({ns} of "
-                                  f"{len(comps)} components in its first scan)")
-    if len(scan) < 4 + 2 * ns:
-        raise ValueError(f"{name}: bad scan header")
-    ss, se, ahal = scan[1 + 2 * ns:4 + 2 * ns]
-    if (ss, se, ahal) != (0, 63, 0):
-        raise ValueError(f"{name}: sequential scan with spectral range {ss}-{se}")
-    by_id = {c[0]: i for i, c in enumerate(comps)}
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
     if any(hmax % c[1] or vmax % c[2] for c in comps):
         raise NotImplementedError(f"{name}: fractional sampling factors "
                                   f"{[(c[1], c[2]) for c in comps]}")
-    layout = []  # (frame index, h, v, DC table, AC table) in scan order
-    for j in range(ns):
-        cid, t = scan[1 + 2 * j:3 + 2 * j]
-        if cid not in by_id or (0, t >> 4) not in tables or (1, t & 15) not in tables:
-            raise ValueError(f"{name}: scan names a missing component or Huffman table")
-        ci = by_id[cid]
-        if comps[ci][3] not in quant:
-            raise ValueError(f"{name}: missing quantization table {comps[ci][3]}")
-        hv = (comps[ci][1], comps[ci][2]) if ns > 1 else (1, 1)
-        layout.append((ci,) + hv + (tables[0, t >> 4], tables[1, t & 15]))
-    if ns == 1:  # a one-component scan is not interleaved: one block an MCU
-        mcux, mcuy = -(-w // 8), -(-h // 8)
+    if any(c[3] not in quant for c in comps):
+        raise ValueError(f"{name}: missing quantization table")
+    if progressive:
+        coef, grids = _progressive(data, scan, data_start, frame, quant, tables, restart, name)
     else:
-        mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
-    # each component's block grid and its offset in one coefficient array,
-    # then the blocks of every MCU in scan order
-    grids, order, kinds, total = [], [], [], 0
-    for ci, ch, cv, dct, act in layout:
-        gy, gx = mcuy * cv, mcux * ch
-        my, mx, by, bx = np.meshgrid(np.arange(mcuy), np.arange(mcux), np.arange(cv),
-                                     np.arange(ch), indexing="ij")
-        order.append((total + ((my * cv + by) * gx + mx * ch + bx) * 64).reshape(-1, cv * ch))
-        kinds += [(dct, act, ci)] * (ch * cv)
-        grids.append((gy, gx, total))
-        total += gy * gx * 64
-    blocks = [(b,) + k for row in np.concatenate(order, 1).tolist() for b, k in zip(row, kinds)]
-
-    # the entropy-coded data, split at its restart markers, unstuffed
-    n_mcu = mcux * mcuy
-    per = restart if restart else n_mcu
-    chunks, start = [], data_start
-    for m in _MARKER.finditer(data, data_start):
-        chunks.append(data[start:m.start()])
-        start = m.end()
-        if not 0xD0 <= m.group(1)[0] <= 0xD7:
-            nxt = m.group(1)[0]
-            break
-    else:
-        raise ValueError(f"{name}: truncated JPEG (no marker after the scan)")
-    if nxt != 0xD9:
-        raise NotImplementedError(f"{name}: a JPEG with more than one scan or a marker "
-                                  f"{nxt:#04x} after its scan")
-    n_intervals = -(-n_mcu // per)
-    if len(chunks) != n_intervals:
-        raise ValueError(f"{name}: {len(chunks)} restart intervals, expected {n_intervals}")
-    coef = array("h", bytes(2 * total))
-    nb = len(blocks) // n_mcu
-    try:
-        for i, chunk in enumerate(chunks):
-            raw = chunk.replace(b"\xff\x00", b"\xff")
-            b = np.frombuffer(raw + b"\0" * 8, np.uint8).astype(np.int64)
-            win = ((b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]).tolist()
-            _decode_interval(win, 8 * len(raw), blocks[i * per * nb:(i + 1) * per * nb],
-                             coef, name)
-    except IndexError:
-        raise ValueError(f"{name}: truncated or damaged JPEG scan") from None
+        coef, grids = _sequential(data, scan, data_start, frame, quant, tables, restart, name)
 
     zig = np.frombuffer(coef, np.int16).reshape(-1, 64)
     nat = np.empty_like(zig)
     nat[:, ZIGZAG] = zig
     planes = [None] * len(comps)
-    for (ci, ch, cv, _, _), (gy, gx, off) in zip(layout, grids):
+    for ci, (gy, gx, off) in enumerate(grids):
         px = idct_islow(nat[off // 64:off // 64 + gy * gx].reshape(-1, 8, 8),
                         quant[comps[ci][3]])
         px = px.reshape(gy, gx, 8, 8).transpose(0, 2, 1, 3).reshape(gy * 8, gx * 8)
@@ -502,3 +742,38 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     else:
         img = ycc_to_rgb(*planes)
     return apply_orientation(img, orientation)
+
+
+def _sequential(data: bytes, scan: bytes, data_start: int, frame, quant: Dict, tables: Dict,
+                restart: int, name: str):
+    """The one scan of a sequential JPEG -> (zigzag coefficients, grids)."""
+    h, w, comps = frame
+    ns = scan[0]
+    if ns != len(comps):
+        raise NotImplementedError(f"{name}: a multi-scan sequential JPEG ({ns} of "
+                                  f"{len(comps)} components in its first scan)")
+    members = _scan_components(scan, comps, name)
+    ss, se, ahal = scan[1 + 2 * ns:4 + 2 * ns]
+    if (ss, se, ahal) != (0, 63, 0):
+        raise ValueError(f"{name}: sequential scan with spectral range {ss}-{se}")
+    for ci, t in members:
+        if (0, t >> 4) not in tables or (1, t & 15) not in tables:
+            raise ValueError(f"{name}: scan names a missing component or Huffman table")
+    hmax = max(c[1] for c in comps)
+    vmax = max(c[2] for c in comps)
+    grids, total = _grids(comps, h, w, hmax, vmax)
+    order, kinds = _block_orders(comps, [ci for ci, _ in members], h, w, hmax, vmax, grids)
+    tabs = {ci: (tables[0, t >> 4], tables[1, t & 15]) for ci, t in members}
+    chunks, end = _scan_chunks(data, data_start, name)
+    nxt = data[end + 1]
+    if nxt != 0xD9:
+        raise NotImplementedError(f"{name}: a JPEG with more than one scan or a marker "
+                                  f"{nxt:#04x} after its scan")
+    coef = array("h", bytes(2 * total))
+    try:
+        for blocks, chunk in zip(_intervals(order, kinds, restart, chunks, name), chunks):
+            win, n_bits = _windows(chunk)
+            _decode_interval(win, n_bits, [(b,) + tabs[c] + (c,) for b, c in blocks], coef, name)
+    except IndexError:
+        raise ValueError(f"{name}: truncated or damaged JPEG scan") from None
+    return coef, grids

@@ -1,8 +1,8 @@
 """Host-side detection ground truth: ICDAR parsing, polygon offset, maps.
 
 A port of ``megreader_tpu/data/processes.py``: the shrink distance d = A (1 -
-r^2) / perimeter, the convex edge-offset of a polygon (numpy only: the JAX
-package's optional C++ route is not loaded), and the cv2 rasterization of the
+r^2) / perimeter, the convex edge-offset of a polygon (the C++ route of
+``native/`` where ``g++`` is on the path, else numpy), and the cv2 rasterization of the
 shrunk text maps and the border maps. cv2 is imported on first use. These are
 the host reference that ``ops/gt_maps.make_detection_gt`` is held against, and
 the maps of ``Experiment(device_gt=False)``.
@@ -25,9 +25,22 @@ def polygon_perimeter(poly: np.ndarray) -> float:
 
 
 def offset_polygon(poly: np.ndarray, distance: float) -> np.ndarray:
-    """Offset a polygon by ``distance`` (negative: shrink): each edge moves
-    along its outward normal and adjacent moved edges are intersected. Exact
-    for convex polygons; nearly parallel neighbours keep the moved vertex."""
+    """Offset a polygon by ``distance`` (negative: shrink) as float32: the
+    C++ route (``native.offset_polygon``) where ``g++`` is on the path, else
+    ``offset_polygon_numpy``."""
+    poly = np.asarray(poly, np.float64)
+    if len(poly) < 3:
+        return poly
+    from .. import native
+
+    fast = native.offset_polygon(poly, distance)
+    return fast if fast is not None else offset_polygon_numpy(poly, distance)
+
+
+def offset_polygon_numpy(poly: np.ndarray, distance: float) -> np.ndarray:
+    """Each edge moves along its outward normal and adjacent moved edges are
+    intersected. Exact for convex polygons; nearly parallel neighbours
+    (cross product under 1e-9) keep the moved vertex."""
     poly = np.asarray(poly, np.float64)
     n = len(poly)
     if n < 3:

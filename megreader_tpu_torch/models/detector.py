@@ -92,10 +92,11 @@ class SegDetectorNet(nn.Module):
 
     def __init__(self, num_backbone: str = "resnet18", fpn_dim: int = 256,
                  head_dim: int = 64, k: float = 50.0, width: int = 64, dtype=None,
-                 dcn_stages=()):
+                 dcn_stages=(), stem_s2d: bool = False, stem_s2d4: bool = False):
         super().__init__()
         self.backbone = resnet_variant(num_backbone, "det", width, dtype=dtype,
-                                       dcn_stages=dcn_stages)
+                                       dcn_stages=dcn_stages, stem_s2d=stem_s2d,
+                                       stem_s2d4=stem_s2d4)
         self.fpn = FPNNeck(self.backbone.out_channels, fpn_dim, fpn_dim, dtype)
         self.prob_head = MapHead(fpn_dim, head_dim, dtype)
         self.thresh_head = MapHead(fpn_dim, head_dim, dtype)
@@ -127,11 +128,12 @@ class SegDetector:
     (Bottleneck: DB's deformable ResNet-50 is ``resnet50`` with
     ``dcn_stages=(2, 3, 4)``).
 
-    Not ported, raising ``NotImplementedError``: the ``stem_s2d`` /
-    ``stem_s2d4`` stems (TPU layout rewrites of the plain stem, ROADMAP
-    Queue 1 item 15b). The JAX package's ``fused_upsample`` head is a TPU
-    formulation of the plain resize -> conv head the port runs, and is not an
-    option here."""
+    ``stem_s2d`` / ``stem_s2d4`` are accepted and compute the plain stem,
+    the function of the JAX package's space-to-depth rewrites of the same
+    ``stem_conv`` weight (``resnet.py::ResNet``). The JAX package's
+    ``fused_upsample`` head is a TPU formulation of the plain resize -> conv
+    head the port runs, and is not an option here
+    (ROADMAP Queue 1 item 15c)."""
 
     def __init__(self, backbone: str = "resnet18", fpn_dim: int = 256, head_dim: int = 64,
                  k: float = 50.0, bce_scale: float = 5.0, l1_scale: float = 10.0,
@@ -139,13 +141,8 @@ class SegDetector:
                  dcn_stages=(), stem_s2d: bool = False, stem_s2d4: bool = False,
                  device="cuda"):
         dtype = parse_compute_dtype(compute_dtype)
-        if stem_s2d or stem_s2d4:
-            raise NotImplementedError(
-                "stem_s2d / stem_s2d4: the space-to-depth stems are not ported "
-                "(ROADMAP Queue 1 item 15b)"
-            )
         self.net = SegDetectorNet(backbone, fpn_dim, head_dim, k, width, dtype,
-                                  tuple(dcn_stages)).to(device).eval()
+                                  tuple(dcn_stages), stem_s2d, stem_s2d4).to(device).eval()
         self.bce_scale = bce_scale
         self.l1_scale = l1_scale
         self.negative_ratio = negative_ratio

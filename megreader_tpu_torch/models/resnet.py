@@ -183,11 +183,22 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Configurable BasicBlock or Bottleneck trunk (see the module docstring)."""
+    """Configurable BasicBlock or Bottleneck trunk (see the module docstring).
+
+    ``stem_s2d`` and ``stem_s2d4`` are accepted, so that YAML files and
+    checkpoints of the JAX package read unchanged, and compute the plain
+    stem. In the JAX package they select space-to-depth rewrites of the same
+    ``stem_conv`` weight (``megreader_tpu/models/resnet.py``: a 4x4/s1 conv
+    over 2x2 phases, and a 3x3/s1 conv over 4x4 phases through the max pool)
+    that fill a TPU's matrix unit with the stem's 3 input channels. They
+    compute the plain stem's function (the port's tests hold JAX's rewrites
+    to this stem within 1e-5), and on an H100 both ran slower than the plain
+    stem's cuDNN conv (PERF.md, Findings)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2), variant: str = "det",
                  width: int = 64, in_ch: int = 3, dtype: Optional[torch.dtype] = None,
-                 dcn_stages: Sequence[int] = (), block: type = BasicBlock):
+                 dcn_stages: Sequence[int] = (), block: type = BasicBlock,
+                 stem_s2d: bool = False, stem_s2d4: bool = False):
         super().__init__()
         expansion = getattr(block, "expansion", 1)
         if variant == "det":
@@ -216,8 +227,12 @@ class ResNet(nn.Module):
             self.stages.append(names)
         self.out_channels = [width * 2**i * expansion for i in range(len(stage_sizes))]
 
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """Conv, BatchNorm, relu and max pool: the first block's input."""
+        return self.pool(F.relu(self.stem_bn(self.stem_conv(x))))
+
     def forward(self, x):
-        y = self.pool(F.relu(self.stem_bn(self.stem_conv(x))))
+        y = self.stem(x)
         feats = []
         for names in self.stages:
             for name in names:
@@ -227,10 +242,11 @@ class ResNet(nn.Module):
 
 
 def resnet_variant(name: str, variant: str = "det", width: int = 64,
-                   dtype: Optional[torch.dtype] = None, dcn_stages: Sequence[int] = ()) -> ResNet:
+                   dtype: Optional[torch.dtype] = None, dcn_stages: Sequence[int] = (),
+                   stem_s2d: bool = False, stem_s2d4: bool = False) -> ResNet:
     if name not in STAGE_SIZES:
         raise ValueError(f"unknown backbone {name!r}: one of {sorted(STAGE_SIZES)}")
     block = Bottleneck if name in ("resnet50", "resnet101") else BasicBlock
     return ResNet(STAGE_SIZES[name], variant, width, dtype=dtype, dcn_stages=dcn_stages,
-                  block=block)
+                  block=block, stem_s2d=stem_s2d, stem_s2d4=stem_s2d4)
 

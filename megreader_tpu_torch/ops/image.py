@@ -42,6 +42,16 @@ def _tent(src: torch.Tensor, n_in: int) -> torch.Tensor:
     return torch.clamp(1.0 - torch.abs(src[..., None] - idx), min=0.0)
 
 
+def _axis_resize_weights(src_coord: torch.Tensor, n_in: int,
+                         valid_in: torch.Tensor) -> torch.Tensor:
+    """(B, n_out) source coordinates -> (B, n_out, n_in) bilinear weights,
+    each coordinate clamped to its row's valid input [0, valid_in[b] - 1]
+    (a clamped row puts weight 1 on its edge pixel)."""
+    hi = torch.clamp(valid_in.to(src_coord.dtype)[:, None] - 1.0, min=0.0)
+    s = torch.minimum(torch.clamp(src_coord, min=0.0), hi)
+    return _tent(s, n_in)
+
+
 def resize_with_aspect_pad(images: torch.Tensor, sizes: torch.Tensor,
                            out_hw: Tuple[int, int],
                            jitter: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -75,10 +85,8 @@ def resize_with_aspect_pad(images: torch.Tensor, sizes: torch.Tensor,
         cx = ((w - 1.0) / 2.0).view(B, 1)
         src_y = (src_y - cy) * jscale[:, 0:1] + cy + jshift[:, 0:1]
         src_x = (src_x - cx) * jscale[:, 1:2] + cx + jshift[:, 1:2]
-    Wy = _tent(torch.minimum(torch.clamp(src_y, min=0.0),
-                             torch.clamp(h - 1.0, min=0.0).view(B, 1)), Hi)  # (B, Ho, Hi)
-    Wx = _tent(torch.minimum(torch.clamp(src_x, min=0.0),
-                             torch.clamp(w - 1.0, min=0.0).view(B, 1)), Wi)  # (B, Wo, Wi)
+    Wy = _axis_resize_weights(src_y, Hi, h)  # (B, Ho, Hi)
+    Wx = _axis_resize_weights(src_x, Wi, w)  # (B, Wo, Wi)
     tmp = torch.einsum("boi,biwc->bowc", Wy, images)
     out = torch.einsum("bpw,bowc->bopc", Wx, tmp)
     col = torch.arange(Wo, device=dev).view(1, 1, Wo)
@@ -364,9 +372,9 @@ def rotate_crops(crops: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
 
 def _bilinear_gather(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                      border: str = "zero") -> torch.Tensor:
-    """Sample images (B, H, W, C) at float coordinates x, y (each (B, Ho,
-    Wo)). ``border='zero'`` reads 0 outside the image; ``'clamp'`` repeats
-    its edges."""
+    """Sample images (B, H, W, C) at float coordinates x, y (each (B, ...),
+    image b read at the coordinates of row b). ``border='zero'`` reads 0
+    outside the image; ``'clamp'`` repeats its edges."""
     if border not in ("zero", "clamp"):
         raise ValueError(f"unknown border {border!r}")
     B, H, W, C = images.shape
@@ -376,7 +384,7 @@ def _bilinear_gather(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     dy = (y - y0)[..., None]
     x0i = x0.to(torch.int64)
     y0i = y0.to(torch.int64)
-    bidx = torch.arange(B, device=images.device).view(B, 1, 1)
+    bidx = torch.arange(B, device=images.device).view((B,) + (1,) * (x.dim() - 1))
 
     def at(yi, xi):
         v = images[bidx, torch.clamp(yi, 0, H - 1), torch.clamp(xi, 0, W - 1)]
@@ -398,20 +406,64 @@ def warp_bilinear(images: torch.Tensor, matrices: torch.Tensor, out_hw: Tuple[in
                   border: str = "zero") -> torch.Tensor:
     """Batched inverse warp: out[p] = image[M @ p], bilinear.
 
-    images (B, H, W, C); matrices (B, 3, 3) map output (x, y, 1) to input
-    coordinates; returns (B, Ho, Wo, C). The coordinates are products and
-    sums written out, as in the JAX package (no matmul)."""
-    B = images.shape[0]
+    images (B, H, W, C); matrices (B, *K, 3, 3) map output (x, y, 1) to
+    input coordinates, each of them on its row's image; returns (B, *K, Ho,
+    Wo, C). The coordinates are products and sums written out, as in the JAX
+    package (no matmul)."""
     Ho, Wo = out_hw
     dev, dt = images.device, images.dtype
-    ys = torch.arange(Ho, dtype=dt, device=dev).view(1, Ho, 1)
-    xs = torch.arange(Wo, dtype=dt, device=dev).view(1, 1, Wo)
-    M = matrices.to(dt).view(B, 9, 1, 1).unbind(1)
+    lead = matrices.shape[:-2]
+    ys = torch.arange(Ho, dtype=dt, device=dev).view(Ho, 1)
+    xs = torch.arange(Wo, dtype=dt, device=dev).view(1, Wo)
+    M = matrices.to(dt).reshape(*lead, 9, 1, 1).unbind(-3)
     w = M[6] * xs + M[7] * ys + M[8]
     w = torch.where(torch.abs(w) < 1e-8, torch.full_like(w, 1e-8), w)
     sx = (M[0] * xs + M[1] * ys + M[2]) / w
     sy = (M[3] * xs + M[4] * ys + M[5]) / w
     return _bilinear_gather(images, sx, sy, border=border)
+
+
+def rectify_quads(images: torch.Tensor, quads: torch.Tensor,
+                  out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Crop and rectify word quads by their homographies, the gather form.
+
+    images (B, H, W, C); quads (B, K, 4, 2) corners (x, y) TL, TR, BR, BL in
+    image pixels -> (B, K, Ho, Wo, C): each crop is ``warp_bilinear`` of its
+    page by ``perspective_matrix_from_quad`` (zero outside the page). The
+    page program uses ``rectify_quads_mxu``; this is the plain warp that
+    ``cv2.warpPerspective`` computes."""
+    return warp_bilinear(images, perspective_matrix_from_quad(quads, out_hw), out_hw)
+
+
+def resize_matrix(src_hw: Tuple[int, int], dst_hw: Tuple[int, int],
+                  device=None) -> torch.Tensor:
+    """3x3 float32 matrix mapping destination pixel coordinates to source
+    ones, cv2's pixel-centre convention."""
+    sh, sw = src_hw
+    dh, dw = dst_hw
+    sx = sw / dw
+    sy = sh / dh
+    return torch.tensor([[sx, 0.0, 0.5 * sx - 0.5], [0.0, sy, 0.5 * sy - 0.5],
+                         [0.0, 0.0, 1.0]], dtype=torch.float32, device=device)
+
+
+def resize_bilinear(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """cv2.INTER_LINEAR-compatible batched resize (B, H, W, C) -> (B, Ho, Wo,
+    C): two tent-weight contractions, height then width."""
+    B, Hi, Wi, C = images.shape
+    Ho, Wo = out_hw
+    dev = images.device
+    if not images.is_floating_point():
+        images = images.to(torch.float32)
+    sy, sx = Hi / Ho, Wi / Wo
+    oy = torch.arange(Ho, dtype=torch.float32, device=dev).expand(B, Ho)
+    ox = torch.arange(Wo, dtype=torch.float32, device=dev).expand(B, Wo)
+    Wy = _axis_resize_weights((oy + 0.5) * sy - 0.5, Hi,
+                              torch.full((B,), Hi, dtype=torch.int32, device=dev))
+    Wx = _axis_resize_weights((ox + 0.5) * sx - 0.5, Wi,
+                              torch.full((B,), Wi, dtype=torch.int32, device=dev))
+    tmp = torch.einsum("boi,biwc->bowc", Wy.to(images.dtype), images)
+    return torch.einsum("bpw,bowc->bopc", Wx.to(images.dtype), tmp)
 
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float, device) -> torch.Tensor:

@@ -3,8 +3,8 @@ recognition accuracy / normalized edit distance.
 
 A copy of ``megreader_tpu/postproc/measurers.py`` (numpy and plain Python on
 the host). Polygon intersections clip convex pairs exactly
-(Sutherland-Hodgman, in numpy: the JAX package's C++ route computes the same
-area and is not loaded) and rasterize non-convex ones (chain polygons) with
+(Sutherland-Hodgman: by ``native/``'s C++ where ``g++`` is on the path, else
+in numpy) and rasterize non-convex ones (chain polygons) with
 ``fill_poly``, a numpy copy of ``cv2.fillPoly`` that sets the same pixels:
 the card's machine has no cv2.
 """
@@ -154,10 +154,26 @@ def _raster_masks(p1: np.ndarray, p2: np.ndarray):
 
 
 def polygon_iou(p1: np.ndarray, p2: np.ndarray) -> float:
+    """IoU of two simple polygons. A convex pair is clipped exactly: the
+    intersection by the C++ route (``native``) where ``g++`` is on the path,
+    the two areas in numpy on the polygons' own dtype, as
+    ``polygon_iou_numpy`` takes them (the JAX package's C++ route takes them
+    in float64: its IoU of float32 quads lies up to 2e-7 from numpy's)."""
     if not (is_convex(p1) and is_convex(p2)):
         m1, m2 = _raster_masks(p1, p2)
         union = int(np.sum(m1 | m2))
         return int(np.sum(m1 & m2)) / union if union else 0.0
+    from .. import native
+
+    inter = native.polygon_intersection_area(p1, p2)
+    if inter is None:
+        return polygon_iou_numpy(p1, p2)
+    union = polygon_area(p1) + polygon_area(p2) - inter
+    return inter / union if union > 0 else 0.0
+
+
+def polygon_iou_numpy(p1: np.ndarray, p2: np.ndarray) -> float:
+    """IoU of two convex polygons, clipped in numpy."""
     inter_poly = clip_polygon(p1.astype(np.float64), p2.astype(np.float64))
     if len(inter_poly) < 3:
         return 0.0
@@ -167,10 +183,19 @@ def polygon_iou(p1: np.ndarray, p2: np.ndarray) -> float:
 
 
 def polygon_intersection_area(p1: np.ndarray, p2: np.ndarray) -> float:
-    """|p1 n p2| for simple polygons, convex or not."""
+    """|p1 n p2| for simple polygons: a convex pair clipped exactly (the C++
+    route where ``g++`` is on the path, else numpy), others rasterized."""
     if not (is_convex(p1) and is_convex(p2)):
         m1, m2 = _raster_masks(p1, p2)
         return float(np.sum(m1 & m2)) / (_RASTER_SS * _RASTER_SS)
+    from .. import native
+
+    fast = native.polygon_intersection_area(p1, p2)
+    return fast if fast is not None else polygon_intersection_area_numpy(p1, p2)
+
+
+def polygon_intersection_area_numpy(p1: np.ndarray, p2: np.ndarray) -> float:
+    """|p1 n p2| of two convex polygons, clipped in numpy."""
     inter_poly = clip_polygon(p1.astype(np.float64), p2.astype(np.float64))
     return polygon_area(inter_poly) if len(inter_poly) >= 3 else 0.0
 

@@ -156,11 +156,18 @@ def test_cli_pipeline_matches_predict(pipeline_run, rectify, capsys):
             assert d["score"] == pytest.approx(w["score"], abs=1e-6)
 
 
-def test_cli_pipeline_refuses_what_is_not_ported(pipeline_run):
-    base = ["--detector", DET, "--recognizer", CTC, "--images", *pipeline_run["paths"]]
-    # --bucketed is ported: test_torch_port_bucketed.py
-    with pytest.raises(NotImplementedError, match="item 15b\\)"):
-        cli_pipeline.main(base + ["--out-dir", "vis"])
+def test_cli_pipeline_refuses_what_is_not_ported(pipeline_run, tmp_path):
+    """Nothing is refused: --bucketed is ported (test_torch_port_bucketed.py),
+    and --out-dir writes one overlay a page (held to the JAX package's
+    overlays by test_torch_port_tools.py)."""
+    base = ["--detector", DET, "--det-workspace", pipeline_run["det_ws"], "--recognizer", CTC,
+            "--images", *pipeline_run["paths"]]
+    got = cli_pipeline.main(base + ["--out-dir", str(tmp_path / "vis"),
+                                    *_argv(pipeline_run["cpu"])])
+    for path, page, img in zip(pipeline_run["paths"], got, pipeline_run["pages"]):
+        vis = imageio.read_image(str(tmp_path / "vis" / os.path.basename(path)))
+        assert vis.shape == img.shape
+        assert page["detections"] and not np.array_equal(vis, img)
 
 
 def _smooth(h, w, ch, seed):
@@ -245,16 +252,17 @@ def _png(tmp_path, ihdr):
 
 
 def test_read_image_refuses_other_formats(tmp_path):
-    # PNG and JPEG are read (test_torch_port_jpeg.py); a BMP, and a JPEG
-    # coding the port does not decode, are refused by name
+    # PNG and JPEG (baseline and progressive) are read
+    # (test_torch_port_jpeg*.py); a BMP and a PNG the port does not decode
+    # are refused by name
     bmp = tmp_path / "x.bmp"
     cv2.imwrite(str(bmp), np.zeros((8, 8, 3), np.uint8))
     with pytest.raises(NotImplementedError, match="neither PNG nor JPEG"):
         imageio.read_image(str(bmp))
     jpg = tmp_path / "x.jpg"
     cv2.imwrite(str(jpg), np.zeros((8, 8, 3), np.uint8), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(NotImplementedError, match="progressive"):
-        imageio.read_image(str(jpg))
+    np.testing.assert_array_equal(imageio.read_image(str(jpg)), cv2.cvtColor(
+        cv2.imread(str(jpg), cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))  # progressive is read
     for ihdr in ((4, 4, 16, 2, 0, 0, 0), (4, 4, 8, 3, 0, 0, 0), (4, 4, 8, 2, 0, 0, 1)):
         with pytest.raises(NotImplementedError, match="only 8-bit, non-interlaced"):
             imageio.read_image(_png(tmp_path, ihdr))

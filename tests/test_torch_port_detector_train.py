@@ -305,17 +305,18 @@ def test_trained_port_detector_goes_back_to_flax(jax_step, port_step):
                                  {"stem_s2d": True}, {"stem_s2d4": True}],
                          ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_left_out_detector_options_raise(opt):
-    """The space-to-depth stems are refused. ``compute_dtype='bfloat16'`` is
-    ported (held to JAX by ``tests/test_torch_port_bf16.py``): float32
-    parameters, bf16 convs. ``dcn_stages`` is ported: the deformable
-    detector's maps on carried weights equal JAX's within 1e-4
-    (``tests/test_torch_port_deform.py`` holds it further)."""
+    """Every detector option is ported. ``compute_dtype='bfloat16'`` (held
+    to JAX by ``tests/test_torch_port_bf16.py``): float32 parameters, bf16
+    convs. ``dcn_stages`` and the space-to-depth stems ``stem_s2d`` /
+    ``stem_s2d4``: the maps on carried weights equal JAX's within 1e-4
+    (``tests/test_torch_port_deform.py`` and ``test_torch_port_stems.py``
+    hold them further)."""
     if opt == {"compute_dtype": "bfloat16"}:
         det = SegDetector(**DET, device="cpu", **opt)
         assert {p.dtype for p in det.net.parameters()} == {torch.float32}
         assert det.net.prob_head.up2.compute_dtype == torch.bfloat16
         return
-    if "dcn_stages" in opt:
+    if "dcn_stages" in opt or "stem_s2d" in opt or "stem_s2d4" in opt:
         det = SegDetector(**DET, device="cpu", **opt)
         jdet = JaxSegDetector(**DET, **opt)
         variables = seeded_flax_variables(export_flax_variables(det.net), 3)
@@ -327,8 +328,7 @@ def test_left_out_detector_options_raise(opt):
             np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=0, atol=1e-4,
                                        err_msg=k)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        SegDetector(**DET, device="cpu", **opt)
+    raise AssertionError(f"untested option {opt}")
 
 
 def test_datasets_and_collates_match_jax():
