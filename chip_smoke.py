@@ -11,8 +11,8 @@ training configs #1 and #4 from PNG files on disk, config #1 with the
 transformer and the other encoder variants, chain (curved-text) serving,
 bucketed serving of pages of any size, int8 serving and data-parallel
 training and serving over a process group, the deformable (DCN) detector,
-the text spotters, JPEG files, an LMDB of crops, resuming a JAX train state
-and DB's deformable ResNet-50.
+the text spotters, JPEG files, an LMDB of crops, resuming a JAX train state,
+DB's deformable ResNet-50, the tools and the detector head's formulations.
 
     python3 chip_smoke.py
 
@@ -318,7 +318,7 @@ Phases (any failure exits non-zero):
 27. r50: DB's deformable ResNet-50 (``resnet50``, ``dcn_stages=(2, 3, 4)``,
     FPN 256, heads 64; seeded, each block's last BatchNorm damped, offsets
     fractional) in ``E2EPipeline`` with the config-#1 recognizer on 8 pages of
-    640x640: the prob map on 2 pages against a float64 CPU reference
+    640x640: the prob map on 1 page against a float64 CPU reference
     (phase dcn's bound), one CCL launch with labels equal to the CPU's on
     the same mask, one ``'pallas_full'`` batch (one launch of each
     extraction kernel, valid equal, quads within 1e-2 px); ms a batch,
@@ -343,6 +343,23 @@ Phases (any failure exits non-zero):
     against CPU; every progressive JPEG of ``assets/jpeg/progressive/``
     equal to its digest, and ms for the 1280x720 page beside its baseline
     twin (``launches_tools``).
+29. head: the detector head's formulations (``MapHead``'s flag
+    ``fused_upsample``: False the plain chain; the default runs the packed
+    tail in eval mode and the fused tail in train mode) with the asset's
+    prob-head weights on its FPN feature of 8 TextPages of 640x640, (8, 256,
+    160, 160): each eval formulation in float32 and under the bf16 serving
+    cast held against the CPU on a corner crop of page 0 and against the
+    card's plain formulation on every page, within 4 times the CPU's own
+    distance from float64, and the default's float32 train-mode map against
+    the plain one's within the same bound; the ms by CUDA events and
+    kernel-busy ms (null where the trace lost kernels or holds more than the
+    events) of each formulation, eval forward in both dtypes, train forward
+    and backward in float32 and mixed bf16; ``E2EPipeline`` with the asset
+    under the default head against ``fused_upsample=False`` (valid regions
+    equal, prob maps within the same bound, one CCL launch a batch, one of
+    each extraction kernel under ``'pallas_full'``) and their pages/s in
+    turns; ``cli.eval`` of the asset under both heads (the YAML key
+    ``fused_upsample``), H-mean 0.9677 each (``launches_head``).
 
 Prints each phase's seconds on the host clock, a JSON line of per-kernel
 numbers (all eight kernels, with their launches in each phase that drives a
@@ -407,10 +424,12 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_busy_ms(fn, reps: int = 3):
+def device_busy_ms(fn, reps: int = 3, events_ms: float = None):
     """Milliseconds of kernel time per ``fn()`` on the card (sum over the
     device events of a ``torch.profiler`` trace), or None if the trace holds
-    no device time."""
+    no device time; with ``events_ms`` (``fn``'s time by events) also None
+    where it holds more than that or fewer kernel records than kernel-launch
+    calls (the trace lost kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -419,9 +438,17 @@ def device_busy_ms(fn, reps: int = 3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / reps if us > 0 else None
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    ms = sum(e.self_device_time_total for e in device) / 1e3 / reps
+    if events_ms is not None:
+        kernels = sum(e.count for e in device if not e.key.startswith(("Memcpy", "Memset")))
+        launches = sum(e.count for e in events
+                       if e.device_type == torch.autograd.DeviceType.CPU
+                       and e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+        if ms > events_ms or kernels < launches:
+            return None
+    return ms if ms > 0 else None
 
 
 def text_masks(rng, B: int, H: int, W: int, n: int = 30) -> np.ndarray:
@@ -5254,7 +5281,7 @@ def damp_residuals(net, scale: float = 0.2) -> None:
                 m.bn3.weight.mul_(scale)
 
 
-def phase_r50(B: int = 8, hw: int = 640, steps: int = 4, cpu_pages: int = 2,
+def phase_r50(B: int = 8, hw: int = 640, steps: int = 4, cpu_pages: int = 1,
               train_hw: int = 640):
     """DB's deformable ResNet-50 (``resnet50``, ``dcn_stages=(2, 3, 4)``, FPN
     256, heads 64) in ``E2EPipeline`` with the config-#1 recognizer, seeded
@@ -5738,6 +5765,200 @@ def phase_tools(B: int = 8, hw: int = 640, quads: int = 1000, cpu_pages: int = 8
     return total
 
 
+#: the detector head's formulations (``models/detector.py::MapHead`` flags)
+HEAD_FORMS = {"plain": dict(fused_upsample=False), "default": {}}
+#: the asset's cli.eval H-mean on 8 TextPages (seed 5)
+ASSET_HMEAN = 0.9677
+
+
+def head_check(what: str, card, card_plain, crop, cpu, ref64, cpu_gap: float) -> dict:
+    """One formulation's map on the card against the CPU's on a crop
+    (``crop``: the card's map of it) and against the card's plain
+    formulation on every page, each bounded by 4 times the CPU's own
+    distance from float64 on the crop (at least 1e-6)."""
+    bound = 4 * max(cpu_gap, 1e-6)
+    gaps = {"card_vs_cpu": float((crop.cpu().double() - cpu.double()).abs().max()),
+            "card_vs_f64": float((crop.cpu().double() - ref64).abs().max()),
+            "card_vs_card_plain": float((card.double() - card_plain.double()).abs().max())}
+    if not all(g <= bound for g in gaps.values()):
+        raise AssertionError(f"head phase, {what}: {gaps} beyond {bound}")
+    return gaps
+
+
+def head_formulations(x, state, dtype=None, cast: bool = False):
+    """{name: MapHead on the card with the prob head's ``state``} for each
+    formulation; ``dtype`` its compute dtype (mixed precision), ``cast``
+    the bf16 serving cast."""
+    from megreader_tpu_torch.models.detector import MapHead
+    from megreader_tpu_torch.ops.precision import cast_floats
+
+    heads = {}
+    for name, flags in HEAD_FORMS.items():
+        head = MapHead(x.shape[1], 64, dtype, **flags)
+        head.load_state_dict(state)
+        head = head.cuda().eval()
+        heads[name] = cast_floats(head) if cast else head
+    return heads
+
+
+def head_timings(heads, x, train: bool, reps: int) -> dict:
+    """{name: (ms by CUDA events, kernel-busy ms)} of each head's forward
+    (eval), or forward and backward (train, on copies whose BatchNorm
+    statistics move); busy None where the trace is not to be trusted
+    (``device_busy_ms`` with ``events_ms``)."""
+    out = {}
+    for name, head in heads.items():
+        if train:
+            head = copy.deepcopy(head).train()
+            fn = lambda h=head: h(x).sum().backward()  # noqa: E731
+        else:
+            fn = lambda h=head: h(x)  # noqa: E731
+        with contextlib.nullcontext() if train else torch.no_grad():
+            ms = cuda_ms(fn, reps=reps)
+            out[name] = (ms, device_busy_ms(fn, events_ms=ms))
+    return out
+
+
+def phase_head(B: int = 8, hw: int = 640, reps: int = 10, crop=(64, 80)):
+    """The detector head's formulations at the serving shape (see the module
+    docstring). Returns every kernel's launches on the serving path."""
+    from megreader_tpu_torch.cli import eval as cli_eval
+    from megreader_tpu_torch.compat.msgpack import load_flax_msgpack
+    from megreader_tpu_torch.compat.weights import load_flax_variables
+    from megreader_tpu_torch.core.registry import COMPONENTS
+    from megreader_tpu_torch.models.detector import SegDetector
+    from megreader_tpu_torch.models.recognizer import CTCRecognizer
+    from megreader_tpu_torch.ops.image import normalize
+    from megreader_tpu_torch.pipelines.e2e import E2EPipeline
+    from megreader_tpu_torch.train.checkpoint import CheckpointManager
+    from megreader_tpu_torch.train.train_step import OptimizerConfig, create_train_state
+
+    t_phase = time.perf_counter()
+    variables, asset_step = load_flax_msgpack(ASSET)
+    dets = {}
+    for fused in (True, False):
+        dets[fused] = SegDetector(fused_upsample=fused, device="cuda")
+        load_flax_variables(dets[fused].net, variables)
+    items = [TextPages(B, 5, (hw, hw))[i] for i in range(B)]
+    pages_np = np.stack([it["image"] for it in items]).astype(np.float32)
+    pages = torch.from_numpy(pages_np).cuda()
+    net = dets[True].net
+    with torch.no_grad():
+        # the prob head's real input: the asset's FPN feature of the pages
+        x = net.fpn(net.backbone(normalize(pages).permute(0, 3, 1, 2)))
+    state = net.prob_head.state_dict()
+
+    # every formulation on the card against the CPU (on a corner crop of page
+    # 0, borders and all) and against the card's plain one (every page)
+    xc = x[:1, :, :crop[0], :crop[1]]
+    gaps, timing = {}, {}
+    for mode in ("float32", "bf16"):
+        heads = head_formulations(x, state, cast=mode == "bf16")
+        xin, xcin = (x.to(torch.bfloat16), xc.to(torch.bfloat16)) if mode == "bf16" else (x, xc)
+        with torch.no_grad():
+            card = {n: h(xin) for n, h in heads.items()}
+            card_crop = {n: h(xcin) for n, h in heads.items()}
+            cpu_heads = {n: copy.deepcopy(h).cpu() for n, h in heads.items()}
+            cpu = {n: h(xcin.cpu()) for n, h in cpu_heads.items()}
+            ref64 = copy.deepcopy(cpu_heads["plain"]).double()(xc.cpu().double())
+        cpu_gap = max(float((c.double() - ref64).abs().max()) for c in cpu.values())
+        gaps[mode] = {"cpu_vs_f64": cpu_gap, **{
+            n: head_check(f"{mode} {n}", card[n], card["plain"], card_crop[n], cpu[n], ref64,
+                          cpu_gap)
+            for n in heads}}
+        timing[f"eval {mode}"] = head_timings(heads, xin, False, reps)
+        del card, card_crop, cpu, cpu_heads
+    for mode, dtype in (("float32", None), ("bf16 mixed", torch.bfloat16)):
+        heads = head_formulations(x, state, dtype)
+        if dtype is None:  # the fused tail's train-mode map against the plain chain's
+            with torch.no_grad():
+                train_maps = {n: copy.deepcopy(h).train()(x) for n, h in heads.items()}
+            gaps["train float32"] = float((train_maps["default"].double()
+                                           - train_maps["plain"].double()).abs().max())
+            if not gaps["train float32"] <= 4 * max(gaps["float32"]["cpu_vs_f64"], 1e-6):
+                raise AssertionError(f"head phase: the default train-mode map lies "
+                                     f"{gaps['train float32']} from the plain one")
+            del train_maps
+        timing[f"train {mode}"] = head_timings(heads, x, True, reps)
+    del heads
+    torch.cuda.empty_cache()
+    log(f"head phase [{CARD}]: prob head of the asset on its FPN feature {tuple(x.shape)}; "
+        f"map gaps (card vs CPU and vs float64 on page 0's {crop[0]}x{crop[1]} corner, card "
+        "vs the card's plain head on every page; the CPU's own float32/bf16 distance from "
+        "float64) " + json.dumps(gaps))
+    log(f"head phase [{CARD}]: head ms (CUDA events, median of {reps}; eval forward, train "
+        "forward + backward) and kernel-busy ms (torch.profiler, mean of 3; null where "
+        "the trace lost kernels) "
+        + json.dumps({k: {n: {"ms": t[0], "busy_ms": t[1]} for n, t in v.items()}
+                      for k, v in timing.items()}))
+
+    # serving: the default head against fused_upsample=False, in turns
+    rec = CTCRecognizer(num_classes=37, device="cuda")
+    seeded_weights(rec.net, SEED + 3)
+    total = dict.fromkeys(kernel_counters(), 0)
+    pipes, outs = {}, {}
+    for impl in ("xla", "pallas_full"):
+        for fused in (True, False):
+            name = f"{'default' if fused else 'plain'} {impl}"
+            pipes[name] = E2EPipeline(dets[fused], rec, max_regions=32, rectify="perspective",
+                                      ccl_iters=24, extract_impl=impl, device="cuda")
+            pipes[name].run(None, None, pages)  # warm-up
+            torch.cuda.synchronize()
+            counters = zeroed_counters()
+            outs[name] = pipes[name].run(None, None, pages)
+            torch.cuda.synchronize()
+            got = add_counts(total, counters)
+            want = {"ccl": 1, **dict.fromkeys(("candidates", "moments", "extents"),
+                                              int(impl == "pallas_full"))}
+            if {k: got[k] for k in want} != want:
+                raise AssertionError(f"head phase, {name}: kernel launches {got}")
+        a, b = outs[f"default {impl}"], outs[f"plain {impl}"]
+        if not torch.equal(a["valid"], b["valid"]) or not bool(a["valid"].any()):
+            raise AssertionError(f"head phase, {impl}: valid regions differ between the "
+                                 "default and the plain head")
+    with torch.no_grad():
+        prob = {f: dets[f].predict_maps(normalize(pages), heads=("prob",))["prob"]
+                for f in (True, False)}
+    flipped = int(((prob[True] > 0.3) != (prob[False] > 0.3)).sum())
+    prob_gap = float((prob[True] - prob[False]).abs().max())
+    if not prob_gap <= 4 * max(gaps["float32"]["cpu_vs_f64"], 1e-6) or flipped > 1e-4 * prob[
+            True].numel():
+        raise AssertionError(f"head phase: the default prob map lies {prob_gap} from the "
+                             f"plain one, {flipped} mask pixels flipped")
+    turns = {name: [] for name in pipes if name.endswith("xla")}
+    for name in [*turns, *reversed(turns)]:
+        turns[name].append(cuda_ms(lambda: pipes[name].run(None, None, pages), reps=reps))
+    log(f"head phase [{CARD}]: the asset's prob maps, default against plain head, max |diff| "
+        f"{prob_gap:.3g}, {flipped} of {prob[True].numel()} mask pixels flipped; serving in "
+        f"turns (default, plain, plain, default; ms a batch of {B}, median of {reps}, CUDA "
+        "events): " + json.dumps(turns) + "; pages/s "
+        + json.dumps({k: [B / t * 1e3 for t in v] for k, v in turns.items()}))
+    del pipes, outs, prob, rec
+
+    # the asset's H-mean through cli.eval under both heads (the YAML key)
+    with tempfile.TemporaryDirectory() as tmp:
+        COMPONENTS.register(TextPages)
+        CheckpointManager(tmp).save(create_train_state(dets[True], OptimizerConfig()),
+                                    asset_step, force=True)
+        argv = [os.path.join(ROOT, "experiments", "seg_detector_synth.yaml"),
+                "--experiment.workspace", tmp,
+                "--experiment.eval_dataset", node("TextPages", n=B, seed=5),
+                "--experiment.batch_size", str(B)]
+        hmean = {}
+        for label, extra in (("default", []),
+                             ("plain", ["--experiment.model.fused_upsample", "false"])):
+            _, got, _, printed = run_cli(f"cli.eval {label} head (trained detector)",
+                                         cli_eval.main, [*argv, *extra], total, phase="head")
+            if not got["ccl"] or len(printed) != 1:
+                raise AssertionError(f"head phase: cli.eval {label} printed {printed}")
+            hmean[label] = printed[0]["hmean"]
+    log(f"head phase [{CARD}]: the asset's H-mean on {B} TextPages " + json.dumps(hmean))
+    if not all(abs(h - ASSET_HMEAN) < 5e-5 for h in hmean.values()):
+        raise AssertionError(f"head phase: H-mean {hmean}, expected {ASSET_HMEAN}")
+    log(f"head phase: {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -5779,6 +6000,7 @@ def main() -> int:
     resume = timed("resume", phase_resume)
     r50 = timed("r50", phase_r50)
     tools = timed("tools", phase_tools)
+    head = timed("head", phase_head)
     for name, total, needed in (("encoders", encoders, ("ctc_alpha", "ctc_beta")),
                                 ("chains", chains, ("ccl", "candidates", "moments", "extents")),
                                 ("buckets", buckets, ("ccl",)), ("int8", int8, ("ccl",)),
@@ -5789,7 +6011,8 @@ def main() -> int:
                                 ("lmdb", lmdb, ("ctc_alpha", "ctc_beta")),
                                 ("resume", resume, ("ctc_alpha", "ctc_beta")),
                                 ("r50", r50, ("ccl", "candidates", "moments", "extents")),
-                                ("tools", tools, ("ccl", "candidates", "moments", "extents"))):
+                                ("tools", tools, ("ccl", "candidates", "moments", "extents")),
+                                ("head", head, ("ccl", "candidates", "moments", "extents"))):
         if not all(total[n] for n in needed):
             raise AssertionError(f"{name} phase: a kernel of its path did not launch: {total}")
     rows = [ccl_row, *extract_rows, alpha_row, beta_row, alpha2d_row, beta2d_row]
@@ -5809,6 +6032,7 @@ def main() -> int:
         row["launches_resume"] = resume[key]
         row["launches_r50"] = r50[key]
         row["launches_tools"] = tools[key]
+        row["launches_head"] = head[key]
     log("phase seconds (host clock) " + json.dumps(clocks))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

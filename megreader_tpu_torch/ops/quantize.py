@@ -6,9 +6,11 @@ stands for a flax ``nn.Conv`` or ``nn.Dense`` (``precision.Conv2d`` and
 restores them on exit. The JAX package intercepts exactly those two flax
 types, so the port's layers whose JAX twins are other modules are built
 with ``int8=False`` and stay float: the detector head's ``up1``/``up2``
-(``_UpConv`` under the default ``fused_upsample=True``). The LSTM and GRU
-cells, the embedding and the transformer attention's ``DenseGeneral``
-projections are other classes here too, and stay float.
+under ``fused_upsample=True`` (the default), where they are ``_UpConv``s as
+in JAX; under ``fused_upsample=False`` they are plain convs, twins of
+``nn.Conv``, and run int8. The LSTM and GRU cells, the embedding and the
+transformer attention's ``DenseGeneral`` projections are other classes
+here too, and stay float.
 
 The int8 layer, as in JAX:
 

@@ -5,13 +5,15 @@ cv2; the card's machine has no cv2, so this module draws in numpy what cv2
 5.0.0 draws, and writes PNGs through ``data/imageio.py``:
 
 * ``polylines`` is ``cv2.polylines(img, [pts], closed, color, thickness)``
-  for a thickness of 2 or more (LINE_8, integer points), pixel for pixel:
-  each segment is first clipped (``clipLine``) to the image grown by the
+  (LINE_8, integer points), pixel for pixel. A thickness of 2 or more: each
+  segment is first clipped (``clipLine``) to the image grown by the
   thickness on every side, then filled as the convex quadrilateral of its
   two ends moved by half the thickness along the normal (``FillConvexPoly``
   in 16-bit fixed point, its edges drawn by ``Line2`` and its rows scanned
   between two edge walkers), and its end gets a filled disc of radius
-  thickness / 2 (``Circle``: the joints are round);
+  thickness / 2 (``Circle``: the joints are round). A thickness of 1 (or 0,
+  which cv2 draws alike): each segment clipped to the image, then walked by
+  the 8-connected ``LineIterator`` from its left end (``Line``);
 * the JET table of ``cv2.applyColorMap`` (RGB order);
 * labels: ``cv2.putText(..., FONT_HERSHEY_SIMPLEX, 0.5, (255, 64, 64), 1,
   LINE_AA)`` replayed from the glyph table that
@@ -239,19 +241,47 @@ def _thick_line(canvas: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int], co
                   (end[1] + (XY_ONE >> 1)) >> XY_SHIFT, radius, color)
 
 
+def _line(canvas: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int], color) -> None:
+    """cv2's ``Line`` (LINE_8): the segment clipped to the image
+    (``clipLine``, only when an end lies outside), then the 8-connected
+    ``LineIterator`` from its left end: ``dx + 1`` pixels along the major
+    axis, the minor one stepping where the error ``dx - 2 dy (i + 1) +
+    2 dx m`` falls below 0, i.e. ``m_i = ceil((2 dy i - dx) / (2 dx))``."""
+    H, W = canvas.shape[:2]
+    x1, y1, x2, y2 = p0[0], p0[1], p1[0], p1[1]
+    if not (0 <= x1 < W and 0 <= x2 < W and 0 <= y1 < H and 0 <= y2 < H):
+        ok, x1, y1, x2, y2 = _clip_line(W, H, x1, y1, x2, y2)
+        if not ok:
+            return
+    if x2 < x1:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    dx, dy = x2 - x1, abs(y2 - y1)
+    sy = 1 if y2 >= y1 else -1
+    major, minor = max(dx, dy), min(dx, dy)
+    k = np.arange(major + 1, dtype=np.int64)
+    m = -((major - 2 * minor * k) // max(2 * major, 1))
+    if dy > dx:
+        canvas[y1 + sy * k, x1 + m] = color
+    else:
+        canvas[y1 + sy * m, x1 + k] = color
+
+
 def polylines(canvas: np.ndarray, pts: np.ndarray, closed: bool, color,
               thickness: int = 2) -> np.ndarray:
-    """Draw integer points (N, 2) as cv2.polylines does (thickness >= 2),
-    in place; returns ``canvas``."""
-    if thickness < 2:
-        raise NotImplementedError("polylines: thickness 1 (cv2's Bresenham route) is not drawn")
+    """Draw integer points (N, 2) as cv2.polylines does, in place; returns
+    ``canvas``. A negative thickness raises, as cv2's assertion does."""
+    if thickness < 0:
+        raise ValueError(f"polylines: thickness {thickness} < 0")
     pts = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
     if not pts:
         return canvas
     color = np.asarray(color, canvas.dtype)
     p0 = pts[-1] if closed else pts[0]
     for i in range(0 if closed else 1, len(pts)):
-        _thick_line(canvas, p0, pts[i], color, thickness, cap_start=not closed and i == 1)
+        if thickness <= 1:
+            _line(canvas, p0, pts[i], color)
+        else:
+            _thick_line(canvas, p0, pts[i], color, thickness, cap_start=not closed and i == 1)
         p0 = pts[i]
     return canvas
 

@@ -354,10 +354,9 @@ def test_lmdb_dataset_builds_from_a_yaml_override(tmp_path):
 
 
 def test_refusals_name_roadmap_item_15b():
-    """Item 15b is ported: no file of the port names it, the one ROADMAP
-    Queue 1 item a docstring still names is 15c (the JAX package's packed
-    serving head, a TPU layout of the head the port runs), and the
-    ``DetectionVisualizer`` of a YAML is the port's."""
+    """Items 15b and 15c (the last of Queue 1) are ported: no file of the
+    port names a ROADMAP Queue 1 item, and the ``DetectionVisualizer`` of a
+    YAML is the port's."""
     import re
 
     found = []
@@ -366,7 +365,7 @@ def test_refusals_name_roadmap_item_15b():
             if f.endswith(".py"):
                 with open(os.path.join(root, f)) as fh:
                     found += re.findall(r"ROADMAP Queue 1 item ([0-9a-z{}]+)", fh.read())
-    assert set(found) <= {"15c"}, found
+    assert found == [], found
     import megreader_tpu_torch.all  # noqa: F401
     from megreader_tpu_torch.postproc.visualizer import DetectionVisualizer
 

@@ -4,7 +4,8 @@
   ``trace`` file naming an ``annotate`` region;
 * ``postproc/visualizer.py``: polylines pixel-equal to ``cv2.polylines(...,
   True, color, thickness)`` (quads, polygons of up to 16 points, polygons
-  across the canvas edge, random backgrounds), the JET table and
+  across the canvas edge, random backgrounds; thickness 0 and 1 too, with
+  segments leaving the canvas and zero-length ones, open and closed), the JET table and
   ``heatmap_overlay`` bit-equal to the JAX package's, labels against
   ``cv2.putText`` within the bound measured here, ``draw_polygons`` and
   ``visualize`` pixel-equal to the JAX package's (decoded PNGs);
@@ -100,8 +101,47 @@ def test_polylines_pixel_equal_cv2():
         cv2.polylines(ref, [pts.reshape(-1, 1, 2)], closed, (0, 255, 0), thick)
         vis.polylines(got, pts, closed, (0, 255, 0), thick)
         np.testing.assert_array_equal(got, ref, err_msg=f"{pts.tolist()} {thick} {closed}")
-    with pytest.raises(NotImplementedError, match="thickness 1"):
-        vis.polylines(np.zeros((4, 4, 3), np.uint8), pts, True, (0, 255, 0), 1)
+    with pytest.raises(ValueError, match="thickness"):  # cv2 asserts 0 <= thickness
+        vis.polylines(np.zeros((4, 4, 3), np.uint8), pts, True, (0, 255, 0), -1)
+
+
+def _thin_cases(kind):
+    """Thickness 0/1 cases: 'inside' (both ends on the canvas), 'leaving'
+    (ends up to 30 or 5,000 px outside: clipped, or missing the canvas),
+    'zero' (zero-length segments, on and off the canvas), on canvases from
+    1x1 up."""
+    rng = np.random.default_rng(("inside", "leaving", "zero").index(kind))
+    for i in range(400):
+        H, W = (int(v) for v in rng.integers(1, 90, 2))
+        n = int(rng.integers(1, 9))
+        margin = 0 if kind == "inside" else (30, 5000)[i % 2]
+        pts = np.stack([rng.integers(-margin, W + margin, n),
+                        rng.integers(-margin, H + margin, n)], 1).astype(np.int32)
+        if kind == "zero":  # every point, or the first half, on the first one
+            pts[:n if i % 2 else (n + 1) // 2] = pts[0]
+        yield H, W, pts, i % 2, bool(i % 3), rng.integers(0, 256, (H, W, 3))
+
+
+@pytest.mark.parametrize("kind", ["inside", "leaving", "zero"])
+def test_polylines_thickness_one_pixel_equal_cv2(kind):
+    """cv2's thickness-1 route (``Line``: ``clipLine`` then the 8-connected
+    ``LineIterator``), which cv2 also takes for thickness 0; open and
+    closed polylines."""
+    for H, W, pts, thick, closed, bg in _thin_cases(kind):
+        ref = bg.astype(np.uint8)
+        got = ref.copy()
+        cv2.polylines(ref, [pts.reshape(-1, 1, 2)], closed, (0, 255, 7), thick)
+        vis.polylines(got, pts, closed, (0, 255, 7), thick)
+        np.testing.assert_array_equal(got, ref, err_msg=f"{pts.tolist()} {thick} {closed}")
+
+
+def test_draw_polygons_thickness_one_equals_jax():
+    """``draw_polygons(thickness=1)`` equals the JAX visualizer's."""
+    rng = np.random.default_rng(4)
+    image = rng.integers(0, 256, (60, 80, 3)).astype(np.uint8)
+    polys = [rng.uniform(-10, 90, (4, 2)).astype(np.float32) for _ in range(6)]
+    np.testing.assert_array_equal(vis.draw_polygons(image, polys, thickness=1),
+                                  jax_vis.draw_polygons(image, polys, thickness=1))
 
 
 # -------------------------------------------------------------- heatmap
