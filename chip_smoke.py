@@ -360,6 +360,21 @@ Phases (any failure exits non-zero):
     each extraction kernel under ``'pallas_full'``) and their pages/s in
     turns; ``cli.eval`` of the asset under both heads (the YAML key
     ``fused_upsample``), H-mean 0.9677 each (``launches_head``).
+30. synth: the plain synthetic tier as its experiment files name it, drawn
+    on the card's host without cv2 (``data/text_render.py``,
+    ``data/raster.py``): the first 16 items of
+    ``SyntheticRecognitionDataset(seed=0)``, ``SyntheticDetectionDataset()``
+    and ``SyntheticDetectionDataset(max_rotate=15, max_persp=0.05)`` (host GT
+    maps) equal to the JAX package's digests (``assets/synth/manifest.json``)
+    with ms an item; then ``cli.train`` on ``ctc_resnet18_synth.yaml``
+    (4 steps at its batch of 64), ``seg_detector_synth.yaml`` (2 steps) and
+    ``shared_spotter_synth.yaml`` (2 steps; host maps and warped words drawn
+    by process workers) with no dataset override (only the workspace, the
+    sets' sizes, the epochs and one log line a step), finite losses, a
+    ``cli.eval`` of each, and ``cli.pipeline --extract-impl pallas_full`` on
+    8 PNG pages of the detector's eval set with the two trained
+    workspaces; the CTC pair, CCL and the three extraction kernels must
+    launch (``launches_synth``), and neither cv2 nor PIL is imported.
 
 Prints each phase's seconds on the host clock, a JSON line of per-kernel
 numbers (all eight kernels, with their launches in each phase that drives a
@@ -5959,6 +5974,132 @@ def phase_head(B: int = 8, hw: int = 640, reps: int = 10, crop=(64, 80)):
     return total
 
 
+# --- the plain synthetic tier as its experiment files name it ---
+
+SYNTH_MANIFEST = os.path.join(ROOT, "assets", "synth", "manifest.json")
+
+
+def item_digests(item: dict) -> dict:
+    """sha256 of each of a synthetic item's arrays, as C-order bytes: a list
+    of polygons stacked, texts joined by newlines in utf-8 (the manifest's
+    digests, which ``scripts/make_port_text_assets.py`` writes with this
+    function from the JAX package's items)."""
+    import hashlib
+
+    out = {}
+    for k in sorted(item):
+        v = item[k]
+        if k == "polygons":
+            v = np.stack(v).astype(np.float32) if len(v) else np.zeros((0, 4, 2), np.float32)
+        elif k == "ignore":
+            v = np.asarray(v, bool)
+        elif k in ("texts", "text", "filename"):
+            v = np.frombuffer("\n".join(v if k == "texts" else [v]).encode(), np.uint8)
+        out[k] = hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+    return out
+
+
+def phase_synth(items: int = 16, rec_steps: int = 4, det_steps: int = 2, pages: int = 8):
+    """The seven files' plain synthetic tier on the card's machine, which has
+    no cv2 or PIL: the first items drawn on the host equal to the JAX
+    package's digests, then the entry points on three of the files as
+    written. Returns every kernel's launches in the entry points' runs."""
+    from megreader_tpu_torch.cli import eval as cli_eval
+    from megreader_tpu_torch.cli import pipeline as cli_pipeline
+    from megreader_tpu_torch.cli import train as cli_train
+    from megreader_tpu_torch.data import datasets
+    from megreader_tpu_torch.data.imageio import write_png
+
+    t_phase = time.perf_counter()
+    with open(SYNTH_MANIFEST) as f:
+        manifest = json.load(f)
+    bad, item_ms = [], {}
+    for name, entry in manifest["items"].items():
+        ds = getattr(datasets, entry["class"])(**entry["kwargs"])
+        times = []
+        for i, want in enumerate(entry["digests"][:items]):
+            t0 = time.perf_counter()
+            item = ds[i]
+            times.append((time.perf_counter() - t0) * 1e3)
+            if item_digests(item) != want:
+                bad.append((name, i))
+        item_ms[name] = [statistics.median(times), max(times)]
+    log(f"synth phase: {items} items of each of {sorted(manifest['items'])} drawn on the host "
+        f"without cv2, {'all' if not bad else 'NOT all'} equal to the JAX package's digests "
+        f"(cv2 {manifest['cv2']}); ms an item on one host thread (median, max) "
+        + json.dumps(item_ms) + f" [{CARD}]")
+    if bad:
+        raise AssertionError(f"synth phase: items differ from the manifest: {bad}")
+
+    total = dict.fromkeys(kernel_counters(), 0)
+    cfg = {k: os.path.join(ROOT, "experiments", f"{k}.yaml")
+           for k in ("ctc_resnet18_synth", "seg_detector_synth", "shared_spotter_synth")}
+    step_s = {}
+
+    def train(label, name, ws, n_train, n_eval, steps, want):
+        state, got, wall, _ = run_cli(f"cli.train {name}", cli_train.main, [
+            cfg[name], "--no-resume", "--experiment.workspace", ws,
+            "--experiment.train_dataset.n", str(n_train), "--experiment.eval_dataset.n",
+            str(n_eval), "--experiment.epochs", "1", "--experiment.log_every", "1"],
+            total, phase="synth")
+        dt, losses, logged = step_seconds(ws)
+        if (state.step != steps or logged != list(range(1, steps + 1))
+                or not np.all(np.isfinite(losses))):
+            raise AssertionError(f"synth phase: {label} stopped at step {state.step}, logged "
+                                 f"{logged}, losses {losses}")
+        missing = [k for k in want if got[k] != steps]
+        if missing:
+            raise AssertionError(f"synth phase: {label}: launches {got}, each of {want} "
+                                 f"once a step expected")
+        step_s[label] = {"steps": steps, "s": round(wall, 2),
+                         "s_a_step_after_the_first": dt, "losses": losses}
+        return state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ws_rec, ws_det, ws_spot = (os.path.join(tmp, k) for k in ("rec", "det", "spot"))
+        train("config #1", "ctc_resnet18_synth", ws_rec, 64 * rec_steps, 64, rec_steps,
+              ("ctc_alpha", "ctc_beta"))
+        train("config #4", "seg_detector_synth", ws_det, 8 * det_steps, pages, det_steps, ())
+        train("shared spotter", "shared_spotter_synth", ws_spot, 8 * det_steps, pages,
+              det_steps, ("ctc_alpha", "ctc_beta"))
+        evals = {}
+        for label, name, ws, n in (("config #1", "ctc_resnet18_synth", ws_rec, 64),
+                                   ("config #4", "seg_detector_synth", ws_det, pages),
+                                   ("shared spotter", "shared_spotter_synth", ws_spot, pages)):
+            _, got, _, printed = run_cli(f"cli.eval {name}", cli_eval.main, [
+                cfg[name], "--experiment.workspace", ws, "--experiment.eval_dataset.n",
+                str(n)], total, phase="synth")
+            if len(printed) != 1 or not all(np.isfinite(v) for v in printed[0].values()
+                                            if isinstance(v, float)):
+                raise AssertionError(f"synth phase: cli.eval {name} printed {printed}")
+            if name == "seg_detector_synth" and not got["ccl"]:
+                raise AssertionError(f"synth phase: cli.eval {name} launched {got}")
+            evals[label] = printed[0]
+        # serve the detector's eval pages with both trained workspaces
+        ds = datasets.SyntheticDetectionDataset(n=pages, hw=(640, 640), seed=1, gt_maps=False)
+        paths = []
+        for i in range(pages):
+            paths.append(os.path.join(tmp, f"page{i}.png"))
+            write_png(paths[-1], ds[i]["image"])
+        out, got, _, printed = run_cli("cli.pipeline --extract-impl pallas_full",
+                                       cli_pipeline.main, [
+            "--detector", cfg["seg_detector_synth"], "--det-workspace", ws_det,
+            "--recognizer", cfg["ctc_resnet18_synth"], "--rec-workspace", ws_rec,
+            "--images", *paths, "--extract-impl", "pallas_full"], total, phase="synth")
+        if [p["image"] for p in printed] != paths or not all(
+                got[k] for k in ("ccl", "candidates", "moments", "extents")):
+            raise AssertionError(f"synth phase: cli.pipeline launched {got}, printed "
+                                 f"{[p.get('image') for p in printed]}")
+    leaked = [m for m in ("cv2", "PIL") if sys.modules.get(m) is not None]
+    if leaked:
+        raise AssertionError(f"synth phase: {leaked} imported")
+    log("synth phase: cli.train steps (host clock; s a step from the metrics' timestamps) "
+        + json.dumps(step_s) + "; cli.eval " + json.dumps(evals) + "; launches "
+        + json.dumps(total) + f"; cv2 and PIL never imported [{CARD}]; "
+        f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -6001,6 +6142,7 @@ def main() -> int:
     r50 = timed("r50", phase_r50)
     tools = timed("tools", phase_tools)
     head = timed("head", phase_head)
+    synth = timed("synth", phase_synth)
     for name, total, needed in (("encoders", encoders, ("ctc_alpha", "ctc_beta")),
                                 ("chains", chains, ("ccl", "candidates", "moments", "extents")),
                                 ("buckets", buckets, ("ccl",)), ("int8", int8, ("ccl",)),
@@ -6012,7 +6154,9 @@ def main() -> int:
                                 ("resume", resume, ("ctc_alpha", "ctc_beta")),
                                 ("r50", r50, ("ccl", "candidates", "moments", "extents")),
                                 ("tools", tools, ("ccl", "candidates", "moments", "extents")),
-                                ("head", head, ("ccl", "candidates", "moments", "extents"))):
+                                ("head", head, ("ccl", "candidates", "moments", "extents")),
+                                ("synth", synth, ("ccl", "candidates", "moments", "extents",
+                                                  "ctc_alpha", "ctc_beta"))):
         if not all(total[n] for n in needed):
             raise AssertionError(f"{name} phase: a kernel of its path did not launch: {total}")
     rows = [ccl_row, *extract_rows, alpha_row, beta_row, alpha2d_row, beta2d_row]
@@ -6033,6 +6177,7 @@ def main() -> int:
         row["launches_r50"] = r50[key]
         row["launches_tools"] = tools[key]
         row["launches_head"] = head[key]
+        row["launches_synth"] = synth[key]
     log("phase seconds (host clock) " + json.dumps(clocks))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -12,8 +12,11 @@ its words' polygons and, unless ``gt_maps`` is off, its host GT maps.
   (cv2's bilinear resize, bit for bit); their items equal the JAX items.
 * ``MixtureDataset`` interleaves its parts by fractional position.
 * The synthetic datasets draw the same words from the same per-index
-  streams and render them with cv2, imported on first use, so the module
-  imports without it.
+  streams, size and draw them with ``text_render`` (cv2's ``getTextSize``
+  and ``putText`` replayed from a glyph table), warp them with ``raster``
+  (cv2's ``getPerspectiveTransform`` and ``warpPerspective``) and shrink
+  them with ``imageio.resize_linear``; their items equal the JAX items bit
+  for bit, and no route imports cv2.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import numpy as np
 from ..core.charset import Charset
 from .imageio import read_image, resize_linear
 from .processes import make_border_maps, make_seg_maps, parse_icdar_gt
+from .raster import get_perspective_transform, warp_perspective_linear
+from .text_render import put_text, text_size
 
 
 class RecognitionListDataset:
@@ -181,24 +186,19 @@ class SyntheticRecognitionDataset:
         return self.n
 
     def __getitem__(self, i: int) -> Dict:
-        import cv2
-
         rng = np.random.default_rng(self.seed * 1_000_003 + i)
         text = _WORDS[int(rng.integers(len(_WORDS)))]
         fs = float(rng.uniform(0.8, 2.0))
-        (tw, th), _b = cv2.getTextSize(text, cv2.FONT_HERSHEY_SIMPLEX, fs, 2)
+        (tw, th), _b = text_size(text, fs)
         m = [int(rng.integers(0, self.max_margin + 1)) for _ in range(4)]  # l t r b
         h = th + 4 + m[1] + m[3]
         w = tw + m[0] + m[2]
         H, W = self.canvas_hw
         img = rng.integers(0, 50, (h, w, 3), dtype=np.uint8)
-        cv2.putText(
-            img, text, (m[0], m[1] + th), cv2.FONT_HERSHEY_SIMPLEX, fs,
-            (235, 235, 235), 2, cv2.LINE_AA,
-        )
+        put_text(img, text, (m[0], m[1] + th), fs)
         if h > H or w > W:
             s = min(H / h, W / w)
-            img = cv2.resize(img, (max(1, int(w * s)), max(1, int(h * s))))
+            img = resize_linear(img, (max(1, int(w * s)), max(1, int(h * s))))
             h, w = img.shape[:2]
         canvas = np.zeros((H, W, 3), np.uint8)
         canvas[:h, :w] = img
@@ -231,14 +231,10 @@ class SyntheticDetectionDataset:
     def _paste_warped(self, rng, img, text, fs, existing):
         """Render a word patch, warp it, paste it by max; the warped quad, or
         None if it does not fit or overlaps an earlier word."""
-        import cv2
-
         H, W = img.shape[:2]
-        (tw, th), _b = cv2.getTextSize(text, cv2.FONT_HERSHEY_SIMPLEX, fs, 2)
+        (tw, th), _b = text_size(text, fs)
         ph, pw = th + 6, tw + 2
-        patch = np.zeros((ph, pw, 3), np.uint8)
-        cv2.putText(patch, text, (1, th + 1), cv2.FONT_HERSHEY_SIMPLEX, fs,
-                    (235, 235, 235), 2, cv2.LINE_AA)
+        patch = put_text(np.zeros((ph, pw, 3), np.uint8), text, (1, th + 1), fs)
         src = np.array([[0, 0], [pw - 1, 0], [pw - 1, ph - 1], [0, ph - 1]], np.float32)
 
         rot = np.deg2rad(rng.uniform(-self.max_rotate, self.max_rotate))
@@ -261,15 +257,13 @@ class SyntheticDetectionDataset:
         if any(_overlaps(quad, q) for q in existing):
             return None
 
-        M = cv2.getPerspectiveTransform(src, dst.astype(np.float32))
-        warped = cv2.warpPerspective(patch, M, (bw, bh), flags=cv2.INTER_LINEAR)
+        M = get_perspective_transform(src, dst.astype(np.float32))
+        warped = warp_perspective_linear(patch, M, (bw, bh))
         roi = img[py:py + bh, px:px + bw]
         np.maximum(roi, warped, out=roi)
         return quad.astype(np.float32)
 
     def __getitem__(self, i: int) -> Dict:
-        import cv2
-
         rng = np.random.default_rng(self.seed * 999_983 + i)
         H, W = self.hw
         img = rng.integers(0, 50, (H, W, 3), dtype=np.uint8)
@@ -288,15 +282,14 @@ class SyntheticDetectionDataset:
                     polys.append(quad)
                     texts.append(text)
                 continue
-            (tw, th), _b = cv2.getTextSize(text, cv2.FONT_HERSHEY_SIMPLEX, fs, 2)
+            (tw, th), _b = text_size(text, fs)
             x = int(rng.integers(5, max(6, W - tw - 5)))
             y = int(rng.integers(th + 5, max(th + 6, H - 5)))
             box = np.array([[x, y - th], [x + tw, y - th], [x + tw, y + 4], [x, y + 4]],
                            np.float32)
             if any(_overlaps(box, q) for q in polys):
                 continue
-            cv2.putText(img, text, (x, y), cv2.FONT_HERSHEY_SIMPLEX, fs, (235, 235, 235), 2,
-                        cv2.LINE_AA)
+            put_text(img, text, (x, y), fs)
             polys.append(box)
             texts.append(text)
         ignored = [False] * len(polys)

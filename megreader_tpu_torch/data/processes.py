@@ -2,10 +2,11 @@
 
 A port of ``megreader_tpu/data/processes.py``: the shrink distance d = A (1 -
 r^2) / perimeter, the convex edge-offset of a polygon (the C++ route of
-``native/`` where ``g++`` is on the path, else numpy), and the cv2 rasterization of the
-shrunk text maps and the border maps. cv2 is imported on first use. These are
-the host reference that ``ops/gt_maps.make_detection_gt`` is held against, and
-the maps of ``Experiment(device_gt=False)``.
+``native/`` where ``g++`` is on the path, else numpy), and the rasterization of
+the shrunk text maps and the border maps by ``raster.py``, cv2's fill, lines
+and distance transform copied bit for bit. These are the host reference that
+``ops/gt_maps.make_detection_gt`` is held against, and the maps of
+``Experiment(device_gt=False)``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from .raster import distance_transforms_l2_3, fill_poly, polylines
 
 
 def polygon_area_signed(poly: np.ndarray) -> float:
@@ -92,8 +95,6 @@ def make_seg_maps(
     """Polygons -> {gt, mask}: shrunk text regions and valid pixels. Ignored
     texts, texts smaller than ``min_text_size`` and empty shrinks are masked
     out."""
-    import cv2
-
     H, W = hw
     gt = np.zeros((H, W), np.float32)
     mask = np.ones((H, W), np.float32)
@@ -102,14 +103,14 @@ def make_seg_maps(
         h = poly[:, 1].max() - poly[:, 1].min()
         w = poly[:, 0].max() - poly[:, 0].min()
         if ignore or min(h, w) < min_text_size:
-            cv2.fillPoly(mask, [poly.astype(np.int32)], 0.0)
+            fill_poly(mask, poly.astype(np.int32), 0.0)
             continue
         shrunk = offset_polygon(poly, -shrink_distance(poly, shrink_ratio))
         if not np.all(np.isfinite(shrunk)) or \
                 abs(polygon_area_signed(shrunk.astype(np.float64))) < 1.0:
-            cv2.fillPoly(mask, [poly.astype(np.int32)], 0.0)
+            fill_poly(mask, poly.astype(np.int32), 0.0)
             continue
-        cv2.fillPoly(gt, [shrunk.astype(np.int32)], 1.0)
+        fill_poly(gt, shrunk.astype(np.int32), 1.0)
     return {"gt": gt, "mask": mask}
 
 
@@ -123,11 +124,10 @@ def make_border_maps(
 ) -> Dict[str, np.ndarray]:
     """Threshold-map target: the distance falloff in the band around each
     non-ignored text's border, and the band itself."""
-    import cv2
-
     H, W = hw
     canvas = np.zeros((H, W), np.float32)
     mask = np.zeros((H, W), np.float32)
+    windows = []
     for poly, ignore in zip(polygons, ignore_flags):
         if ignore:
             continue
@@ -146,10 +146,12 @@ def make_border_maps(
         wh, ww = y1 - y0, x1 - x0
         off = np.array([x0, y0], np.float32)
         band = np.zeros((wh, ww), np.uint8)
-        cv2.fillPoly(band, [(dilated - off).astype(np.int32)], 1)
+        fill_poly(band, (dilated - off).astype(np.int32), 1)
         border = np.zeros((wh, ww), np.uint8)
-        cv2.polylines(border, [(poly - off).astype(np.int32)], True, 1)
-        dist = cv2.distanceTransform((1 - border).astype(np.uint8), cv2.DIST_L2, 3)
+        polylines(border, (poly - off).astype(np.int32), True, 1, thickness=1)
+        windows.append((y0, y1, x0, x1, d, band, (1 - border).astype(np.uint8)))
+    dists = distance_transforms_l2_3([w[-1] for w in windows])
+    for (y0, y1, x0, x1, d, band, _), dist in zip(windows, dists):
         falloff = np.clip(1.0 - dist / max(d, 1e-6), 0.0, 1.0)
         canvas[y0:y1, x0:x1] = np.maximum(canvas[y0:y1, x0:x1], falloff * band)
         mask[y0:y1, x0:x1] = np.maximum(mask[y0:y1, x0:x1], band.astype(np.float32))

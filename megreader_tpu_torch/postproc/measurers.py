@@ -5,8 +5,8 @@ A copy of ``megreader_tpu/postproc/measurers.py`` (numpy and plain Python on
 the host). Polygon intersections clip convex pairs exactly
 (Sutherland-Hodgman: by ``native/``'s C++ where ``g++`` is on the path, else
 in numpy) and rasterize non-convex ones (chain polygons) with
-``fill_poly``, a numpy copy of ``cv2.fillPoly`` that sets the same pixels:
-the card's machine has no cv2.
+``data/raster.py::fill_poly``, a numpy copy of ``cv2.fillPoly`` that sets
+the same pixels: the card's machine has no cv2.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from __future__ import annotations
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from ..data.raster import fill_poly
 
 
 def polygon_area(poly: np.ndarray) -> float:
@@ -69,72 +71,6 @@ def is_convex(poly: np.ndarray) -> bool:
 #: supersampling of the raster route; the fill includes boundary pixels,
 #: which biases areas by about perimeter / (2 SS)
 _RASTER_SS = 4
-#: cv2's fixed-point fraction bits for polygon edges
-_XY_SHIFT = 16
-
-
-def _line_pixels(x0: int, y0: int, x1: int, y1: int):
-    """The pixels of ``cv2.line(..., lineType=LINE_8)`` from (x0, y0) to (x1,
-    y1): cv2's Bresenham iterator, run left to right, stepping the minor axis
-    where its error term is negative. Step i of a major axis a long and a
-    minor axis b long has moved the minor axis ceil((2 b i - a) / (2 a))
-    times. Returns (xs, ys) int64."""
-    if x1 < x0:
-        x0, y0, x1, y1 = x1, y1, x0, y0
-    dx, dy = x1 - x0, abs(y1 - y0)
-    sy = 1 if y1 >= y0 else -1
-    a, b = max(dx, dy), min(dx, dy)
-    i = np.arange(a + 1, dtype=np.int64)
-    minor = -((a - 2 * b * i) // (2 * a)) if a else i
-    if dx >= dy:
-        return x0 + i, y0 + sy * minor
-    return x0 + minor, y0 + sy * i
-
-
-def fill_poly(mask: np.ndarray, pts: np.ndarray, value: int = 1) -> np.ndarray:
-    """``cv2.fillPoly(mask, [pts], value)`` (LINE_8, no shift) in numpy, for
-    integer vertices inside the mask: each edge drawn as ``cv2.line`` draws
-    it, then on each row the edges that cross it (half-open in y), ordered
-    by x and taken in pairs: a pixel is filled where its centre lies in
-    [x_left, x_right), the edges' x in cv2's 16.16 fixed point (an edge
-    starts half a pixel right of its top vertex and steps by the truncated
-    quotient of its run over its rise). Fills ``mask`` in place and returns
-    it."""
-    H, W = mask.shape
-    pts = np.asarray(pts, np.int64).reshape(-1, 2)
-    if pts.min() < 0 or pts[:, 0].max() >= W or pts[:, 1].max() >= H:
-        raise ValueError("fill_poly takes vertices inside the mask (cv2's clipping is not "
-                         "ported)")
-    prev = np.roll(pts, 1, 0)
-    for (xa, ya), (xb, yb) in zip(prev, pts):
-        xs, ys = _line_pixels(int(xa), int(ya), int(xb), int(yb))
-        mask[ys, xs] = value
-    top = np.where((prev[:, 1] < pts[:, 1])[:, None], prev, pts)
-    bot = np.where((prev[:, 1] < pts[:, 1])[:, None], pts, prev)
-    keep = top[:, 1] != bot[:, 1]
-    top, bot = top[keep], bot[keep]
-    if len(top) < 2:
-        return mask
-    num = (bot[:, 0] - top[:, 0]) << _XY_SHIFT
-    den = bot[:, 1] - top[:, 1]
-    step = np.sign(num) * (np.abs(num) // den)  # C's division: toward zero
-    rows = den  # an edge is active on rows top .. bottom - 1
-    edge = np.repeat(np.arange(len(top)), rows)
-    y = top[edge, 1] + (np.arange(rows.sum()) - np.repeat(np.cumsum(rows) - rows, rows))
-    x = (top[edge, 0] << _XY_SHIFT) + (1 << (_XY_SHIFT - 1)) + (y - top[edge, 1]) * step[edge]
-    order = np.lexsort((x, y))
-    y, x = y[order].reshape(-1, 2), x[order].reshape(-1, 2)
-    one = 1 << _XY_SHIFT
-    # pixel j's centre j + 1/2 in fixed point is (j + 1) << 16 less the half
-    # pixel of the start offset: in span when ceil(x_l) - 1 <= j < ceil(x_r) - 1
-    lo = np.clip(((x[:, 0] + one - 1) >> _XY_SHIFT) - 1, 0, W)
-    hi = np.clip(((x[:, 1] + one - 1) >> _XY_SHIFT) - 1, 0, W)
-    y, lo, hi = y[hi > lo, 0], lo[hi > lo], hi[hi > lo]
-    span = np.zeros((H, W + 1), np.int64)
-    np.add.at(span, (y, lo), 1)
-    np.add.at(span, (y, hi), -1)
-    mask[np.cumsum(span, 1)[:, :W] > 0] = value
-    return mask
 
 
 def _raster_masks(p1: np.ndarray, p2: np.ndarray):

@@ -23,7 +23,8 @@ Tolerances, and why:
   pages).
 * The warp on smooth pages: 1e-3 on 0-255 pixels, as
   ``test_torch_port_image.py`` (the sample coordinates may differ by an ulp).
-* ``fill_poly``: equal to ``cv2.fillPoly`` pixel for pixel; the measurers'
+* ``fill_poly`` (``data/raster.py``, which the measurers import): equal to
+  ``cv2.fillPoly`` pixel for pixel; the measurers'
   areas and ratios on chain polygons equal to the JAX package's (rtol
   1e-12: the same float64 arithmetic on the same pixels).
 """
@@ -49,6 +50,7 @@ from megreader_tpu.postproc import detection as jax_detection
 from megreader_tpu.postproc import measurers as jax_measurers
 from megreader_tpu_torch.cli import eval as cli_eval
 from megreader_tpu_torch.compat.weights import load_flax_variables, seeded_flax_variables
+from megreader_tpu_torch.data import raster
 from megreader_tpu_torch.data.datasets import SyntheticDetectionDataset
 from megreader_tpu_torch.evaluation import evaluate, evaluate_detection
 from megreader_tpu_torch.experiment import Experiment
@@ -354,12 +356,15 @@ def test_fill_poly_equals_cv2():
         x0, y0, x1, y1 = (int(v) for v in rng.integers(0, 50, 4))
         want = np.zeros((50, 50), np.uint8)
         cv2.line(want, (x0, y0), (x1, y1), 1)
-        xs, ys = measurers._line_pixels(x0, y0, x1, y1)
         have = np.zeros_like(want)
-        have[ys, xs] = 1
+        raster._line(have, (x0, y0), (x1, y1), 1)
         np.testing.assert_array_equal(have, want)
-    with pytest.raises(ValueError, match="inside the mask"):
-        measurers.fill_poly(np.zeros((4, 4), np.uint8), np.array([[0, 0], [4, 0], [0, 3]]))
+    # the measurers take the one copy of the fill, which clips as cv2 does
+    assert measurers.fill_poly is raster.fill_poly
+    pts = np.array([[0, 0], [4, 0], [0, 3]], np.int32)
+    want = np.zeros((4, 4), np.uint8)
+    cv2.fillPoly(want, [pts], 1)
+    np.testing.assert_array_equal(measurers.fill_poly(np.zeros((4, 4), np.uint8), pts), want)
 
 
 def test_measurers_score_chain_polygons_as_jax():

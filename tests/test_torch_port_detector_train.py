@@ -1,7 +1,8 @@
 """Port detector training (config #4) against the JAX package, on the CPU.
 
 The DB losses, the device GT maps (whole-page and tiled) against the JAX
-rasterizer and against the port's host cv2 maps, one train-mode
+rasterizer and against the port's host maps (``data/raster.py``, equal to
+the JAX package's cv2 maps, also with cv2 unimportable), one train-mode
 ``SegDetector.loss`` with every gradient leaf and the updated BatchNorm
 statistics, the weights carried back to flax, the detection datasets and
 collates, and ``Experiment``'s detection wiring.
@@ -16,6 +17,7 @@ threshold maps atol 1e-6 (float32 in another order); losses from the same
 float64 maps rtol 1e-10."""
 
 import functools
+import sys
 
 import flax.linen
 import jax
@@ -95,17 +97,22 @@ def test_detection_gt_matches_jax(case, tile_hw):
         assert torch.equal(got[k], dense[k]), k
 
 
-@pytest.mark.parametrize("case", sorted(PAGES))
-def test_detection_gt_matches_host_maps(case):
-    """Against the port's cv2 maps (exact geometry against integer
-    rasterization): differing pixels only along the boundaries, as
-    tests/test_gt_maps.py allows."""
+def _block_cv2(monkeypatch):
+    """cv2 and PIL unimportable from here on, as on the card's machine."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+
+
+def _check_host_maps(case, block=None):
     dev = gt_maps.make_detection_gt(*(torch.from_numpy(a) for a in _buffers(case)), hw=(H, W))
-    for b, (polys, ignore) in enumerate(PAGES[case]):
+    jmaps = [(jax_processes.make_seg_maps(polys, ignore, (H, W)),
+              jax_processes.make_border_maps(polys, ignore, (H, W)))
+             for polys, ignore in PAGES[case]]
+    if block is not None:
+        block()
+    for b, ((polys, ignore), (jseg, jborder)) in enumerate(zip(PAGES[case], jmaps)):
         seg = processes.make_seg_maps(polys, ignore, (H, W))
         border = processes.make_border_maps(polys, ignore, (H, W))
-        jseg = jax_processes.make_seg_maps(polys, ignore, (H, W))
-        jborder = jax_processes.make_border_maps(polys, ignore, (H, W))
         for k in ("gt", "mask"):
             np.testing.assert_array_equal(seg[k], jseg[k])
         for k in ("thresh_map", "thresh_mask"):
@@ -117,6 +124,20 @@ def test_detection_gt_matches_host_maps(case):
         both = (dev["thresh_mask"][b].numpy() > 0.5) & (host["thresh_mask"] > 0.5)
         if both.any():
             assert np.abs(dev["thresh_map"][b].numpy() - host["thresh_map"])[both].mean() < 0.03
+
+
+@pytest.mark.parametrize("case", sorted(PAGES))
+def test_detection_gt_matches_host_maps(case):
+    """Against the port's host maps (exact geometry against integer
+    rasterization): differing pixels only along the boundaries, as
+    tests/test_gt_maps.py allows; the host maps equal the JAX package's."""
+    _check_host_maps(case)
+
+
+@pytest.mark.parametrize("case", sorted(PAGES))
+def test_detection_gt_matches_host_maps_without_cv2(case, monkeypatch):
+    """The same with cv2 and PIL unimportable while the port draws."""
+    _check_host_maps(case, lambda: _block_cv2(monkeypatch))
 
 
 def test_pad_polygons_grows_nothing_and_warns_once():
@@ -331,10 +352,13 @@ def test_left_out_detector_options_raise(opt):
     raise AssertionError(f"untested option {opt}")
 
 
-def test_datasets_and_collates_match_jax():
+def _check_datasets_and_collates(block=None):
     ds = SyntheticDetectionDataset(n=B, hw=(H, W), seed=3, max_rotate=15.0, max_persp=0.1)
     jds = JaxSyntheticDetectionDataset(n=B, hw=(H, W), seed=3, max_rotate=15.0, max_persp=0.1)
-    samples, jsamples = [ds[i] for i in range(B)], [jds[i] for i in range(B)]
+    jsamples = [jds[i] for i in range(B)]
+    if block is not None:
+        block()
+    samples = [ds[i] for i in range(B)]
     for s, js in zip(samples, jsamples):
         assert s["texts"] == js["texts"] and s["ignore"] == js["ignore"]
         np.testing.assert_array_equal(s["image"], js["image"])
@@ -353,6 +377,16 @@ def test_datasets_and_collates_match_jax():
              "ignore": [False] * 9}] * B
     grown = detection_collate_polys(many, max_polys=P)  # 9 polygons: 4 -> 8 -> 16
     assert grown["polys"].shape == (B, 16, 4, 2) and grown["poly_valid"].sum() == 9 * B
+
+
+def test_datasets_and_collates_match_jax():
+    _check_datasets_and_collates()
+
+
+def test_datasets_and_collates_match_jax_without_cv2(monkeypatch):
+    """The warped pages and their collates with cv2 and PIL unimportable
+    while the port draws."""
+    _check_datasets_and_collates(lambda: _block_cv2(monkeypatch))
 
 
 def test_experiment_device_gt_wiring(jax_step):

@@ -357,8 +357,7 @@ def test_pipeline_refuses_a_spotter_without_maps():
         SpotterE2EPipeline(_port("shared"), extract_impl="fast", device="cpu")
 
 
-@pytest.mark.parametrize("gt_maps", [False, True], ids=["boxes", "with_gt_maps"])
-def test_spotting_collate_and_prepare_match_jax(gt_maps):
+def _check_spotting_collate_and_prepare(gt_maps, block=None):
     import functools
 
     import jax
@@ -374,7 +373,10 @@ def test_spotting_collate_and_prepare_match_jax(gt_maps):
 
     kw = dict(n=4, hw=(256, 256), seed=3, max_rotate=15.0, gt_maps=gt_maps)
     ds, jds = SyntheticDetectionDataset(**kw), JaxDataset(**kw)
-    samples, jsamples = [ds[i] for i in range(4)], [jds[i] for i in range(4)]
+    jsamples = [jds[i] for i in range(4)]
+    if block is not None:
+        block()
+    samples = [ds[i] for i in range(4)]
     assert any(len(s["texts"]) > 2 for s in samples)
     for collate_kw in (dict(max_polys=2, max_label_len=6), dict(max_polys=16,
                                                                  max_label_len=16)):
@@ -397,6 +399,22 @@ def test_spotting_collate_and_prepare_match_jax(gt_maps):
             assert prepped[k].numpy().dtype == v.dtype, k
             np.testing.assert_allclose(prepped[k].numpy(), v, rtol=0,
                                        atol=1e-5 if k == "image" else 0, err_msg=k)
+
+
+@pytest.mark.parametrize("gt_maps", [False, True], ids=["boxes", "with_gt_maps"])
+def test_spotting_collate_and_prepare_match_jax(gt_maps):
+    _check_spotting_collate_and_prepare(gt_maps)
+
+
+@pytest.mark.parametrize("gt_maps", [False, True], ids=["boxes", "with_gt_maps"])
+def test_spotting_collate_and_prepare_match_jax_without_cv2(gt_maps, monkeypatch):
+    """The same with cv2 and PIL unimportable while the port draws its
+    warped pages and host maps."""
+    def block():
+        monkeypatch.setitem(sys.modules, "cv2", None)
+        monkeypatch.setitem(sys.modules, "PIL", None)
+
+    _check_spotting_collate_and_prepare(gt_maps, block)
 
 
 def test_experiment_wiring_and_evaluate_spotting_match_jax(tmp_path):
