@@ -5977,45 +5977,49 @@ def phase_head(B: int = 8, hw: int = 640, reps: int = 10, crop=(64, 80)):
 # --- the plain synthetic tier as its experiment files name it ---
 
 SYNTH_MANIFEST = os.path.join(ROOT, "assets", "synth", "manifest.json")
+HARD_MANIFEST = os.path.join(ROOT, "assets", "synth", "hard_manifest.json")
 
 
 def item_digests(item: dict) -> dict:
     """sha256 of each of a synthetic item's arrays, as C-order bytes: a list
-    of polygons stacked, texts joined by newlines in utf-8 (the manifest's
-    digests, which ``scripts/make_port_text_assets.py`` writes with this
-    function from the JAX package's items)."""
+    of polygons stacked when all have one shape, else each polygon's int32
+    vertex count and then its float32 vertices, one after another; texts
+    joined by newlines in utf-8; a ``meta`` dict as JSON with sorted keys
+    (the manifests' digests, which ``scripts/make_port_text_assets.py`` and
+    ``scripts/make_port_hard_assets.py`` write with this function from the
+    JAX package's items)."""
     import hashlib
 
     out = {}
     for k in sorted(item):
         v = item[k]
         if k == "polygons":
-            v = np.stack(v).astype(np.float32) if len(v) else np.zeros((0, 4, 2), np.float32)
+            shapes = {np.shape(p) for p in v}
+            if len(shapes) <= 1:
+                v = np.stack(v).astype(np.float32) if len(v) else np.zeros((0, 4, 2), np.float32)
+            else:
+                v = np.frombuffer(b"".join(
+                    np.int32(len(p)).tobytes() + np.ascontiguousarray(p, np.float32).tobytes()
+                    for p in v), np.uint8)
         elif k == "ignore":
             v = np.asarray(v, bool)
         elif k in ("texts", "text", "filename"):
             v = np.frombuffer("\n".join(v if k == "texts" else [v]).encode(), np.uint8)
+        elif k == "meta":
+            v = np.frombuffer(json.dumps(v, sort_keys=True).encode(), np.uint8)
         out[k] = hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
     return out
 
 
-def phase_synth(items: int = 16, rec_steps: int = 4, det_steps: int = 2, pages: int = 8):
-    """The seven files' plain synthetic tier on the card's machine, which has
-    no cv2 or PIL: the first items drawn on the host equal to the JAX
-    package's digests, then the entry points on three of the files as
-    written. Returns every kernel's launches in the entry points' runs."""
-    from megreader_tpu_torch.cli import eval as cli_eval
-    from megreader_tpu_torch.cli import pipeline as cli_pipeline
-    from megreader_tpu_torch.cli import train as cli_train
-    from megreader_tpu_torch.data import datasets
-    from megreader_tpu_torch.data.imageio import write_png
-
-    t_phase = time.perf_counter()
-    with open(SYNTH_MANIFEST) as f:
+def synth_items(path: str, module, items: int, tier: str) -> dict:
+    """Draw the first ``items`` items of each entry of a manifest on the host
+    and hold them to its digests; log ms an item on one host thread
+    (median, max) by entry and return them."""
+    with open(path) as f:
         manifest = json.load(f)
     bad, item_ms = [], {}
     for name, entry in manifest["items"].items():
-        ds = getattr(datasets, entry["class"])(**entry["kwargs"])
+        ds = getattr(module, entry["class"])(**entry["kwargs"])
         times = []
         for i, want in enumerate(entry["digests"][:items]):
             t0 = time.perf_counter()
@@ -6024,16 +6028,36 @@ def phase_synth(items: int = 16, rec_steps: int = 4, det_steps: int = 2, pages: 
             if item_digests(item) != want:
                 bad.append((name, i))
         item_ms[name] = [statistics.median(times), max(times)]
-    log(f"synth phase: {items} items of each of {sorted(manifest['items'])} drawn on the host "
-        f"without cv2, {'all' if not bad else 'NOT all'} equal to the JAX package's digests "
-        f"(cv2 {manifest['cv2']}); ms an item on one host thread (median, max) "
-        + json.dumps(item_ms) + f" [{CARD}]")
+    log(f"synth phase: {items} items of each {tier} entry {sorted(manifest['items'])} drawn on "
+        f"the host without cv2 or PIL, {'all' if not bad else 'NOT all'} equal to the JAX "
+        f"package's digests (cv2 {manifest['cv2']}); ms an item on one host thread (median, "
+        "max) " + json.dumps(item_ms) + f" [{CARD}]")
     if bad:
-        raise AssertionError(f"synth phase: items differ from the manifest: {bad}")
+        raise AssertionError(f"synth phase: {tier} items differ from the manifest: {bad}")
+    return item_ms
 
+
+def phase_synth(items: int = 16, rec_steps: int = 4, det_steps: int = 2, pages: int = 8,
+                hard_items: int = 8):
+    """Both synthetic tiers on the card's machine, which has no cv2, PIL or
+    fonts: the first items drawn on the host equal to the JAX package's
+    digests (the seven plain files' three entries, the eleven hard files'
+    five), then the entry points as written on three plain files and on
+    ctc_hard and seg_detector_hard. Returns every kernel's launches in the
+    entry points' runs."""
+    from megreader_tpu_torch.cli import eval as cli_eval
+    from megreader_tpu_torch.cli import pipeline as cli_pipeline
+    from megreader_tpu_torch.cli import train as cli_train
+    from megreader_tpu_torch.data import datasets, hard_synth
+    from megreader_tpu_torch.data.imageio import write_png
+
+    t_phase = time.perf_counter()
+    synth_items(SYNTH_MANIFEST, datasets, items, "plain")
+    synth_items(HARD_MANIFEST, hard_synth, hard_items, "hard")
     total = dict.fromkeys(kernel_counters(), 0)
     cfg = {k: os.path.join(ROOT, "experiments", f"{k}.yaml")
-           for k in ("ctc_resnet18_synth", "seg_detector_synth", "shared_spotter_synth")}
+           for k in ("ctc_resnet18_synth", "seg_detector_synth", "shared_spotter_synth",
+                     "ctc_hard", "seg_detector_hard")}
     step_s = {}
 
     def train(label, name, ws, n_train, n_eval, steps, want):
@@ -6055,41 +6079,56 @@ def phase_synth(items: int = 16, rec_steps: int = 4, det_steps: int = 2, pages: 
                          "s_a_step_after_the_first": dt, "losses": losses}
         return state
 
+    ctc = ("ctc_alpha", "ctc_beta")
+    #: (label, file, workspace name, steps, batch, eval items, kernels launched once a step)
+    runs = [("config #1", "ctc_resnet18_synth", "rec", rec_steps, 64, 64, ctc),
+            ("config #4", "seg_detector_synth", "det", det_steps, 8, pages, ()),
+            ("shared spotter", "shared_spotter_synth", "spot", det_steps, 8, pages, ctc),
+            ("ctc_hard", "ctc_hard", "hard_rec", rec_steps, 64, 64, ctc),
+            ("seg_detector_hard", "seg_detector_hard", "hard_det", det_steps, 8, pages, ())]
+    evals, hard_total = {}, dict.fromkeys(total, 0)
+
+    def serve(name, det, rec, ds, extra=(), want=("ccl",)):
+        """``cli.pipeline`` over ``pages`` PNG pages of ``ds`` with two
+        trained workspaces."""
+        paths = []
+        for i in range(pages):
+            paths.append(os.path.join(tmp, f"{name}_page{i}.png"))
+            write_png(paths[-1], ds[i]["image"])
+        _, got, _, printed = run_cli(f"cli.pipeline {name}", cli_pipeline.main, [
+            "--detector", cfg[det], "--det-workspace", os.path.join(tmp, ws_of[det]),
+            "--recognizer", cfg[rec], "--rec-workspace", os.path.join(tmp, ws_of[rec]),
+            "--images", *paths, *extra], total, phase="synth")
+        if [p["image"] for p in printed] != paths or not all(got[k] for k in want):
+            raise AssertionError(f"synth phase: cli.pipeline {name} launched {got}, printed "
+                                 f"{[p.get('image') for p in printed]}")
+        return got
+
+    ws_of = {name: ws for _, name, ws, *_ in runs}
     with tempfile.TemporaryDirectory() as tmp:
-        ws_rec, ws_det, ws_spot = (os.path.join(tmp, k) for k in ("rec", "det", "spot"))
-        train("config #1", "ctc_resnet18_synth", ws_rec, 64 * rec_steps, 64, rec_steps,
-              ("ctc_alpha", "ctc_beta"))
-        train("config #4", "seg_detector_synth", ws_det, 8 * det_steps, pages, det_steps, ())
-        train("shared spotter", "shared_spotter_synth", ws_spot, 8 * det_steps, pages,
-              det_steps, ("ctc_alpha", "ctc_beta"))
-        evals = {}
-        for label, name, ws, n in (("config #1", "ctc_resnet18_synth", ws_rec, 64),
-                                   ("config #4", "seg_detector_synth", ws_det, pages),
-                                   ("shared spotter", "shared_spotter_synth", ws_spot, pages)):
+        for label, name, ws, steps, batch, n_eval, want in runs:
+            before = dict(total)
+            train(label, name, os.path.join(tmp, ws), batch * steps, n_eval, steps, want)
             _, got, _, printed = run_cli(f"cli.eval {name}", cli_eval.main, [
-                cfg[name], "--experiment.workspace", ws, "--experiment.eval_dataset.n",
-                str(n)], total, phase="synth")
+                cfg[name], "--experiment.workspace", os.path.join(tmp, ws),
+                "--experiment.eval_dataset.n", str(n_eval)], total, phase="synth")
             if len(printed) != 1 or not all(np.isfinite(v) for v in printed[0].values()
                                             if isinstance(v, float)):
                 raise AssertionError(f"synth phase: cli.eval {name} printed {printed}")
-            if name == "seg_detector_synth" and not got["ccl"]:
+            if name.startswith("seg_detector") and not got["ccl"]:
                 raise AssertionError(f"synth phase: cli.eval {name} launched {got}")
             evals[label] = printed[0]
-        # serve the detector's eval pages with both trained workspaces
-        ds = datasets.SyntheticDetectionDataset(n=pages, hw=(640, 640), seed=1, gt_maps=False)
-        paths = []
-        for i in range(pages):
-            paths.append(os.path.join(tmp, f"page{i}.png"))
-            write_png(paths[-1], ds[i]["image"])
-        out, got, _, printed = run_cli("cli.pipeline --extract-impl pallas_full",
-                                       cli_pipeline.main, [
-            "--detector", cfg["seg_detector_synth"], "--det-workspace", ws_det,
-            "--recognizer", cfg["ctc_resnet18_synth"], "--rec-workspace", ws_rec,
-            "--images", *paths, "--extract-impl", "pallas_full"], total, phase="synth")
-        if [p["image"] for p in printed] != paths or not all(
-                got[k] for k in ("ccl", "candidates", "moments", "extents")):
-            raise AssertionError(f"synth phase: cli.pipeline launched {got}, printed "
-                                 f"{[p.get('image') for p in printed]}")
+            if "hard" in name:
+                for k in total:
+                    hard_total[k] += total[k] - before[k]
+        serve("plain", "seg_detector_synth", "ctc_resnet18_synth",
+              datasets.SyntheticDetectionDataset(n=pages, hw=(640, 640), seed=1, gt_maps=False),
+              ("--extract-impl", "pallas_full"), ("ccl", "candidates", "moments", "extents"))
+        got = serve("hard", "seg_detector_hard", "ctc_hard",
+                    hard_synth.HardSyntheticDetectionDataset(n=pages, seed=777, gt_maps=False))
+        for k in total:
+            hard_total[k] += got[k]
+    log("synth phase: the hard files' runs launched " + json.dumps(hard_total) + f" [{CARD}]")
     leaked = [m for m in ("cv2", "PIL") if sys.modules.get(m) is not None]
     if leaked:
         raise AssertionError(f"synth phase: {leaked} imported")

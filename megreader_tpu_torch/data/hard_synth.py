@@ -3,10 +3,11 @@
 A copy of the JAX package's ``megreader_tpu/data/hard_synth.py`` (it imports
 no JAX): the same fonts, backgrounds, degradations, curved baselines and
 chain polygons, from the same numpy streams, so that an item equals the JAX
-item bit for bit on one machine.
+item bit for bit.
 
-* **Fonts**: the DejaVu TTF family via PIL (Sans/Serif/Mono x regular/bold)
-  plus five cv2 Hershey faces.
+* **Fonts**: the DejaVu TTF family (Sans/Serif/Mono x regular/bold), which
+  the JAX package draws with PIL, plus five Hershey faces, which it draws
+  with cv2.
 * **Polarity/contrast**: dark-on-light and light-on-dark, contrast sampled
   down to barely legible.
 * **Backgrounds**: flat, Gaussian noise, low-frequency texture, gradients.
@@ -21,28 +22,41 @@ item bit for bit on one machine.
 Every sample carries a ``meta`` dict of condition tags (font, polarity,
 curve amplitude, height, degradations); the collates drop it.
 
-This tier is host code that needs cv2, PIL and the DejaVu fonts. Both
-libraries are imported inside the functions that use them, so the module
-imports without them; reading an item on a machine without them raises
-``ImportError`` naming cv2 or PIL, and a missing DejaVu file raises
-``FileNotFoundError`` naming it. The font list is fixed (the six DejaVu files,
-then the Hershey faces), so no machine draws another font in its place.
+No cv2, PIL or font file is used. Each character's mask is replayed from
+``assets/glyphs/hard_tier.npz`` (``scripts/make_port_hard_assets.py``
+records the JAX ``_char_mask`` there for the 11 fonts, the heights 12-48
+and the 36 characters of the default alphabet; a key outside it raises
+``KeyError``, a missing table ``FileNotFoundError``; it loads on first
+use). The cv2 calls are numpy copies held to cv2 bit for bit: the rotations
+by ``raster.get_rotation_matrix_2d``/``warp_affine_linear``, the texture by
+``imageio.resize_cubic``, the blur by ``raster.gaussian_blur``, the low-res
+pass by ``imageio.resize_area`` and ``resize_linear``, the JPEG round trip
+by ``jpeg.jpeg_round_trip``, the underline by ``raster.polylines`` and the
+chain maps by ``raster.fill_poly``, ``polylines`` and
+``distance_transforms_l2_3``. The font list is fixed (the six DejaVu faces,
+then the Hershey faces), so every machine draws the same fonts.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..core.charset import Charset
+from .imageio import resize_area, resize_cubic, resize_linear
+from .jpeg import jpeg_round_trip
+from .raster import (distance_transforms_l2_3, fill_poly, gaussian_blur, get_rotation_matrix_2d,
+                     polylines, warp_affine_linear)
 
 # ---------------------------------------------------------------------------
 # Fonts
 # ---------------------------------------------------------------------------
 
-_DEJAVU_DIR = "/usr/share/fonts/truetype/dejavu"
+GLYPHS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__)))), "assets", "glyphs", "hard_tier.npz")
 _TTF_FILES = (
     "DejaVuSans.ttf",
     "DejaVuSans-Bold.ttf",
@@ -56,11 +70,10 @@ _HERSHEY_FACES = ("SIMPLEX", "DUPLEX", "TRIPLEX", "COMPLEX", "SCRIPT_SIMPLEX")
 
 
 def available_fonts() -> List[Tuple[str, str]]:
-    """-> [('ttf', path) | ('hershey', face_name)]: every DejaVu file, then
-    the Hershey faces. The JAX package lists the DejaVu files that exist;
-    this list is the same where all six do, and a missing one raises when a
-    word is drawn with it (``_ttf_font``) instead of changing the list."""
-    fonts: List[Tuple[str, str]] = [("ttf", os.path.join(_DEJAVU_DIR, n)) for n in _TTF_FILES]
+    """-> [('ttf', file name) | ('hershey', face_name)]: the six DejaVu
+    faces, then the Hershey faces, on every machine (the JAX package lists
+    the DejaVu files that exist; the lists agree where all six do)."""
+    fonts: List[Tuple[str, str]] = [("ttf", n) for n in _TTF_FILES]
     fonts.extend(("hershey", f) for f in _HERSHEY_FACES)
     return fonts
 
@@ -70,23 +83,25 @@ def font_label(font: Tuple[str, str]) -> str:
     return os.path.basename(ident).replace(".ttf", "") if kind == "ttf" else f"hershey_{ident}"
 
 
-_TTF_CACHE: Dict = {}
 _CHAR_CACHE: Dict = {}
 
 
-def _ttf_font(path: str, size_px: int):
-    key = (path, size_px)
-    if key not in _TTF_CACHE:
-        from PIL import ImageFont
-
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"{path}: the hard tier draws with the DejaVu fonts")
-        _TTF_CACHE[key] = ImageFont.truetype(path, size_px)
-    return _TTF_CACHE[key]
+@functools.lru_cache(maxsize=1)
+def _glyph_table() -> Dict:
+    if not os.path.exists(GLYPHS):
+        raise FileNotFoundError(f"{GLYPHS}: the hard tier's glyph table is missing (written by "
+                                "scripts/make_port_hard_assets.py)")
+    with np.load(GLYPHS) as z:
+        t = {k: z[k] for k in z.files}
+    t["font"] = {str(f): i for i, f in enumerate(t["fonts"])}
+    t["height"] = {int(h): i for i, h in enumerate(t["heights"])}
+    t["char"] = {chr(int(c)): i for i, c in enumerate(t["chars"])}
+    return t
 
 
 def _char_mask(font: Tuple[str, str], height_px: int, ch: str):
-    """-> (mask uint8 [h,w], baseline_row, advance_px). Cached.
+    """-> (mask uint8 [h,w], baseline_row, advance_px), replayed from the
+    glyph table. Cached.
 
     The mask patch has the glyph drawn with its baseline at ``baseline_row``
     and its origin (pen position) at x=0; ``advance`` is the pen advance.
@@ -94,33 +109,19 @@ def _char_mask(font: Tuple[str, str], height_px: int, ch: str):
     key = (font, height_px, ch)
     if key in _CHAR_CACHE:
         return _CHAR_CACHE[key]
-    kind, ident = font
-    if kind == "ttf":
-        from PIL import Image, ImageDraw
-
-        f = _ttf_font(ident, height_px)
-        ascent, descent = f.getmetrics()
-        adv = max(1, int(round(f.getlength(ch))))
-        x0, _y0, x1, _y1 = f.getbbox(ch)
-        w = max(adv, int(x1)) + 2
-        img = Image.new("L", (w, ascent + descent + 2), 0)
-        ImageDraw.Draw(img).text((0, 0), ch, font=f, fill=255)
-        mask = np.asarray(img, np.uint8)
-        out = (mask, ascent, adv)
-    else:
-        import cv2
-
-        face = getattr(cv2, f"FONT_HERSHEY_{ident}")
-        # calibrate: Hershey cap height ~= getTextSize height; target ~= the
-        # TTF cap share of height_px (~72%) so faces render at similar sizes
-        (w1, h1), _ = cv2.getTextSize("H", face, 1.0, 1)
-        scale = max(0.35, 0.72 * height_px / max(h1, 1))
-        th = max(1, int(round(scale * 1.8)))
-        (cw, chh), base = cv2.getTextSize(ch, face, scale, th)
-        pad = th + 2
-        patch = np.zeros((chh + base + 2 * pad, max(cw, 1) + 2 * pad), np.uint8)
-        cv2.putText(patch, ch, (pad, pad + chh), face, scale, 255, th, cv2.LINE_AA)
-        out = (patch, pad + chh, max(cw, 1) + th)
+    t = _glyph_table()
+    label = font_label(font)
+    try:
+        i = (t["font"][label], t["height"][int(height_px)], t["char"][ch])
+    except KeyError:
+        raise KeyError(f"the hard tier's glyph table holds no mask of font {label!r} at height "
+                       f"{height_px} for character {ch!r} ({GLYPHS}: heights "
+                       f"{int(t['heights'][0])}-{int(t['heights'][-1])}, characters "
+                       f"{''.join(t['char'])!r})") from None
+    rows, cols = (int(v) for v in t["shape"][i])
+    start = int(t["start"][i])
+    mask = t["coverage"][start:start + rows * cols].reshape(rows, cols).copy()
+    out = (mask, int(t["baseline"][i]), int(t["advance"][i]))
     _CHAR_CACHE[key] = out
     return out
 
@@ -147,8 +148,6 @@ def render_word(
     character boundary) tracing the text band; for straight words they
     collapse to 2 points each (a quad).
     """
-    import cv2
-
     chars = [c for c in text]
     masks, bases, advs = [], [], []
     for c in chars:
@@ -196,8 +195,8 @@ def render_word(
         patch[oy : oy + gh, ox : ox + gw] = m
         pc = (ox + pivot[0], oy + pivot[1])
         if abs(ang) > 0.1:
-            M = cv2.getRotationMatrix2D(pc, ang, 1.0)
-            patch = cv2.warpAffine(patch, M, (side, side), flags=cv2.INTER_LINEAR)
+            M = get_rotation_matrix_2d(pc, ang, 1.0)
+            patch = warp_affine_linear(patch, M, (side, side))
         # paste so the pivot lands on the arc point
         px = pad + s_c  # pen center at s_c
         py = y_base + y_of(s_c)
@@ -312,8 +311,6 @@ def chain_seg_maps(
     MakeSegDetectionData / MakeBorderMap), but shrink/dilate move chain
     points along their rungs — robust for curved polygons. ``words`` is a
     list of {'top', 'bot', 'ignore'} in page coordinates."""
-    import cv2
-
     from .processes import polygon_area_signed, polygon_perimeter
 
     H, W = hw
@@ -321,19 +318,20 @@ def chain_seg_maps(
     mask = np.ones((H, W), np.float32)
     canvas = np.zeros((H, W), np.float32)
     tmask = np.zeros((H, W), np.float32)
+    windows = []  # the border maps' windows, their distance transforms run together
     for wd in words:
         top, bot = wd["top"], wd["bot"]
         poly = chains_to_polygon(top, bot)
         h = poly[:, 1].max() - poly[:, 1].min()
         w = poly[:, 0].max() - poly[:, 0].min()
         if wd.get("ignore") or min(h, w) < min_text_size:
-            cv2.fillPoly(mask, [poly.astype(np.int32)], 0.0)
+            fill_poly(mask, poly.astype(np.int32), 0.0)
             continue
         A = abs(polygon_area_signed(np.asarray(poly, np.float64)))
         P = polygon_perimeter(np.asarray(poly, np.float64))
         d = A * (1.0 - shrink_ratio**2) / max(P, 1e-6)
         st, sb = shrink_chains(top, bot, d)
-        cv2.fillPoly(gt, [chains_to_polygon(st, sb).astype(np.int32)], 1.0)
+        fill_poly(gt, chains_to_polygon(st, sb).astype(np.int32), 1.0)
 
         dt, db = shrink_chains(top, bot, -d)
         dil = chains_to_polygon(dt, db)
@@ -345,10 +343,12 @@ def chain_seg_maps(
             continue
         off = np.array([x0, y0], np.float32)
         band = np.zeros((y1 - y0, x1 - x0), np.uint8)
-        cv2.fillPoly(band, [(dil - off).astype(np.int32)], 1)
+        fill_poly(band, (dil - off).astype(np.int32), 1)
         border = np.zeros_like(band)
-        cv2.polylines(border, [(poly - off).astype(np.int32)], True, 1)
-        dist = cv2.distanceTransform((1 - border).astype(np.uint8), cv2.DIST_L2, 3)
+        polylines(border, (poly - off).astype(np.int32), True, 1, thickness=1)
+        windows.append((x0, y0, x1, y1, d, band, (1 - border).astype(np.uint8)))
+    dists = distance_transforms_l2_3([w[-1] for w in windows])
+    for (x0, y0, x1, y1, d, band, _), dist in zip(windows, dists):
         falloff = np.clip(1.0 - dist / max(d, 1e-6), 0.0, 1.0)
         canvas[y0:y1, x0:x1] = np.maximum(canvas[y0:y1, x0:x1], falloff * band)
         tmask[y0:y1, x0:x1] = np.maximum(tmask[y0:y1, x0:x1], band.astype(np.float32))
@@ -369,8 +369,6 @@ def chain_seg_maps(
 
 def make_background(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
     """uint8 (h, w, 3): flat / noise / low-freq texture / gradient."""
-    import cv2
-
     kind = rng.integers(4)
     base = np.array([rng.integers(0, 256)] * 3, np.float32) + rng.uniform(-18, 18, 3)
     if kind == 0:  # flat
@@ -380,7 +378,7 @@ def make_background(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
     elif kind == 2:  # low-frequency texture (upsampled coarse noise)
         gh, gw = max(2, h // int(rng.integers(16, 64))), max(2, w // int(rng.integers(16, 64)))
         coarse = rng.uniform(-1, 1, (gh, gw, 3)).astype(np.float32)
-        tex = cv2.resize(coarse, (w, h), interpolation=cv2.INTER_CUBIC)
+        tex = resize_cubic(coarse, (w, h))
         img = base + tex * rng.uniform(10, 45)
     else:  # linear gradient
         ang = rng.uniform(0, 2 * np.pi)
@@ -435,8 +433,6 @@ def degrade_image(
     """blur -> low-res -> noise -> jpeg -> contrast/brightness. Returns
     (uint8 image, applied-condition tags). ``strength`` scales probability
     and magnitude; 0 disables everything."""
-    import cv2
-
     meta: Dict = {"blur": 0.0, "lowres": 1.0, "noise": 0.0, "jpeg": 100}
     if strength <= 0:
         return img, meta
@@ -444,13 +440,12 @@ def degrade_image(
     if rng.random() < 0.65 * strength:
         sigma = float(rng.uniform(0.4, 1.4) * strength)
         k = max(3, int(sigma * 4) | 1)
-        img = cv2.GaussianBlur(img, (k, k), sigma)
+        img = gaussian_blur(img, k, sigma)
         meta["blur"] = round(sigma, 2)
     if rng.random() < 0.45 * strength:
         f = float(rng.uniform(0.4, 0.85))
-        small = cv2.resize(img, (max(4, int(w * f)), max(4, int(h * f))),
-                           interpolation=cv2.INTER_AREA)
-        img = cv2.resize(small, (w, h), interpolation=cv2.INTER_LINEAR)
+        small = resize_area(img, (max(4, int(w * f)), max(4, int(h * f))))
+        img = resize_linear(small, (w, h))
         meta["lowres"] = round(f, 2)
     if rng.random() < 0.6 * strength:
         sigma = float(rng.uniform(3, 14) * strength)
@@ -460,10 +455,8 @@ def degrade_image(
         meta["noise"] = round(sigma, 1)
     if rng.random() < 0.5 * strength:
         q = int(rng.integers(25, 80))
-        ok, enc = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, q])
-        if ok:
-            img = cv2.imdecode(enc, cv2.IMREAD_COLOR)
-            meta["jpeg"] = q
+        img = jpeg_round_trip(img, q)
+        meta["jpeg"] = q
     a = float(rng.uniform(0.82, 1.18))
     b = float(rng.uniform(-18, 18))
     img = np.clip(img.astype(np.float32) * a + b, 0, 255).astype(np.uint8)
@@ -568,8 +561,6 @@ class HardSyntheticRecognitionDataset:
         return self.n
 
     def __getitem__(self, i: int) -> Dict:
-        import cv2
-
         rng = np.random.default_rng(self.seed * 2_000_003 + i)
         text = sample_text(rng, self.charset.alphabet.replace(" ", ""), self.max_len)
         font = self.fonts[int(rng.integers(len(self.fonts)))]
@@ -606,8 +597,9 @@ class HardSyntheticRecognitionDataset:
                 composite_text(img, fm.astype(np.float32) / 255.0, color, fx, mt)
             else:
                 yline = mt + mh - max(1, mb // 2)
-                cv2.line(img, (0, yline), (wd, yline),
-                         tuple(int(v) for v in color), max(1, height // 12))
+                # cv2.line: an open polyline of one segment
+                polylines(img, np.array([[0, yline], [wd, yline]]), False,
+                          tuple(int(v) for v in color), max(1, height // 12))
 
         img, dmeta = degrade_image(rng, img, self.degrade)
 
@@ -615,7 +607,7 @@ class HardSyntheticRecognitionDataset:
         h, wd = img.shape[:2]
         if h > H or wd > W:
             s = min(H / h, W / wd)
-            img = cv2.resize(img, (max(1, int(wd * s)), max(1, int(h * s))))
+            img = resize_linear(img, (max(1, int(wd * s)), max(1, int(h * s))))
             h, wd = img.shape[:2]
         canvas = np.zeros((H, W, 3), np.uint8)
         canvas[:h, :wd] = img
@@ -683,8 +675,6 @@ class HardSyntheticDetectionDataset:
         return self.n
 
     def __getitem__(self, i: int) -> Dict:
-        import cv2
-
         rng = np.random.default_rng(self.seed * 3_000_017 + i)
         H, W = self.hw
         img = make_background(rng, H, W)
@@ -748,11 +738,9 @@ class HardSyntheticDetectionDataset:
 
 def _rotate_word(mask: np.ndarray, top: np.ndarray, bot: np.ndarray, deg: float):
     """Rigidly rotate a word mask + chains, re-tight-cropped."""
-    import cv2
-
     h, w = mask.shape
     c = (w / 2.0, h / 2.0)
-    M = cv2.getRotationMatrix2D(c, deg, 1.0)
+    M = get_rotation_matrix_2d(c, deg, 1.0)
     pts = np.concatenate([top, bot])
     ones = np.ones((len(pts), 1), np.float32)
     rp = np.concatenate([pts, ones], axis=1) @ M.T.astype(np.float32)
@@ -766,7 +754,7 @@ def _rotate_word(mask: np.ndarray, top: np.ndarray, bot: np.ndarray, deg: float)
     allp2 = np.concatenate([pts, ones], axis=1) @ M.T.astype(np.float32)
     bw = int(np.ceil(allp[:, 0].max() - x0)) + 2
     bh = int(np.ceil(allp[:, 1].max() - y0)) + 2
-    rot = cv2.warpAffine(mask, M, (bw, bh), flags=cv2.INTER_LINEAR)
+    rot = warp_affine_linear(mask, M, (bw, bh))
     n = len(top)
     return rot, allp2[:n], allp2[n:]
 

@@ -666,9 +666,9 @@ def _progressive(data: bytes, scan: bytes, data_start: int, frame, quant: Dict, 
     return coef, grids
 
 
-def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """A baseline or progressive JPEG -> (H, W, 3) uint8 RGB, equal to cv2's
-    decode (see the module's docstring)."""
+def _parse(data: bytes, name: str):
+    """A baseline or progressive JPEG -> (zigzag coefficients, grids, frame,
+    quantization tables, EXIF orientation)."""
     quant: Dict[int, np.ndarray] = {}
     tables: Dict[Tuple[int, int], list] = {}
     frame = None
@@ -725,23 +725,55 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
         coef, grids = _progressive(data, scan, data_start, frame, quant, tables, restart, name)
     else:
         coef, grids = _sequential(data, scan, data_start, frame, quant, tables, restart, name)
+    return coef, grids, frame, quant, orientation
 
+
+def _natural_blocks(coef, grids) -> List[np.ndarray]:
+    """Zigzag coefficients -> each component's (block rows, block columns,
+    8, 8) int16 blocks in natural order."""
     zig = np.frombuffer(coef, np.int16).reshape(-1, 64)
     nat = np.empty_like(zig)
     nat[:, ZIGZAG] = zig
-    planes = [None] * len(comps)
-    for ci, (gy, gx, off) in enumerate(grids):
-        px = idct_islow(nat[off // 64:off // 64 + gy * gx].reshape(-1, 8, 8),
-                        quant[comps[ci][3]])
+    return [nat[off // 64:off // 64 + gy * gx].reshape(gy, gx, 8, 8) for gy, gx, off in grids]
+
+
+def _pixels(blocks: List[np.ndarray], tables: List[np.ndarray], factors, h: int,
+            w: int) -> np.ndarray:
+    """Each component's quantized blocks (natural order), its quantization
+    table and (h, v) sampling factors -> (h, w, 3) uint8 RGB: the islow
+    IDCT, fancy upsampling and colour tables of libjpeg-turbo."""
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    planes = []
+    for b, q, (ch, cv) in zip(blocks, tables, factors):
+        gy, gx = b.shape[:2]
+        px = idct_islow(b.reshape(-1, 8, 8), q)
         px = px.reshape(gy, gx, 8, 8).transpose(0, 2, 1, 3).reshape(gy * 8, gx * 8)
-        fh, fv = hmax // comps[ci][1], vmax // comps[ci][2]
+        fh, fv = hmax // ch, vmax // cv
         dh, dw = -(-h // fv), -(-w // fh)  # downsampled_height, downsampled_width
-        planes[ci] = upsample(px[:dh, :dw], fh, fv)[:h, :w]
-    if len(comps) == 1:
-        img = np.repeat(planes[0].astype(np.uint8)[..., None], 3, 2)
-    else:
-        img = ycc_to_rgb(*planes)
+        planes.append(upsample(px[:dh, :dw], fh, fv)[:h, :w])
+    if len(planes) == 1:
+        return np.repeat(planes[0].astype(np.uint8)[..., None], 3, 2)
+    return ycc_to_rgb(*planes)
+
+
+def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """A baseline or progressive JPEG -> (H, W, 3) uint8 RGB, equal to cv2's
+    decode (see the module's docstring)."""
+    coef, grids, (h, w, comps), quant, orientation = _parse(data, name)
+    img = _pixels(_natural_blocks(coef, grids), [quant[c[3]] for c in comps],
+                  [(c[1], c[2]) for c in comps], h, w)
     return apply_orientation(img, orientation)
+
+
+def read_coefficients(data: bytes, name: str = "<bytes>") -> Dict[str, list]:
+    """A JPEG's quantized coefficients as its file holds them:
+    ``{"blocks": [(block rows, block columns, 8, 8) int16 in natural order,
+    one a component, over the MCU grid], "quant": [(8, 8) table of each
+    component], "factors": [(h, v) of each component]}``."""
+    coef, grids, (h, w, comps), quant, _ = _parse(data, name)
+    return {"blocks": _natural_blocks(coef, grids), "quant": [quant[c[3]] for c in comps],
+            "factors": [(c[1], c[2]) for c in comps]}
 
 
 def _sequential(data: bytes, scan: bytes, data_start: int, frame, quant: Dict, tables: Dict,
@@ -777,3 +809,167 @@ def _sequential(data: bytes, scan: bytes, data_start: int, frame, quant: Dict, t
     except IndexError:
         raise ValueError(f"{name}: truncated or damaged JPEG scan") from None
     return coef, grids
+
+
+# --------------------------------------------------------------- the encoder
+#: ``jcparam.c``'s standard tables (ITU T.81 K.1, natural order)
+STD_LUMINANCE = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    np.int64).reshape(8, 8)
+STD_CHROMINANCE = np.full((8, 8), 99, np.int64)
+STD_CHROMINANCE[:4, :4] = [[17, 18, 24, 47], [18, 21, 26, 66], [24, 26, 56, 99],
+                           [47, 66, 99, 99]]
+
+
+def quality_tables(quality: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``jpeg_set_quality(cinfo, quality, TRUE)``: the luminance and
+    chrominance tables scaled by ``jpeg_quality_scaling`` and limited to
+    1..255 (``force_baseline``)."""
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    return tuple(np.clip((t * scale + 50) // 100, 1, 255) for t in (STD_LUMINANCE,
+                                                                     STD_CHROMINANCE))
+
+
+def _fix(x: float) -> int:
+    return int(x * (1 << 16) + 0.5)
+
+
+def bgr_to_ycc(img: np.ndarray) -> List[np.ndarray]:
+    """``jccolor.c``'s fixed-point RGB -> YCbCr (SCALEBITS 16) of (H, W, 3)
+    uint8 BGR rows (cv2 hands libjpeg ``JCS_EXT_BGR``): three int64 planes."""
+    b, g, r = (img[..., k].astype(np.int64) for k in range(3))
+    half, offset = 1 << 15, 128 << 16
+    y = (_fix(0.299) * r + _fix(0.587) * g + _fix(0.114) * b + half) >> 16
+    cb = (-_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.5) * b + offset + half - 1) >> 16
+    cr = (_fix(0.5) * r - _fix(0.41869) * g - _fix(0.08131) * b + offset + half - 1) >> 16
+    return [y, cb, cr]
+
+
+def _fdct_1d(d: List[np.ndarray]):
+    """``jpeg_fdct_islow``'s butterfly on 8 int64 arrays: (even outputs 0
+    and 4 before their shift, the other six before their descale)."""
+    f = _F
+    t0, t7 = d[0] + d[7], d[0] - d[7]
+    t1, t6 = d[1] + d[6], d[1] - d[6]
+    t2, t5 = d[2] + d[5], d[2] - d[5]
+    t3, t4 = d[3] + d[4], d[3] - d[4]
+    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+    z1 = (t12 + t13) * f["f0_541"]
+    out = [None] * 8
+    out[0], out[4] = t10 + t11, t10 - t11
+    out[2] = z1 + t13 * f["f0_765"]
+    out[6] = z1 - t12 * f["f1_847"]
+    z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+    z5 = (z3 + z4) * f["f1_175"]
+    t4 = t4 * f["f0_298"]
+    t5 = t5 * f["f2_053"]
+    t6 = t6 * f["f3_072"]
+    t7 = t7 * f["f1_501"]
+    z1 = z1 * -f["f0_899"]
+    z2 = z2 * -f["f2_562"]
+    z3 = z3 * -f["f1_961"] + z5
+    z4 = z4 * -f["f0_390"] + z5
+    out[7] = t4 + z1 + z3
+    out[5] = t5 + z2 + z4
+    out[3] = t6 + z2 + z3
+    out[1] = t7 + z1 + z4
+    return out
+
+
+def fdct_islow(blocks: np.ndarray) -> np.ndarray:
+    """(N, 8, 8) samples 0-255 -> (N, 8, 8) int64, ``jpeg_fdct_islow`` on the
+    samples less 128 (``CONST_BITS`` 13, ``PASS1_BITS`` 2; output 8x the
+    DCT, as the divisors expect)."""
+    x = blocks.astype(np.int64) - 128
+    rows = _fdct_1d([x[:, :, k] for k in range(8)])  # pass 1: along each row
+    rows = [v << 2 if k in (0, 4) else (v + (1 << 10)) >> 11 for k, v in enumerate(rows)]
+    cols = _fdct_1d([np.stack(rows, 2)[:, k, :] for k in range(8)])  # pass 2: down columns
+    cols = [(v + 2) >> 2 if k in (0, 4) else (v + (1 << 14)) >> 15 for k, v in enumerate(cols)]
+    return np.stack(cols, 1)
+
+
+def quantize(coef: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """``jcdctmgr.c``'s ``quantize`` by the divisors 8 x ``table`` through
+    ``compute_reciprocal`` (16-bit ``DCTELEM``): |c| + correction times the
+    reciprocal, shifted right, the sign put back."""
+    div = (np.asarray(table, np.int64) * 8).reshape(-1)
+    recip, corr, shift = np.empty(64, np.int64), np.empty(64, np.int64), np.empty(64, np.int64)
+    for i, d in enumerate(div.tolist()):
+        r = 16 + d.bit_length() - 1
+        fq, fr = divmod(1 << r, d)
+        c = d // 2
+        if fr == 0:  # a power of two
+            fq >>= 1
+            r -= 1
+        elif fr <= d // 2:
+            c += 1
+        else:
+            fq += 1
+        recip[i], corr[i], shift[i] = fq, c, r
+    shape = coef.shape
+    c = coef.reshape(-1, 64)
+    q = ((np.abs(c) + corr) * recip) >> shift
+    return np.where(c < 0, -q, q).reshape(shape)
+
+
+def _replicate(plane: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """Extend a plane to (rows, cols) by repeating its last row and column."""
+    h, w = plane.shape
+    return np.pad(plane, ((0, rows - h), (0, cols - w)), mode="edge")
+
+
+def _blocks(plane: np.ndarray) -> np.ndarray:
+    r, c = plane.shape
+    return plane.reshape(r // 8, 8, c // 8, 8).transpose(0, 2, 1, 3)
+
+
+def encode_coefficients(img: np.ndarray, quality: int) -> Dict[str, list]:
+    """The quantized coefficients of ``cv2.imencode('.jpg', img,
+    [IMWRITE_JPEG_QUALITY, quality])`` for an (H, W, 3) uint8 BGR image, as
+    libjpeg-turbo 3.1 computes them for cv2's defaults (baseline, YCbCr
+    4:2:0, islow DCT): ``read_coefficients``' layout. The colour planes are
+    extended by repeating their last column to the component's blocks (for
+    chroma, twice its block columns) and their last row to an even height;
+    chroma is ``h2v2_downsample``'s mean of each 2x2 with the bias 1, 2 in
+    turn along a row; each plane's last row is repeated to whole MCU rows;
+    the blocks past the picture that complete an MCU (luma only) are
+    ``jccoefct.c``'s dummies: zero, with the DC of the block before."""
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_coefficients takes (H, W, 3) uint8 images, got "
+                         f"{img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    mcuy, mcux = -(-h // 16), -(-w // 16)
+    luma, chroma = quality_tables(quality)
+    y, cb, cr = bgr_to_ycc(img)
+    he = h + (h & 1)
+    by, bx = -(-h // 8), -(-w // 8)
+    yq = quantize(fdct_islow(_blocks(_replicate(y, 8 * by, 8 * bx)).reshape(-1, 8, 8)), luma)
+    yb = np.zeros((2 * mcuy, 2 * mcux, 8, 8), np.int64)
+    yb[:by, :bx] = yq.reshape(by, bx, 8, 8)
+    if bx < 2 * mcux:  # a dummy column: the DC of its left neighbour
+        yb[:by, bx, 0, 0] = yb[:by, bx - 1, 0, 0]
+    if by < 2 * mcuy:  # a dummy row: the DC of the MCU's block above right
+        yb[by, :, 0, 0] = np.repeat(yb[by - 1, 1::2, 0, 0], 2)
+    out = [yb.astype(np.int16)]
+    for plane in (cb, cr):
+        p = _replicate(plane, he, 16 * mcux)
+        s = p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2]
+        s = (s + np.array([1, 2] * (s.shape[1] // 2))) >> 2
+        q = quantize(fdct_islow(_blocks(_replicate(s, 8 * mcuy, 8 * mcux)).reshape(-1, 8, 8)),
+                     chroma)
+        out.append(q.reshape(mcuy, mcux, 8, 8).astype(np.int16))
+    return {"blocks": out, "quant": [luma, chroma, chroma], "factors": [(2, 2), (1, 1), (1, 1)]}
+
+
+def jpeg_round_trip(img: np.ndarray, quality: int) -> np.ndarray:
+    """``cv2.imdecode(cv2.imencode('.jpg', img, [IMWRITE_JPEG_QUALITY,
+    quality])[1], IMREAD_COLOR)`` of an (H, W, 3) uint8 BGR image, without
+    a bitstream: the encoder's quantized coefficients straight into the
+    decoder's inverse path (the decode depends on nothing else)."""
+    c = encode_coefficients(img, quality)
+    h, w = img.shape[:2]
+    return np.ascontiguousarray(_pixels(c["blocks"], c["quant"], c["factors"], h, w)[..., ::-1])

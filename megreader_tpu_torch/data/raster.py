@@ -49,6 +49,7 @@ build) and held to it by ``tests/test_torch_port_raster.py``:
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -253,22 +254,33 @@ def _invert3(M: np.ndarray) -> np.ndarray:
 
 def fma32(a, b, c) -> np.ndarray:
     """float32 ``a * b + c`` rounded once. The float64 product of two
-    float32 values is exact; the float64 sum's own error (TwoSum) decides
-    the one case its rounding to float32 can get wrong, a sum that lands on
-    a float32 midpoint."""
+    float32 values is exact, and the float64 sum rounds it to float32
+    correctly unless that sum lands on a float32 midpoint (or below
+    float32's normal range): only those entries take the sum's own error
+    (TwoSum) into account."""
     a64 = np.asarray(a, np.float32).astype(np.float64)
     b64 = np.asarray(b, np.float32).astype(np.float64)
     c64 = np.asarray(c, np.float32).astype(np.float64)
+    s = a64 * b64 + c64
+    r = np.asarray(s.astype(np.float32))
+    bits = s.view(np.uint64) if s.ndim else np.asarray(s).reshape(1).view(np.uint64)
+    odd = ((bits & 0x1FFFFFFF) == 0x10000000).reshape(s.shape)
+    odd |= (np.abs(s) < 2.0 ** -126) & (s != 0)
+    if not odd.any():
+        return r
+    a64, b64, c64 = (np.broadcast_to(v, s.shape)[odd] for v in (a64, b64, c64))
     p = a64 * b64
-    s = p + c64
-    bp = s - c64
-    err = (p - bp) + (c64 - (s - bp))
-    r = s.astype(np.float32)
-    r64 = r.astype(np.float64)
-    toward = np.nextafter(r, np.where(s > r64, _F32(np.inf), _F32(-np.inf)).astype(np.float32))
-    mid = (s != r64) & (2 * (s - r64) == toward.astype(np.float64) - r64)
-    wrong = mid & (err != 0) & ((err > 0) == (s > r64))
-    return np.where(wrong, toward, r).astype(np.float32)
+    t = p + c64
+    bp = t - c64
+    err = (p - bp) + (c64 - (t - bp))
+    q = t.astype(np.float32)
+    q64 = q.astype(np.float64)
+    toward = np.nextafter(q, np.where(t > q64, _F32(np.inf), _F32(-np.inf)).astype(np.float32))
+    mid = (t != q64) & (2 * (t - q64) == toward.astype(np.float64) - q64)
+    wrong = mid & (err != 0) & ((err > 0) == (t > q64))
+    r = np.array(r, copy=True)
+    r[odd] = np.where(wrong, toward, q)
+    return r
 
 
 def warp_perspective_linear(img: np.ndarray, M: np.ndarray,
@@ -296,7 +308,13 @@ def warp_perspective_linear(img: np.ndarray, M: np.ndarray,
     sx = (coord(0) / w).astype(np.float32)
     sy = (coord(1) / w).astype(np.float32)
     ok = np.isfinite(sx) & np.isfinite(sy) & (np.abs(sx) < 2 ** 30) & (np.abs(sy) < 2 ** 30)
-    sx, sy = np.where(ok, sx, -4), np.where(ok, sy, -4)
+    return _bilinear(img, np.where(ok, sx, -4), np.where(ok, sy, -4))
+
+
+def _bilinear(img: np.ndarray, sx: np.ndarray, sy: np.ndarray) -> np.ndarray:
+    """The warps' bilinear sample of (H, W, C) ``img`` at float32 source
+    points, taps outside the image 0: the four neighbours blended by three
+    fused multiply-adds in float32, rounded half to even for uint8."""
     fx0, fy0 = np.floor(sx), np.floor(sy)
     fx = (sx - fx0).astype(np.float32)[..., None]
     fy = (sy - fy0).astype(np.float32)[..., None]
@@ -313,4 +331,108 @@ def warp_perspective_linear(img: np.ndarray, M: np.ndarray,
     top = fma32(fx, p01 - p00, p00)
     bot = fma32(fx, p11 - p10, p10)
     out = fma32(fy, bot - top, top)
-    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    if img.dtype == np.uint8:
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return out
+
+
+# ---------------------------------------------------------------- affine
+def get_rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(center, angle, scale)``: the (2, 3) float64
+    matrix, the centre taken as float32 (cv2's ``Point2f``) and the angle in
+    degrees through ``std::cos``/``std::sin``."""
+    cx, cy = (float(np.float32(v)) for v in center)
+    a = float(angle) * (math.pi / 180)
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def _invert_affine(M: np.ndarray) -> np.ndarray:
+    """cv2 ``warpAffine``'s inverse of a (2, 3) matrix, in float64."""
+    m = [float(v) for v in np.asarray(M, np.float64).reshape(-1)]
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[1], m[3], m[4] = a11, m[1] * -d, m[3] * -d, a22
+    b1 = -m[0] * m[2] - m[1] * m[5]
+    b2 = -m[3] * m[2] - m[4] * m[5]
+    m[2], m[5] = b1, b2
+    return np.array(m)
+
+
+def warp_affine_linear(img: np.ndarray, M: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
+    """``cv2.warpAffine(img, M, dsize, flags=INTER_LINEAR)`` of an (H, W, C)
+    or (H, W) uint8 or float32 image, ``dsize`` = (width, height), the
+    border constant 0: the inverse of M (float64) rounded to float32, each
+    source point computed as ``warp_perspective_linear`` computes its
+    numerators (without the division), and its bilinear blend."""
+    if img.dtype not in (np.uint8, np.float32):
+        raise ValueError(f"warp_affine_linear takes uint8 or float32 images, got {img.dtype}")
+    if img.ndim == 2:
+        return warp_affine_linear(img[..., None], M, dsize)[..., 0]
+    w_out, h_out = (int(v) for v in dsize)
+    m = _invert_affine(M).astype(np.float32)
+    y, x = np.mgrid[0:h_out, 0:w_out].astype(np.float32)
+    head = x < w_out - w_out % 16
+
+    def coord(k):
+        body = fma32(m[3 * k], x, (y * m[3 * k + 1]) + m[3 * k + 2])
+        tail = fma32(x, m[3 * k], y * m[3 * k + 1]) + m[3 * k + 2]
+        return np.where(head, body, tail).astype(np.float32)
+
+    return _bilinear(img, coord(0), coord(1))
+
+
+# ------------------------------------------------------------------ blur
+def gaussian_kernel_q8(ksize: int, sigma: float) -> np.ndarray:
+    """cv2's bit-exact 8-bit Gaussian kernel (``getGaussianKernelBitExact``
+    then ``getGaussianKernelFixedPoint_ED``): exp(-(i - c)^2 / (2 sigma^2))
+    in float64, normalised by its sum, then each half rounded to 8
+    fractional bits with the rounding error carried to the next tap, and
+    the centre tap made up to 256."""
+    if ksize % 2 == 0 or ksize < 1 or sigma <= 0:
+        raise ValueError(f"gaussian_kernel_q8: odd ksize and sigma > 0, got {ksize}, {sigma}")
+    scale = -0.125 / (float(sigma) * float(sigma))
+    t = [math.exp(float((2 * i - (ksize - 1)) ** 2) * scale) for i in range(ksize)]
+    total = 0.0
+    for v in t:
+        total += v
+    inv = 1.0 / total
+    out = [0] * ksize
+    err, acc = 0.0, 0
+    for i in range(ksize // 2):
+        adj = t[i] * inv * 256.0 + err
+        v = int(np.rint(adj))
+        err = adj - v
+        out[i] = out[ksize - 1 - i] = v
+        acc += v
+    out[ksize // 2] = 256 - 2 * acc
+    return np.array(out, np.int64)
+
+
+def _reflect101(n: int, pad: int) -> np.ndarray:
+    """Source indices of ``BORDER_REFLECT_101`` for positions -pad .. n + pad - 1."""
+    i = np.arange(-pad, n + pad)
+    if n == 1:
+        return np.zeros_like(i)
+    period = 2 * (n - 1)
+    i = np.abs(i) % period
+    return np.where(i >= n, period - i, i)
+
+
+def gaussian_blur(img: np.ndarray, ksize: int, sigma: float) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (ksize, ksize), sigma)`` of an (H, W) or
+    (H, W, C) uint8 image: cv2's fixed-point route, the kernel of
+    ``gaussian_kernel_q8`` along rows then columns with ``BORDER_REFLECT_101``
+    in exact integer sums, rounded half up from 16 fractional bits."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"gaussian_blur takes uint8 images, got {img.dtype}")
+    k = gaussian_kernel_q8(ksize, sigma)
+    h, w = img.shape[:2]
+    p = ksize // 2
+    k = k.astype(np.int32)  # sums below 255 * 2^16
+    x = img.astype(np.int32)[:, _reflect101(w, p)]
+    rows = sum(k[i] * x[:, i:i + w] for i in range(ksize))[_reflect101(h, p)]
+    out = sum(k[i] * rows[i:i + h] for i in range(ksize))
+    return np.clip((out + (1 << 15)) >> 16, 0, 255).astype(np.uint8)

@@ -6,8 +6,9 @@ thread workers, and the weights of a JAX msgpack checkpoint.
 Tolerances: pixels equal, resized ones too (the port's ``resize_linear`` is
 ``cv2.resize``'s fixed-point arithmetic); polygons, ignore flags,
 texts, sizes, order and host GT maps exactly equal; the hard tier's items
-bit for bit; batches of process and thread workers bit for bit; the logits
-of a restored checkpoint within ``test_torch_port_models.py``'s 1e-4."""
+bit for bit, the port's drawn with cv2, PIL and the fonts hidden; batches
+of process and thread workers bit for bit; the logits of a restored
+checkpoint within ``test_torch_port_models.py``'s 1e-4."""
 
 import os
 import sys
@@ -192,34 +193,62 @@ def _assert_items_equal(got, ref):
             assert got[k] == ref[k], k
 
 
+def _hide_cv2_pil_and_fonts(monkeypatch):
+    """The card's machine as the port sees it: cv2 and PIL unimportable, the
+    JAX package's DejaVu directory pointed nowhere, the port's masks replayed
+    anew from its glyph table. Call it after drawing the JAX items, which
+    need all three."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setattr(jax_hard, "_DEJAVU_DIR", "/nonexistent/fonts")
+    monkeypatch.setattr(hard_synth, "_CHAR_CACHE", {})
+
+
 HARD_REC = {
     "default": {},
     "curved": dict(curve_prob=1.0, curve_range=(0.35, 0.9), degrade=0.5, distractors=False,
                    canvas_hw=(48, 160)),
     "straight_clean": dict(curve_prob=0.0, degrade=0.0, distractors=True, fonts="ttf"),
     "hershey": dict(fonts="hershey", polarity="dark", max_len=6),
+    # the keyword arguments of ctc_curved_ab (and ctc2d_curved_ab) and of
+    # ctc_hard_small's second part
+    "curved_ab": dict(seed=10, curve_prob=1.0, curve_range=(0.35, 0.9), degrade=0.5,
+                      distractors=False),
+    "hard_small": dict(seed=11, min_height=12, max_height=20),
 }
 
 
 @pytest.mark.parametrize("kind", list(HARD_REC))
-def test_hard_recognition_items_match_jax(kind):
-    ref = jax_hard.HardSyntheticRecognitionDataset(n=8, seed=3, **HARD_REC[kind])
-    got = hard_synth.HardSyntheticRecognitionDataset(n=8, seed=3, **HARD_REC[kind])
-    assert got.fonts == ref.fonts
+def test_hard_recognition_items_match_jax(kind, monkeypatch):
+    """The JAX items are drawn with cv2, PIL and the fonts; the port's without
+    any of them."""
+    kw = {"n": 8, "seed": 3, **HARD_REC[kind]}
+    jds = jax_hard.HardSyntheticRecognitionDataset(**kw)
+    ref = [jds[i] for i in range(8)]
+    _hide_cv2_pil_and_fonts(monkeypatch)
+    got = hard_synth.HardSyntheticRecognitionDataset(**kw)
+    assert [hard_synth.font_label(f) for f in got.fonts] == \
+        [jax_hard.font_label(f) for f in jds.fonts]
     for i in range(8):
         _assert_items_equal(got[i], ref[i])
 
 
-@pytest.mark.parametrize("kind", ["curved", "straight"])
-def test_hard_detection_items_match_jax(kind):
+@pytest.mark.parametrize("kind", ["curved", "straight", "spotter"])
+def test_hard_detection_items_match_jax(kind, monkeypatch):
     """Pages with chain polygons (curved) or rotated quads, host GT maps from
-    ``chain_seg_maps``, page degradation."""
+    ``chain_seg_maps``, page degradation; ``spotter`` has
+    shared_spotter_hard's keyword arguments (straight words rotated by up to
+    15 degrees)."""
     kw = dict(n=2, hw=(160, 224), seed=4, words_range=(2, 4))
     if kind == "curved":
         kw.update(curve_prob=1.0, degrade=1.0)
-    else:
+    elif kind == "straight":
         kw.update(curve_prob=0.0, max_rotate=0.0)
-    ref = jax_hard.HardSyntheticDetectionDataset(**kw)
+    else:
+        kw.update(curve_prob=0.0, max_rotate=15.0, seed=0)
+    jds = jax_hard.HardSyntheticDetectionDataset(**kw)
+    ref = [jds[i] for i in range(2)]
+    _hide_cv2_pil_and_fonts(monkeypatch)
     got = hard_synth.HardSyntheticDetectionDataset(**kw)
     for i in range(2):
         a, b = ref[i], got[i]
@@ -229,28 +258,60 @@ def test_hard_detection_items_match_jax(kind):
             assert max(len(p) for p in a["polygons"]) > 4
 
 
-def test_hard_tier_needs_its_fonts(monkeypatch):
-    """A missing DejaVu file raises when a word is drawn with it; the font
-    list does not shrink."""
-    monkeypatch.setattr(hard_synth, "_DEJAVU_DIR", "/nonexistent/fonts")
-    monkeypatch.setattr(hard_synth, "_TTF_CACHE", {})
-    monkeypatch.setattr(hard_synth, "_CHAR_CACHE", {})
-    ds = hard_synth.HardSyntheticRecognitionDataset(n=4, fonts="ttf")
-    assert len(ds.fonts) == 6
-    with pytest.raises(FileNotFoundError, match="DejaVu"):
-        ds[0]
+def test_hard_tier_draws_without_cv2_pil_and_fonts(monkeypatch):
+    """Every font of the tier at both ends of its heights, and items of both
+    datasets, with cv2 and PIL unimportable and no font file readable: no
+    file but the glyph table is opened."""
+    import builtins
+
+    _hide_cv2_pil_and_fonts(monkeypatch)
+    hard_synth._glyph_table.cache_clear()
+    real_open, opened = builtins.open, []
+
+    def watch(path, *a, **k):
+        opened.append(str(path))
+        return real_open(path, *a, **k)
+
+    monkeypatch.setattr(builtins, "open", watch)
+    for font in hard_synth.available_fonts():
+        for h in (12, 48):
+            for ch in "a0z9":
+                mask, base, adv = hard_synth._char_mask(font, h, ch)
+                assert mask.dtype == np.uint8 and mask.any() and adv >= 1 and base > 0
+    rec = hard_synth.HardSyntheticRecognitionDataset(n=4, seed=5)[3]
+    det = hard_synth.HardSyntheticDetectionDataset(n=1, hw=(128, 160), seed=5)[0]
+    assert rec["image"].shape == (64, 256, 3) and det["image"].shape == (128, 160, 3)
+    assert set(opened) <= {hard_synth.GLYPHS}, opened
+    assert sys.modules["cv2"] is None and sys.modules["PIL"] is None
+    hard_synth._glyph_table.cache_clear()
 
 
-@pytest.mark.parametrize("missing", ["cv2", "PIL"])
-def test_hard_tier_without_its_libraries_raises_import_error(monkeypatch, missing):
-    """The module imports without cv2 and PIL; reading an item without one
-    raises ``ImportError`` naming it, and no other data stands in."""
-    monkeypatch.setitem(sys.modules, missing, None)
-    monkeypatch.setattr(hard_synth, "_TTF_CACHE", {})
+def test_hard_tier_without_its_table_raises_file_not_found(monkeypatch, tmp_path):
+    missing = str(tmp_path / "hard_tier.npz")
+    monkeypatch.setattr(hard_synth, "GLYPHS", missing)
     monkeypatch.setattr(hard_synth, "_CHAR_CACHE", {})
-    for ds in (hard_synth.HardSyntheticRecognitionDataset(n=2, fonts="ttf"),
-               hard_synth.HardSyntheticDetectionDataset(n=1, hw=(96, 128), fonts="ttf")):
-        with pytest.raises(ImportError, match=missing):
+    hard_synth._glyph_table.cache_clear()
+    try:
+        for ds in (hard_synth.HardSyntheticRecognitionDataset(n=2),
+                   hard_synth.HardSyntheticDetectionDataset(n=1, hw=(96, 128))):
+            with pytest.raises(FileNotFoundError, match=missing):
+                ds[0]
+    finally:
+        hard_synth._glyph_table.cache_clear()
+
+
+@pytest.mark.parametrize("height, ch", [(11, "a"), (49, "a"), (20, "A"), (20, "#")])
+def test_hard_tier_outside_its_table_raises_key_error(height, ch, monkeypatch):
+    """A height or character the table does not hold raises; nothing draws
+    it instead, even where cv2 and PIL are installed."""
+    monkeypatch.setattr(hard_synth, "_CHAR_CACHE", {})
+    font = hard_synth.available_fonts()[2]
+    with pytest.raises(KeyError, match=f"DejaVuSerif.*height {height}.*{ch!r}"):
+        hard_synth._char_mask(font, height, ch)
+    if ch == "a":  # a dataset asked for that height raises too
+        ds = hard_synth.HardSyntheticRecognitionDataset(n=2, min_height=height,
+                                                        max_height=height)
+        with pytest.raises(KeyError, match=f"height {height}"):
             ds[0]
 
 

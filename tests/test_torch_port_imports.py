@@ -87,16 +87,17 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
     assert '"ok"' not in out.stdout
 
 
-@pytest.mark.parametrize("path", [p for p in FILES if p.name != "hard_synth.py"],
-                         ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_no_cv2_or_pil(path):
-    """The card's machine has neither: only the hard tier's renderer
-    (``data/hard_synth.py``) may import them, anywhere in a file."""
+    """The card's machine has neither, nor any font file: no port file
+    imports them, anywhere in a file, or names the system's font directory."""
     for name in _imported(ast.parse(path.read_text(), str(path))):
         assert name.split(".")[0] not in ("cv2", "PIL"), f"{path.relative_to(ROOT)} imports {name}"
+    assert "/usr/share/fonts" not in path.read_text(), f"{path.relative_to(ROOT)} names fonts"
 
 
 @pytest.mark.parametrize("module", ["data/datasets.py", "data/processes.py",
-                                    "data/text_render.py", "data/raster.py"])
+                                    "data/text_render.py", "data/raster.py",
+                                    "data/hard_synth.py", "data/imageio.py", "data/jpeg.py"])
 def test_synthetic_tier_modules_are_checked(module):
     assert ROOT / "megreader_tpu_torch" / module in FILES

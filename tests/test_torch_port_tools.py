@@ -345,24 +345,14 @@ def test_cli_demo_recognizer_prints_the_transcription(tmp_path, capsys):
     assert f"transcription: {want!r}" in capsys.readouterr().out
 
 
-#: the CPU-side renderers of the synthetic datasets and of the host GT maps,
-#: which draw what the JAX package's draw, with cv2 and PIL imported on first
-#: use (the card's machine trains from numpy datasets and device GT maps)
-CPU_RENDERERS = {"data/datasets.py", "data/hard_synth.py", "data/processes.py"}
-
-
 def test_port_imports_neither_cv2_nor_pil():
+    """No port file does: the synthetic tiers and the host GT maps draw with
+    numpy copies of cv2 and recorded glyph tables."""
     files = sorted((ROOT / "megreader_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    checked = 0
     for path in files:
-        if path.relative_to(ROOT).as_posix().removeprefix("megreader_tpu_torch/") \
-                in CPU_RENDERERS:
-            continue
-        checked += 1
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
                      [node.module] if isinstance(node, ast.ImportFrom) and node.level == 0
                      else [])
             for n in names:
                 assert n.split(".")[0] not in ("cv2", "PIL"), f"{path} imports {n}"
-    assert checked == len(files) - len(CPU_RENDERERS)
