@@ -300,7 +300,14 @@ Phases (any failure exits non-zero):
     optimized tables, an EXIF orientation; ``scripts/make_port_jpeg_assets.py``
     writes them where cv2 is installed) decoded on the host by the port's
     ``decode_image``, the RGB digest of each equal to cv2's (the manifest);
-    ms a page beside the PNG decode of the same page.
+    ms a page beside the PNG decode of the same page. Then every file of
+    ``assets/images/`` (PNG of every bit depth, colour type and interlace,
+    with ``eXIf``; RGB-coded, CMYK, YCCK and multi-scan JPEG, markers after
+    the scan, files without EOI; BMP and RLE; PNM; four 640x640 pages;
+    ``scripts/make_port_image_assets.py``) read by ``read_image`` and
+    ``decode_image``, each equal to cv2's ``imread`` and ``imdecode``
+    digests in the manifest (a file ``imdecode`` refuses refused), and ms a
+    file by format.
 25. lmdb: the 256 JPEG crops in an LMDB written by the port's
     ``write_fixture_lmdb`` (overflow values, leaves under a branch), read
     back record for record and by ``LMDBRecognitionDataset`` (items equal to
@@ -340,7 +347,10 @@ Phases (any failure exits non-zero):
     events, and the ``stem_s2d`` / ``stem_s2d4`` flags' stem against it;
     ``resize_bilinear`` and ``rectify_quads`` against the CPU; a
     torchvision-layout ResNet-50 state dict loaded into a trunk, card
-    against CPU; every progressive JPEG of ``assets/jpeg/progressive/``
+    against CPU. The ``'auto'`` run also takes the four 640x640 pages of
+    ``assets/images/pages/`` (a CMYK JPEG, a palette PNG, a 16-bit Adam7
+    PNG, an RLE8 BMP) and a PNG twin of each written from its decode: each
+    page's quads and texts equal its twin's. Every progressive JPEG of ``assets/jpeg/progressive/``
     equal to its digest, and ms for the 1280x720 page beside its baseline
     twin (``launches_tools``).
 29. head: the detector head's formulations (``MapHead``'s flag
@@ -5009,6 +5019,7 @@ def phase_spotter(B: int = 8, hw: int = 640, K: int = 32, steps: int = 4):
 # --- ROADMAP Queue 1 item 15a: JPEG, LMDB, resuming a JAX state, ResNet-50 ---
 
 JPEG_ASSETS = os.path.join(ROOT, "assets", "jpeg")
+IMAGE_ASSETS = os.path.join(ROOT, "assets", "images")
 
 
 def jpeg_files():
@@ -5018,13 +5029,27 @@ def jpeg_files():
         return json.load(f)["files"]
 
 
+def image_files():
+    """``assets/images/manifest.json``'s files: relative path -> {"sha256" and
+    "shape" of ``cv2.imread``'s RGB decode, "bytes", and "imdecode" (that of
+    ``cv2.imdecode``, or None where it refuses) where the two differ}
+    (``scripts/make_port_image_assets.py``)."""
+    with open(os.path.join(IMAGE_ASSETS, "manifest.json")) as f:
+        return json.load(f)["files"]
+
+
+def rgb_sha(img: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
 def phase_jpeg():
     """Every committed JPEG decoded on the host by the port (``decode_image``),
     its RGB digest equal to cv2's from the manifest; ms a page for the
     1280x720 pages beside the PNG decode of the same page (``write_png``'s
-    Sub rows)."""
-    import hashlib
-
+    Sub rows). Then every file of ``assets/images/`` through ``read_image``
+    and ``decode_image`` against cv2's two routes; ms a file by format."""
     from megreader_tpu_torch.data.imageio import decode_image, read_image, write_png
 
     t_phase = time.perf_counter()
@@ -5039,9 +5064,7 @@ def phase_jpeg():
             dt = (time.perf_counter() - t0) * 1e3
             kind = rel.split("/")[0]
             ms.setdefault(kind, []).append(dt)
-            if (list(img.shape) != want["shape"]
-                    or hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
-                    != want["sha256"]):
+            if list(img.shape) != want["shape"] or rgb_sha(img) != want["sha256"]:
                 bad.append(rel)
             if kind == "pages":
                 page_ms.append(dt)
@@ -5056,6 +5079,40 @@ def phase_jpeg():
         + f"; a 1280x720 page: JPEG {page_ms} ms (mean {statistics.mean(page_ms)}), the same "
         f"page as PNG (Sub rows) {png_ms} ms (mean {statistics.mean(png_ms)}) [{CARD}]; "
         f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    if bad:
+        raise AssertionError(f"jpeg phase: the port's decode differs from cv2's on {bad}")
+
+    t_formats = time.perf_counter()
+    files = image_files()
+    bad, ms, refused = [], {}, 0
+    for rel, want in sorted(files.items()):
+        path = os.path.join(IMAGE_ASSETS, rel)
+        t0 = time.perf_counter()
+        img = read_image(path)
+        dt = (time.perf_counter() - t0) * 1e3
+        key = rel if rel.startswith("pages/") else rel.split("/")[1].split("_")[0]
+        ms.setdefault(key, []).append(dt)
+        if list(img.shape) != want["shape"] or rgb_sha(img) != want["sha256"]:
+            bad.append(f"{rel} (read_image)")
+        with open(path, "rb") as f:
+            data = f.read()
+        by_bytes = want.get("imdecode", want)
+        try:
+            img = decode_image(data, rel)
+        except ValueError:
+            img = None
+        if by_bytes is None:
+            refused += 1
+            if img is not None:
+                bad.append(f"{rel} (decode_image: cv2.imdecode refuses it)")
+        elif img is None or rgb_sha(img) != by_bytes["sha256"]:
+            bad.append(f"{rel} (decode_image)")
+    log(f"jpeg phase: {len(files)} files of assets/images read by read_image and decode_image, "
+        f"{len(files) - len(bad)} equal to cv2's imread and imdecode digests (manifest; "
+        f"{refused} refused by decode_image as cv2.imdecode refuses them); read_image ms a "
+        f"file on one host thread by format (mean, max, files) "
+        + json.dumps({k: [statistics.mean(v), max(v), len(v)] for k, v in ms.items()})
+        + f" [{CARD}]; {time.perf_counter() - t_formats:.1f} s (host clock)")
     if bad:
         raise AssertionError(f"jpeg phase: the port's decode differs from cv2's on {bad}")
 
@@ -5502,6 +5559,45 @@ def tools_overlays(name, out, paths, vis_dir) -> int:
     return words
 
 
+def format_pages(tmp: str):
+    """The 640x640 pages of ``assets/images/pages/`` (a CMYK JPEG, a palette
+    PNG, a 16-bit Adam7 PNG, an RLE8 BMP), each read by ``read_image`` with
+    cv2's digest (the manifest), and a PNG twin of each written from that
+    decode: (the pages' paths, the twins' paths)."""
+    from megreader_tpu_torch.data.imageio import read_image, write_png
+
+    files = image_files()
+    pages, twins = [], []
+    for rel in sorted(r for r in files if r.startswith("pages/")):
+        pages.append(os.path.join(IMAGE_ASSETS, rel))
+        img = read_image(pages[-1])
+        if rgb_sha(img) != files[rel]["sha256"]:
+            raise AssertionError(f"tools phase: read_image of {rel} differs from cv2's")
+        stem = os.path.splitext(os.path.basename(rel))[0]
+        twins.append(os.path.join(tmp, f"twin_{stem}.png"))
+        write_png(twins[-1], img)
+    return pages, twins
+
+
+def twin_check(name: str, out: list, pages: list) -> None:
+    """``out``: cli.pipeline's results for ``pages`` and then their PNG twins;
+    each page's quads and texts must equal its twin's."""
+    n = len(pages)
+    words = 0
+    for path, page, twin in zip(pages, out[:n], out[n:]):
+        a = [(d["polygon"], d["text"]) for d in page["detections"]]
+        b = [(d["polygon"], d["text"]) for d in twin["detections"]]
+        if a != b:
+            raise AssertionError(f"tools phase, {name}: {os.path.basename(path)} gave {a}, its "
+                                 f"PNG twin {b}")
+        words += len(a)
+    log(f"tools phase, {name}: {n} pages in new formats "
+        f"({', '.join(os.path.basename(p) for p in pages)}), {words} words, quads and texts "
+        f"equal to their PNG twins' in the same run")
+    if not words:
+        raise AssertionError(f"tools phase, {name}: no word found on the new-format pages")
+
+
 def tools_entry_points(B: int, hw: int, total: dict, tmp: str):
     """``cli.pipeline --out-dir`` ('auto' and 'pallas_full') and ``cli.demo``
     with the asset detector and a seeded config-#1 recognizer, every overlay
@@ -5534,20 +5630,25 @@ def tools_entry_points(B: int, hw: int, total: dict, tmp: str):
     for i, it in enumerate(items):
         paths.append(os.path.join(tmp, f"page{i}.png"))
         write_png(paths[-1], it["image"])
+    formats, twins = format_pages(tmp)
     base = ["--detector", cfg_det, "--det-workspace", ws_det, "--recognizer", cfg_rec,
-            "--rec-workspace", ws_rec, "--page-size", str(hw), "--images", *paths]
+            "--rec-workspace", ws_rec, "--page-size", str(hw)]
     for impl in ("auto", "pallas_full"):
         name = f"cli.pipeline --out-dir --extract-impl {impl}"
         vis_dir = os.path.join(tmp, f"vis_{impl}")
+        images = paths + (formats + twins if impl == "auto" else [])
         out, got, _, _ = run_cli(name, cli_pipeline.main, [
-            *base, "--extract-impl", impl, "--out-dir", vis_dir], total, phase="tools")
+            *base, "--images", *images, "--extract-impl", impl, "--out-dir", vis_dir], total,
+            phase="tools")
         full = int(impl == "pallas_full")
         want = {**dict.fromkeys(got, 0), "ccl": 1, "candidates": full, "moments": full,
                 "extents": full}
         if got != want:
             raise AssertionError(f"tools phase, {name}: launches {got}, expected {want}")
+        if impl == "auto":
+            twin_check(name, out[len(paths):], formats)
         t0 = time.perf_counter()
-        words = tools_overlays(name, out, paths, vis_dir)
+        words = tools_overlays(name, out, images, vis_dir)
         log(f"tools phase, {name}: {words} words on {B} pages, every overlay read back "
             f"pixel-equal to the host's drawing of the card's detections "
             f"({time.perf_counter() - t0:.2f} s to read and draw them again)")
@@ -5733,8 +5834,6 @@ PROGRESSIVE_ASSETS = os.path.join(ROOT, "assets", "jpeg", "progressive")
 def tools_progressive() -> None:
     """Every progressive JPEG of ``assets/jpeg/progressive/`` and its baseline
     twin decoded on the host with cv2's digest; ms for the 1280x720 page."""
-    import hashlib
-
     from megreader_tpu_torch.data.imageio import decode_image
 
     with open(os.path.join(PROGRESSIVE_ASSETS, "manifest.json")) as f:
@@ -5749,7 +5848,7 @@ def tools_progressive() -> None:
             t0 = time.perf_counter()
             img = decode_image(data, rel)
             ms.setdefault(rel, []).append((time.perf_counter() - t0) * 1e3)
-            if hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest() != want["sha256"]:
+            if rgb_sha(img) != want["sha256"]:
                 bad.append(rel)
     prog, base = ms["page_1280x720.jpg"], ms["page_1280x720.base.jpg"]
     log(f"tools phase: {len(files) - len(set(bad))} of {len(files)} progressive JPEG files "

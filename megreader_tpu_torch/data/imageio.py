@@ -1,198 +1,73 @@
-"""Page images without cv2: PNG and JPEG in, PNG out, and cv2's bilinear
-resize.
+"""Page images without cv2: PNG, JPEG, BMP and PNM in, PNG out, and cv2's
+resizes.
 
 The reference reads pages with ``cv2.imread(path, cv2.IMREAD_COLOR)``,
 LMDB crops with ``cv2.imdecode(buf, cv2.IMREAD_COLOR)``, and resizes with
-``cv2.resize`` (``INTER_LINEAR``); the card's machine has no cv2, so the
-port does all three here, with the standard library's ``zlib`` and numpy:
+``cv2.resize``; the card's machine has no cv2, so the port does these here,
+with the standard library's ``zlib`` and numpy:
 
 * ``decode_image`` (bytes) and ``read_image`` (a path) dispatch on the
-  file's signature. PNG: 8-bit, non-interlaced, colour type grey, grey with
-  alpha, RGB or RGBA, any of the five row filters. JPEG: baseline,
-  extended sequential and progressive Huffman (``data/jpeg.py``). Either -> (H, W, 3) uint8
-  RGB, bit-equal to ``cv2.imread``/``cv2.imdecode`` then
-  ``cv2.cvtColor(BGR2RGB)`` (grey repeated into the three channels, alpha
-  dropped, a JPEG's EXIF orientation applied). Any other file raises
-  ``NotImplementedError``; a damaged one ``ValueError``.
-* ``encode_png`` / ``write_png``: (H, W) grey, (H, W, 3) RGB or (H, W, 4)
-  RGBA uint8 -> PNG bytes / a PNG file, each row with a filter from
-  ``filters`` in turn.
+  file's signature, as cv2 does: PNG (``data/png.py``: every bit depth,
+  colour type and interlace, an ``eXIf`` orientation), JPEG
+  (``data/jpeg.py``: baseline, extended sequential in one scan or several,
+  progressive Huffman; grey, YCbCr, RGB, CMYK and YCCK; markers after the
+  last scan; an EXIF orientation), BMP and PNM (``data/bitmap.py``). Each
+  -> (H, W, 3) uint8 RGB, bit-equal to ``cv2.imread``/``cv2.imdecode`` then
+  ``cv2.cvtColor(BGR2RGB)``. The two differ only on a JPEG whose last scan
+  runs to the end of the file without EOI: ``read_image`` reads it, as
+  ``cv2.imread`` does, and ``decode_image`` only where ``cv2.imdecode``
+  does (``jpeg.decode_jpeg``). Any other format raises
+  ``NotImplementedError``; a damaged file ``ValueError``.
+* ``encode_png`` / ``write_png`` (``data/png.py``): (H, W) grey,
+  (H, W, 3) RGB or (H, W, 4) RGBA uint8 -> PNG bytes / a PNG file, each
+  row with a filter from ``filters`` in turn.
 * ``resize_linear``: cv2's ``INTER_LINEAR`` geometry (half-pixel centres,
   edge clamping, no antialiasing when shrinking), bit-equal to cv2 on uint8
   (its 11-bit fixed-point passes) and on float32 (cv2's own steps: rows
   first, then columns, each ``a + f * (b - a)`` with one rounding and f the
   float64 weight rounded to float32; a one-row source through cv2's
-  separate route).
+  separate route); ``resize_cubic`` and ``resize_area`` below.
 """
 
 from __future__ import annotations
 
 import math
-import struct
-import zlib
-from typing import Sequence, Tuple
+from typing import Tuple
 
 import numpy as np
 
+from .bitmap import decode_bmp, decode_pnm
 from .jpeg import decode_jpeg
+from .png import SIGNATURE as _PNG, decode_png, encode_png, write_png
 
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-#: PNG colour type -> channels (8-bit samples)
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-
-
-def _chunks(data: bytes, path: str):
-    pos = len(_SIGNATURE)
-    while pos + 8 <= len(data):
-        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        crc = data[pos + 8 + length:pos + 12 + length]
-        if len(body) != length or len(crc) != 4:
-            raise ValueError(f"{path}: truncated PNG chunk {kind!r}")
-        if zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
-            raise ValueError(f"{path}: bad CRC in PNG chunk {kind!r}")
-        yield kind, body
-        if kind == b"IEND":
-            return
-        pos += 12 + length
-    raise ValueError(f"{path}: PNG without IEND")
-
-
-def _unfilter(raw: bytes, h: int, stride: int, bpp: int, path: str) -> np.ndarray:
-    """Undo the row filters: (h, stride) uint8 samples."""
-    if len(raw) != h * (stride + 1):
-        raise ValueError(f"{path}: PNG data holds {len(raw)} bytes, not {h * (stride + 1)}")
-    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        kind, f = int(rows[y, 0]), rows[y, 1:]
-        if kind == 0:
-            cur = f.copy()
-        elif kind == 1:  # Sub: a running sum along each sample of a pixel
-            cur = (f.reshape(-1, bpp).astype(np.int64).cumsum(0) % 256).astype(np.uint8)
-            cur = cur.reshape(stride)
-        elif kind == 2:  # Up
-            cur = f + prev
-        elif kind in (3, 4):  # Average, Paeth: a recurrence along the row
-            cur = bytearray(f.tobytes())
-            up = prev.tobytes()
-            for i in range(stride):
-                a = cur[i - bpp] if i >= bpp else 0
-                b = up[i]
-                if kind == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = up[i - bpp] if i >= bpp else 0
-                    p = a + b - c
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-                cur[i] = (cur[i] + pred) & 0xFF
-            cur = np.frombuffer(bytes(cur), np.uint8)
-        else:
-            raise ValueError(f"{path}: unknown PNG row filter {kind}")
-        out[y] = cur
-        prev = out[y]
-    return out
+__all__ = ["decode_image", "read_image", "encode_png", "write_png", "resize_linear",
+           "resize_cubic", "resize_area"]
 
 
 def read_image(path: str) -> np.ndarray:
-    """A PNG or JPEG file as (H, W, 3) uint8 RGB (see the module's docstring)."""
+    """An image file as (H, W, 3) uint8 RGB, as ``cv2.imread(path,
+    IMREAD_COLOR)`` then ``BGR2RGB`` reads it (see the module's docstring)."""
     with open(path, "rb") as f:
-        return decode_image(f.read(), path)
+        return _decode(f.read(), path, True)
 
 
 def decode_image(data: bytes, path: str = "<bytes>") -> np.ndarray:
-    """Encoded PNG or JPEG bytes -> (H, W, 3) uint8 RGB, the counterpart of
+    """Encoded image bytes -> (H, W, 3) uint8 RGB, the counterpart of
     ``cv2.imdecode(buf, cv2.IMREAD_COLOR)`` then ``cvtColor(BGR2RGB)``;
     ``path`` names the source in errors."""
-    data = bytes(data)
+    return _decode(bytes(data), path, False)
+
+
+def _decode(data: bytes, path: str, from_file: bool) -> np.ndarray:
     if data.startswith(b"\xff\xd8"):
-        return decode_jpeg(data, path)
-    if not data.startswith(_SIGNATURE):
-        raise NotImplementedError(f"{path}: neither PNG nor JPEG (only those are read)")
-    header, idat = None, []
-    for kind, body in _chunks(data, path):
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-    if header is None:
-        raise ValueError(f"{path}: PNG without IHDR")
-    w, h, depth, colour, compression, filtering, interlace = header
-    if depth != 8 or colour not in _CHANNELS or interlace != 0:
-        raise NotImplementedError(
-            f"{path}: PNG of bit depth {depth}, colour type {colour}, interlace {interlace}: "
-            "only 8-bit, non-interlaced grey, grey+alpha, RGB and RGBA are read")
-    if compression != 0 or filtering != 0:
-        raise ValueError(f"{path}: unknown PNG compression {compression} or filter "
-                         f"method {filtering}")
-    ch = _CHANNELS[colour]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch, path).reshape(h, w, ch)
-    if ch <= 2:  # grey (+ alpha): the grey level in all three channels
-        return np.repeat(px[..., :1], 3, axis=2)
-    return np.ascontiguousarray(px[..., :3])
-
-
-def _filter_rows(kind: int, cur: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
-    """Rows (n, L) filtered by ``kind`` against the rows above them (n, L)."""
-    c = cur.astype(np.int64)
-    b = prev.astype(np.int64)
-    pad = np.zeros(c.shape[:-1] + (bpp,), np.int64)
-    a = np.concatenate([pad, c[..., :-bpp]], -1)
-    if kind == 0:
-        pred = np.zeros_like(c)
-    elif kind == 1:
-        pred = a
-    elif kind == 2:
-        pred = b
-    elif kind == 3:
-        pred = (a + b) >> 1
-    elif kind == 4:
-        cc = np.concatenate([pad, b[..., :-bpp]], -1)
-        p = a + b - cc
-        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
-        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
-    else:
-        raise ValueError(f"unknown PNG row filter {kind}")
-    return ((c - pred) % 256).astype(np.uint8)
-
-
-def encode_png(image: np.ndarray, filters: Sequence[int] = (1,)) -> bytes:
-    """(H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 -> the bytes of an
-    8-bit PNG; row y takes the filter ``filters[y % len(filters)]`` (0 None,
-    1 Sub, 2 Up, 3 Average, 4 Paeth)."""
-    image = np.asarray(image)
-    if image.dtype != np.uint8:
-        raise TypeError(f"a PNG takes uint8, got {image.dtype}")
-    if image.ndim == 2:
-        image = image[..., None]
-    h, w, ch = image.shape
-    colour = {1: 0, 2: 4, 3: 2, 4: 6}.get(ch)
-    if colour is None:
-        raise ValueError(f"a PNG takes 1-4 channels, got {ch}")
-    rows = image.reshape(h, w * ch)
-    above = np.concatenate([np.zeros((1, w * ch), np.uint8), rows[:-1]])
-    kinds = np.array([filters[y % len(filters)] for y in range(h)], np.int64)
-    out = np.empty((h, 1 + w * ch), np.uint8)
-    out[:, 0] = kinds
-    for kind in np.unique(kinds).tolist():
-        sel = kinds == kind
-        out[sel, 1:] = _filter_rows(kind, rows[sel], above[sel], ch)
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body)))
-
-    return (_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(out.tobytes(), 6)) + chunk(b"IEND", b""))
-
-
-def write_png(path: str, image: np.ndarray, filters: Sequence[int] = (1,)) -> None:
-    """Write ``encode_png(image, filters)`` to ``path``."""
-    data = encode_png(image, filters)
-    with open(path, "wb") as f:
-        f.write(data)
+        return decode_jpeg(data, path, from_file)
+    if data.startswith(_PNG):
+        return decode_png(data, path)
+    if data.startswith(b"BM"):
+        return decode_bmp(data, path)
+    if len(data) > 2 and data[0] == 80 and 49 <= data[1] <= 54 and data[2] in b" \t\n\v\f\r":
+        return decode_pnm(data, path)
+    raise NotImplementedError(f"{path}: not PNG, JPEG, BMP or PNM (only those are read)")
 
 
 def _taps(n_out: int, n_in: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

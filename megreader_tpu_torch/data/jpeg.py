@@ -1,16 +1,17 @@
-"""Baseline and progressive JPEG in numpy, bit-equal to ``cv2.imdecode(buf,
-IMREAD_COLOR)`` followed by ``cv2.cvtColor(BGR2RGB)``.
+"""JPEG in numpy, bit-equal to ``cv2.imread`` / ``cv2.imdecode`` with
+``IMREAD_COLOR`` followed by ``cv2.cvtColor(BGR2RGB)``.
 
 The reference reads ICDAR pages with ``cv2.imread`` and LMDB crops with
 ``cv2.imdecode``; the card's machine has neither cv2 nor PIL, so the port
 decodes the files itself. cv2 decodes through libjpeg-turbo, whose default
 decompression this module reproduces step for step:
 
-* entropy decoding of one interleaved (or one-component) sequential scan,
-  8-bit samples, Huffman tables (SOF0 and SOF1), restart intervals, byte
-  stuffing and fill bytes. Symbols are read through a table indexed by the
-  next 16 bits that, where the code and its extra bits fit in those bits,
-  also gives the run and the coefficient;
+* entropy decoding of sequential scans (SOF0 and SOF1): one interleaved
+  scan of every component, or several scans that each code some of them
+  (libjpeg's buffered mode), 8-bit samples, Huffman tables, restart
+  intervals, byte stuffing and fill bytes. Symbols are read through a table
+  indexed by the next 16 bits that, where the code and its extra bits fit
+  in those bits, also gives the run and the coefficient;
 * or the scans of a progressive file (SOF2, ITU T.81 annex G): spectral
   selection and successive approximation, DC first and refinement scans
   (interleaved or not), AC first and refinement scans of one component
@@ -28,16 +29,25 @@ decompression this module reproduces step for step:
   at most 2 samples wide), h1v2, and box replication for any other integral
   factor (h4v1 of 4:1:1). Edges replicate the component's last real sample
   row and column, not the padded block;
-* the fixed-point YCbCr -> RGB tables of ``jdcolor.c`` (``SCALEBITS`` 16),
-  or a grey level repeated into the three channels;
+* the colour space libjpeg infers (``_colour_space``: JFIF, the Adobe
+  segment's transform, the component ids): grey repeated into the three
+  channels, the fixed-point YCbCr -> RGB tables of ``jdcolor.c``
+  (``SCALEBITS`` 16), RGB as coded, CMYK as coded and YCCK through
+  ``ycck_cmyk_convert``, both then through cv2's own CMYK -> BGR formula
+  (``cmyk_to_rgb``);
 * the EXIF ``Orientation`` tag of an APP1 segment, applied as cv2 applies
-  it (all eight values).
+  it (all eight values);
+* what follows the scans as cv2 reads it: after one scan of every component
+  nothing more is read; a file whose last scan runs to its end without EOI
+  is decoded through ``cv2.imread``'s route and, through ``cv2.imdecode``'s,
+  only where libjpeg-turbo reaches its last MCU (``decode_jpeg``).
 
 Anything else raises ``NotImplementedError`` naming what it met: lossless,
-arithmetic-coded, hierarchical, 12-bit, multi-scan sequential, CMYK/YCCK or
-RGB-coded files, and progressive files with unrefined bits. A damaged file
-(truncated data, a bad Huffman code, a missing table or marker, progressive
-scans out of order) raises ``ValueError``.
+arithmetic-coded, hierarchical, 12-bit, 2- or 5-component files, a
+component coded in two sequential scans, and progressive files with
+unrefined bits. A damaged file (truncated data, a bad Huffman code, a
+missing table or marker, progressive scans out of order) raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -117,17 +127,18 @@ def _extend(bits: int, size: int) -> int:
     return bits - (1 << size) + 1 if bits < 1 << (size - 1) else bits
 
 
-def _segments(data: bytes, name: str, pos: int = 2):
+def _segments(data: bytes, name: str, pos: int = 2, to_end: bool = False):
     """(marker, payload) for each marker segment from ``pos`` (after SOI) up
     to the next SOS included, then ("data", offset of its entropy-coded
-    data); or ("eoi", offset) where EOI comes first."""
+    data); or ("eoi", offset) where EOI comes first (``to_end``: or the end
+    of the file)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG (no SOI)")
     while True:
         while pos < len(data) and data[pos] == 0xFF and pos + 1 < len(data) \
                 and data[pos + 1] == 0xFF:
             pos += 1  # fill bytes
-        if pos + 2 <= len(data) and data[pos:pos + 2] == b"\xff\xd9":
+        if data[pos:pos + 2] == b"\xff\xd9" or (to_end and pos == len(data)):
             yield "eoi", pos
             return
         if pos + 4 > len(data) or data[pos] != 0xFF:
@@ -147,16 +158,17 @@ def _segments(data: bytes, name: str, pos: int = 2):
             return
 
 
-def _scan_chunks(data: bytes, start: int, name: str) -> Tuple[List[bytes], int]:
+def _scan_chunks(data: bytes, start: int) -> Tuple[List[bytes], Optional[int]]:
     """The entropy-coded data from ``start``, split at its restart markers,
-    and the offset of the marker that ends it."""
+    and the offset of the marker that ends it, or None where the data runs
+    to the end of the file (a last 0xff there is fill)."""
     chunks = []
     for m in _MARKER.finditer(data, start):
         chunks.append(data[start:m.start()])
         start = m.end()
         if not 0xD0 <= m.group(1)[0] <= 0xD7:
             return chunks, m.end() - 2
-    raise ValueError(f"{name}: truncated JPEG (no marker after the scan)")
+    return chunks + [data[start:].rstrip(b"\xff")], None
 
 
 def _windows(chunk: bytes) -> Tuple[list, int]:
@@ -167,10 +179,15 @@ def _windows(chunk: bytes) -> Tuple[list, int]:
 
 
 def _orientation(app1: bytes) -> Optional[int]:
-    """The EXIF Orientation tag (0x0112) of IFD0, or None."""
+    """The EXIF Orientation tag (0x0112) of an APP1 segment's IFD0, or None."""
     if not app1.startswith(b"Exif\0\0") or len(app1) < 14:
         return None
-    tiff = app1[6:]
+    return tiff_orientation(app1[6:])
+
+
+def tiff_orientation(tiff: bytes) -> Optional[int]:
+    """The Orientation tag (0x0112) of IFD0 of an EXIF block that starts with
+    its TIFF header ("II" or "MM"), or None."""
     order = {b"II": "<", b"MM": ">"}.get(tiff[:2])
     if order is None:
         return None
@@ -356,6 +373,93 @@ def _decode_interval(win: list, n_bits: int, blocks: list, coef, name: str) -> N
         raise ValueError(f"{name}: truncated JPEG (the scan ends inside its data)")
 
 
+def _symbol_trace(win: list, blocks: list) -> list:
+    """The Huffman symbols of a sequential interval that ``_decode_interval``
+    decoded: -1 before each block, then (code length, extra bits) of each
+    symbol."""
+    out, pos = [], 0
+    for _, dct, act, _ in blocks:
+        n, diff = _dc_symbol(win, pos, dct, "")
+        s = abs(diff).bit_length()
+        out += [-1, (n - s, s)]
+        pos += n
+        k = 1
+        while k < 64:
+            n, r, v = _ac_symbol(win, pos, act, "")
+            s = abs(v).bit_length()
+            out.append((n - s, s))
+            pos += n
+            if r >= _EOB:
+                break
+            k += r + 1
+    return out
+
+
+def _memory_source_reaches_end(chunk: bytes, trace: list, per_mcu: int, fast: bool) -> bool:
+    """Whether libjpeg-turbo 3's Huffman decoder (``jdhuff.c``, a 64-bit bit
+    buffer) decodes every MCU of a scan's last interval, whose raw bytes
+    ``chunk`` run to the end of cv2's memory source, without asking that
+    source for more bytes (it has none: libjpeg suspends, and cv2.imdecode
+    returns None). ``trace``: ``_symbol_trace``. Where the interval is the
+    whole scan (``fast``: no restart interval), an MCU that starts with
+    512 bytes a block or more still unread takes ``decode_mcu_fast``, which
+    reads six bytes whenever 16 bits or fewer are left; the others take
+    ``decode_mcu_slow``: before a symbol with fewer than 8 bits left, a code
+    longer than 8 bits with fewer than 9 (then one bit at a time), extra
+    bits with fewer than they need, ``jpeg_fill_bit_buffer`` reads bytes up
+    to 57 bits, and suspends if the bytes run out first."""
+    pos, bits, n = 0, 0, len(chunk)
+
+    def fill() -> bool:
+        nonlocal pos, bits
+        while bits < 57:
+            if pos >= n or (chunk[pos] == 0xFF and pos + 1 >= n):
+                return False
+            pos += 2 if chunk[pos] == 0xFF else 1  # 0xff 0x00 is one byte of data
+            bits += 8
+        return True
+
+    def fill_fast() -> None:
+        nonlocal pos, bits
+        for _ in range(6):
+            pos += 2 if chunk[pos] == 0xFF else 1
+            bits += 8
+
+    block, use_fast = 0, False
+    for item in trace:
+        if item == -1:
+            if block % per_mcu == 0:
+                use_fast = fast and n - pos >= 512 * per_mcu
+            block += 1
+            continue
+        length, extra = item
+        if use_fast:
+            if bits <= 16:
+                fill_fast()
+            bits -= length
+            if extra and bits <= 16:
+                fill_fast()
+            bits -= extra
+            continue
+        if bits < 8 and not fill():
+            return False
+        if length > 8:
+            if bits < 9 and not fill():
+                return False
+            bits -= 9
+            for _ in range(length - 9):
+                if bits < 1 and not fill():
+                    return False
+                bits -= 1
+        else:
+            bits -= length
+        if extra:
+            if bits < extra and not fill():
+                return False
+            bits -= extra
+    return True
+
+
 def _table_segment(marker: int, body: bytes, quant: Dict, tables: Dict, name: str) -> None:
     """Read a DQT (0xDB) or DHT (0xC4) segment into ``quant`` / ``tables``."""
     i = 0
@@ -392,9 +496,7 @@ def _frame(body: bytes, name: str):
     precision, h, w, nc = struct.unpack(">BHHB", body[:6])
     if precision != 8:
         raise NotImplementedError(f"{name}: {precision}-bit JPEG samples (only 8-bit)")
-    if nc == 4:
-        raise NotImplementedError(f"{name}: a 4-component (CMYK/YCCK) JPEG")
-    if nc not in (1, 3):
+    if nc not in (1, 3, 4):
         raise NotImplementedError(f"{name}: a JPEG of {nc} components")
     if h == 0:
         raise NotImplementedError(f"{name}: a JPEG whose height comes in a DNL marker")
@@ -600,8 +702,32 @@ def _progressive_scan(coef, blocks, win: list, n_bits: int, ss: int, se: int, ah
         raise ValueError(f"{name}: truncated JPEG (the scan ends inside its data)")
 
 
+def _next_scan(data: bytes, name: str, end: int, to_end: bool, quant: Dict, tables: Dict,
+               restart: int):
+    """The segments after a scan of a multi-scan file, up to the next scan
+    or EOI (``to_end``: or the end of the file): tables and restart
+    intervals redefined, others skipped. Returns (the next scan header or
+    None, the offset of its data, the restart interval)."""
+    scan, data_start = None, end
+    for marker, body in _segments(data, name, end, to_end):
+        if marker in ("eoi", "data"):
+            data_start = body
+            break
+        if marker in (0xDB, 0xC4):
+            _table_segment(marker, body, quant, tables, name)
+        elif marker == 0xDD:
+            if len(body) < 2:
+                raise ValueError(f"{name}: bad restart interval segment")
+            (restart,) = struct.unpack(">H", body[:2])
+        elif marker == 0xDA:
+            scan = body
+        elif 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            raise ValueError(f"{name}: a second frame header")
+    return scan, data_start, restart
+
+
 def _progressive(data: bytes, scan: bytes, data_start: int, frame, quant: Dict, tables: Dict,
-                 restart: int, name: str):
+                 restart: int, name: str, from_file: bool = False):
     """Every scan of a progressive JPEG -> (zigzag coefficients, grids). The
     coefficients must end fully known (each coefficient's last scan at
     successive-approximation bit 0): libjpeg smooths the blocks of a file
@@ -633,31 +759,20 @@ def _progressive(data: bytes, scan: bytes, data_start: int, frame, quant: Dict, 
                     raise ValueError(f"{name}: scan names a missing Huffman table")
                 tabs[ci] = tables[key]
         order, kinds = _block_orders(comps, [ci for ci, _ in members], h, w, hmax, vmax, grids)
-        chunks, end = _scan_chunks(data, data_start, name)
+        chunks, end = _scan_chunks(data, data_start)
+        if end is None and not from_file:  # libjpeg reads all scans before any row
+            raise ValueError(f"{name}: truncated JPEG: a progressive scan runs to the end of "
+                             "the data without EOI (cv2.imdecode refuses it)")
         try:
             for blocks, chunk in zip(_intervals(order, kinds, restart, chunks, name), chunks):
                 win, n_bits = _windows(chunk)
                 _progressive_scan(coef, blocks, win, n_bits, ss, se, ah, al, tabs, name)
         except IndexError:
             raise ValueError(f"{name}: truncated or damaged JPEG scan") from None
-        # the segments up to the next scan, or the end
-        scan = None
-        for marker, body in _segments(data, name, end):
-            if marker == "eoi":
-                break
-            if marker == "data":
-                data_start = body
-                break
-            if marker in (0xDB, 0xC4):
-                _table_segment(marker, body, quant, tables, name)
-            elif marker == 0xDD:
-                if len(body) < 2:
-                    raise ValueError(f"{name}: bad restart interval segment")
-                (restart,) = struct.unpack(">H", body[:2])
-            elif marker == 0xDA:
-                scan = body
-            elif 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-                raise ValueError(f"{name}: a second frame header")
+        if end is None:
+            break
+        scan, data_start, restart = _next_scan(data, name, end, from_file, quant, tables,
+                                               restart)
         if scan is None:
             break
     if (coef_bits != 0).any():
@@ -666,9 +781,24 @@ def _progressive(data: bytes, scan: bytes, data_start: int, frame, quant: Dict, 
     return coef, grids
 
 
-def _parse(data: bytes, name: str):
+def _colour_space(comps, jfif: bool, adobe: Optional[int]) -> str:
+    """libjpeg's ``default_decompress_parms``: the colour space of the coded
+    components ('grey', 'ycc', 'rgb', 'cmyk' or 'ycck')."""
+    if len(comps) == 1:
+        return "grey"
+    if len(comps) == 4:
+        return "cmyk" if adobe is None or adobe == 0 else "ycck"
+    if jfif:
+        return "ycc"
+    if adobe is not None:
+        return "rgb" if adobe == 0 else "ycc"
+    return "rgb" if [c[0] for c in comps] == [82, 71, 66] else "ycc"
+
+
+def _parse(data: bytes, name: str, from_file: bool = False):
     """A baseline or progressive JPEG -> (zigzag coefficients, grids, frame,
-    quantization tables, EXIF orientation)."""
+    quantization tables, EXIF orientation, colour space). ``from_file``:
+    see ``decode_jpeg``."""
     quant: Dict[int, np.ndarray] = {}
     tables: Dict[Tuple[int, int], list] = {}
     frame = None
@@ -700,7 +830,7 @@ def _parse(data: bytes, name: str):
             if len(body) < 2:
                 raise ValueError(f"{name}: bad restart interval segment")
             (restart,) = struct.unpack(">H", body[:2])
-        elif marker == 0xE0 and body.startswith(b"JFIF\0"):
+        elif marker == 0xE0 and body.startswith(b"JFIF\0") and len(body) >= 14:
             jfif = True
         elif marker == 0xE1 and orientation is None:
             orientation = _orientation(body)
@@ -711,9 +841,6 @@ def _parse(data: bytes, name: str):
     if frame is None or scan is None:
         raise ValueError(f"{name}: JPEG without a frame header")
     h, w, comps = frame
-    if len(comps) == 3 and not jfif and (
-            adobe == 0 or (adobe is None and [c[0] for c in comps] == [82, 71, 66])):
-        raise NotImplementedError(f"{name}: an RGB-coded JPEG (no YCbCr transform)")
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
     if any(hmax % c[1] or vmax % c[2] for c in comps):
@@ -722,10 +849,12 @@ def _parse(data: bytes, name: str):
     if any(c[3] not in quant for c in comps):
         raise ValueError(f"{name}: missing quantization table")
     if progressive:
-        coef, grids = _progressive(data, scan, data_start, frame, quant, tables, restart, name)
+        coef, grids = _progressive(data, scan, data_start, frame, quant, tables, restart, name,
+                                   from_file)
     else:
-        coef, grids = _sequential(data, scan, data_start, frame, quant, tables, restart, name)
-    return coef, grids, frame, quant, orientation
+        coef, grids = _sequential(data, scan, data_start, frame, quant, tables, restart, name,
+                                  from_file)
+    return coef, grids, frame, quant, orientation, _colour_space(comps, jfif, adobe)
 
 
 def _natural_blocks(coef, grids) -> List[np.ndarray]:
@@ -737,11 +866,22 @@ def _natural_blocks(coef, grids) -> List[np.ndarray]:
     return [nat[off // 64:off // 64 + gy * gx].reshape(gy, gx, 8, 8) for gy, gx, off in grids]
 
 
+def cmyk_to_rgb(c: np.ndarray, m: np.ndarray, y: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """cv2's ``icvCvt_CMYK2BGR_8u_C4C3R`` on the samples libjpeg gives for
+    ``JCS_CMYK``: each of red, green and blue is ``k - ((255 - s) * k >> 8)``
+    of its ink sample s (an Adobe file's inverted inks, taken as written)."""
+    k = k.astype(np.int64)
+    return np.stack([k - (((255 - v.astype(np.int64)) * k) >> 8) for v in (c, m, y)],
+                    -1).astype(np.uint8)
+
+
 def _pixels(blocks: List[np.ndarray], tables: List[np.ndarray], factors, h: int,
-            w: int) -> np.ndarray:
+            w: int, colour: str = "ycc") -> np.ndarray:
     """Each component's quantized blocks (natural order), its quantization
     table and (h, v) sampling factors -> (h, w, 3) uint8 RGB: the islow
-    IDCT, fancy upsampling and colour tables of libjpeg-turbo."""
+    IDCT, fancy upsampling and colour conversion of libjpeg-turbo, for the
+    colour space ``colour`` (``_colour_space``); CMYK and YCCK through cv2's
+    own conversion."""
     hmax = max(f[0] for f in factors)
     vmax = max(f[1] for f in factors)
     planes = []
@@ -752,17 +892,29 @@ def _pixels(blocks: List[np.ndarray], tables: List[np.ndarray], factors, h: int,
         fh, fv = hmax // ch, vmax // cv
         dh, dw = -(-h // fv), -(-w // fh)  # downsampled_height, downsampled_width
         planes.append(upsample(px[:dh, :dw], fh, fv)[:h, :w])
-    if len(planes) == 1:
+    if colour == "grey":
         return np.repeat(planes[0].astype(np.uint8)[..., None], 3, 2)
-    return ycc_to_rgb(*planes)
+    if colour == "rgb":
+        return np.stack(planes, -1).astype(np.uint8)
+    if colour == "ycc":
+        return ycc_to_rgb(*planes)
+    if colour == "ycck":  # jdcolor.c's ycck_cmyk_convert: inks 255 - RGB, K as coded
+        inks = 255 - ycc_to_rgb(*planes[:3]).astype(np.int64)
+        planes = [inks[..., 0], inks[..., 1], inks[..., 2], planes[3]]
+    return cmyk_to_rgb(*planes)
 
 
-def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """A baseline or progressive JPEG -> (H, W, 3) uint8 RGB, equal to cv2's
-    decode (see the module's docstring)."""
-    coef, grids, (h, w, comps), quant, orientation = _parse(data, name)
+def decode_jpeg(data: bytes, name: str = "<bytes>", from_file: bool = False) -> np.ndarray:
+    """A JPEG -> (H, W, 3) uint8 RGB, equal to cv2's decode (see the
+    module's docstring): of a file as ``cv2.imread`` reads it
+    (``from_file``), else of bytes as ``cv2.imdecode`` reads them. The two
+    differ on a file whose last scan runs to its end without an EOI:
+    libjpeg's stdio source, under ``imread``, supplies the EOI; cv2's memory
+    source, under ``imdecode``, cannot, and libjpeg-turbo suspends wherever
+    its bit reader asks for more data (``_memory_source_reaches_end``)."""
+    coef, grids, (h, w, comps), quant, orientation, colour = _parse(data, name, from_file)
     img = _pixels(_natural_blocks(coef, grids), [quant[c[3]] for c in comps],
-                  [(c[1], c[2]) for c in comps], h, w)
+                  [(c[1], c[2]) for c in comps], h, w, colour)
     return apply_orientation(img, orientation)
 
 
@@ -771,43 +923,63 @@ def read_coefficients(data: bytes, name: str = "<bytes>") -> Dict[str, list]:
     ``{"blocks": [(block rows, block columns, 8, 8) int16 in natural order,
     one a component, over the MCU grid], "quant": [(8, 8) table of each
     component], "factors": [(h, v) of each component]}``."""
-    coef, grids, (h, w, comps), quant, _ = _parse(data, name)
+    coef, grids, (h, w, comps), quant, _, _ = _parse(data, name)
     return {"blocks": _natural_blocks(coef, grids), "quant": [quant[c[3]] for c in comps],
             "factors": [(c[1], c[2]) for c in comps]}
 
 
 def _sequential(data: bytes, scan: bytes, data_start: int, frame, quant: Dict, tables: Dict,
-                restart: int, name: str):
-    """The one scan of a sequential JPEG -> (zigzag coefficients, grids)."""
+                restart: int, name: str, from_file: bool = False):
+    """The scans of a sequential JPEG -> (zigzag coefficients, grids): one
+    interleaved scan of every component, after which cv2 reads nothing more,
+    or scans that each code some of them (libjpeg's buffered mode: every
+    scan up to EOI, with any table, restart interval, comment or APPn
+    segment between them)."""
     h, w, comps = frame
-    ns = scan[0]
-    if ns != len(comps):
-        raise NotImplementedError(f"{name}: a multi-scan sequential JPEG ({ns} of "
-                                  f"{len(comps)} components in its first scan)")
-    members = _scan_components(scan, comps, name)
-    ss, se, ahal = scan[1 + 2 * ns:4 + 2 * ns]
-    if (ss, se, ahal) != (0, 63, 0):
-        raise ValueError(f"{name}: sequential scan with spectral range {ss}-{se}")
-    for ci, t in members:
-        if (0, t >> 4) not in tables or (1, t & 15) not in tables:
-            raise ValueError(f"{name}: scan names a missing component or Huffman table")
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
     grids, total = _grids(comps, h, w, hmax, vmax)
-    order, kinds = _block_orders(comps, [ci for ci, _ in members], h, w, hmax, vmax, grids)
-    tabs = {ci: (tables[0, t >> 4], tables[1, t & 15]) for ci, t in members}
-    chunks, end = _scan_chunks(data, data_start, name)
-    nxt = data[end + 1]
-    if nxt != 0xD9:
-        raise NotImplementedError(f"{name}: a JPEG with more than one scan or a marker "
-                                  f"{nxt:#04x} after its scan")
     coef = array("h", bytes(2 * total))
-    try:
-        for blocks, chunk in zip(_intervals(order, kinds, restart, chunks, name), chunks):
-            win, n_bits = _windows(chunk)
-            _decode_interval(win, n_bits, [(b,) + tabs[c] + (c,) for b, c in blocks], coef, name)
-    except IndexError:
-        raise ValueError(f"{name}: truncated or damaged JPEG scan") from None
+    multi = scan[0] < len(comps)  # libjpeg's has_multiple_scans
+    coded: List[int] = []
+    while True:
+        members = _scan_components(scan, comps, name)
+        ns = len(members)
+        ss, se, ahal = scan[1 + 2 * ns:4 + 2 * ns]
+        if (ss, se, ahal) != (0, 63, 0):
+            raise ValueError(f"{name}: sequential scan with spectral range {ss}-{se}")
+        for ci, t in members:
+            if (0, t >> 4) not in tables or (1, t & 15) not in tables:
+                raise ValueError(f"{name}: scan names a missing component or Huffman table")
+            if ci in coded:
+                raise NotImplementedError(f"{name}: a sequential JPEG that codes component "
+                                          f"{comps[ci][0]} in two scans")
+        coded += [ci for ci, _ in members]
+        order, kinds = _block_orders(comps, [ci for ci, _ in members], h, w, hmax, vmax, grids)
+        tabs = {ci: (tables[0, t >> 4], tables[1, t & 15]) for ci, t in members}
+        chunks, end = _scan_chunks(data, data_start)
+        from_memory = end is None and not from_file
+        if from_memory and multi:  # libjpeg reads all scans before any row
+            raise ValueError(f"{name}: truncated JPEG: a scan of a multi-scan file runs to "
+                             "the end of the data without EOI (cv2.imdecode refuses it)")
+        try:
+            for blocks, chunk in zip(_intervals(order, kinds, restart, chunks, name), chunks):
+                win, n_bits = _windows(chunk)
+                blocks = [(b,) + tabs[c] + (c,) for b, c in blocks]
+                _decode_interval(win, n_bits, blocks, coef, name)
+        except IndexError:
+            raise ValueError(f"{name}: truncated or damaged JPEG scan") from None
+        if from_memory and not _memory_source_reaches_end(
+                chunks[-1], _symbol_trace(win, blocks), len(kinds), not restart):
+            raise ValueError(f"{name}: truncated JPEG: its scan runs to the end of the data "
+                             "without EOI, and libjpeg-turbo's bit reader asks for more before "
+                             "its last MCU (cv2.imdecode refuses it)")
+        if end is None or not multi:
+            break
+        scan, data_start, restart = _next_scan(data, name, end, from_file, quant, tables,
+                                               restart)
+        if scan is None:
+            break
     return coef, grids
 
 

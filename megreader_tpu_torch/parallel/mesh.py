@@ -57,12 +57,13 @@ def init_mesh(init_method: str, world_size: int, rank: int, device="cuda") -> Me
     return make_mesh(device)
 
 
-def make_mesh(device=None) -> Mesh:
+def make_mesh(device="cuda") -> Mesh:
     """The mesh of the default process group, or a world of one on
-    ``device`` (default: the card if there is one) when no group is up."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    ``device`` when no group is up. The default is the card, as for
+    ``init_mesh``; without one it raises (pass ``"cpu"`` for the CPU)."""
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: no CUDA device (pass device='cpu' for the CPU)")
     if dist.is_available() and dist.is_initialized():
         return Mesh(dist.get_rank(), dist.get_world_size(), device, dist.group.WORLD)
     return Mesh(0, 1, device)

@@ -252,19 +252,25 @@ def _png(tmp_path, ihdr):
 
 
 def test_read_image_refuses_other_formats(tmp_path):
-    # PNG and JPEG (baseline and progressive) are read
-    # (test_torch_port_jpeg*.py); a BMP and a PNG the port does not decode
-    # are refused by name
+    # PNG, JPEG (baseline and progressive), BMP and PNM are read
+    # (test_torch_port_jpeg*.py, test_torch_port_imageio_formats.py); a TIFF
+    # and a PNG header the standard does not allow are refused by name
+    tif = tmp_path / "x.tif"
+    cv2.imwrite(str(tif), np.zeros((8, 8, 3), np.uint8))
+    with pytest.raises(NotImplementedError, match="not PNG, JPEG, BMP or PNM"):
+        imageio.read_image(str(tif))
     bmp = tmp_path / "x.bmp"
-    cv2.imwrite(str(bmp), np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="neither PNG nor JPEG"):
-        imageio.read_image(str(bmp))
+    cv2.imwrite(str(bmp), np.arange(8 * 8 * 3, dtype=np.uint8).reshape(8, 8, 3))
+    np.testing.assert_array_equal(imageio.read_image(str(bmp)), cv2.cvtColor(
+        cv2.imread(str(bmp), cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))  # BMP is read
     jpg = tmp_path / "x.jpg"
     cv2.imwrite(str(jpg), np.zeros((8, 8, 3), np.uint8), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     np.testing.assert_array_equal(imageio.read_image(str(jpg)), cv2.cvtColor(
         cv2.imread(str(jpg), cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))  # progressive is read
-    for ihdr in ((4, 4, 16, 2, 0, 0, 0), (4, 4, 8, 3, 0, 0, 0), (4, 4, 8, 2, 0, 0, 1)):
-        with pytest.raises(NotImplementedError, match="only 8-bit, non-interlaced"):
+    for ihdr, what in (((4, 4, 16, 3, 0, 0, 0), "bit depth 16 and colour type 3"),
+                       ((4, 4, 4, 2, 0, 0, 0), "bit depth 4 and colour type 2"),
+                       ((4, 4, 8, 2, 0, 0, 2), "interlace 2")):
+        with pytest.raises(ValueError, match=what):
             imageio.read_image(_png(tmp_path, ihdr))
     path = _png(tmp_path, (4, 4, 8, 0, 0, 0, 0))
     data = bytearray(open(path, "rb").read())

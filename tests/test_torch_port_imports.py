@@ -101,3 +101,11 @@ def test_port_file_imports_no_cv2_or_pil(path):
                                     "data/hard_synth.py", "data/imageio.py", "data/jpeg.py"])
 def test_synthetic_tier_modules_are_checked(module):
     assert ROOT / "megreader_tpu_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", ["data/png.py", "data/bitmap.py", "data/jpeg.py",
+                                    "data/imageio.py"])
+def test_image_reader_modules_are_checked(module):
+    """The readers of every page format (no cv2, PIL or JAX in them: the
+    checks above run on each)."""
+    assert ROOT / "megreader_tpu_torch" / module in FILES

@@ -337,3 +337,18 @@ def test_sharded_serving_equals_one_process(two_ranks, two_threads):
 
 if __name__ == "__main__":
     worker(sys.argv[1], int(sys.argv[2]), sys.argv[3])
+
+
+def test_make_mesh_defaults_to_the_card_and_never_quietly_to_the_cpu(monkeypatch):
+    """With no device named, ``make_mesh`` takes the card, as ``init_mesh``
+    does; where there is none it raises instead of falling back to the CPU,
+    which it takes only when asked."""
+    from megreader_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh("cuda")
+    mesh = make_mesh("cpu")
+    assert (mesh.rank, mesh.world_size, mesh.device.type) == (0, 1, "cpu")
