@@ -303,11 +303,13 @@ Phases (any failure exits non-zero):
     ms a page beside the PNG decode of the same page. Then every file of
     ``assets/images/`` (PNG of every bit depth, colour type and interlace,
     with ``eXIf``; RGB-coded, CMYK, YCCK and multi-scan JPEG, markers after
-    the scan, files without EOI; BMP and RLE; PNM; four 640x640 pages;
-    ``scripts/make_port_image_assets.py``) read by ``read_image`` and
-    ``decode_image``, each equal to cv2's ``imread`` and ``imdecode``
-    digests in the manifest (a file ``imdecode`` refuses refused), and ms a
-    file by format.
+    the scan, files without EOI; JPEGs cut inside their scans or headers
+    and progressive files left unrefined (libjpeg's grey rest and block
+    smoothing); BMP and RLE; PNM; GIF; TIFF of every compression the port
+    reads; eight 640x640 pages; ``scripts/make_port_image_assets.py``) read
+    by ``read_image`` and ``decode_image``, each equal to cv2's ``imread``
+    and ``imdecode`` digests in the manifest (a file cv2 refuses refused),
+    and ms a file by format.
 25. lmdb: the 256 JPEG crops in an LMDB written by the port's
     ``write_fixture_lmdb`` (overflow values, leaves under a branch), read
     back record for record and by ``LMDBRecognitionDataset`` (items equal to
@@ -347,10 +349,12 @@ Phases (any failure exits non-zero):
     events, and the ``stem_s2d`` / ``stem_s2d4`` flags' stem against it;
     ``resize_bilinear`` and ``rectify_quads`` against the CPU; a
     torchvision-layout ResNet-50 state dict loaded into a trunk, card
-    against CPU. The ``'auto'`` run also takes the four 640x640 pages of
+    against CPU. The ``'auto'`` run also takes the eight 640x640 pages of
     ``assets/images/pages/`` (a CMYK JPEG, a palette PNG, a 16-bit Adam7
-    PNG, an RLE8 BMP) and a PNG twin of each written from its decode: each
-    page's quads and texts equal its twin's. Every progressive JPEG of ``assets/jpeg/progressive/``
+    PNG, an RLE8 BMP, a baseline JPEG cut at 60% of its bytes, a progressive
+    JPEG cut inside its first AC scan, a GIF, an LZW TIFF with Predictor 2)
+    and a PNG twin of each written from its decode: each page's quads and
+    texts equal its twin's. Every progressive JPEG of ``assets/jpeg/progressive/``
     equal to its digest, and ms for the 1280x720 page beside its baseline
     twin (``launches_tools``).
 29. head: the detector head's formulations (``MapHead``'s flag
@@ -5048,8 +5052,10 @@ def phase_jpeg():
     """Every committed JPEG decoded on the host by the port (``decode_image``),
     its RGB digest equal to cv2's from the manifest; ms a page for the
     1280x720 pages beside the PNG decode of the same page (``write_png``'s
-    Sub rows). Then every file of ``assets/images/`` through ``read_image``
-    and ``decode_image`` against cv2's two routes; ms a file by format."""
+    Sub rows). Then every file of ``assets/images/`` (PNG, BMP, PNM, JPEG
+    variants, JPEGs cut short and progressive files left unrefined, GIF and
+    TIFF) through ``read_image`` and ``decode_image`` against cv2's two
+    routes, each refusing where cv2 returns None; ms a file by format."""
     from megreader_tpu_torch.data.imageio import decode_image, read_image, write_png
 
     t_phase = time.perf_counter()
@@ -5088,11 +5094,21 @@ def phase_jpeg():
     for rel, want in sorted(files.items()):
         path = os.path.join(IMAGE_ASSETS, rel)
         t0 = time.perf_counter()
-        img = read_image(path)
+        try:
+            img = read_image(path)
+        except ValueError:
+            img = None
         dt = (time.perf_counter() - t0) * 1e3
-        key = rel if rel.startswith("pages/") else rel.split("/")[1].split("_")[0]
+        name = rel.split("/")[1]
+        key = (rel if rel.startswith("pages/") else
+               "_".join(name.split("_")[:2]) if name.startswith(("jpeg_cut", "jpeg_unrefined"))
+               else name.split("_")[0])
         ms.setdefault(key, []).append(dt)
-        if list(img.shape) != want["shape"] or rgb_sha(img) != want["sha256"]:
+        if want["sha256"] is None:  # cv2.imread refuses it
+            refused += 1
+            if img is not None:
+                bad.append(f"{rel} (read_image: cv2.imread refuses it)")
+        elif img is None or list(img.shape) != want["shape"] or rgb_sha(img) != want["sha256"]:
             bad.append(f"{rel} (read_image)")
         with open(path, "rb") as f:
             data = f.read()
@@ -5101,7 +5117,7 @@ def phase_jpeg():
             img = decode_image(data, rel)
         except ValueError:
             img = None
-        if by_bytes is None:
+        if by_bytes is None or by_bytes["sha256"] is None:
             refused += 1
             if img is not None:
                 bad.append(f"{rel} (decode_image: cv2.imdecode refuses it)")
@@ -5109,7 +5125,8 @@ def phase_jpeg():
             bad.append(f"{rel} (decode_image)")
     log(f"jpeg phase: {len(files)} files of assets/images read by read_image and decode_image, "
         f"{len(files) - len(bad)} equal to cv2's imread and imdecode digests (manifest; "
-        f"{refused} refused by decode_image as cv2.imdecode refuses them); read_image ms a "
+        f"{refused} refusals by read_image or decode_image where cv2 returns None); "
+        f"read_image ms a "
         f"file on one host thread by format (mean, max, files) "
         + json.dumps({k: [statistics.mean(v), max(v), len(v)] for k, v in ms.items()})
         + f" [{CARD}]; {time.perf_counter() - t_formats:.1f} s (host clock)")
@@ -5561,9 +5578,11 @@ def tools_overlays(name, out, paths, vis_dir) -> int:
 
 def format_pages(tmp: str):
     """The 640x640 pages of ``assets/images/pages/`` (a CMYK JPEG, a palette
-    PNG, a 16-bit Adam7 PNG, an RLE8 BMP), each read by ``read_image`` with
-    cv2's digest (the manifest), and a PNG twin of each written from that
-    decode: (the pages' paths, the twins' paths)."""
+    PNG, a 16-bit Adam7 PNG, an RLE8 BMP, a baseline JPEG cut at 60% of its
+    bytes, a progressive JPEG cut inside its first AC scan, a GIF, an LZW
+    TIFF with Predictor 2), each read by ``read_image`` with cv2's digest
+    (the manifest), and a PNG twin of each written from that decode: (the
+    pages' paths, the twins' paths)."""
     from megreader_tpu_torch.data.imageio import read_image, write_png
 
     files = image_files()

@@ -10,8 +10,8 @@ in the page's own pixels, to ``<out without its extension>.png``
 (``postproc/visualizer.py``). The weights are the workspace's latest (or
 ``--step``) checkpoint, the module's weights only: a port checkpoint through
 ``CheckpointManager.restore_variables``, else a JAX package msgpack
-checkpoint through ``restore_jax_variables``. Images are PNG or JPEG
-(``read_image``).
+checkpoint through ``restore_jax_variables``. Images are any file
+``read_image`` reads (PNG, JPEG, BMP, PNM, GIF, TIFF).
 """
 
 from __future__ import annotations

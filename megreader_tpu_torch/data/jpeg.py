@@ -17,13 +17,24 @@ decompression this module reproduces step for step:
   (interleaved or not), AC first and refinement scans of one component
   over that component's own blocks (not the MCU grid), runs of empty blocks
   (EOBr), restart intervals, and tables and restart intervals redefined
-  between scans. The coefficients must end fully known: libjpeg-turbo
-  smooths the blocks of a file whose scans leave bits unrefined
-  (``decompress_smooth_data``), and such a file is refused; on a complete
-  file it smooths nothing, so its decode is the baseline twin's;
-* the integer "islow" inverse DCT of ``jidctint.c`` (``CONST_BITS`` 13,
-  ``PASS1_BITS`` 2) over all blocks at once in int64, then libjpeg's
-  post-IDCT range-limit table (the sample masked to 10 bits);
+  between scans;
+* libjpeg-turbo's block smoothing (``decompress_smooth_data``, ``_smooth``)
+  of a progressive file whose scans leave any of the first ten coefficients
+  unknown or unrefined: estimates of them, and where no AC coefficient is
+  known of the DC too, from the DC values of the 5x5 blocks around each
+  block. A complete file's scans leave nothing to smooth;
+* a file cut short, as ``cv2.imread`` reads it: libjpeg's stdio source
+  hands over an EOI marker wherever the file has no more bytes (the file is
+  read as if followed by endless EOI markers, so a segment cut short reads
+  them as its fields), and the Huffman decoder, once it meets that marker,
+  decodes the MCU in which the data ran out from zero bits and leaves the
+  rest of the scan undecoded: zero coefficients, libjpeg's grey rest, or
+  what earlier scans gave (``_run_out``);
+* the integer "islow" inverse DCT as libjpeg-turbo's AVX2 code computes it
+  (``jidctint-avx2.asm``, ``CONST_BITS`` 13, ``PASS1_BITS`` 2) over all
+  blocks at once in int64: ``jpeg_idct_islow``'s products, 16-bit sums and
+  dequantization, its passes saturated to int16 and to the sample range
+  (where corrupt or zero-padded data makes coefficients extreme);
 * the upsampling ``jdsample.c`` picks under ``do_fancy_upsampling``:
   the triangle filters h2v1 and h2v2 (box replication when the component is
   at most 2 samples wide), h1v2, and box replication for any other integral
@@ -38,16 +49,18 @@ decompression this module reproduces step for step:
 * the EXIF ``Orientation`` tag of an APP1 segment, applied as cv2 applies
   it (all eight values);
 * what follows the scans as cv2 reads it: after one scan of every component
-  nothing more is read; a file whose last scan runs to its end without EOI
-  is decoded through ``cv2.imread``'s route and, through ``cv2.imdecode``'s,
-  only where libjpeg-turbo reaches its last MCU (``decode_jpeg``).
+  nothing more is read; a file whose data runs to its end without EOI is
+  decoded through ``cv2.imread``'s route (above) and, through
+  ``cv2.imdecode``'s, only where libjpeg-turbo reaches its last MCU
+  (``decode_jpeg``): cv2's memory source has no EOI to hand over, so
+  libjpeg suspends and cv2 returns None.
 
 Anything else raises ``NotImplementedError`` naming what it met: lossless,
-arithmetic-coded, hierarchical, 12-bit, 2- or 5-component files, a
-component coded in two sequential scans, and progressive files with
-unrefined bits. A damaged file (truncated data, a bad Huffman code, a
-missing table or marker, progressive scans out of order) raises
-``ValueError``.
+arithmetic-coded, hierarchical, 12-bit, 2- or 5-component files, and a
+component coded in two sequential scans. A damaged file that cv2 refuses
+(a bad Huffman code, a missing table or marker, progressive scans out of
+order, a file cut inside its headers or, through ``decode_image``, inside
+its data) raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -127,18 +140,19 @@ def _extend(bits: int, size: int) -> int:
     return bits - (1 << size) + 1 if bits < 1 << (size - 1) else bits
 
 
-def _segments(data: bytes, name: str, pos: int = 2, to_end: bool = False):
+def _segments(data: bytes, name: str, pos: int = 2, stop: Optional[int] = None):
     """(marker, payload) for each marker segment from ``pos`` (after SOI) up
     to the next SOS included, then ("data", offset of its entropy-coded
-    data); or ("eoi", offset) where EOI comes first (``to_end``: or the end
-    of the file)."""
+    data); or ("eoi", offset) where EOI comes first (``stop``: or a segment
+    would start at or past that offset, where ``data`` goes on with the
+    EOI markers of libjpeg's stdio source)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG (no SOI)")
     while True:
         while pos < len(data) and data[pos] == 0xFF and pos + 1 < len(data) \
                 and data[pos + 1] == 0xFF:
             pos += 1  # fill bytes
-        if data[pos:pos + 2] == b"\xff\xd9" or (to_end and pos == len(data)):
+        if data[pos:pos + 2] == b"\xff\xd9" or (stop is not None and pos >= stop):
             yield "eoi", pos
             return
         if pos + 4 > len(data) or data[pos] != 0xFF:
@@ -171,10 +185,11 @@ def _scan_chunks(data: bytes, start: int) -> Tuple[List[bytes], Optional[int]]:
     return chunks + [data[start:].rstrip(b"\xff")], None
 
 
-def _windows(chunk: bytes) -> Tuple[list, int]:
-    """An unstuffed chunk as its 32-bit windows at each byte, and its bits."""
+def _windows(chunk: bytes, pad: int = 8) -> Tuple[list, int]:
+    """An unstuffed chunk as its 32-bit windows at each byte, and its bits
+    (``pad`` zero bytes follow them)."""
     raw = chunk.replace(b"\xff\x00", b"\xff")
-    b = np.frombuffer(raw + b"\0" * 8, np.uint8).astype(np.int64)
+    b = np.frombuffer(raw + b"\0" * pad, np.uint8).astype(np.int64)
     return ((b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]).tolist(), 8 * len(raw)
 
 
@@ -222,52 +237,53 @@ _F = dict(f0_298=2446, f0_390=3196, f0_541=4433, f0_765=6270, f0_899=7373, f1_17
           f1_501=12299, f1_847=15137, f1_961=16069, f2_053=16819, f2_562=20995, f3_072=25172)
 
 
+def _wrap16(x: np.ndarray) -> np.ndarray:
+    """int16 arithmetic's wrap-around of int64 values."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
 def _idct_1d(x: List[np.ndarray]) -> List[np.ndarray]:
-    """``jpeg_idct_islow``'s butterfly on 8 int64 arrays: the 8 outputs
-    before their descale (scaled by 2^13)."""
+    """libjpeg-turbo's AVX2 islow butterfly (``jidctint-avx2.asm``) on 8
+    int64 arrays of int16 values: the 8 outputs before their descale
+    (scaled by 2^13). The products are ``jpeg_idct_islow``'s, merged into
+    one constant a pair of inputs; the sums in0 +- in4, in7 + in3 and
+    in5 + in1 wrap at 16 bits."""
     f = _F
-    z1 = (x[2] + x[6]) * f["f0_541"]
-    tmp2 = z1 - x[6] * f["f1_847"]
-    tmp3 = z1 + x[2] * f["f0_765"]
-    tmp0 = (x[0] + x[4]) << 13
-    tmp1 = (x[0] - x[4]) << 13
+    in0, in1, in2, in3, in4, in5, in6, in7 = x
+    tmp3 = in2 * (f["f0_541"] + f["f0_765"]) + in6 * f["f0_541"]
+    tmp2 = in2 * f["f0_541"] + in6 * (f["f0_541"] - f["f1_847"])
+    tmp0 = _wrap16(in0 + in4) << 13
+    tmp1 = _wrap16(in0 - in4) << 13
     t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
-    o0, o1, o2, o3 = x[7], x[5], x[3], x[1]
-    z1, z2, z3, z4 = o0 + o3, o1 + o2, o0 + o2, o1 + o3
-    z5 = (z3 + z4) * f["f1_175"]
-    o0 = o0 * f["f0_298"]
-    o1 = o1 * f["f2_053"]
-    o2 = o2 * f["f3_072"]
-    o3 = o3 * f["f1_501"]
-    z1 = z1 * -f["f0_899"]
-    z2 = z2 * -f["f2_562"]
-    z3 = z3 * -f["f1_961"] + z5
-    z4 = z4 * -f["f0_390"] + z5
-    o0 = o0 + z1 + z3
-    o1 = o1 + z2 + z4
-    o2 = o2 + z2 + z3
-    o3 = o3 + z1 + z4
+    z3, z4 = _wrap16(in7 + in3), _wrap16(in5 + in1)
+    z3, z4 = (z3 * (f["f1_175"] - f["f1_961"]) + z4 * f["f1_175"],
+              z3 * f["f1_175"] + z4 * (f["f1_175"] - f["f0_390"]))
+    o0 = in7 * (f["f0_298"] - f["f0_899"]) - in1 * f["f0_899"] + z3
+    o1 = in5 * (f["f2_053"] - f["f2_562"]) - in3 * f["f2_562"] + z4
+    o2 = in3 * (f["f3_072"] - f["f2_562"]) - in5 * f["f2_562"] + z3
+    o3 = in1 * (f["f1_501"] - f["f0_899"]) - in7 * f["f0_899"] + z4
     return [t10 + o3, t11 + o2, t12 + o1, t13 + o0, t13 - o0, t12 - o1, t11 - o2, t10 - o3]
-
-
-def _range_limit() -> np.ndarray:
-    """libjpeg's post-IDCT table, indexed by the sample & 1023."""
-    i = np.arange(1024)
-    return np.select([i < 128, i < 512, i < 896], [i + 128, 255, 0], i - 896).astype(np.uint8)
-
-
-_LIMIT = _range_limit()
 
 
 def idct_islow(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
     """(N, 8, 8) quantized coefficients in natural order and an (8, 8)
-    table -> (N, 8, 8) uint8 samples, as ``jpeg_idct_islow`` computes them."""
-    x = coef.astype(np.int64) * quant.astype(np.int64)
+    table -> (N, 8, 8) uint8 samples, as cv2's libjpeg-turbo computes them
+    with ``jsimd_idct_islow_avx2``: the product of coefficient and quantizer
+    in 16 bits, pass 1 down each column (a block whose rows 1-7 are all zero
+    takes each column's DC x 4 in 16 bits instead), its outputs saturated
+    to int16, pass 2 along each row, saturated to int8 and offset by 128.
+    On coefficients of real images this is ``jpeg_idct_islow`` exactly; it
+    differs where corrupt or zero-padded data makes them extreme."""
+    x = _wrap16(coef.astype(np.int64) * quant.astype(np.int64))
     cols = _idct_1d([x[:, k, :] for k in range(8)])  # pass 1: down each column
-    ws = [(c + (1 << 10)) >> 11 for c in cols]  # DESCALE(CONST_BITS - PASS1_BITS)
+    ws = [np.clip((c + (1 << 10)) >> 11, -32768, 32767) for c in cols]  # DESCALE_P1, packssdw
+    flat = ~x[:, 1:, :].any((1, 2))  # the AC-terms-all-zero route
+    if flat.any():
+        dc = _wrap16(x[:, 0, :] << 2)
+        ws = [np.where(flat[:, None], dc, w) for w in ws]
     rows = _idct_1d([np.stack([ws[r][:, k] for r in range(8)], 1) for k in range(8)])
-    out = np.stack([(r + (1 << 17)) >> 18 for r in rows], 2)  # (N, row, col)
-    return _LIMIT[out & 1023]
+    out = np.stack([np.clip((r + (1 << 17)) >> 18, -128, 127) for r in rows], 2)  # (N, row, col)
+    return (out + 128).astype(np.uint8)
 
 
 # ---------------------------------------------------------- the upsampling
@@ -333,13 +349,19 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 
 # ----------------------------------------------------------- the decoder
-def _decode_interval(win: list, n_bits: int, blocks: list, coef, name: str) -> None:
+def _decode_interval(win: list, n_bits: int, blocks: list, coef, name: str, per: int = 1,
+                     cut: bool = False) -> bool:
     """Decode one restart interval: ``blocks`` lists (coefficient offset,
-    DC table, AC table, component) in scan order; writes zigzag-ordered
-    coefficients into ``coef`` (an ``array('h')``), DC already summed."""
+    DC table, AC table, component) in scan order, ``per`` blocks an MCU;
+    writes zigzag-ordered coefficients into ``coef`` (an ``array('h')``), DC
+    already summed. ``cut``: the data may end early (see ``_run_out``): the
+    MCU that reads past the last bit is decoded from zero bits and the
+    interval stops after it. Returns whether the data ran out."""
     pred: Dict[int, int] = {}
     pos = 0
-    for base, dct, act, c in blocks:
+    for j, (base, dct, act, c) in enumerate(blocks):
+        if pos > n_bits and j % per == 0:
+            break
         n, size, diff = dct[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
         if n <= 0:  # the code's extra bits lie past the 16-bit window
             if n == 0:
@@ -350,7 +372,7 @@ def _decode_interval(win: list, n_bits: int, blocks: list, coef, name: str) -> N
         pos += n
         v = pred.get(c, 0) + diff
         pred[c] = v
-        coef[base] = v
+        coef[base] = ((v + 32768) & 0xFFFF) - 32768  # JCOEF
         k = 1
         while k < 64:
             n, r, v = act[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
@@ -363,14 +385,15 @@ def _decode_interval(win: list, n_bits: int, blocks: list, coef, name: str) -> N
                 n, r, v = size, r >> 4, _extend(bits, size)
             pos += n
             k += r
-            if k >= 64:
-                if k < _EOB:
-                    raise ValueError(f"{name}: a coefficient run past the end of its block")
+            if k >= 64:  # libjpeg writes a run past the block's end at 63
+                if v and k < _EOB:
+                    coef[base + 63] = v
                 break
             coef[base + k] = v
             k += 1
-    if pos > n_bits:
+    if pos > n_bits and not cut:
         raise ValueError(f"{name}: truncated JPEG (the scan ends inside its data)")
+    return pos > n_bits
 
 
 def _symbol_trace(win: list, blocks: list) -> list:
@@ -569,17 +592,47 @@ def _grids(comps, h: int, w: int, hmax: int, vmax: int):
     return grids, total
 
 
-def _intervals(order: np.ndarray, kinds: list, restart: int, chunks: list, name: str):
+def _intervals(order: np.ndarray, kinds: list, restart: int, chunks: list, name: str,
+               cut: bool = False):
     """Split a scan's blocks into restart intervals of (offset, component)
-    lists, one per chunk of data."""
+    lists: (blocks, chunk of data) for each interval. ``cut``: the data ends
+    early, and the interval after its last chunk reads no data at all (its
+    first MCU is decoded from zero bits: ``_run_out``); the intervals after
+    that one are not decoded."""
     n_mcu = order.shape[0]
     per = restart if restart else n_mcu
     n_intervals = -(-n_mcu // per)
-    if len(chunks) != n_intervals:
+    if cut and len(chunks) < n_intervals:
+        chunks = chunks + [b""]
+    elif len(chunks) != n_intervals:
         raise ValueError(f"{name}: {len(chunks)} restart intervals, expected {n_intervals}")
     rows = order.tolist()
-    return [[(b, k) for row in rows[i * per:(i + 1) * per] for b, k in zip(row, kinds)]
-            for i in range(n_intervals)]
+    return [([(b, k) for row in rows[i * per:(i + 1) * per] for b, k in zip(row, kinds)], chunk)
+            for i, chunk in enumerate(chunks)]
+
+
+#: zero bytes after the data of an interval that runs out: more than the
+#: zero bits any MCU (at most 10 blocks of 64 codes) can read
+_ZERO_PAD = 4096
+
+
+def _run_out(chunk: bytes, decode, last: bool, name: str):
+    """``decode(win, n_bits)`` of one interval's data -> (its result, the
+    windows); ``last``: the interval may run out of data (one of the last
+    two of a scan cut short), so zero bytes follow it.
+
+    That is how libjpeg-turbo reads past the end of a file under
+    ``cv2.imread``, whose stdio source hands over an EOI marker there: once
+    the Huffman decoder meets it, it reads zero bits, so the MCU in which
+    the data runs out is decoded from them; it then sets
+    ``insufficient_data`` and leaves every later MCU of the scan undecoded
+    (zero coefficients, or what earlier scans gave), restart markers or not
+    (the EOI is not the restart marker it expects)."""
+    win, n_bits = _windows(chunk, _ZERO_PAD if last else 8)
+    try:
+        return decode(win, n_bits), win
+    except IndexError:
+        raise ValueError(f"{name}: truncated or damaged JPEG scan") from None
 
 
 def _dc_symbol(win: list, pos: int, dct: list, name: str) -> Tuple[int, int]:
@@ -610,33 +663,45 @@ def _bits(win: list, pos: int, n: int) -> int:
 
 
 def _progressive_scan(coef, blocks, win: list, n_bits: int, ss: int, se: int, ah: int,
-                      al: int, tabs: Dict, name: str) -> None:
+                      al: int, tabs: Dict, name: str, per: int = 1, cut: bool = False) -> int:
     """Decode one restart interval of a progressive scan (ITU T.81 G.1.2)
     into ``coef`` (zigzag order): DC first (``coef = (sum of differences) <<
     al``), DC refinement (one bit each), AC first (band ss..se, runs of
     empty blocks by EOBr) and AC refinement (a correction bit for each
     coefficient already nonzero, new coefficients of +-1 << al). ``tabs``:
-    each component's Huffman table (none for a DC refinement)."""
-    pos = 0
+    each component's Huffman table (none for a DC refinement); ``per``
+    blocks an MCU. ``cut``: see ``_decode_interval``. Returns the number of
+    MCUs decoded where the data ran out, else -1."""
+    pos, j = 0, 0
     if ss == 0:
         if ah == 0:
             pred: Dict[int, int] = {}
-            for base, c in blocks:
+            for j, (base, c) in enumerate(blocks):
+                if pos > n_bits and j % per == 0:
+                    break
                 n, diff = _dc_symbol(win, pos, tabs[c], name)
                 pos += n
                 v = pred.get(c, 0) + diff
                 pred[c] = v
-                coef[base] = v << al
+                coef[base] = (((v << al) + 32768) & 0xFFFF) - 32768  # JCOEF
+            else:
+                j = len(blocks)
         else:
             bit = 1 << al
-            for base, _ in blocks:
+            for j, (base, _) in enumerate(blocks):
+                if pos > n_bits and j % per == 0:
+                    break
                 if (win[pos >> 3] >> (31 - (pos & 7))) & 1:
                     coef[base] |= bit
                 pos += 1
+            else:
+                j = len(blocks)
     elif ah == 0:
         (act,) = tabs.values()
         eobrun = 0
-        for base, _ in blocks:
+        for j, (base, _) in enumerate(blocks):
+            if pos > n_bits:
+                break
             if eobrun:
                 eobrun -= 1
                 continue
@@ -650,15 +715,18 @@ def _progressive_scan(coef, blocks, win: list, n_bits: int, ss: int, se: int, ah
                     pos += r
                     break
                 k += r
-                if k > se:
-                    raise ValueError(f"{name}: a coefficient run past the end of its band")
-                coef[base + k] = v << al  # a ZRL writes its sixteenth zero
+                if v:  # past the band libjpeg writes on (jpeg_natural_order[k], 63 past 63)
+                    coef[base + min(k, 63)] = (((v << al) + 32768) & 0xFFFF) - 32768
                 k += 1
+        else:
+            j = len(blocks)
     else:
         (act,) = tabs.values()
         p1, m1 = 1 << al, -1 << al
         eobrun = 0
-        for base, _ in blocks:
+        for j, (base, _) in enumerate(blocks):
+            if pos > n_bits:
+                break
             k = ss
             if not eobrun:
                 while k <= se:
@@ -669,8 +737,8 @@ def _progressive_scan(coef, blocks, win: list, n_bits: int, ss: int, se: int, ah
                         eobrun = (1 << r) + (_bits(win, pos, r) if r else 0)
                         pos += r
                         break
-                    if v not in (-1, 0, 1):
-                        raise ValueError(f"{name}: a refinement coefficient beyond +-1")
+                    if v:  # libjpeg reads one sign bit, whatever size the symbol gives
+                        pos += 1 - abs(v).bit_length()
                     new = p1 if v > 0 else (m1 if v < 0 else 0)
                     # correct the nonzero coefficients up to the r+1-th zero one
                     while k <= se:
@@ -685,9 +753,7 @@ def _progressive_scan(coef, blocks, win: list, n_bits: int, ss: int, se: int, ah
                             break
                         k += 1
                     if new:
-                        if k > se:
-                            raise ValueError(f"{name}: a coefficient run past the end of its band")
-                        coef[base + k] = new
+                        coef[base + min(k, 63)] = new
                     k += 1
             if eobrun:
                 while k <= se:
@@ -698,27 +764,37 @@ def _progressive_scan(coef, blocks, win: list, n_bits: int, ss: int, se: int, ah
                         pos += 1
                     k += 1
                 eobrun -= 1
-    if pos > n_bits:
+        else:
+            j = len(blocks)
+    if pos <= n_bits:
+        return -1
+    if not cut:
         raise ValueError(f"{name}: truncated JPEG (the scan ends inside its data)")
+    return -(-j // per)
 
 
-def _next_scan(data: bytes, name: str, end: int, to_end: bool, quant: Dict, tables: Dict,
+def _restart_interval(body: bytes, name: str) -> int:
+    """A DRI segment's interval (libjpeg takes a length of 4 only)."""
+    if len(body) != 2:
+        raise ValueError(f"{name}: bad restart interval segment")
+    return struct.unpack(">H", body)[0]
+
+
+def _next_scan(data: bytes, name: str, end: int, stop: Optional[int], quant: Dict, tables: Dict,
                restart: int):
     """The segments after a scan of a multi-scan file, up to the next scan
-    or EOI (``to_end``: or the end of the file): tables and restart
+    or EOI (``stop``: see ``_segments``): tables and restart
     intervals redefined, others skipped. Returns (the next scan header or
     None, the offset of its data, the restart interval)."""
     scan, data_start = None, end
-    for marker, body in _segments(data, name, end, to_end):
+    for marker, body in _segments(data, name, end, stop):
         if marker in ("eoi", "data"):
             data_start = body
             break
         if marker in (0xDB, 0xC4):
             _table_segment(marker, body, quant, tables, name)
         elif marker == 0xDD:
-            if len(body) < 2:
-                raise ValueError(f"{name}: bad restart interval segment")
-            (restart,) = struct.unpack(">H", body[:2])
+            restart = _restart_interval(body, name)
         elif marker == 0xDA:
             scan = body
         elif 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
@@ -727,17 +803,27 @@ def _next_scan(data: bytes, name: str, end: int, to_end: bool, quant: Dict, tabl
 
 
 def _progressive(data: bytes, scan: bytes, data_start: int, frame, quant: Dict, tables: Dict,
-                 restart: int, name: str, from_file: bool = False):
-    """Every scan of a progressive JPEG -> (zigzag coefficients, grids). The
-    coefficients must end fully known (each coefficient's last scan at
-    successive-approximation bit 0): libjpeg smooths the blocks of a file
-    that leaves bits unrefined, and such a file is refused."""
+                 restart: int, name: str, from_file: bool = False, real_end: int = None):
+    """Every scan of a progressive JPEG -> (zigzag coefficients, grids, the
+    block smoothing's state or None). The scans run up to EOI, or (from a
+    file) up to where the file ends: a scan cut short keeps what it decoded
+    up to the MCU in which its data ran out (``_run_out``), and later scans
+    are absent. ``smoothing`` holds what libjpeg-turbo's
+    ``decompress_smooth_data`` reads (``_smooth``), where a coefficient of
+    the first ten is left unknown or unrefined."""
     h, w, comps = frame
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
     grids, total = _grids(comps, h, w, hmax, vmax)
     coef = array("h", bytes(2 * total))
-    coef_bits = np.full((len(comps), 64), -1, np.int64)
+    nc = len(comps)
+    # libjpeg's coef_bits: each coefficient's successive-approximation bit
+    # (-1: not yet sent), then the same as it stood before each component's
+    # last scan
+    coef_bits = np.full((2 * nc, 64), -1, np.int64)
+    real_end = len(data) if real_end is None else real_end
+    mcux, n_rows = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    n_scans, last_good = 0, n_rows - 1
     while True:
         members = _scan_components(scan, comps, name)
         ns = len(members)
@@ -745,11 +831,14 @@ def _progressive(data: bytes, scan: bytes, data_start: int, frame, quant: Dict, 
         ah, al = ahal >> 4, ahal & 15
         if ss > se or se > 63 or (ss == 0 and se != 0) or (ss > 0 and ns != 1) or al > 13:
             raise ValueError(f"{name}: bad progressive scan ({ss}-{se}, {ah}/{al})")
+        n_scans += 1
         for ci, _ in members:
             band = coef_bits[ci, ss:se + 1]
             if (band != (-1 if ah == 0 else ah)).any():
                 raise ValueError(f"{name}: a progressive scan out of order (component {ci}, "
                                  f"coefficients {ss}-{se}, bits {ah}/{al})")
+            saved = slice(min(ss, 1), max(se, 9) + 1)
+            coef_bits[nc + ci, saved] = coef_bits[ci, saved] if n_scans > 1 else 0
             band[:] = al
         tabs = {}
         if not (ss == 0 and ah):  # a DC refinement reads raw bits
@@ -763,22 +852,153 @@ def _progressive(data: bytes, scan: bytes, data_start: int, frame, quant: Dict, 
         if end is None and not from_file:  # libjpeg reads all scans before any row
             raise ValueError(f"{name}: truncated JPEG: a progressive scan runs to the end of "
                              "the data without EOI (cv2.imdecode refuses it)")
-        try:
-            for blocks, chunk in zip(_intervals(order, kinds, restart, chunks, name), chunks):
-                win, n_bits = _windows(chunk)
-                _progressive_scan(coef, blocks, win, n_bits, ss, se, ah, al, tabs, name)
-        except IndexError:
-            raise ValueError(f"{name}: truncated or damaged JPEG scan") from None
-        if end is None:
+        cut = end is not None and end >= real_end
+        per = len(kinds)
+        # the MCUs of an iMCU row: an MCU row of an interleaved scan, v block
+        # rows of a one-component scan
+        row_mcus = mcux
+        if ns == 1:
+            ci = members[0][0]
+            bw = -(-(-(-w * comps[ci][1] // hmax)) // 8) if nc > 1 else -(-w // 8)
+            row_mcus = bw * comps[ci][2]
+        last_good = n_rows - 1
+        per_interval = restart if restart else order.shape[0]
+        intervals = _intervals(order, kinds, restart, chunks, name, cut)
+        for i, (blocks, chunk) in enumerate(intervals):
+            done, _ = _run_out(chunk, lambda win, n_bits: _progressive_scan(
+                coef, blocks, win, n_bits, ss, se, ah, al, tabs, name, per, cut),
+                cut and i >= len(intervals) - 2, name)
+            if done >= 0:  # the data ran out in this interval's MCU done - 1
+                last_good = (i * per_interval + done - 1) // row_mcus
+                break
+        if end is None or cut:
             break
-        scan, data_start, restart = _next_scan(data, name, end, from_file, quant, tables,
-                                               restart)
+        scan, data_start, restart = _next_scan(data, name, end, real_end if from_file else None,
+                                               quant, tables, restart)
         if scan is None:
             break
-    if (coef_bits != 0).any():
-        raise NotImplementedError(f"{name}: a progressive JPEG whose scans leave coefficient "
-                                  "bits unrefined (libjpeg would smooth its blocks)")
-    return coef, grids
+    smoothing = None
+    if all(coef_bits[ci, 0] >= 0 for ci in range(nc)) and (coef_bits[:nc, 1:10] != 0).any():
+        smoothing = {"bits": coef_bits[:nc, :10].copy(),
+                     "prev": coef_bits[nc:, :10] if n_scans > 1 else np.full((nc, 10), -1),
+                     "last_good": last_good}
+    return coef, grids, smoothing
+
+
+# ------------------------------------------------------ block smoothing
+def _dc_weights(*terms) -> np.ndarray:
+    """A 5x5 table of DC weights from (weight, n) pairs, where n numbers the
+    window's DC values as ``jdcoefct.c`` does: DC01-DC05 the block row two
+    above, from two blocks left to two right, down to DC21-DC25 the row two
+    below."""
+    out = np.zeros(25, np.int64)
+    for weight, n in zip(terms[0::2], terms[1::2]):
+        out[n - 1] += weight
+    return out.reshape(5, 5)
+
+
+#: ``decompress_smooth_data``'s estimates, in its order: (zigzag index,
+#: weights when only DC is known (``change_dc``), weights otherwise, or
+#: None where only the first estimates)
+_SMOOTHING = (
+    (1, _dc_weights(-1, 1, -1, 2, 1, 4, 1, 5, -3, 6, 13, 7, -13, 9, 3, 10, -3, 11, 38, 12,
+                    -38, 14, 3, 15, -3, 16, 13, 17, -13, 19, 3, 20, -1, 21, -1, 22, 1, 24,
+                    1, 25),
+     _dc_weights(-7, 11, 50, 12, -50, 14, 7, 15)),
+    (2, _dc_weights(-1, 1, -3, 2, -3, 3, -3, 4, -1, 5, -1, 6, 13, 7, 38, 8, 13, 9, -1, 10,
+                    1, 16, -13, 17, -38, 18, -13, 19, 1, 20, 1, 21, 3, 22, 3, 23, 3, 24,
+                    1, 25),
+     _dc_weights(-7, 3, 50, 8, -50, 18, 7, 23)),
+    (3, _dc_weights(1, 3, 2, 7, 7, 8, 2, 9, -5, 12, -14, 13, -5, 14, 2, 17, 7, 18, 2, 19,
+                    1, 23),
+     _dc_weights(-1, 3, 13, 8, -24, 13, 13, 18, -1, 23)),
+    (4, _dc_weights(-1, 1, 1, 5, 9, 7, -9, 9, -9, 17, 9, 19, 1, 21, -1, 25),
+     _dc_weights(1, 10, 1, 16, -10, 17, 10, 19, -1, 2, -1, 20, 1, 22, -1, 24, 1, 4, -1, 6,
+                 10, 7, -10, 9)),
+    (5, _dc_weights(2, 7, -5, 8, 2, 9, 1, 11, 7, 12, -14, 13, 7, 14, 1, 15, 2, 17, -5, 18,
+                    2, 19),
+     _dc_weights(-1, 11, 13, 12, -24, 13, 13, 14, -1, 15)),
+    (6, _dc_weights(1, 7, -1, 9, 2, 12, -2, 14, 1, 17, -1, 19), None),
+    (7, _dc_weights(1, 7, -3, 8, 1, 9, -1, 17, 3, 18, -1, 19), None),
+    (8, _dc_weights(1, 7, -1, 9, -3, 12, 3, 14, 1, 17, -1, 19), None),
+    (9, _dc_weights(1, 7, 2, 8, 1, 9, -1, 17, -2, 18, -1, 19), None),
+    (0, _dc_weights(-2, 1, -6, 2, -8, 3, -6, 4, -2, 5, -6, 6, 6, 7, 42, 8, 6, 9, -6, 10,
+                    -8, 11, 42, 12, 152, 13, 42, 14, -8, 15, -6, 16, 6, 17, 42, 18, 6, 19,
+                    -6, 20, -2, 21, -6, 22, -8, 23, -6, 24, -2, 25), None),
+)
+
+
+def _window_rows(rows: int, v: int, n_imcu: int) -> np.ndarray:
+    """(rows, 5) block rows of each block row's DC window (two above to two
+    below), as ``decompress_smooth_data`` picks them: it counts block rows
+    as (iMCU row) x (block rows of this iMCU row) + (row in it), so in the
+    last iMCU row of a component with v > 1 the count can differ from the
+    row's index, and the edge tests follow the count."""
+    out = []
+    for r in range(rows):
+        imcu, b = divmod(r, v)
+        block_rows = v if imcu < n_imcu - 1 else (rows % v or v)
+        counted, counted_rows = imcu * block_rows + b, block_rows * n_imcu
+        p = r - 1 if counted > 0 else r
+        pp = r - 2 if counted > 1 else p
+        n = r + 1 if counted < counted_rows - 1 else r
+        nn = r + 2 if counted < counted_rows - 2 else n
+        out.append([pp, p, r, n, nn])
+    return np.array(out, np.int64)
+
+
+def _smooth(blocks: List[np.ndarray], tables: List[np.ndarray], comps, h: int, w: int,
+            state: dict) -> List[np.ndarray]:
+    """libjpeg-turbo's block smoothing (``decompress_smooth_data``) of a
+    progressive file's natural-order blocks: in each block, each of the
+    coefficients 1-9 (zigzag) that is still zero and not known exactly
+    (``coef_bits`` not 0) takes an estimate from the DC values of the 5x5
+    blocks around it; where none of them is known yet (``change_dc``) the
+    DC is replaced by a weighted mean of those DC values too. An estimate is
+    ``(128 q + |num|) // (256 q)`` of ``num = Q00 x (weights . DC)`` with the
+    sign of num, limited below ``2^Al`` for an unrefined one. The rows past
+    the last iMCU row whose data the last scan read
+    (``state['last_good']``) use each component's bits as they stood
+    before its last scan."""
+    hmax = max(c[1] for c in comps)
+    vmax = max(c[2] for c in comps)
+    n_imcu = -(-h // (8 * vmax))
+    out = []
+    for ci, (b, q, c) in enumerate(zip(blocks, tables, comps)):
+        v = c[2]
+        rows = -(-(-(-h * v // vmax)) // 8)
+        cols = -(-(-(-w * c[1] // hmax)) // 8)
+        nat = b.reshape(b.shape[0], b.shape[1], 64).astype(np.int64)
+        pad = n_imcu * v - nat.shape[0]
+        dc = np.pad(nat[..., 0], ((0, max(pad, 0)), (0, 0)))
+        window_cols = np.clip(np.arange(cols)[:, None] + np.arange(-2, 3), 0, cols - 1)
+        win = dc[_window_rows(rows, v, n_imcu)[:, None, :, None],
+                 window_cols[None, :, None, :]]  # (rows, cols, 5, 5); columns replicate
+        late = (np.arange(rows) // v > state["last_good"])[:, None]
+        bits = np.where(late, state["prev"][ci][None], state["bits"][ci][None])  # (rows, 10)
+        change_dc = (bits[:, 1:] == -1).all(1)[:, None]
+        ws = nat[:rows, :cols].copy()
+        qz = q.reshape(-1)[ZIGZAG[:10]]
+        for k, dc_only, with_ac in _SMOOTHING:
+            weights = dc_only if with_ac is None else np.where(change_dc[..., None, None],
+                                                               dc_only, with_ac)
+            num = qz[0] * (win * weights).sum((2, 3))
+            qk = qz[k]
+            pred = ((qk << 7) + np.abs(num)) // (qk << 8)
+            al = bits[:, k][:, None]
+            if k:
+                pred = np.where((al > 0) & (pred >= (1 << np.maximum(al, 0))),
+                                (1 << np.maximum(al, 0)) - 1, pred)
+            pred = np.where(num >= 0, pred, -pred)
+            pos = ZIGZAG[k]
+            use = (al != 0) & (ws[..., pos] == 0) if k else np.ones_like(late)
+            if with_ac is None:
+                use = use & change_dc
+            ws[..., pos] = np.where(use, pred.astype(np.int16), ws[..., pos])
+        smoothed = nat.copy()
+        smoothed[:rows, :cols] = ws
+        out.append(smoothed.astype(np.int16).reshape(b.shape))
+    return out
 
 
 def _colour_space(comps, jfif: bool, adobe: Optional[int]) -> str:
@@ -795,10 +1015,38 @@ def _colour_space(comps, jfif: bool, adobe: Optional[int]) -> str:
     return "rgb" if [c[0] for c in comps] == [82, 71, 66] else "ycc"
 
 
+#: what libjpeg's stdio source reads past the end of a file: each time it
+#: finds no more bytes it warns and hands over an EOI marker (enough of them
+#: for the longest segment)
+_STDIO_END = b"\xff\xd9" * 32768
+
+
+def _headers_whole(data: bytes, name: str) -> bool:
+    """Whether ``data`` holds its headers up to the end of its first SOS."""
+    try:
+        return any(marker == "data" for marker, _ in _segments(data, name))
+    except ValueError:
+        return False
+
+
 def _parse(data: bytes, name: str, from_file: bool = False):
     """A baseline or progressive JPEG -> (zigzag coefficients, grids, frame,
-    quantization tables, EXIF orientation, colour space). ``from_file``:
-    see ``decode_jpeg``."""
+    quantization tables, EXIF orientation, colour space, block smoothing
+    state or None). ``from_file``: see ``decode_jpeg``."""
+    real_end = len(data)
+    headers_cut = from_file and not _headers_whole(data, name)
+    if from_file:  # cv2.imread's stdio source
+        data += _STDIO_END
+    try:
+        return _parse_from(data, name, from_file, real_end)
+    except NotImplementedError:
+        if headers_cut:  # the stdio source's EOI read as header fields
+            raise ValueError(f"{name}: truncated JPEG: the file ends inside its "
+                             "headers") from None
+        raise
+
+
+def _parse_from(data: bytes, name: str, from_file: bool, real_end: int):
     quant: Dict[int, np.ndarray] = {}
     tables: Dict[Tuple[int, int], list] = {}
     frame = None
@@ -809,7 +1057,7 @@ def _parse(data: bytes, name: str, from_file: bool = False):
     jfif = False
     scan = None
     data_start = 0
-    for marker, body in _segments(data, name):
+    for marker, body in _segments(data, name, 2, real_end if from_file else None):
         if marker == "eoi":
             raise ValueError(f"{name}: JPEG ends before its scan")
         if marker == "data":
@@ -827,9 +1075,7 @@ def _parse(data: bytes, name: str, from_file: bool = False):
         elif marker == 0xCC:
             raise NotImplementedError(f"{name}: arithmetic coding (DAC) is not read")
         elif marker == 0xDD:
-            if len(body) < 2:
-                raise ValueError(f"{name}: bad restart interval segment")
-            (restart,) = struct.unpack(">H", body[:2])
+            restart = _restart_interval(body, name)
         elif marker == 0xE0 and body.startswith(b"JFIF\0") and len(body) >= 14:
             jfif = True
         elif marker == 0xE1 and orientation is None:
@@ -848,13 +1094,10 @@ def _parse(data: bytes, name: str, from_file: bool = False):
                                   f"{[(c[1], c[2]) for c in comps]}")
     if any(c[3] not in quant for c in comps):
         raise ValueError(f"{name}: missing quantization table")
-    if progressive:
-        coef, grids = _progressive(data, scan, data_start, frame, quant, tables, restart, name,
-                                   from_file)
-    else:
-        coef, grids = _sequential(data, scan, data_start, frame, quant, tables, restart, name,
-                                  from_file)
-    return coef, grids, frame, quant, orientation, _colour_space(comps, jfif, adobe)
+    decode = _progressive if progressive else _sequential
+    coef, grids, smoothing = decode(data, scan, data_start, frame, quant, tables, restart, name,
+                                    from_file, real_end)
+    return coef, grids, frame, quant, orientation, _colour_space(comps, jfif, adobe), smoothing
 
 
 def _natural_blocks(coef, grids) -> List[np.ndarray]:
@@ -908,13 +1151,18 @@ def decode_jpeg(data: bytes, name: str = "<bytes>", from_file: bool = False) -> 
     """A JPEG -> (H, W, 3) uint8 RGB, equal to cv2's decode (see the
     module's docstring): of a file as ``cv2.imread`` reads it
     (``from_file``), else of bytes as ``cv2.imdecode`` reads them. The two
-    differ on a file whose last scan runs to its end without an EOI:
-    libjpeg's stdio source, under ``imread``, supplies the EOI; cv2's memory
-    source, under ``imdecode``, cannot, and libjpeg-turbo suspends wherever
-    its bit reader asks for more data (``_memory_source_reaches_end``)."""
-    coef, grids, (h, w, comps), quant, orientation, colour = _parse(data, name, from_file)
-    img = _pixels(_natural_blocks(coef, grids), [quant[c[3]] for c in comps],
-                  [(c[1], c[2]) for c in comps], h, w, colour)
+    differ on a file that runs to its end without an EOI, complete or cut
+    short: libjpeg's stdio source, under ``imread``, supplies the EOI;
+    cv2's memory source, under ``imdecode``, cannot, and libjpeg-turbo
+    suspends wherever its bit reader asks for more data
+    (``_memory_source_reaches_end``)."""
+    coef, grids, (h, w, comps), quant, orientation, colour, smoothing = _parse(data, name,
+                                                                                from_file)
+    blocks = _natural_blocks(coef, grids)
+    tables = [quant[c[3]] for c in comps]
+    if smoothing is not None and all(t.reshape(-1)[ZIGZAG[:10]].all() for t in tables):
+        blocks = _smooth(blocks, tables, comps, h, w, smoothing)
+    img = _pixels(blocks, tables, [(c[1], c[2]) for c in comps], h, w, colour)
     return apply_orientation(img, orientation)
 
 
@@ -923,31 +1171,31 @@ def read_coefficients(data: bytes, name: str = "<bytes>") -> Dict[str, list]:
     ``{"blocks": [(block rows, block columns, 8, 8) int16 in natural order,
     one a component, over the MCU grid], "quant": [(8, 8) table of each
     component], "factors": [(h, v) of each component]}``."""
-    coef, grids, (h, w, comps), quant, _, _ = _parse(data, name)
+    coef, grids, (h, w, comps), quant, _, _, _ = _parse(data, name)
     return {"blocks": _natural_blocks(coef, grids), "quant": [quant[c[3]] for c in comps],
             "factors": [(c[1], c[2]) for c in comps]}
 
 
 def _sequential(data: bytes, scan: bytes, data_start: int, frame, quant: Dict, tables: Dict,
-                restart: int, name: str, from_file: bool = False):
-    """The scans of a sequential JPEG -> (zigzag coefficients, grids): one
-    interleaved scan of every component, after which cv2 reads nothing more,
-    or scans that each code some of them (libjpeg's buffered mode: every
-    scan up to EOI, with any table, restart interval, comment or APPn
-    segment between them)."""
+                restart: int, name: str, from_file: bool = False, real_end: int = None):
+    """The scans of a sequential JPEG -> (zigzag coefficients, grids, None):
+    one interleaved scan of every component, after which cv2 reads nothing
+    more, or scans that each code some of them (libjpeg's buffered mode:
+    every scan up to EOI, with any table, restart interval, comment or APPn
+    segment between them). From a file cut short, a scan keeps what it
+    decoded up to the MCU in which its data ran out (``_run_out``), and
+    later scans are absent. libjpeg only warns about a sequential scan's
+    spectral selection and successive approximation, so they are not read."""
     h, w, comps = frame
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
     grids, total = _grids(comps, h, w, hmax, vmax)
     coef = array("h", bytes(2 * total))
+    real_end = len(data) if real_end is None else real_end
     multi = scan[0] < len(comps)  # libjpeg's has_multiple_scans
     coded: List[int] = []
     while True:
         members = _scan_components(scan, comps, name)
-        ns = len(members)
-        ss, se, ahal = scan[1 + 2 * ns:4 + 2 * ns]
-        if (ss, se, ahal) != (0, 63, 0):
-            raise ValueError(f"{name}: sequential scan with spectral range {ss}-{se}")
         for ci, t in members:
             if (0, t >> 4) not in tables or (1, t & 15) not in tables:
                 raise ValueError(f"{name}: scan names a missing component or Huffman table")
@@ -962,25 +1210,27 @@ def _sequential(data: bytes, scan: bytes, data_start: int, frame, quant: Dict, t
         if from_memory and multi:  # libjpeg reads all scans before any row
             raise ValueError(f"{name}: truncated JPEG: a scan of a multi-scan file runs to "
                              "the end of the data without EOI (cv2.imdecode refuses it)")
-        try:
-            for blocks, chunk in zip(_intervals(order, kinds, restart, chunks, name), chunks):
-                win, n_bits = _windows(chunk)
-                blocks = [(b,) + tabs[c] + (c,) for b, c in blocks]
-                _decode_interval(win, n_bits, blocks, coef, name)
-        except IndexError:
-            raise ValueError(f"{name}: truncated or damaged JPEG scan") from None
+        cut = end is not None and end >= real_end
+        intervals = _intervals(order, kinds, restart, chunks, name, cut)
+        for i, (blocks, chunk) in enumerate(intervals):
+            blocks = [(b,) + tabs[c] + (c,) for b, c in blocks]
+            ran_out, win = _run_out(chunk, lambda win, n_bits: _decode_interval(
+                win, n_bits, blocks, coef, name, len(kinds), cut),
+                cut and i >= len(intervals) - 2, name)
+            if ran_out:
+                break
         if from_memory and not _memory_source_reaches_end(
                 chunks[-1], _symbol_trace(win, blocks), len(kinds), not restart):
             raise ValueError(f"{name}: truncated JPEG: its scan runs to the end of the data "
                              "without EOI, and libjpeg-turbo's bit reader asks for more before "
                              "its last MCU (cv2.imdecode refuses it)")
-        if end is None or not multi:
+        if end is None or cut or not multi:
             break
-        scan, data_start, restart = _next_scan(data, name, end, from_file, quant, tables,
-                                               restart)
+        scan, data_start, restart = _next_scan(data, name, end, real_end if from_file else None,
+                                               quant, tables, restart)
         if scan is None:
             break
-    return coef, grids
+    return coef, grids, None
 
 
 # --------------------------------------------------------------- the encoder

@@ -1,0 +1,380 @@
+"""TIFF in numpy and the standard library's ``zlib``, bit-equal to
+``cv2.imread`` / ``cv2.imdecode`` with ``IMREAD_COLOR`` then
+``cv2.cvtColor(BGR2RGB)``.
+
+cv2 reads TIFF through libtiff and, for an 8-bit result, through libtiff's
+RGBA interface (``TIFFReadRGBAStrip`` / ``TIFFReadRGBATile``), whose rules
+``decode_tiff`` copies, as probed on cv2 5.0.0 (libtiff 4.7):
+
+* the first IFD of a classic (``II*\\0``, ``MM\\0*``) or BigTIFF (``II+\\0``,
+  ``MM\\0+``) file; strips or tiles, PlanarConfiguration 1 (contiguous) or
+  2 (one plane a sample); FillOrder 2 (bits reversed in each byte);
+* compressions 1 (none), 5 (LZW, codes most significant bit first, one bit
+  wider one code early), 8 and 32946 (Deflate) and 32773 (PackBits);
+  Predictor 2 (horizontal differencing of 8- or 16-bit samples) undone
+  after LZW and Deflate only, as libtiff ignores it with the others;
+* photometric 0 and 1 (grey, min-is-white inverted) at 1, 8 and 16 bits,
+  16 bits by their high byte, with any extra samples ignored; 2 (RGB) at
+  8 or 16 bits, 16 bits rounded to 8 (``(v + 128) // 257``); 3 (palette)
+  at 1, 4 or 8 bits, a colormap whose entries are all below 256 taken as
+  8-bit, else by its high bytes; 5 (CMYK, InkSet 1) at 8 bits, each of
+  red, green and blue ``(255 - k) * (255 - ink) // 255``. Planar grey with
+  alpha is read as libtiff reads a separate plane (neither inverted nor by
+  its high byte). An RGB alpha sample (ExtraSamples: unassociated 2, or
+  associated 1, or unspecified with four samples or more, or none at all
+  with exactly four) is dropped, unassociated alpha after premultiplying
+  each colour ``(c * a + 127) // 255``;
+* the Orientation tag applied as cv2 applies an EXIF orientation.
+
+Depths and photometric interpretations that cv2 refuses (2-bit samples,
+4-bit grey, 16-bit palette or CMYK, ...) and damaged files raise
+``ValueError``; compressions, photometric interpretations and sample
+formats that cv2 reads and these do not (JPEG, CCITT, YCbCr, CIE L*a*b*,
+floating point, ...) raise ``NotImplementedError`` naming what was met.
+``cv2.imdecode`` alone also refuses uncompressed tiles whose pixel count
+is not a multiple of 1024 (``decode_tiff(from_file=False)``).
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from .jpeg import apply_orientation
+
+SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
+
+#: field type -> (struct code, bytes) of the integer types; others are kept raw
+_INTEGER_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1), 8: ("h", 2),
+                  9: ("i", 4), 13: ("I", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
+_TYPE_SIZES = {2: 1, 5: 8, 7: 1, 10: 8, 11: 4, 12: 8}
+
+_COMPRESSIONS = {2: "CCITT modified Huffman RLE", 3: "CCITT Group 3 fax",
+                 4: "CCITT Group 4 fax", 6: "old-style JPEG", 7: "JPEG", 32766: "NeXT RLE",
+                 32771: "CCITT RLEW", 32809: "ThunderScan RLE", 34676: "SGI LogL",
+                 34677: "SGI LogLuv", 34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA",
+                 50000: "Zstandard", 50001: "WebP", 50002: "JPEG XL"}
+_PHOTOMETRICS = {4: "transparency mask", 6: "YCbCr", 8: "CIE L*a*b*", 9: "ICC L*a*b*",
+                 10: "ITU L*a*b*", 32803: "colour filter array", 32844: "SGI LogL",
+                 32845: "SGI LogLuv", 34892: "linear raw"}
+_SAMPLE_FORMATS = {2: "signed integer", 3: "IEEE floating point", 4: "untyped",
+                   5: "complex signed integer", 6: "complex floating point"}
+_REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+def _ifd(data: bytes, path: str) -> Tuple[Dict[int, list], str]:
+    """The first IFD's tags -> (tag -> values, byte order)."""
+    order = "<" if data[:2] == b"II" else ">"
+    big = data[2:4] in (b"+\0", b"\0+")
+    try:
+        if big:
+            offset_size, _, first = struct.unpack(order + "HHQ", data[4:16])
+            if offset_size != 8:
+                raise ValueError(f"{path}: BigTIFF offsets of {offset_size} bytes")
+            (n,) = struct.unpack(order + "Q", data[first:first + 8])
+            at, entry, inline = first + 8, 20, 8
+        else:
+            (first,) = struct.unpack(order + "I", data[4:8])
+            (n,) = struct.unpack(order + "H", data[first:first + 2])
+            at, entry, inline = first + 2, 12, 4
+        if at + entry * n > len(data):  # libtiff reads the entries in one piece
+            raise ValueError(f"{path}: TIFF cut short inside its first IFD")
+        tags: Dict[int, list] = {}
+        for i in range(n):
+            e = data[at + entry * i:at + entry * (i + 1)]
+            if big:
+                tag, kind, count = struct.unpack(order + "HHQ", e[:12])
+            else:
+                tag, kind, count = struct.unpack(order + "HHI", e[:8])
+            value = e[entry - inline:]
+            code, size = _INTEGER_TYPES.get(kind, (None, _TYPE_SIZES.get(kind, 1)))
+            if count * size > inline:
+                (off,) = struct.unpack(order + ("Q" if big else "I"), value)
+                value = data[off:off + count * size]
+                if len(value) != count * size:
+                    raise ValueError(f"{path}: TIFF tag {tag} points past the file's end")
+            if code:
+                tags[tag] = list(struct.unpack(order + code * count, value[:count * size]))
+    except struct.error:
+        raise ValueError(f"{path}: TIFF cut short inside its first IFD") from None
+    return tags, order
+
+
+def _lzw(data: bytes, size: int, path: str) -> bytes:
+    """TIFF LZW (libtiff's ``LZWDecode``) -> at least ``size`` bytes: codes
+    most significant bit first, 9 to 12 bits, one bit wider when the next
+    free entry reaches 2^bits - 1; a clear code first and after every reset."""
+    if len(data) >= 2 and data[0] == 0 and data[1] & 1:
+        raise NotImplementedError(f"{path}: old-style (LSB-first) TIFF LZW")
+    table: List[bytes] = [bytes([i]) for i in range(256)] + [b"", b""]
+    width, prev = 9, -1  # -1: before the first clear code
+    out = bytearray()
+    acc = left = 0
+    for byte in data:
+        acc = (acc << 8) | byte
+        left += 8
+        while left >= width:
+            left -= width
+            code = acc >> left
+            acc &= (1 << left) - 1
+            if code == 256:
+                del table[258:]
+                width, prev = 9, None
+                continue
+            if code == 257:
+                return _enough(out, size, path)
+            if prev is None:
+                if code > 256:
+                    raise ValueError(f"{path}: corrupted TIFF LZW data")
+                out += table[code]
+            else:
+                if prev < 0 or len(table) >= 4096:
+                    raise ValueError(f"{path}: corrupted TIFF LZW data")
+                if code < len(table):
+                    s = table[code]
+                    table.append(table[prev] + s[:1])
+                elif code == len(table):
+                    s = table[prev] + table[prev][:1]
+                    table.append(s)
+                else:
+                    raise ValueError(f"{path}: corrupted TIFF LZW data")
+                if len(table) == (1 << width) - 1 and width < 12:
+                    width += 1
+                out += s
+            prev = code
+            if len(out) >= size:
+                return bytes(out[:size])
+    return _enough(out, size, path)
+
+
+def _enough(out: bytearray, size: int, path: str) -> bytes:
+    if len(out) < size:
+        raise ValueError(f"{path}: TIFF strip or tile data ends early")
+    return bytes(out[:size])
+
+
+def _packbits(data: bytes, size: int, path: str) -> bytes:
+    out = bytearray()
+    i = 0
+    while len(out) < size:
+        if i >= len(data):
+            raise ValueError(f"{path}: TIFF PackBits data ends early")
+        n = data[i]
+        i += 1
+        if n < 128:
+            out += data[i:i + n + 1]
+            i += n + 1
+        elif n > 128:
+            if i >= len(data):
+                raise ValueError(f"{path}: TIFF PackBits data ends early")
+            out += data[i:i + 1] * (257 - n)
+            i += 1
+    return bytes(out[:size])
+
+
+def _inflate(data: bytes, size: int, path: str) -> bytes:
+    try:
+        out = zlib.decompressobj().decompress(data, size)
+    except zlib.error:
+        raise ValueError(f"{path}: TIFF Deflate data is damaged") from None
+    return _enough(bytearray(out), size, path)
+
+
+_DECODERS = {1: lambda d, n, p: _enough(bytearray(d[:n]), n, p), 5: _lzw, 8: _inflate,
+             32946: _inflate, 32773: _packbits}
+
+
+def _undo_predictor(raw: bytes, rows: int, per_row: int, spp: int, bps: int,
+                    order: str) -> bytes:
+    """Horizontal differencing undone: each sample plus the one ``spp``
+    before it in its row, modulo 2^bps."""
+    dtype = np.dtype(np.uint8 if bps == 8 else order + "u2")
+    s = np.frombuffer(raw, dtype)[:rows * per_row].reshape(rows, per_row // spp, spp)
+    return np.cumsum(s, 1, dtype=dtype).astype(dtype).tobytes()  # cumsum's result is native
+
+
+def _unpack(raw: bytes, rows: int, n: int, bps: int, order: str) -> np.ndarray:
+    """``rows`` rows of ``n`` samples of ``bps`` bits (each row padded to a
+    byte) -> (rows, n) int64."""
+    if bps == 16:
+        return np.frombuffer(raw, order + "u2")[:rows * n].reshape(rows, n).astype(np.int64)
+    stride = -(-n * bps // 8)
+    b = np.frombuffer(raw, np.uint8)[:rows * stride].reshape(rows, stride)
+    if bps == 8:
+        return b.astype(np.int64)
+    return np.unpackbits(b, 1).reshape(rows, -1, bps)[:, :n].dot(
+        1 << np.arange(bps - 1, -1, -1)).astype(np.int64)
+
+
+def _drifted(tile: np.ndarray, width: int, bps: int) -> np.ndarray:
+    """The first samples of a grey tile of (rows, tile width, spp) as
+    libtiff's ``putgreytile``/``putagreytile`` (8 bits, two samples or
+    more) and ``put16bitbwtile`` (16 bits) read the ``width`` pixels of a
+    tile clipped at the image's right edge: they step from one row to the
+    next by the clipped pixels as a count of bytes, not of pixels, so each
+    row starts that much short of where it lies (16-bit values read in the
+    host's byte order, at any byte offset)."""
+    rows, tw, spp = tile.shape
+    size = bps // 8
+    buf = np.frombuffer(tile.astype("<u2" if size == 2 else np.uint8).tobytes(), np.uint8)
+    at = (np.arange(rows)[:, None] * (width * size * spp + tw - width)
+          + np.arange(width) * size * spp)
+    out = tile.copy()
+    out[:, :width, 0] = buf[at] + (buf[at + 1].astype(np.int64) << 8 if size == 2 else 0)
+    return out
+
+
+def _samples(data: bytes, tags: Dict[int, list], order: str, h: int, w: int, spp: int,
+             bps: int, from_file: bool, drift: bool, path: str) -> np.ndarray:
+    """Every strip or tile decoded -> (h, w, spp) int64 samples. ``drift``:
+    grey tiles clipped at the right edge are read as ``_drifted``."""
+    compression = tags.get(259, [1])[0]
+    planar = tags.get(284, [1])[0]
+    predictor = tags.get(317, [1])[0] if compression in (5, 8, 32946) else 1
+    if predictor not in (1, 2):
+        raise NotImplementedError(f"{path}: TIFF Predictor {predictor}")
+    if predictor == 2 and bps not in (8, 16):
+        raise ValueError(f"{path}: TIFF horizontal differencing of {bps}-bit samples")
+    decode = _DECODERS[compression]
+    flip = tags.get(266, [1])[0] == 2
+    planes = spp if planar == 2 and spp > 1 else 1
+    per_plane = spp // planes
+    tiled = 322 in tags
+    if tiled:
+        tw, tl = tags[322][0], tags.get(323, [0])[0]
+        offsets, counts = tags.get(324, []), tags.get(325, [])
+        tile_bytes = tl * -(-tw * per_plane * bps // 8)
+        if not from_file and compression == 1 and tile_bytes % 1024:
+            raise ValueError(f"{path}: uncompressed TIFF tiles of {tile_bytes} bytes "
+                             "(cv2.imdecode refuses them unless a multiple of 1024)")
+    else:
+        tw, tl = w, min(tags.get(278, [h])[0], h)
+        offsets, counts = tags.get(273, []), tags.get(279, [])
+    if not tw or not tl:
+        raise ValueError(f"{path}: TIFF strips or tiles of no size")
+    across, down = -(-w // tw), -(-h // tl)
+    if len(offsets) < across * down * planes or len(counts) < len(offsets):
+        raise ValueError(f"{path}: TIFF lacks strip or tile offsets")
+    out = np.zeros((down * tl, across * tw, spp), np.int64)
+    k = 0
+    for p in range(planes):
+        for ty in range(down):
+            rows = tl if tiled else min(tl, h - ty * tl)
+            for tx in range(across):
+                chunk = data[offsets[k]:offsets[k] + counts[k]]
+                k += 1
+                if flip:
+                    chunk = chunk.translate(_REVERSED_BITS)
+                per_row = tw * per_plane
+                raw = decode(chunk, rows * -(-per_row * bps // 8), path)
+                if predictor == 2:
+                    raw = _undo_predictor(raw, rows, per_row, per_plane, bps, order)
+                s = _unpack(raw, rows, per_row, bps, order).reshape(rows, tw, per_plane)
+                if drift and tiled and planes == 1 and (tx + 1) * tw > w:
+                    s = _drifted(s, w - tx * tw, bps)
+                out[ty * tl:ty * tl + rows, tx * tw:(tx + 1) * tw,
+                    p * per_plane:(p + 1) * per_plane] = s
+    return out[:h, :w]
+
+
+def _premultiplied(c: np.ndarray, a: np.ndarray, bps: int) -> np.ndarray:
+    """Colour samples as libtiff's RGBA interface stores them: 16 bits
+    rounded to 8, then times an unassociated alpha (``a``, or None)."""
+    if bps == 16:
+        c = (c + 128) // 257
+        a = None if a is None else (a + 128) // 257
+    return c if a is None else (c * a + 127) // 255
+
+
+def _rgb(s: np.ndarray, tags: Dict[int, list], photometric: int, bps: int, spp: int,
+         separate: bool, path: str) -> np.ndarray:
+    """(h, w, spp) samples -> (h, w, 3) uint8 as libtiff's RGBA interface
+    gives them."""
+    extra = tags.get(338, [])
+    alpha = 0  # libtiff's: 1 associated, 2 unassociated
+    if extra:
+        alpha = 1 if extra[0] == 0 and spp > 3 else (extra[0] if extra[0] in (1, 2) else 0)
+    elif spp == 4 and photometric == 2:
+        alpha = 1
+    unassociated = s[..., 3 if photometric == 2 else 1] if alpha == 2 else None
+    if photometric in (0, 1):
+        g = s[..., 0]
+        if separate:  # separate grey and alpha planes: read as RGB, grey in each
+            g = _premultiplied(g, unassociated, bps)
+        elif bps == 16:
+            g = g >> 8
+            g = 255 - g if photometric == 0 else g
+        else:
+            top = (1 << bps) - 1
+            g = ((top - g) if photometric == 0 else g) * 255 // top
+        return np.repeat(g.astype(np.uint8)[..., None], 3, 2)
+    if photometric == 3:
+        cmap = np.array(tags.get(320, []), np.int64)
+        if len(cmap) != 3 << bps:
+            raise ValueError(f"{path}: TIFF palette without its {3 << bps}-entry ColorMap")
+        cmap = cmap.reshape(3, -1).T
+        if (cmap >= 256).any():
+            cmap = cmap >> 8
+        return cmap[s[..., 0]].astype(np.uint8)
+    if photometric == 5:
+        k = 255 - s[..., 3:4]
+        return (k * (255 - s[..., :3]) // 255).astype(np.uint8)
+    if spp - len(extra) < 3:
+        raise ValueError(f"{path}: TIFF RGB with {spp - len(extra)} colour samples")
+    a = None if unassociated is None else unassociated[..., None]
+    return _premultiplied(s[..., :3], a, bps).astype(np.uint8)
+
+
+def decode_tiff(data: bytes, path: str = "<bytes>", from_file: bool = True) -> np.ndarray:
+    """A TIFF -> (H, W, 3) uint8 RGB of its first image, equal to cv2's
+    decode (see the module's docstring): of a file as ``cv2.imread`` reads
+    it (``from_file``), else of bytes as ``cv2.imdecode`` reads them."""
+    if data[:4] not in SIGNATURES:
+        raise ValueError(f"{path}: not a TIFF")
+    tags, order = _ifd(data, path)
+    if 256 not in tags or 257 not in tags:
+        raise ValueError(f"{path}: TIFF without its image size")
+    w, h = tags[256][0], tags[257][0]
+    spp = tags.get(277, [1])[0]
+    bps = tags.get(258, [1])[0]
+    compression = tags.get(259, [1])[0]
+    if 262 not in tags:
+        raise ValueError(f"{path}: TIFF without its PhotometricInterpretation")
+    photometric = tags[262][0]
+    fmt = tags.get(339, [1])[0]
+    if compression not in _DECODERS:
+        raise NotImplementedError(f"{path}: TIFF compression "
+                                  f"{_COMPRESSIONS.get(compression, 'unknown')} ({compression}): "
+                                  "only none, LZW, Deflate and PackBits are read")
+    if photometric in _PHOTOMETRICS:
+        raise NotImplementedError(f"{path}: TIFF photometric interpretation "
+                                  f"{_PHOTOMETRICS[photometric]} ({photometric})")
+    if fmt in _SAMPLE_FORMATS:
+        raise NotImplementedError(f"{path}: TIFF {_SAMPLE_FORMATS[fmt]} samples")
+    if not w or not h:
+        raise ValueError(f"{path}: TIFF of no size")
+    allowed = {0: (1, 8, 16), 1: (1, 8, 16), 2: (8, 16), 3: (1, 4, 8), 5: (8,)}
+    if (photometric not in allowed or bps not in allowed[photometric] or spp > 4
+            or (bps == 1 and spp > 1)):
+        raise ValueError(f"{path}: TIFF photometric {photometric} at {bps} bits, {spp} "
+                         "samples a pixel (cv2 refuses it)")
+    separate = tags.get(284, [1])[0] == 2 and spp > 1
+    if photometric == 5 and (tags.get(332, [1])[0] != 1 or spp < 4 or (separate and spp != 4)):
+        raise ValueError(f"{path}: TIFF separated image of InkSet {tags.get(332, [1])[0]}, "
+                         f"{spp} samples (cv2 refuses it)")
+    if from_file and tags.get(274, [1])[0] in (5, 6, 7, 8) and h != w:
+        raise ValueError(f"{path}: TIFF Orientation {tags[274][0]} transposes a {w}x{h} image "
+                         "(cv2.imread refuses a size that differs from the header's)")
+    drift = photometric in (0, 1) and (bps == 16 or (bps == 8 and spp > 1))
+    s = _samples(data, tags, order, h, w, spp, bps, from_file, drift, path)
+    img = _rgb(s, tags, photometric, bps, spp, separate, path)
+    orientation = tags.get(274, [1])[0]
+    if 322 in tags and orientation in (2, 3, 6, 7):
+        # libtiff mirrors each tile within its own columns, not the row
+        tw = tags[322][0]
+        cols = np.concatenate([np.arange(x, min(x + tw, w))[::-1] for x in range(0, w, tw)])
+        img = img[:, cols[::-1]]
+    return apply_orientation(img, orientation)

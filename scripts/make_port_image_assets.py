@@ -52,6 +52,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import struct
 import sys
@@ -646,6 +647,471 @@ def pages() -> dict:
     return out
 
 
+def cut_pages() -> dict:
+    """Four more 640x640 pages: a baseline JPEG cut at about 60% of its
+    bytes, a progressive JPEG cut inside its first AC scan, a GIF of at most
+    256 colours and an LZW TIFF with Predictor 2."""
+    import chip_smoke as cs
+
+    out = {}
+    img = cs.TextPages(1, 41, (640, 640), noise=4)[0]["image"]
+    data = cv_encode(".jpg", img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 85])
+    out["page_cut.jpg"] = data[:int(len(data) * 0.6)]
+    img = cs.TextPages(1, 42, (640, 640), noise=4)[0]["image"]
+    data = cv_encode(".jpg", img[..., ::-1], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                                              cv2.IMWRITE_JPEG_QUALITY, 85])
+    out["page_progressive_cut.jpg"] = cut_in_scan(data, 1, 0.5)
+    img = cs.TextPages(1, 43, (640, 640), noise=1)[0]["image"]
+    colours, idx = np.unique(img.reshape(-1, 3), axis=0, return_inverse=True)
+    assert len(colours) <= 256
+    out["page.gif"] = gif_bytes([dict(idx=idx.reshape(640, 640))], (640, 640), colours)
+    img = cs.TextPages(1, 44, (640, 640), noise=1)[0]["image"]
+    out["page_lzw_predictor.tif"] = tiff_bytes(img, 8, 2, 5, predictor=2, rows_per_strip=32)
+    return out
+
+
+# --------------------------------------------------------- JPEG cut short
+def scans(data: bytes):
+    """(SOS offset, data start, data end) of each scan of a JPEG: its data
+    runs to the next marker other than RSTn (or to the file's end)."""
+    out, pos = [], 2
+    while pos + 4 <= len(data):
+        marker = data[pos + 1]
+        if marker == 0xD9:
+            break
+        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        if marker != 0xDA:
+            pos += 2 + length
+            continue
+        start = end = pos + 2 + length
+        while end < len(data) and not (data[end] == 0xFF and end + 1 < len(data)
+                                       and data[end + 1] not in (0, *range(0xD0, 0xD8))):
+            end += 1
+        out.append((pos, start, end))
+        pos = end
+    return out
+
+
+def cut_in_scan(data: bytes, scan: int, fraction: float) -> bytes:
+    """``data`` cut ``fraction`` of the way into scan ``scan``'s data."""
+    _, start, end = scans(data)[scan]
+    return data[:start + int((end - start) * fraction)]
+
+
+def jpeg_cut_cases(rng) -> dict:
+    """JPEGs cut short as scraped sets carry them: ``cv2.imread`` decodes the
+    data up to the cut (libjpeg's stdio source supplies an EOI) and greys
+    the rest; ``cv2.imdecode`` refuses them."""
+    out = {}
+    s422 = [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422]
+    s444 = [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444]
+    prog = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+    base = cv_encode(".jpg", smooth(rng, 33, 50))
+    for f in (0.3, 0.55, 0.8, 0.97):
+        out[f"jpeg_cut_s420_33x50_at{int(f * 100)}"] = cut_in_scan(base, 0, f)
+    _, start, end = scans(base)[0]
+    out["jpeg_cut_s420_33x50_after_sos"] = base[:start]
+    out["jpeg_cut_s420_33x50_in_sos_tail"] = base[:start - 2]  # Se and Ah/Al from the EOI
+    out["jpeg_cut_s420_33x50_in_headers"] = base[:start - 200]  # cv2 refuses it
+    for name, (h, w), params, f in (("grey", (37, 100), [], 0.5), ("s444", (7, 13), s444, 0.6),
+                                    ("s422", (37, 100), s422, 0.4), ("s420", (1, 1), [], 0.5)):
+        img = smooth(rng, h, w, 1 if name == "grey" else 3)
+        out[f"jpeg_cut_{name}_{h}x{w}"] = cut_in_scan(cv_encode(".jpg", img, params), 0, f)
+    rst = cv_encode(".jpg", smooth(rng, 64, 80), [cv2.IMWRITE_JPEG_RST_INTERVAL, 2])
+    _, start, end = scans(rst)[0]
+    marks = [m.start() for m in re.finditer(rb"\xff[\xd0-\xd7]", rst[start:end])]
+    out["jpeg_cut_rst2_s420_64x80_at35"] = cut_in_scan(rst, 0, 0.35)
+    out["jpeg_cut_rst2_s420_64x80_before_rst"] = rst[:start + marks[3]]
+    out["jpeg_cut_rst2_s420_64x80_after_rst"] = rst[:start + marks[3] + 2]
+    multi = jpeg_rescan(cv_encode(".jpg", smooth(rng, 33, 50)), [[0], [1, 2]])
+    out["jpeg_cut_multiscan_33x50_scan1"] = cut_in_scan(multi, 0, 0.6)
+    out["jpeg_cut_multiscan_33x50_scan2"] = cut_in_scan(multi, 1, 0.5)
+    p = cv_encode(".jpg", smooth(rng, 33, 50), prog)
+    for name, scan, f in (("dc", 0, 0.5), ("ac_first", 1, 0.4), ("ac_chroma", 2, 0.7),
+                          ("refine", 5, 0.5), ("dc_refine", 6, 0.5), ("last", 9, 0.9)):
+        out[f"jpeg_cut_progressive_33x50_{name}"] = cut_in_scan(p, scan, f)
+    sos = scans(p)
+    out["jpeg_cut_progressive_33x50_in_dht"] = p[:sos[1][0] - 6]  # inside the table's symbols
+    pr = cv_encode(".jpg", smooth(rng, 37, 100), prog + [cv2.IMWRITE_JPEG_RST_INTERVAL, 3])
+    out["jpeg_cut_progressive_rst3_37x100_ac"] = cut_in_scan(pr, 3, 0.5)
+    pg = cv_encode(".jpg", smooth(rng, 37, 100, 1), prog)
+    out["jpeg_cut_progressive_grey_37x100_ac"] = cut_in_scan(pg, 1, 0.5)
+    # complete files whose scans leave bits unrefined: libjpeg-turbo smooths them
+    for (h, w), last in (((33, 50), 6), ((37, 100), 1), ((7, 13), 3), ((1, 1), 2), ((9, 16), 5)):
+        q = cv_encode(".jpg", smooth(rng, h, w), prog)
+        out[f"jpeg_unrefined_{last}scans_{h}x{w}"] = q[:scans(q)[last][0]] + b"\xff\xd9"
+    return out
+
+
+# -------------------------------------------------------------------- GIF
+def gif_lzw(idx, min_size: int, clear_every: int = 0, clear_when_full: bool = True) -> bytes:
+    """GIF LZW of a flat index sequence (codes least significant bit first):
+    a clear code first, a clear code every ``clear_every`` codes, and when
+    the table holds 4096 entries a clear code, or none (``clear_when_full``
+    False: the decoder keeps the full table)."""
+    clear = 1 << min_size
+    out, acc, n = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, n
+        acc |= code << n
+        n += width
+        while n >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            n -= 8
+
+    def reset():
+        return {bytes([i]): i for i in range(clear)}, clear + 2, min_size + 1
+
+    table, nxt, width = reset()
+    put(clear, width)
+    w, emitted = b"", 0
+    for ch in np.asarray(idx, np.uint8).reshape(-1).tobytes():
+        c = bytes([ch])
+        if w + c in table:
+            w += c
+            continue
+        put(table[w], width)
+        emitted += 1
+        if nxt < 4096:
+            table[w + c] = nxt
+            nxt += 1
+            if nxt > 1 << width and width < 12:
+                width += 1
+        elif clear_when_full:
+            put(clear, width)
+            table, nxt, width = reset()
+        w = c
+        if clear_every and emitted % clear_every == 0:
+            put(clear, width)
+            table, nxt, width = reset()
+    if w:
+        put(table[w], width)
+    put(clear + 1, width)
+    if n:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def sub_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def _gif_table(colours):
+    """(size bits, padded table bytes) of a colour table."""
+    size = max(0, int(np.ceil(np.log2(max(len(colours), 2)))) - 1)
+    t = np.zeros((2 << size, 3), np.uint8)
+    t[:len(colours)] = colours
+    return size, t.tobytes()
+
+
+def gif_bytes(frames, screen, gct=None, bg: int = 0, version: bytes = b"89a",
+              extensions: bytes = b"") -> bytes:
+    """A GIF of ``frames`` (dicts: ``idx`` (h, w) indices and optionally
+    ``left``, ``top``, ``lct``, ``interlace``, ``min_size``, ``transparent``
+    and ``lzw`` keyword arguments) on a (height, width) ``screen``."""
+    h, w = screen
+    flags, table = 0, b""
+    if gct is not None:
+        size, table = _gif_table(gct)
+        flags = 0xF0 | size
+    out = b"GIF" + version + struct.pack("<HHBBB", w, h, flags, bg, 0) + table + extensions
+    for f in frames:
+        idx = np.asarray(f["idx"])
+        fh, fw = idx.shape
+        if f.get("transparent") is not None:
+            out += b"!\xf9\x04\x01\0\0" + bytes([f["transparent"]]) + b"\0"
+        fflags, local = 0, b""
+        if f.get("lct") is not None:
+            size, local = _gif_table(f["lct"])
+            fflags = 0x80 | size
+        rows = idx
+        if f.get("interlace"):
+            fflags |= 0x40
+            rows = idx[np.concatenate([np.arange(0, fh, 8), np.arange(4, fh, 8),
+                                       np.arange(2, fh, 4), np.arange(1, fh, 2)])]
+        m = f.get("min_size", 8)
+        out += (b"," + struct.pack("<HHHHB", f.get("left", 0), f.get("top", 0), fw, fh, fflags)
+                + local + bytes([m]) + sub_blocks(gif_lzw(rows, m, **f.get("lzw", {}))))
+    return out + b";"
+
+
+def gif_cases(rng) -> dict:
+    out = {}
+    for i, (h, w) in enumerate(SIZES):
+        m = (2, 4, 6, 8)[i]
+        pal = rng.integers(0, 256, (1 << m, 3))
+        idx = rng.integers(0, 1 << m, (h, w))
+        idx[h // 2:] = idx[h // 2:, :1]  # runs too
+        out[f"gif_min{m}_{h}x{w}"] = gif_bytes([dict(idx=idx, min_size=m)], (h, w), pal)
+    pal = rng.integers(0, 256, (16, 3))
+    idx = rng.integers(0, 16, (33, 50))
+    out["gif_transparent_33x50"] = gif_bytes([dict(idx=idx, min_size=4, transparent=5)],
+                                             (33, 50), pal, bg=9)
+    out["gif_interlaced_37x100"] = gif_bytes([dict(idx=rng.integers(0, 16, (37, 100)),
+                                                   min_size=4, interlace=True)], (37, 100), pal)
+    out["gif_small_frame_33x50"] = gif_bytes(
+        [dict(idx=rng.integers(0, 16, (20, 31)), min_size=4, left=11, top=7, interlace=True)],
+        (33, 50), pal, bg=3)
+    out["gif_local_over_global_7x13"] = gif_bytes(
+        [dict(idx=rng.integers(0, 32, (7, 13)), min_size=5, lct=rng.integers(0, 256, (8, 3)))],
+        (7, 13), rng.integers(0, 256, (32, 3)))
+    out["gif_local_only_transparent_7x13"] = gif_bytes(
+        [dict(idx=rng.integers(0, 8, (7, 13)), min_size=3, lct=rng.integers(0, 256, (8, 3)),
+              transparent=2)], (7, 13))
+    out["gif_no_table_7x13"] = gif_bytes([dict(idx=rng.integers(0, 256, (7, 13)))], (7, 13))
+    full = rng.integers(0, 256, (48, 100))
+    pal256 = rng.integers(0, 256, (256, 3))
+    out["gif_full_table_no_clear_48x100"] = gif_bytes(
+        [dict(idx=full, lzw=dict(clear_when_full=False))], (48, 100), pal256)
+    out["gif_clear_every_300_37x100"] = gif_bytes(
+        [dict(idx=full[:37], lzw=dict(clear_every=300))], (37, 100), pal256)
+    comment = b"!\xfe" + sub_blocks(b"made by hand")
+    loop = b"!\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+    idx = rng.integers(0, 16, (7, 13))
+    out["gif_two_frames_7x13"] = gif_bytes(
+        [dict(idx=idx, min_size=4), dict(idx=15 - idx, min_size=4, transparent=1)], (7, 13),
+        pal, extensions=comment + loop)
+    out["gif_87a_1x1"] = gif_bytes([dict(idx=[[3]], min_size=2)], (1, 1), pal[:4],
+                                  version=b"87a")
+    data = gif_bytes([dict(idx=rng.integers(0, 16, (37, 100)), min_size=4)], (37, 100), pal)
+    out["gif_cut_37x100"] = data[:len(data) // 2]  # cv2 refuses it
+    out["gif_frame_outside_7x13"] = gif_bytes([dict(idx=idx, min_size=4, left=2)], (7, 13), pal)
+    out["gif_index_past_table_7x13"] = gif_bytes([dict(idx=idx, min_size=4)], (7, 13), pal[:8])
+    return out
+
+
+# ------------------------------------------------------------------- TIFF
+_TIFF_TYPES = {3: "H", 4: "I", 16: "Q"}
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW as libtiff writes it: codes most significant bit first, 9 to
+    12 bits, one bit wider when the next free entry reaches 2^bits (the
+    decoder sees it one code early), a clear code first and at 4094 entries."""
+    out, acc, n = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, n
+        acc = (acc << width) | code
+        n += width
+        while n >= 8:
+            n -= 8
+            out.append((acc >> n) & 0xFF)
+        acc &= (1 << n) - 1
+
+    def reset():
+        return {bytes([i]): i for i in range(256)}, 258, 9
+
+    table, nxt, width = reset()
+    put(256, width)
+    w = b""
+    for ch in data:
+        c = bytes([ch])
+        if w + c in table:
+            w += c
+            continue
+        put(table[w], width)
+        table[w + c] = nxt
+        nxt += 1
+        if nxt == 4094:
+            put(256, width)
+            table, nxt, width = reset()
+        elif nxt == 1 << width and width < 12:
+            width += 1
+        w = c
+    if w:
+        put(table[w], width)
+        nxt += 1
+        if nxt == 4094:
+            put(256, width)
+            width = 9
+        elif nxt == 1 << width and width < 12:
+            width += 1
+    put(257, width)
+    if n:
+        out.append((acc << (8 - n)) & 0xFF)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j + 1 < len(data) and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([257 - (j - i + 1)]) + data[i:i + 1]
+            i = j + 1
+            continue
+        j = i + 1
+        while j < len(data) and j - i < 128 and not (j + 1 < len(data) and data[j + 1] == data[j]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _tiff_compress(raw: bytes, compression: int) -> bytes:
+    if compression == 5:
+        return tiff_lzw(raw)
+    if compression in (8, 32946):
+        return zlib.compress(raw, 6)
+    if compression == 32773:
+        return packbits(raw)
+    return raw
+
+
+def tiff_bytes(samples, bps: int, photometric: int, compression: int = 1, order: str = "<",
+               planar: int = 1, rows_per_strip: int = None, tile=None, predictor: int = 1,
+               colormap=None, extra=None, orientation: int = None, big: bool = False,
+               fill_order: int = 1) -> bytes:
+    """A TIFF of (h, w) or (h, w, samples) integer ``samples``: strips of
+    ``rows_per_strip`` rows or (width, length) ``tile``s, each compressed on
+    its own (Predictor 2 differencing each row first; FillOrder 2 reversing
+    the bits of each byte after), then the IFD. ``big``: BigTIFF."""
+    s = np.asarray(samples, np.int64)
+    s = s[..., None] if s.ndim == 2 else s
+    h, w, spp = s.shape
+
+    def chunk(block):
+        r, c, ch = block.shape
+        flat = block.reshape(r, c * ch)
+        if predictor == 2:
+            flat = flat.copy()
+            flat[:, ch:] = (flat[:, ch:] - block.reshape(r, c * ch)[:, :-ch]) & ((1 << bps) - 1)
+        if bps == 16:
+            raw = flat.astype(order + "u2").tobytes()
+        elif bps == 8:
+            raw = flat.astype(np.uint8).tobytes()
+        else:
+            raw = _pack(flat, bps).tobytes()
+        out = _tiff_compress(raw, compression)
+        return out if fill_order == 1 else bytes(int(f"{b:08b}"[::-1], 2) for b in out)
+
+    planes = [s] if planar == 1 else [s[..., k:k + 1] for k in range(spp)]
+    chunks = []
+    for p in planes:
+        if tile:
+            tw, tl = tile
+            for y in range(0, h, tl):
+                for x in range(0, w, tw):
+                    block = np.zeros((tl, tw, p.shape[2]), np.int64)
+                    part = p[y:y + tl, x:x + tw]
+                    block[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(chunk(block))
+        else:
+            chunks += [chunk(p[y:y + (rows_per_strip or h)])
+                       for y in range(0, h, rows_per_strip or h)]
+    offset_type = 16 if big else 4
+    fields = {256: (4, [w]), 257: (4, [h]), 258: (3, [bps] * spp), 259: (3, [compression]),
+              262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
+    fields.update({322: (3, [tile[0]]), 323: (3, [tile[1]])} if tile
+                  else {278: (4, [rows_per_strip or h])})
+    for tag, value in ((317, predictor if predictor != 1 else None), (274, orientation),
+                       (266, fill_order if fill_order != 1 else None)):
+        if value is not None:
+            fields[tag] = (3, [value])
+    if colormap is not None:
+        fields[320] = (3, np.asarray(colormap).T.reshape(-1).tolist())
+    if extra is not None:
+        fields[338] = (3, list(extra))
+    body, offsets = bytearray(), []
+    start = 16 if big else 8
+    for c in chunks:
+        offsets.append(start + len(body))
+        body += c + b"\0" * (len(c) % 2)
+    fields[324 if tile else 273] = (offset_type, offsets)
+    fields[325 if tile else 279] = (offset_type, [len(c) for c in chunks])
+    inline = 8 if big else 4
+    values, entries = bytearray(), []
+    for tag in sorted(fields):
+        kind, vals = fields[tag]
+        raw = struct.pack(order + _TIFF_TYPES[kind] * len(vals), *vals)
+        if len(raw) > inline:
+            entries.append((tag, kind, len(vals), struct.pack(
+                order + ("Q" if big else "I"), start + len(body) + len(values))))
+            values += raw + b"\0" * (len(raw) % 2)
+        else:
+            entries.append((tag, kind, len(vals), raw + b"\0" * (inline - len(raw))))
+    ifd = start + len(body) + len(values)
+    head = (b"II" if order == "<" else b"MM") + (struct.pack(order + "HHHQ", 43, 8, 0, ifd) if big
+                                                 else struct.pack(order + "HI", 42, ifd))
+    entry = "HHQ" if big else "HHI"
+    return (head + bytes(body) + bytes(values)
+            + struct.pack(order + ("Q" if big else "H"), len(entries))
+            + b"".join(struct.pack(order + entry, t, k, n) + v for t, k, n, v in entries)
+            + struct.pack(order + ("Q" if big else "I"), 0))
+
+
+def pil_tiff(img: np.ndarray, mode: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(img), mode).save(buf, "TIFF", **kw)
+    return buf.getvalue()
+
+
+def tiff_cases(rng) -> dict:
+    out = {}
+    for i, (h, w) in enumerate(SIZES):
+        img = smooth(rng, h, w)
+        for comp, name in ((1, "none"), (5, "lzw"), (8, "deflate"), (32946, "adobe_deflate"),
+                           (32773, "packbits")):
+            out[f"tiff_{name}_rgb_{h}x{w}"] = tiff_bytes(img, 8, 2, comp, "<>"[i % 2],
+                                                          rows_per_strip=max(1, h // 3))
+    g16 = smooth(rng, 37, 100, 1).astype(np.int64) * 257 + rng.integers(0, 257, (37, 100))
+    rgb16 = smooth(rng, 33, 50).astype(np.int64) * 257 + rng.integers(0, 257, (33, 50, 3))
+    out["tiff_lzw_predictor_rgb16_33x50"] = tiff_bytes(rgb16, 16, 2, 5, predictor=2,
+                                                       rows_per_strip=8)
+    out["tiff_deflate_predictor_grey16_be_37x100"] = tiff_bytes(g16, 16, 1, 8, ">", predictor=2)
+    out["tiff_lzw_predictor_planar_be_37x100"] = tiff_bytes(smooth(rng, 37, 100), 8, 2, 5, ">",
+                                                            planar=2, predictor=2,
+                                                            rows_per_strip=10)
+    out["tiff_min_is_white16_7x13"] = tiff_bytes(g16[:7, :13], 16, 0, 32946)
+    for bps in (1, 8):
+        g = rng.integers(0, 1 << bps, (33, 50))
+        out[f"tiff_min_is_white{bps}_33x50"] = tiff_bytes(g, bps, 0, 5)
+        out[f"tiff_min_is_black{bps}_7x13"] = tiff_bytes(g[:7, :13], bps, 1, 32773)
+    for i, (bps, (h, w)) in enumerate(((1, (7, 13)), (4, (33, 50)), (8, (37, 100)), (8, (1, 1)))):
+        cmap = rng.integers(0, 65536 if i % 2 else 256, (1 << bps, 3))
+        out[f"tiff_palette{bps}_{'16bit' if i % 2 else '8bit'}_map_{h}x{w}"] = tiff_bytes(
+            rng.integers(0, 1 << bps, (h, w)), bps, 3, (5, 8, 32773, 1)[i], colormap=cmap)
+    rgba = np.concatenate([smooth(rng, 33, 50), rng.integers(0, 256, (33, 50, 1))], -1)
+    for code, name in ((2, "unassociated"), (1, "associated"), (0, "unspecified")):
+        out[f"tiff_rgba_{name}_33x50"] = tiff_bytes(rgba, 8, 2, 8, extra=[code])
+    out["tiff_rgba_no_extrasamples_7x13"] = tiff_bytes(rgba[:7, :13], 8, 2, 5)
+    out["tiff_rgba16_unassociated_planar_37x100"] = tiff_bytes(
+        np.concatenate([rgb16, rgb16[..., :1]], -1)[:33, :50], 16, 2, 8, planar=2, extra=[2])
+    ga = np.stack([smooth(rng, 37, 100, 1), rng.integers(0, 256, (37, 100))], -1)
+    out["tiff_grey_alpha_37x100"] = tiff_bytes(ga, 8, 1, 5, extra=[2])
+    out["tiff_grey_alpha_planar_unassociated_37x100"] = tiff_bytes(ga, 8, 1, 5, planar=2,
+                                                                   extra=[2])
+    cmyk = smooth(rng, 33, 50, 4)
+    out["tiff_cmyk_33x50"] = tiff_bytes(cmyk, 8, 5, 5)
+    out["tiff_cmyk_planar_7x13"] = tiff_bytes(cmyk[:7, :13], 8, 5, 32773, planar=2)
+    img = smooth(rng, 37, 100)
+    out["tiff_tiles_lzw_37x100"] = tiff_bytes(img, 8, 2, 5, tile=(32, 16))
+    out["tiff_tiles_uncompressed_37x100"] = tiff_bytes(img, 8, 2, 1, tile=(16, 16))
+    out["tiff_tiles_grey16_clipped_37x100"] = tiff_bytes(g16, 16, 1, 8, tile=(32, 32))
+    out["tiff_tiles_grey_alpha_clipped_37x100"] = tiff_bytes(ga, 8, 1, 32773, tile=(48, 16),
+                                                             extra=[1])
+    out["tiff_tiles_orientation2_37x100"] = tiff_bytes(img, 8, 2, 8, tile=(32, 16), orientation=2)
+    sq = smooth(rng, 33, 33)
+    for o in range(2, 9):
+        out[f"tiff_orientation{o}_33x50"] = tiff_bytes(smooth(rng, 33, 50), 8, 2, 8, orientation=o)
+    out["tiff_orientation6_square_33x33"] = tiff_bytes(sq, 8, 2, 5, orientation=6)
+    out["tiff_bigtiff_33x50"] = tiff_bytes(smooth(rng, 33, 50), 8, 2, 5, big=True)
+    out["tiff_fill_order2_7x13"] = tiff_bytes(smooth(rng, 7, 13), 8, 2, 5, fill_order=2)
+    page = smooth(rng, 37, 100)
+    out["tiff_pil_lzw_rgb_37x100"] = pil_tiff(page, "RGB", compression="tiff_lzw")
+    out["tiff_pil_deflate_grey_33x50"] = pil_tiff(smooth(rng, 33, 50, 1), "L",
+                                                  compression="tiff_adobe_deflate")
+    out["tiff_pil_packbits_rgba_7x13"] = pil_tiff(rgba[:7, :13].astype(np.uint8), "RGBA",
+                                                  compression="packbits")
+    return out
+
+
 def cv2_decode(data: bytes, path: str = None):
     """cv2's RGB decode of a file (``path``) or of bytes, or None."""
     bgr = (cv2.imread(path, cv2.IMREAD_COLOR) if path
@@ -658,7 +1124,8 @@ def digest(img) -> dict:
 
 
 EXTENSIONS = {b"\x89P": ".png", b"\xff\xd8": ".jpg", b"BM": ".bmp", b"P1": ".pbm",
-              b"P4": ".pbm", b"P2": ".pgm", b"P5": ".pgm", b"P3": ".ppm", b"P6": ".ppm"}
+              b"P4": ".pbm", b"P2": ".pgm", b"P5": ".pgm", b"P3": ".ppm", b"P6": ".ppm",
+              b"GI": ".gif", b"II": ".tif", b"MM": ".tif"}
 
 
 def main(argv=None) -> int:
@@ -673,27 +1140,32 @@ def main(argv=None) -> int:
             for make in (png_cases, jpeg_cases, bmp_cases, pnm_cases)
             for name, data in make(rng).items()}
     todo.update({f"pages/{name}": data for name, data in pages().items()})
+    rng = np.random.default_rng(24)  # the files above stay as they were
+    todo.update({f"cases/{name}{EXTENSIONS[data[:2]]}": data
+                 for make in (jpeg_cut_cases, gif_cases, tiff_cases)
+                 for name, data in make(rng).items()})
+    todo.update({f"pages/{name}": data for name, data in cut_pages().items()})
     for rel, data in todo.items():
         path = os.path.join(args.out, rel)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "wb") as f:
             f.write(data)
         from_file = cv2_decode(data, path)
-        if from_file is None:
-            raise RuntimeError(f"cv2.imread cannot read {rel}")
-        entry = {**digest(from_file), "bytes": len(data)}
+        entry = {**(digest(from_file) if from_file is not None
+                    else {"sha256": None, "shape": None}), "bytes": len(data)}
         from_bytes = cv2_decode(data)
-        if from_bytes is None or not np.array_equal(from_bytes, from_file):
+        if from_bytes is None or from_file is None or not np.array_equal(from_bytes, from_file):
             entry["imdecode"] = None if from_bytes is None else digest(from_bytes)
         files[rel] = entry
     build = [line.strip() for line in cv2.getBuildInformation().splitlines()
-             if line.strip().startswith(("JPEG:", "PNG:"))]
+             if line.strip().startswith(("JPEG:", "PNG:", "TIFF:"))]
     with open(os.path.join(args.out, "manifest.json"), "w") as f:
         json.dump({"made_by": "scripts/make_port_image_assets.py",
                    "decoder": f"cv2 {cv2.__version__} ({'; '.join(build)})",
                    "digest": "sha256 of cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR), "
-                             "cv2.COLOR_BGR2RGB) as C-order uint8 bytes; 'imdecode': that of "
-                             "cv2.imdecode(buf, cv2.IMREAD_COLOR) where it differs (null: None)",
+                             "cv2.COLOR_BGR2RGB) as C-order uint8 bytes (null where imread "
+                             "returns None); 'imdecode': that of cv2.imdecode(buf, "
+                             "cv2.IMREAD_COLOR) where it differs (null: None)",
                    "files": files}, f, indent=1, sort_keys=True)
     total = sum(v["bytes"] for v in files.values())
     print(f"wrote {len(files)} files, {total} bytes, to {args.out}")

@@ -383,7 +383,7 @@ def test_committed_image_assets_match_their_manifest_cv2_and_the_port():
         manifest = json.load(f)
     files = manifest["files"]
     assert manifest["made_by"] == "scripts/make_port_image_assets.py"
-    assert sum(rel.startswith("pages/") for rel in files) == 4
+    assert sum(rel.startswith("pages/") for rel in files) == 8
     assert sum(v["bytes"] for v in files.values()) < 2_000_000
 
     def sha(img):
@@ -393,8 +393,13 @@ def test_committed_image_assets_match_their_manifest_cv2_and_the_port():
         path = os.path.join(ASSETS, rel)
         with open(path, "rb") as f:
             data = f.read()
-        for img in (_cv2(data, path), imageio.read_image(path)):
-            assert list(img.shape) == want["shape"] and sha(img) == want["sha256"], rel
+        if want["sha256"] is None:  # cv2.imread refuses it
+            assert _cv2(data, path) is None
+            with pytest.raises(ValueError):
+                imageio.read_image(path)
+        else:
+            for img in (_cv2(data, path), imageio.read_image(path)):
+                assert list(img.shape) == want["shape"] and sha(img) == want["sha256"], rel
         by_bytes = want.get("imdecode", want)
         if by_bytes is None:
             assert _cv2(data) is None

@@ -104,7 +104,7 @@ def test_synthetic_tier_modules_are_checked(module):
 
 
 @pytest.mark.parametrize("module", ["data/png.py", "data/bitmap.py", "data/jpeg.py",
-                                    "data/imageio.py"])
+                                    "data/imageio.py", "data/gif.py", "data/tiff.py"])
 def test_image_reader_modules_are_checked(module):
     """The readers of every page format (no cv2, PIL or JAX in them: the
     checks above run on each)."""
