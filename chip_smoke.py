@@ -306,7 +306,8 @@ Phases (any failure exits non-zero):
     the scan, files without EOI; JPEGs cut inside their scans or headers
     and progressive files left unrefined (libjpeg's grey rest and block
     smoothing); BMP and RLE; PNM; GIF; TIFF of every compression the port
-    reads; eight 640x640 pages; ``scripts/make_port_image_assets.py``) read
+    reads, JPEG among them; WebP lossless, lossy, with ALPH and EXIF,
+    animated, cut; eleven 640x640 pages; ``scripts/make_port_image_assets.py``) read
     by ``read_image`` and ``decode_image``, each equal to cv2's ``imread``
     and ``imdecode`` digests in the manifest (a file cv2 refuses refused),
     and ms a file by format.
@@ -349,12 +350,13 @@ Phases (any failure exits non-zero):
     events, and the ``stem_s2d`` / ``stem_s2d4`` flags' stem against it;
     ``resize_bilinear`` and ``rectify_quads`` against the CPU; a
     torchvision-layout ResNet-50 state dict loaded into a trunk, card
-    against CPU. The ``'auto'`` run also takes the eight 640x640 pages of
+    against CPU. Both runs also take the eleven 640x640 pages of
     ``assets/images/pages/`` (a CMYK JPEG, a palette PNG, a 16-bit Adam7
     PNG, an RLE8 BMP, a baseline JPEG cut at 60% of its bytes, a progressive
-    JPEG cut inside its first AC scan, a GIF, an LZW TIFF with Predictor 2)
-    and a PNG twin of each written from its decode: each page's quads and
-    texts equal its twin's. Every progressive JPEG of ``assets/jpeg/progressive/``
+    JPEG cut inside its first AC scan, a GIF, an LZW TIFF with Predictor 2,
+    a lossless and a lossy WebP, a JPEG-compressed TIFF) and a PNG twin of
+    each written from its decode: each page's quads and texts equal its
+    twin's. Every progressive JPEG of ``assets/jpeg/progressive/``
     equal to its digest, and ms for the 1280x720 page beside its baseline
     twin (``launches_tools``).
 29. head: the detector head's formulations (``MapHead``'s flag
@@ -5053,9 +5055,10 @@ def phase_jpeg():
     its RGB digest equal to cv2's from the manifest; ms a page for the
     1280x720 pages beside the PNG decode of the same page (``write_png``'s
     Sub rows). Then every file of ``assets/images/`` (PNG, BMP, PNM, JPEG
-    variants, JPEGs cut short and progressive files left unrefined, GIF and
-    TIFF) through ``read_image`` and ``decode_image`` against cv2's two
-    routes, each refusing where cv2 returns None; ms a file by format."""
+    variants, JPEGs cut short and progressive files left unrefined, GIF,
+    TIFF, JPEG-compressed TIFF and WebP) through ``read_image`` and
+    ``decode_image`` against cv2's two routes, each refusing where cv2
+    returns None; ms a file by format, each page on its own."""
     from megreader_tpu_torch.data.imageio import decode_image, read_image, write_png
 
     t_phase = time.perf_counter()
@@ -5580,9 +5583,10 @@ def format_pages(tmp: str):
     """The 640x640 pages of ``assets/images/pages/`` (a CMYK JPEG, a palette
     PNG, a 16-bit Adam7 PNG, an RLE8 BMP, a baseline JPEG cut at 60% of its
     bytes, a progressive JPEG cut inside its first AC scan, a GIF, an LZW
-    TIFF with Predictor 2), each read by ``read_image`` with cv2's digest
-    (the manifest), and a PNG twin of each written from that decode: (the
-    pages' paths, the twins' paths)."""
+    TIFF with Predictor 2, a lossless and a lossy WebP, a JPEG-compressed
+    TIFF), each read by ``read_image`` with cv2's digest (the manifest), and
+    a PNG twin of each written from that decode: (the pages' paths, the
+    twins' paths)."""
     from megreader_tpu_torch.data.imageio import read_image, write_png
 
     files = image_files()
@@ -5655,7 +5659,7 @@ def tools_entry_points(B: int, hw: int, total: dict, tmp: str):
     for impl in ("auto", "pallas_full"):
         name = f"cli.pipeline --out-dir --extract-impl {impl}"
         vis_dir = os.path.join(tmp, f"vis_{impl}")
-        images = paths + (formats + twins if impl == "auto" else [])
+        images = paths + formats + twins
         out, got, _, _ = run_cli(name, cli_pipeline.main, [
             *base, "--images", *images, "--extract-impl", impl, "--out-dir", vis_dir], total,
             phase="tools")
@@ -5664,11 +5668,10 @@ def tools_entry_points(B: int, hw: int, total: dict, tmp: str):
                 "extents": full}
         if got != want:
             raise AssertionError(f"tools phase, {name}: launches {got}, expected {want}")
-        if impl == "auto":
-            twin_check(name, out[len(paths):], formats)
+        twin_check(name, out[len(paths):], formats)
         t0 = time.perf_counter()
         words = tools_overlays(name, out, images, vis_dir)
-        log(f"tools phase, {name}: {words} words on {B} pages, every overlay read back "
+        log(f"tools phase, {name}: {words} words on {len(images)} pages, every overlay read back "
             f"pixel-equal to the host's drawing of the card's detections "
             f"({time.perf_counter() - t0:.2f} s to read and draw them again)")
         if not words:

@@ -53,7 +53,10 @@ decompression this module reproduces step for step:
   decoded through ``cv2.imread``'s route (above) and, through
   ``cv2.imdecode``'s, only where libjpeg-turbo reaches its last MCU
   (``decode_jpeg``): cv2's memory source has no EOI to hand over, so
-  libjpeg suspends and cv2 returns None.
+  libjpeg suspends and cv2 returns None;
+* a strip or tile of a JPEG-compressed TIFF as libtiff's JPEG codec hands
+  it over (``decode_tiff_strip``): the ``JPEGTables`` stream first, the
+  colour space that of the TIFF, no orientation.
 
 Anything else raises ``NotImplementedError`` naming what it met: lossless,
 arithmetic-coded, hierarchical, 12-bit, 2- or 5-component files, and a
@@ -1164,6 +1167,35 @@ def decode_jpeg(data: bytes, name: str = "<bytes>", from_file: bool = False) -> 
         blocks = _smooth(blocks, tables, comps, h, w, smoothing)
     img = _pixels(blocks, tables, [(c[1], c[2]) for c in comps], h, w, colour)
     return apply_orientation(img, orientation)
+
+
+def decode_tiff_strip(data: bytes, tables: bytes = b"", ycc: bool = True,
+                      name: str = "<bytes>") -> Tuple[np.ndarray, List[Tuple[int, int]]]:
+    """One strip or tile of a JPEG-compressed TIFF (compression 7), as
+    libtiff's JPEG codec hands it to libjpeg: the ``JPEGTables`` stream
+    (SOI, tables, EOI) read first, so an abbreviated strip finds its
+    tables, and libtiff's source inserting EOI markers past the data (as
+    ``from_file``). ``ycc``: photometric YCbCr, which libtiff decodes to RGB
+    (libjpeg's upsampling and colour conversion, ``JCS_YCbCr`` whatever the
+    markers say); else the components as coded (``JCS_UNKNOWN``). No EXIF
+    orientation. -> ((h, w, 3) uint8 RGB or (h, w, components) samples,
+    each component's (h, v) sampling factors)."""
+    if tables:
+        body = tables[2:-2] if tables.endswith(b"\xff\xd9") else tables[2:]
+        data = data[:2] + body + data[2:]
+    coef, grids, (h, w, comps), quant, _, _, smoothing = _parse(data, name, True)
+    blocks = _natural_blocks(coef, grids)
+    qtables = [quant[c[3]] for c in comps]
+    if smoothing is not None and all(t.reshape(-1)[ZIGZAG[:10]].all() for t in qtables):
+        blocks = _smooth(blocks, qtables, comps, h, w, smoothing)
+    factors = [(c[1], c[2]) for c in comps]
+    if ycc:
+        if len(comps) != 3:
+            raise ValueError(f"{name}: TIFF YCbCr JPEG strip of {len(comps)} components")
+        return _pixels(blocks, qtables, factors, h, w, "ycc"), factors
+    if any(f != (1, 1) for f in factors):
+        raise ValueError(f"{name}: subsampled JPEG strip in a TIFF that is not YCbCr")
+    return _pixels(blocks, qtables, factors, h, w, "rgb"), factors  # 'rgb': as coded
 
 
 def read_coefficients(data: bytes, name: str = "<bytes>") -> Dict[str, list]:

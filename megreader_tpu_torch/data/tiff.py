@@ -13,6 +13,11 @@ RGBA interface (``TIFFReadRGBAStrip`` / ``TIFFReadRGBATile``), whose rules
   wider one code early), 8 and 32946 (Deflate) and 32773 (PackBits);
   Predictor 2 (horizontal differencing of 8- or 16-bit samples) undone
   after LZW and Deflate only, as libtiff ignores it with the others;
+* compression 7 (JPEG): each strip or tile a JPEG stream read after the
+  ``JPEGTables`` tag, decoded by ``data/jpeg.py``; photometric YCbCr to RGB
+  by libjpeg (libtiff's ``JPEGCOLORMODE_RGB``), grey and RGB as coded; the
+  first component's sampling that of YCbCrSubsampling (or, without the tag,
+  of the first strip) and 1x1 for the others, as libtiff checks;
 * photometric 0 and 1 (grey, min-is-white inverted) at 1, 8 and 16 bits,
   16 bits by their high byte, with any extra samples ignored; 2 (RGB) at
   8 or 16 bits, 16 bits rounded to 8 (``(v + 128) // 257``); 3 (palette)
@@ -29,8 +34,9 @@ RGBA interface (``TIFFReadRGBAStrip`` / ``TIFFReadRGBATile``), whose rules
 Depths and photometric interpretations that cv2 refuses (2-bit samples,
 4-bit grey, 16-bit palette or CMYK, ...) and damaged files raise
 ``ValueError``; compressions, photometric interpretations and sample
-formats that cv2 reads and these do not (JPEG, CCITT, YCbCr, CIE L*a*b*,
-floating point, ...) raise ``NotImplementedError`` naming what was met.
+formats that cv2 reads and these do not (old-style JPEG, CCITT, YCbCr
+without JPEG, CIE L*a*b*, floating point, ...) raise ``NotImplementedError``
+naming what was met.
 ``cv2.imdecode`` alone also refuses uncompressed tiles whose pixel count
 is not a multiple of 1024 (``decode_tiff(from_file=False)``).
 """
@@ -43,7 +49,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from .jpeg import apply_orientation
+from .jpeg import apply_orientation, decode_tiff_strip
 
 SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
 
@@ -53,7 +59,7 @@ _INTEGER_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1), 8: ("h", 2
 _TYPE_SIZES = {2: 1, 5: 8, 7: 1, 10: 8, 11: 4, 12: 8}
 
 _COMPRESSIONS = {2: "CCITT modified Huffman RLE", 3: "CCITT Group 3 fax",
-                 4: "CCITT Group 4 fax", 6: "old-style JPEG", 7: "JPEG", 32766: "NeXT RLE",
+                 4: "CCITT Group 4 fax", 6: "old-style JPEG", 32766: "NeXT RLE",
                  32771: "CCITT RLEW", 32809: "ThunderScan RLE", 34676: "SGI LogL",
                  34677: "SGI LogLuv", 34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA",
                  50000: "Zstandard", 50001: "WebP", 50002: "JPEG XL"}
@@ -98,6 +104,8 @@ def _ifd(data: bytes, path: str) -> Tuple[Dict[int, list], str]:
                     raise ValueError(f"{path}: TIFF tag {tag} points past the file's end")
             if code:
                 tags[tag] = list(struct.unpack(order + code * count, value[:count * size]))
+            elif kind == 7:  # UNDEFINED bytes (JPEGTables)
+                tags[tag] = list(value[:count])
     except struct.error:
         raise ValueError(f"{path}: TIFF cut short inside its first IFD") from None
     return tags, order
@@ -187,6 +195,63 @@ _DECODERS = {1: lambda d, n, p: _enough(bytearray(d[:n]), n, p), 5: _lzw, 8: _in
              32946: _inflate, 32773: _packbits}
 
 
+def _layout(tags: Dict[int, list], h: int, w: int, planes: int, path: str):
+    """(tiled, chunk width, chunk length, offsets, byte counts) of the
+    strips or tiles, checked to cover the image ``planes`` times."""
+    tiled = 322 in tags
+    if tiled:
+        tw, tl = tags[322][0], tags.get(323, [0])[0]
+        offsets, counts = tags.get(324, []), tags.get(325, [])
+    else:
+        tw, tl = w, min(tags.get(278, [h])[0], h)
+        offsets, counts = tags.get(273, []), tags.get(279, [])
+    if not tw or not tl:
+        raise ValueError(f"{path}: TIFF strips or tiles of no size")
+    if len(offsets) < -(-w // tw) * -(-h // tl) * planes or len(counts) < len(offsets):
+        raise ValueError(f"{path}: TIFF lacks strip or tile offsets")
+    return tiled, tw, tl, offsets, counts
+
+
+def _jpeg_samples(data: bytes, tags: Dict[int, list], h: int, w: int, spp: int, ycc: bool,
+                  path: str) -> np.ndarray:
+    """Every strip or tile of a JPEG-compressed TIFF (compression 7,
+    contiguous samples) -> (h, w, 3 or spp) int64: each an abbreviated or
+    whole JPEG stream read after the ``JPEGTables`` tag (347), decoded by
+    ``jpeg.decode_tiff_strip``. libtiff's checks: the first component's
+    sampling factors are YCbCrSubsampling's (tag 530, or, without it, the
+    first strip's own) for YCbCr and 1x1 otherwise, the other components'
+    1x1; a strip or tile as large as its segment, or a last strip that is
+    taller."""
+    tables = bytes(tags.get(347, []))
+    flip = tags.get(266, [1])[0] == 2
+    tiled, tw, tl, offsets, counts = _layout(tags, h, w, 1, path)
+    across, down = -(-w // tw), -(-h // tl)
+    sampling = tuple(tags[530][:2]) if ycc and 530 in tags else None
+    out = np.zeros((down * tl, across * tw, 3 if ycc else spp), np.int64)
+    for k in range(across * down):
+        ty, tx = divmod(k, across)
+        chunk = data[offsets[k]:offsets[k] + counts[k]]
+        if flip:
+            chunk = chunk.translate(_REVERSED_BITS)
+        img, factors = decode_tiff_strip(chunk, tables, ycc, path)
+        if len(factors) != spp:
+            raise ValueError(f"{path}: TIFF JPEG strip of {len(factors)} components, {spp} "
+                             "samples a pixel")
+        if sampling is None:
+            sampling = factors[0] if ycc else (1, 1)
+        if factors[0] != sampling or any(f != (1, 1) for f in factors[1:]):
+            raise ValueError(f"{path}: TIFF JPEG sampling factors {factors}, {sampling} expected "
+                             "(cv2 refuses the file)")
+        rows = tl if tiled else min(tl, h - ty * tl)
+        jh, jw = img.shape[:2]
+        taller_last = not tiled and jw == tw and jh > rows and ty == down - 1
+        if (jh, jw) != (rows, tw) and not taller_last:
+            raise ValueError(f"{path}: TIFF JPEG strip or tile of {jw}x{jh}, {tw}x{rows} "
+                             "expected")
+        out[ty * tl:ty * tl + rows, tx * tw:(tx + 1) * tw] = img[:rows]
+    return out[:h, :w]
+
+
 def _undo_predictor(raw: bytes, rows: int, per_row: int, spp: int, bps: int,
                     order: str) -> bytes:
     """Horizontal differencing undone: each sample plus the one ``spp``
@@ -242,22 +307,12 @@ def _samples(data: bytes, tags: Dict[int, list], order: str, h: int, w: int, spp
     flip = tags.get(266, [1])[0] == 2
     planes = spp if planar == 2 and spp > 1 else 1
     per_plane = spp // planes
-    tiled = 322 in tags
-    if tiled:
-        tw, tl = tags[322][0], tags.get(323, [0])[0]
-        offsets, counts = tags.get(324, []), tags.get(325, [])
-        tile_bytes = tl * -(-tw * per_plane * bps // 8)
-        if not from_file and compression == 1 and tile_bytes % 1024:
-            raise ValueError(f"{path}: uncompressed TIFF tiles of {tile_bytes} bytes "
-                             "(cv2.imdecode refuses them unless a multiple of 1024)")
-    else:
-        tw, tl = w, min(tags.get(278, [h])[0], h)
-        offsets, counts = tags.get(273, []), tags.get(279, [])
-    if not tw or not tl:
-        raise ValueError(f"{path}: TIFF strips or tiles of no size")
+    tiled, tw, tl, offsets, counts = _layout(tags, h, w, planes, path)
+    tile_bytes = tl * -(-tw * per_plane * bps // 8)
+    if tiled and not from_file and compression == 1 and tile_bytes % 1024:
+        raise ValueError(f"{path}: uncompressed TIFF tiles of {tile_bytes} bytes "
+                         "(cv2.imdecode refuses them unless a multiple of 1024)")
     across, down = -(-w // tw), -(-h // tl)
-    if len(offsets) < across * down * planes or len(counts) < len(offsets):
-        raise ValueError(f"{path}: TIFF lacks strip or tile offsets")
     out = np.zeros((down * tl, across * tw, spp), np.int64)
     k = 0
     for p in range(planes):
@@ -345,10 +400,12 @@ def decode_tiff(data: bytes, path: str = "<bytes>", from_file: bool = True) -> n
         raise ValueError(f"{path}: TIFF without its PhotometricInterpretation")
     photometric = tags[262][0]
     fmt = tags.get(339, [1])[0]
-    if compression not in _DECODERS:
+    if compression not in _DECODERS and compression != 7:
         raise NotImplementedError(f"{path}: TIFF compression "
                                   f"{_COMPRESSIONS.get(compression, 'unknown')} ({compression}): "
-                                  "only none, LZW, Deflate and PackBits are read")
+                                  "only none, LZW, Deflate, PackBits and JPEG are read")
+    if compression == 7:
+        return _jpeg_tiff(data, tags, w, h, spp, bps, photometric, fmt, from_file, path)
     if photometric in _PHOTOMETRICS:
         raise NotImplementedError(f"{path}: TIFF photometric interpretation "
                                   f"{_PHOTOMETRICS[photometric]} ({photometric})")
@@ -371,6 +428,41 @@ def decode_tiff(data: bytes, path: str = "<bytes>", from_file: bool = True) -> n
     drift = photometric in (0, 1) and (bps == 16 or (bps == 8 and spp > 1))
     s = _samples(data, tags, order, h, w, spp, bps, from_file, drift, path)
     img = _rgb(s, tags, photometric, bps, spp, separate, path)
+    return _oriented(img, tags, w)
+
+
+def _jpeg_tiff(data: bytes, tags: Dict[int, list], w: int, h: int, spp: int, bps: int,
+               photometric: int, fmt: int, from_file: bool, path: str) -> np.ndarray:
+    """A JPEG-compressed TIFF (compression 7) as libtiff's RGBA interface
+    reads it: photometric YCbCr through libjpeg's conversion to RGB (libtiff
+    sets ``JPEGCOLORMODE_RGB``), grey and RGB as coded, then as the other
+    compressions' samples."""
+    if photometric not in (0, 1, 2, 6):
+        name = _PHOTOMETRICS.get(photometric, {3: "palette", 5: "CMYK"}.get(photometric, "?"))
+        raise NotImplementedError(f"{path}: JPEG-compressed TIFF of photometric {name} "
+                                  f"({photometric})")
+    if fmt in _SAMPLE_FORMATS:
+        raise NotImplementedError(f"{path}: TIFF {_SAMPLE_FORMATS[fmt]} samples")
+    if not w or not h:
+        raise ValueError(f"{path}: TIFF of no size")
+    if tags.get(284, [1])[0] == 2 and spp > 1:
+        raise NotImplementedError(f"{path}: JPEG-compressed TIFF with separate planes")
+    if bps != 8 or spp != (1 if photometric in (0, 1) else 3):
+        raise ValueError(f"{path}: JPEG-compressed TIFF of photometric {photometric}, {bps} "
+                         f"bits, {spp} samples a pixel (cv2 refuses it)")
+    if from_file and tags.get(274, [1])[0] in (5, 6, 7, 8) and h != w:
+        raise ValueError(f"{path}: TIFF Orientation {tags[274][0]} transposes a {w}x{h} image "
+                         "(cv2.imread refuses a size that differs from the header's)")
+    s = _jpeg_samples(data, tags, h, w, spp, photometric == 6, path)
+    if photometric == 6:
+        img = s.astype(np.uint8)
+    else:
+        img = _rgb(s, tags, photometric, 8, spp, False, path)
+    return _oriented(img, tags, w)
+
+
+def _oriented(img: np.ndarray, tags: Dict[int, list], w: int) -> np.ndarray:
+    """The Orientation tag applied as cv2 applies it."""
     orientation = tags.get(274, [1])[0]
     if 322 in tags and orientation in (2, 3, 6, 7):
         # libtiff mirrors each tile within its own columns, not the row

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Write ``assets/images/``: the PNG, JPEG, BMP and PNM files beyond
-baseline and progressive YCbCr JPEG and 8-bit PNG that the port's readers
-(``megreader_tpu_torch/data/{png,jpeg,bitmap}.py``) are held to.
+"""Write ``assets/images/``: the PNG, JPEG, BMP, PNM, GIF, TIFF and WebP
+files beyond baseline and progressive YCbCr JPEG and 8-bit PNG that the
+port's readers (``megreader_tpu_torch/data/``) are held to.
 
 The card's machine has no encoder for these (no cv2, no PIL), so the files
 are committed. This script makes them with cv2, PIL and writers of its own
@@ -35,9 +35,20 @@ where cv2.imdecode returns None). Files, under ``cases/`` unless named:
 * PNM: ``cv2.imwrite``'s P1-P6 (``IMWRITE_PXM_BINARY`` 0 and 1, 16-bit
   samples), and by hand: maxval 1, 100 and 1000, comments in the header,
   samples above maxval;
-* ``pages/``: four 640x640 pages drawn by ``chip_smoke.TextPages``: a CMYK
-  JPEG, a palette PNG, a 16-bit Adam7 PNG and an RLE8 BMP, for
-  ``chip_smoke.py``'s ``cli.pipeline`` run.
+* WebP (``webp_cases``): lossless and lossy files of cv2 and PIL, RGBA,
+  lossy files from the system's libwebp encoder with the simple loop
+  filter, sharpness and token partitions (``libwebp_lossy``, through
+  ``ctypes``), VP8L streams of the script's own encoder (``vp8l_bytes``:
+  each transform, both prefix code forms, the colour cache, meta prefix
+  codes), lossless ALPH chunks, EXIF orientations, animations, cut, padded
+  and refused files;
+* JPEG-compressed TIFF (``tiff_jpeg_cases``, ``tiff_jpeg_bytes``): cv2's
+  JPEGs as strips or tiles, whole or abbreviated with ``JPEGTables``, YCbCr
+  at each sampling, grey, RGB, PIL's files;
+* ``pages/``: 640x640 pages drawn by ``chip_smoke.TextPages``: a CMYK
+  JPEG, a palette PNG, a 16-bit Adam7 PNG and an RLE8 BMP, cut JPEGs, a
+  GIF and an LZW TIFF, a lossless and a lossy WebP and a JPEG-compressed
+  TIFF, for ``chip_smoke.py``'s ``cli.pipeline`` run.
 
 Each size runs from 1x1 to odd sizes such as 33x50 and 37x100. The script
 is deterministic:
@@ -884,7 +895,7 @@ def gif_cases(rng) -> dict:
 
 
 # ------------------------------------------------------------------- TIFF
-_TIFF_TYPES = {3: "H", 4: "I", 16: "Q"}
+_TIFF_TYPES = {3: "H", 4: "I", 7: "B", 16: "Q"}
 
 
 def tiff_lzw(data: bytes) -> bytes:
@@ -1005,7 +1016,6 @@ def tiff_bytes(samples, bps: int, photometric: int, compression: int = 1, order:
         else:
             chunks += [chunk(p[y:y + (rows_per_strip or h)])
                        for y in range(0, h, rows_per_strip or h)]
-    offset_type = 16 if big else 4
     fields = {256: (4, [w]), 257: (4, [h]), 258: (3, [bps] * spp), 259: (3, [compression]),
               262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
     fields.update({322: (3, [tile[0]]), 323: (3, [tile[1]])} if tile
@@ -1018,13 +1028,22 @@ def tiff_bytes(samples, bps: int, photometric: int, compression: int = 1, order:
         fields[320] = (3, np.asarray(colormap).T.reshape(-1).tolist())
     if extra is not None:
         fields[338] = (3, list(extra))
+    return tiff_file(chunks, fields, bool(tile), order, big)
+
+
+def tiff_file(chunks, fields: dict, tiled: bool, order: str = "<", big: bool = False) -> bytes:
+    """A TIFF of ``chunks`` (its strips or tiles, in order) and the IFD
+    ``fields`` (tag -> (type, values)), to which the offsets and byte counts
+    of the chunks are added: the chunks first, then the values too long for
+    their entries, then the IFD."""
+    offset_type = 16 if big else 4
     body, offsets = bytearray(), []
     start = 16 if big else 8
     for c in chunks:
         offsets.append(start + len(body))
         body += c + b"\0" * (len(c) % 2)
-    fields[324 if tile else 273] = (offset_type, offsets)
-    fields[325 if tile else 279] = (offset_type, [len(c) for c in chunks])
+    fields[324 if tiled else 273] = (offset_type, offsets)
+    fields[325 if tiled else 279] = (offset_type, [len(c) for c in chunks])
     inline = 8 if big else 4
     values, entries = bytearray(), []
     for tag in sorted(fields):
@@ -1112,6 +1131,672 @@ def tiff_cases(rng) -> dict:
     return out
 
 
+# ---------------------------------------------------- JPEG-compressed TIFF
+#: cv2's IMWRITE_JPEG_SAMPLING_FACTOR values -> the luma (h, v) factors
+JPEG_SAMPLING = {0x111111: (1, 1), 0x211111: (2, 1), 0x121111: (1, 2), 0x221111: (2, 2),
+                 0x411111: (4, 1)}
+
+
+def split_jpeg_tables(data: bytes):
+    """A JPEG -> (its DQT and DHT segments as a tables-only stream, SOI ...
+    EOI; the rest as an abbreviated stream)."""
+    segs = jpeg_segments(data)
+    tables = b"".join(data[a:b] for m, a, b in segs if m in (0xDB, 0xC4))
+    rest = b"".join(data[a:b] for m, a, b in segs if m not in (0xDB, 0xC4))
+    return b"\xff\xd8" + tables + b"\xff\xd9", b"\xff\xd8" + rest + data[segs[-1][2]:]
+
+
+def tiff_jpeg_bytes(img: np.ndarray, photometric: int = 6, sampling: int = 0x221111,
+                    rows_per_strip: int = 16, tile=None, tables: bool = False,
+                    subsampling_tag: bool = True, quality: int = 85, last_full: bool = False,
+                    params=(), orientation: int = None) -> bytes:
+    """A JPEG-compressed TIFF (compression 7) of (h, w, 3) RGB or (h, w)
+    grey: each strip (``rows_per_strip``) or (width, length) ``tile`` a JPEG
+    of its own from cv2 (YCbCr at ``sampling``, or grey), with its tables,
+    or (``tables``) abbreviated and the tables in ``JPEGTables``;
+    photometric 6 (YCbCr, ``YCbCrSubsampling`` written as the JPEG's
+    unless ``subsampling_tag`` is False or another (h, v)), 2 (the same YCbCr JPEG declared RGB) or
+    0/1 (grey). ``last_full``: the last strip coded at full height."""
+    h, w = img.shape[:2]
+    spp = 1 if img.ndim == 2 else 3
+    blocks = []
+    if tile:
+        tw, tl = tile
+        for y in range(0, h, tl):
+            for x in range(0, w, tw):
+                block = np.zeros((tl, tw) + img.shape[2:], np.uint8)
+                part = img[y:y + tl, x:x + tw]
+                block[:part.shape[0], :part.shape[1]] = part
+                blocks.append(block)
+    else:
+        for y in range(0, h, rows_per_strip):
+            block = img[y:y + rows_per_strip]
+            if last_full and len(block) < rows_per_strip:
+                block = np.concatenate([block, block[-1:].repeat(rows_per_strip - len(block), 0)])
+            blocks.append(block)
+    p = [cv2.IMWRITE_JPEG_QUALITY, quality, *params]
+    if spp == 3:
+        p += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling]
+    chunks = [cv_encode(".jpg", b[..., ::-1] if spp == 3 else b, p) for b in blocks]
+    fields = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * spp), 259: (3, [7]),
+              262: (3, [photometric]), 277: (3, [spp]), 284: (3, [1])}
+    fields.update({322: (3, [tile[0]]), 323: (3, [tile[1]])} if tile
+                  else {278: (4, [rows_per_strip])})
+    if tables:
+        split = [split_jpeg_tables(c) for c in chunks]
+        fields[347] = (7, list(split[0][0]))
+        chunks = [s for _, s in split]
+    if photometric == 6 and subsampling_tag:
+        fields[530] = (3, list(JPEG_SAMPLING[sampling] if subsampling_tag is True
+                               else subsampling_tag))
+    if orientation is not None:
+        fields[274] = (3, [orientation])
+    return tiff_file(chunks, fields, bool(tile))
+
+
+def tiff_jpeg_cases(rng) -> dict:
+    """JPEG-compressed TIFFs: YCbCr strips at every size (abbreviated, with
+    ``JPEGTables``), each sampling, tiles, grey, PIL's RGB files, the last
+    strip at full height, no subsampling tag, restart intervals, a
+    progressive strip, an orientation, and a subsampling tag that disagrees
+    with the JPEG (cv2 refuses it)."""
+    out = {}
+    for h, w in SIZES:
+        out[f"tiffjpeg_ycbcr420_tables_{h}x{w}"] = tiff_jpeg_bytes(smooth(rng, h, w), tables=True)
+    img = smooth(rng, 37, 100)
+    for sampling, name in ((0x111111, "444"), (0x211111, "422"), (0x121111, "440"),
+                           (0x221111, "420")):
+        out[f"tiffjpeg_ycbcr{name}_strips8_37x100"] = tiff_jpeg_bytes(img, sampling=sampling,
+                                                                      rows_per_strip=16)
+    out["tiffjpeg_ycbcr411_no_subsampling_tag_37x100"] = tiff_jpeg_bytes(
+        img, sampling=0x411111, subsampling_tag=False)
+    out["tiffjpeg_ycbcr420_no_subsampling_tag_33x50"] = tiff_jpeg_bytes(
+        smooth(rng, 33, 50), subsampling_tag=False, tables=True)
+    out["tiffjpeg_ycbcr411_wrong_subsampling_tag_33x50"] = tiff_jpeg_bytes(
+        smooth(rng, 33, 50), sampling=0x411111, subsampling_tag=(1, 1))  # refused
+    out["tiffjpeg_ycbcr420_tiles16_37x100"] = tiff_jpeg_bytes(img, tile=(16, 16))
+    out["tiffjpeg_ycbcr444_tiles32x16_tables_37x100"] = tiff_jpeg_bytes(
+        img, sampling=0x111111, tile=(32, 16), tables=True, quality=60)
+    out["tiffjpeg_ycbcr420_last_strip_full_33x50"] = tiff_jpeg_bytes(smooth(rng, 33, 50),
+                                                                     last_full=True)
+    out["tiffjpeg_ycbcr420_restarts_37x100"] = tiff_jpeg_bytes(
+        img, rows_per_strip=32, params=[cv2.IMWRITE_JPEG_RST_INTERVAL, 2])
+    out["tiffjpeg_ycbcr420_progressive_33x50"] = tiff_jpeg_bytes(
+        smooth(rng, 33, 50), params=[cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    out["tiffjpeg_ycbcr420_orientation6_33x33"] = tiff_jpeg_bytes(smooth(rng, 33, 33),
+                                                                  orientation=6)
+    out["tiffjpeg_ycbcr420_orientation3_33x50"] = tiff_jpeg_bytes(smooth(rng, 33, 50),
+                                                                  orientation=3)
+    out["tiffjpeg_rgb_photometric_444_33x50"] = tiff_jpeg_bytes(smooth(rng, 33, 50),
+                                                                photometric=2, sampling=0x111111)
+    grey = smooth(rng, 37, 100, 1)
+    out["tiffjpeg_grey_strips_37x100"] = tiff_jpeg_bytes(grey, photometric=1, tables=True)
+    out["tiffjpeg_grey_tiles16_37x100"] = tiff_jpeg_bytes(grey, photometric=1, tile=(16, 16))
+    out["tiffjpeg_min_is_white_7x13"] = tiff_jpeg_bytes(grey[:7, :13], photometric=0)
+    out["tiffjpeg_pil_rgb_37x100"] = pil_tiff(smooth(rng, 37, 100), "RGB", compression="jpeg")
+    out["tiffjpeg_pil_rgb_q40_7x13"] = pil_tiff(smooth(rng, 7, 13), "RGB", compression="jpeg",
+                                                quality=40)
+    out["tiffjpeg_pil_grey_33x50"] = pil_tiff(smooth(rng, 33, 50, 1), "L", compression="jpeg")
+    return out
+
+
+def _alpha_stream(alpha: np.ndarray) -> bytes:
+    """An ALPH chunk's lossless stream: the alpha plane as the green of a
+    VP8L image without its header (the script's own VP8L writer)."""
+    a = np.zeros(alpha.shape + (4,), np.uint8)
+    a[..., 0] = 255
+    a[..., 2] = alpha
+    return vp8l_bytes(a, [("green",)], header=False)
+
+
+def webp_cases(rng) -> dict:
+    """WebP: lossless and lossy at ``SIZES`` (cv2 and PIL), RGBA both ways,
+    lossy files of the simple loop filter, sharpness, segments and 2 or 8
+    token partitions (``libwebp_lossy``), hand-made VP8L streams (``vp8l_bytes``: each
+    transform, both code forms, the colour cache, meta prefix codes),
+    lossless ALPH chunks, EXIF Orientation 1-8, two-frame animations (PIL's
+    and by hand: a first frame smaller than the canvas, alpha with each
+    blending and disposal flag, EXIF), a bare VP8L bitstream, files cut at
+    50, 80 and 97% and padded with zeros, and files cv2 refuses."""
+    out = {}
+    for i, (h, w) in enumerate(SIZES):
+        img = smooth(rng, h, w)
+        out[f"webp_lossless_cv2_{h}x{w}"] = cv_encode(".webp", img[..., ::-1],
+                                                      [cv2.IMWRITE_WEBP_QUALITY, 101])
+        out[f"webp_lossless_pil_m{2 * i}_{h}x{w}"] = pil_webp(img, "RGB", lossless=True,
+                                                              method=2 * i, quality=30 * i)
+        out[f"webp_lossy_q80_{h}x{w}"] = cv_encode(".webp", img[..., ::-1],
+                                                   [cv2.IMWRITE_WEBP_QUALITY, 80])
+        out[f"webp_lossy_pil_q{20 + 25 * i}_{h}x{w}"] = pil_webp(img, "RGB", quality=20 + 25 * i,
+                                                                 method=6 - i)
+        rgba = np.concatenate([img, rng.integers(0, 256, (h, w, 1))], -1)
+        out[f"webp_rgba_lossless_{h}x{w}"] = pil_webp(rgba, "RGBA", lossless=True)
+        out[f"webp_rgba_lossy_{h}x{w}"] = pil_webp(rgba, "RGBA", quality=70)
+    noisy = np.clip(smooth(rng, 64, 80).astype(np.int64) + rng.integers(-40, 41, (64, 80, 3)),
+                    0, 255)
+    for k, cfg in enumerate((dict(filter_type=0, filter_strength=60),
+                             dict(filter_type=0, filter_sharpness=5, filter_strength=90),
+                             dict(filter_type=1, filter_sharpness=3, segments=4),
+                             dict(filter_type=1, filter_strength=0, segments=1),
+                             dict(partitions=3, method=1), dict(partitions=1, method=2,
+                                                                filter_type=0))):
+        name = "_".join(f"{a}{b}" for a, b in cfg.items())
+        out[f"webp_libwebp_{name}_64x80"] = libwebp_lossy(noisy, 40.0 + 10 * k, **cfg)
+    argb = np.concatenate([np.full((13, 37, 1), 255), smooth(rng, 13, 37)], -1)
+    bw = 4 * 10  # blocks of 4 pixels
+    vp8l = {
+        "green": [("green",)],
+        "colour": [("colour", 2, rng.integers(-128, 128, (bw, 3)))],
+        "predict_modes": [("predict", 2, [m % 14 for m in range(bw)])],
+        "green_predict_colour": [("green",), ("predict", 3, list(rng.integers(0, 14, 10))),
+                                 ("colour", 2, rng.integers(-128, 128, (bw, 3)))],
+    }
+    for name, transforms in vp8l.items():
+        out[f"webp_vp8l_{name}_13x37"] = webp_file(riff_chunk(b"VP8L", vp8l_bytes(argb,
+                                                                                 transforms)))
+    for n in (2, 3, 11, 200):
+        pal = np.concatenate([np.full((n, 1), 255), rng.integers(0, 256, (n, 3))], -1)
+        img = pal[rng.integers(0, n, (13, 37))]
+        out[f"webp_vp8l_palette{n}_13x37"] = webp_file(riff_chunk(b"VP8L", vp8l_bytes(
+            img, [("palette",)], cache_bits=3)))
+    out["webp_vp8l_cache_meta_codes_13x37"] = webp_file(riff_chunk(b"VP8L", vp8l_bytes(
+        argb, cache_bits=5, group_bits=2, groups=list(rng.integers(0, 4, bw)))))
+    out["webp_vp8l_normal_codes_13x37"] = webp_file(riff_chunk(b"VP8L", vp8l_bytes(
+        argb[..., [0, 1, 1, 1]] // 128 * 255, simple=False, lz77=False)))
+    out["webp_vp8l_simple_codes_13x37"] = webp_file(riff_chunk(b"VP8L", vp8l_bytes(
+        argb[..., [0, 1, 1, 1]] // 128 * 255, lz77=False)))
+    img = smooth(rng, 33, 50)
+    vp8 = webp_payload(cv_encode(".webp", img[..., ::-1], [cv2.IMWRITE_WEBP_QUALITY, 75]),
+                       b"VP8 ")
+    alpha = rng.integers(0, 256, (33, 50))
+    stream = _alpha_stream(alpha)
+    for head, name in ((0x01, "lossless"), (0x05, "lossless_horizontal"),
+                       (0x1D, "lossless_gradient_levels"), (0x00, "raw")):
+        body = stream if head else alpha.astype(np.uint8).tobytes()
+        out[f"webp_alph_{name}_33x50"] = webp_file(vp8x_chunk(0x10, 50, 33) + riff_chunk(
+            b"ALPH", bytes([head]) + body) + riff_chunk(b"VP8 ", vp8))
+    out["webp_alph_reserved_bits_33x50"] = webp_file(vp8x_chunk(0x10, 50, 33) + riff_chunk(
+        b"ALPH", b"\xc1" + stream) + riff_chunk(b"VP8 ", vp8))  # refused
+    out["webp_alph_cut_33x50"] = webp_file(vp8x_chunk(0x10, 50, 33) + riff_chunk(
+        b"ALPH", b"\x01" + stream[:len(stream) // 2]) + riff_chunk(b"VP8 ", vp8))  # refused
+    small = smooth(rng, 7, 13)
+    lossless = webp_payload(cv_encode(".webp", small[..., ::-1], [cv2.IMWRITE_WEBP_QUALITY, 101]),
+                            b"VP8L")
+    for o in range(1, 9):
+        out[f"webp_exif{o}_7x13"] = webp_file(vp8x_chunk(0x08, 13, 7) + riff_chunk(
+            b"VP8L", lossless) + riff_chunk(b"EXIF", exif_tiff(o, "<>"[o % 2])))
+    out["webp_exif6_lossy_33x50"] = webp_file(vp8x_chunk(0x08, 50, 33) + riff_chunk(
+        b"VP8 ", vp8) + riff_chunk(b"EXIF", exif_tiff(6)))
+    out["webp_exif6_unflagged_7x13"] = webp_file(vp8x_chunk(0, 13, 7) + riff_chunk(
+        b"VP8L", lossless) + riff_chunk(b"EXIF", exif_tiff(6)))
+    out["webp_exif6_reserved_flags_7x13"] = webp_file(vp8x_chunk(0xC8, 13, 7) + riff_chunk(
+        b"VP8L", lossless) + riff_chunk(b"EXIF", exif_tiff(6)))
+    out["webp_exif8_iccp_xmp_7x13"] = webp_file(
+        vp8x_chunk(0x2C, 13, 7) + riff_chunk(b"ICCP", bytes(rng.integers(0, 256, 31, np.uint8)))
+        + riff_chunk(b"VP8L", lossless) + riff_chunk(b"EXIF", exif_tiff(8))
+        + riff_chunk(b"XMP ", b"<x:xmpmeta/>"))
+    frames = [smooth(rng, 33, 50), smooth(rng, 33, 50)]
+    out["webp_anim_pil_lossless_33x50"] = pil_webp_animation(frames, lossless=True)
+    out["webp_anim_pil_lossy_33x50"] = pil_webp_animation(frames, quality=60)
+    second = webp_payload(cv_encode(".webp", frames[1][..., ::-1],
+                                    [cv2.IMWRITE_WEBP_QUALITY, 101]), b"VP8L")
+    out["webp_anim_small_first_frame_33x50"] = animation(
+        [(6, 4, 13, 7, 0, riff_chunk(b"VP8L", lossless)), (0, 0, 50, 33, 0,
+                                                            riff_chunk(b"VP8L", second))],
+        50, 33, background=0xFF2040C0)
+    rgba = np.concatenate([small, rng.integers(0, 256, (7, 13, 1))], -1)
+    frame = webp_payload(pil_webp(rgba, "RGBA", lossless=True), b"VP8L")
+    for flags in range(4):
+        out[f"webp_anim_alpha_flags{flags}_33x50"] = animation(
+            [(10, 20, 13, 7, flags, riff_chunk(b"VP8L", frame)), (0, 0, 50, 33, 0,
+                                                                 riff_chunk(b"VP8L", second))],
+            50, 33, flags=0x12, background=0x80402010)
+    out["webp_anim_lossy_alpha_33x50"] = animation(
+        [(0, 0, 50, 33, 2, riff_chunk(b"ALPH", b"\x01" + stream) + riff_chunk(b"VP8 ", vp8))],
+        50, 33, flags=0x12)
+    out["webp_anim_exif6_33x50"] = animation(
+        [(0, 0, 50, 33, 0, riff_chunk(b"VP8L", second))], 50, 33, flags=0x0A,
+        extra=riff_chunk(b"EXIF", exif_tiff(6)))
+    out["webp_anim_frame_past_canvas_33x50"] = animation(  # refused
+        [(40, 0, 13, 7, 0, riff_chunk(b"VP8L", lossless))], 50, 33)
+    out["webp_bare_vp8l_7x13"] = lossless
+    whole = {"lossless": out["webp_lossless_cv2_37x100"], "lossy": out["webp_lossy_q80_37x100"],
+             "anim": out["webp_anim_small_first_frame_33x50"]}
+    for name, data in whole.items():
+        for f in (0.5, 0.8, 0.97):
+            out[f"webp_cut{int(f * 100)}_{name}"] = data[:int(len(data) * f)]
+        out[f"webp_padded_{name}"] = data + bytes(10)
+    out["webp_canvas_mismatch_7x13"] = webp_file(vp8x_chunk(0, 14, 7) + riff_chunk(b"VP8L",
+                                                                                   lossless))
+    out["webp_riff_size_short_7x13"] = webp_file(riff_chunk(b"VP8L", lossless),
+                                                 riff_size=len(lossless) + 6)
+    out["webp_31_bytes"] = out["webp_lossless_cv2_1x1"][:31]
+    return out
+
+
+def webp_jpeg_tiff_pages() -> dict:
+    """Three 640x640 pages from ``chip_smoke.TextPages``: a lossless WebP (of
+    the page's first channel), a lossy WebP at quality 80 and a
+    JPEG-compressed TIFF (YCbCr 4:2:0 strips of 64 rows with
+    ``JPEGTables``)."""
+    import chip_smoke as cs
+
+    out = {}
+    img = cs.TextPages(1, 51, (640, 640), noise=2)[0]["image"]
+    img = np.repeat(img[..., :1], 3, 2)  # grey: a third of the noise's bytes
+    out["page_lossless.webp"] = cv_encode(".webp", img[..., ::-1], [cv2.IMWRITE_WEBP_QUALITY, 101])
+    img = cs.TextPages(1, 52, (640, 640), noise=8)[0]["image"]
+    out["page_lossy.webp"] = pil_webp(img, "RGB", quality=80)
+    img = cs.TextPages(1, 53, (640, 640), noise=4)[0]["image"]
+    out["page_jpeg.tif"] = tiff_jpeg_bytes(img, rows_per_strip=64, tables=True, quality=90)
+    return out
+
+
+# ------------------------------------------------------------------ WebP
+def riff_chunk(tag: bytes, payload: bytes) -> bytes:
+    """A RIFF chunk: tag, little-endian size, payload, a pad byte if odd."""
+    return tag + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
+
+
+def webp_file(body: bytes, riff_size: int = None) -> bytes:
+    """``RIFF`` + size + ``WEBP`` + the chunks in ``body``."""
+    size = len(body) + 4 if riff_size is None else riff_size
+    return b"RIFF" + struct.pack("<I", size) + b"WEBP" + body
+
+
+def vp8x_chunk(flags: int, w: int, h: int) -> bytes:
+    return riff_chunk(b"VP8X", struct.pack("<I", flags) + (w - 1).to_bytes(3, "little")
+                      + (h - 1).to_bytes(3, "little"))
+
+
+def anmf_chunk(x: int, y: int, w: int, h: int, flags: int, frame: bytes,
+               duration: int = 100) -> bytes:
+    """An animation frame at (x, y) (even), ``frame`` its ALPH/VP8/VP8L chunks."""
+    head = b"".join(v.to_bytes(3, "little") for v in (x // 2, y // 2, w - 1, h - 1, duration))
+    return riff_chunk(b"ANMF", head + bytes([flags]) + frame)
+
+
+def animation(frames, w: int, h: int, flags: int = 0x02, extra: bytes = b"",
+              background: int = 0) -> bytes:
+    """An animated WebP: VP8X, ANIM, one ANMF a (x, y, w, h, flags, chunks)."""
+    return webp_file(vp8x_chunk(flags, w, h) + riff_chunk(b"ANIM", struct.pack(
+        "<IH", background, 0)) + b"".join(anmf_chunk(*f) for f in frames) + extra)
+
+
+def webp_chunks(data: bytes) -> list:
+    """A RIFF WebP's (tag, payload) chunks."""
+    out, at = [], 12
+    while at + 8 <= len(data):
+        n = struct.unpack("<I", data[at + 4:at + 8])[0]
+        out.append((data[at:at + 4], data[at + 8:at + 8 + n]))
+        at += 8 + n + (n & 1)
+    return out
+
+
+def webp_payload(data: bytes, tag: bytes) -> bytes:
+    return next(p for t, p in webp_chunks(data) if t == tag)
+
+
+def pil_webp(img: np.ndarray, mode: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(img).astype(np.uint8), mode).save(buf, "WEBP", **kw)
+    return buf.getvalue()
+
+
+def pil_webp_animation(frames, **kw) -> bytes:
+    buf = io.BytesIO()
+    ims = [Image.fromarray(np.ascontiguousarray(f).astype(np.uint8)) for f in frames]
+    ims[0].save(buf, "WEBP", save_all=True, append_images=ims[1:], duration=100, **kw)
+    return buf.getvalue()
+
+
+#: libwebp's ``WebPConfig`` fields (byte offsets, all 4-byte) that
+#: ``libwebp_lossy`` sets; PIL and cv2 do not reach them
+_WEBP_CONFIG = dict(quality=4, method=8, segments=24, sns_strength=28, filter_strength=32,
+                    filter_sharpness=36, filter_type=40, autofilter=44, partitions=72)
+
+
+def libwebp_lossy(img: np.ndarray, quality: float, **fields) -> bytes:
+    """A lossy WebP of (h, w, 3) RGB from the system's libwebp through its
+    advanced API (``WebPEncode``), with ``_WEBP_CONFIG`` fields set: the
+    simple loop filter (``filter_type=0``), sharpness, segments, token
+    partitions (written by methods 0-2 only). ``WebPPicture`` is laid out as libwebp 1.x lays it out
+    (width and height at bytes 8 and 12, the writer at 96, its data at 104)."""
+    import ctypes
+    import ctypes.util
+
+    lib = ctypes.CDLL(ctypes.util.find_library("webp"))
+    abi = 0x0200
+    cfg = ctypes.create_string_buffer(256)
+    assert lib.WebPConfigInitInternal(cfg, 0, ctypes.c_float(quality), abi)
+    for k, v in fields.items():
+        ctypes.c_int.from_buffer(cfg, _WEBP_CONFIG[k]).value = v
+    assert lib.WebPValidateConfig(cfg)
+    pic = ctypes.create_string_buffer(512)
+    assert lib.WebPPictureInitInternal(pic, abi)
+    h, w = img.shape[:2]
+    ctypes.c_int.from_buffer(pic, 8).value = w
+    ctypes.c_int.from_buffer(pic, 12).value = h
+    rgb = np.ascontiguousarray(img, np.uint8)
+    assert lib.WebPPictureImportRGB(pic, rgb.ctypes.data_as(ctypes.c_void_p), 3 * w)
+    writer = ctypes.create_string_buffer(64)
+    lib.WebPMemoryWriterInit(writer)
+    ctypes.c_void_p.from_buffer(pic, 96).value = ctypes.cast(lib.WebPMemoryWrite,
+                                                             ctypes.c_void_p).value
+    ctypes.c_void_p.from_buffer(pic, 104).value = ctypes.addressof(writer)
+    ok = lib.WebPEncode(cfg, pic)
+    lib.WebPPictureFree(pic)
+    assert ok
+    out = ctypes.string_at(ctypes.c_void_p.from_buffer(writer, 0).value,
+                           ctypes.c_size_t.from_buffer(writer, 8).value)
+    lib.WebPMemoryWriterClear(writer)
+    return out
+
+
+class LsbBits:
+    """A bit writer, least significant bit first (VP8L's order)."""
+
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, value: int, n: int) -> None:
+        self.acc |= (int(value) & ((1 << n) - 1)) << self.n
+        self.n += n
+        while self.n >= 8:
+            self.out.append(self.acc & 255)
+            self.acc >>= 8
+            self.n -= 8
+
+    def data(self) -> bytes:
+        return bytes(self.out) + (bytes([self.acc]) if self.n else b"")
+
+
+def complete_lengths(n: int) -> list:
+    """Code lengths of a complete prefix code of ``n`` > 1 leaves."""
+    k = n.bit_length() - 1
+    m = n - (1 << k)
+    return [k + 1] * (2 * m) + [k] * ((1 << k) - m)
+
+
+VP8L_CODE_LENGTH_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+
+
+def _canonical(lengths: dict) -> dict:
+    """symbol -> code length -> symbol -> (bits as written LSB first, length)."""
+    out, code, prev = {}, 0, 0
+    for sym, n in sorted(lengths.items(), key=lambda kv: (kv[1], kv[0])):
+        code <<= n - prev
+        prev = n
+        out[sym] = (int(f"{code:0{n}b}"[::-1], 2), n)
+        code += 1
+    return out
+
+
+def put_vp8l_code(bits: LsbBits, used, alphabet: int, simple: bool = True) -> dict:
+    """A VP8L prefix code for the symbols ``used`` -> symbol -> (bits,
+    length): the simple form for one or two symbols below 256 (``simple``),
+    else the normal form, each symbol's length written through a code-length
+    code of its own."""
+    used = sorted(set(used))
+    if simple and len(used) <= 2 and used[-1] < 256:
+        bits.put(1, 1)
+        bits.put(len(used) - 1, 1)
+        eight = used[0] > 1
+        bits.put(eight, 1)
+        bits.put(used[0], 8 if eight else 1)
+        if len(used) == 2:
+            bits.put(used[1], 8)
+            return {used[0]: (0, 1), used[1]: (1, 1)}
+        return {used[0]: (0, 0)}
+    lengths = dict(zip(used, complete_lengths(len(used)))) if len(used) > 1 else {used[0]: 1}
+    per_symbol = [lengths.get(s, 0) for s in range(alphabet)]
+    values = sorted(set(per_symbol))
+    cl = dict(zip(values, complete_lengths(len(values)))) if len(values) > 1 else {values[0]: 1}
+    cl_codes = _canonical(cl) if len(values) > 1 else {values[0]: (0, 0)}
+    bits.put(0, 1)
+    last = max(i for i, s in enumerate(VP8L_CODE_LENGTH_ORDER) if s in cl)
+    count = max(4, last + 1)
+    bits.put(count - 4, 4)
+    for s in VP8L_CODE_LENGTH_ORDER[:count]:
+        bits.put(cl.get(s, 0), 3)
+    bits.put(0, 1)  # every symbol's length is written
+    for n in per_symbol:
+        bits.put(*cl_codes[n])
+    return _canonical(lengths) if len(used) > 1 else {used[0]: (0, 0)}
+
+
+def _prefix(value: int):
+    """An LZ77 length or distance (>= 1) -> (prefix symbol, extra bits, count)."""
+    if value <= 4:
+        return value - 1, 0, 0
+    n = value - 1
+    h = n.bit_length() - 1
+    second = (n >> (h - 1)) & 1
+    return 2 * h + second, n & ((1 << (h - 1)) - 1), h - 1
+
+
+def _vp8l_tokens(px: list, width: int, cache_bits: int, lz77: bool) -> list:
+    """Pixels (ARGB ints) -> tokens: ('lit', argb), ('cache', key) or
+    ('copy', length, distance code): greedy copies from the left pixel or
+    the one above (short distance codes 2 and 1) or from 3 pixels back
+    (a long code), at least 3 long; a cache hit where the pixel is in it."""
+    cache = {} if cache_bits else None
+    out, i, n = [], 0, len(px)
+
+    def add(p):
+        if cache is not None:
+            cache[((p * 0x1E35A7BD) & 0xFFFFFFFF) >> (32 - cache_bits)] = p
+
+    while i < n:
+        best = (0, 0, 0)
+        if lz77:
+            for dist, code in ((1, 2), (width, 1), (3, 3 + 120)):
+                if dist > i:
+                    continue
+                k = 0
+                while i + k < n and k < 4096 and px[i + k] == px[i + k - dist]:
+                    k += 1
+                if k > best[0]:
+                    best = (k, dist, code)
+        if best[0] >= 3:
+            out.append(("copy", best[0], best[2]))
+            for p in px[i:i + best[0]]:
+                add(p)
+            i += best[0]
+            continue
+        p = px[i]
+        key = ((p * 0x1E35A7BD) & 0xFFFFFFFF) >> (32 - cache_bits) if cache_bits else None
+        if cache is not None and cache.get(key) == p:
+            out.append(("cache", key))
+        else:
+            out.append(("lit", p))
+        add(p)
+        i += 1
+    return out
+
+
+def _put_vp8l_image(bits: LsbBits, px: list, width: int, cache_bits: int = 0,
+                    lz77: bool = True, groups=None, group_bits: int = 0,
+                    simple: bool = True, level0: bool = False) -> None:
+    """One entropy-coded image: the colour cache, at level 0 the meta prefix
+    codes (``groups``: a group index for each block of 2^group_bits pixels,
+    read row by row), each group's five codes, then the tokens."""
+    if cache_bits:
+        bits.put(1, 1)
+        bits.put(cache_bits, 4)
+    else:
+        bits.put(0, 1)
+    tokens = _vp8l_tokens(px, width, cache_bits, lz77)
+    if level0:
+        bits.put(groups is not None, 1)
+    if groups is not None:
+        bits.put(group_bits - 2, 3)
+        gw = -(-width // (1 << group_bits))
+        _put_vp8l_image(bits, [g << 8 for g in groups], gw, lz77=False)
+    at_group, pos = [], 0
+    for t in tokens:
+        y, x = divmod(pos, width)
+        at_group.append(groups[(y >> group_bits) * -(-width // (1 << group_bits))
+                               + (x >> group_bits)] if groups is not None else 0)
+        pos += t[1] if t[0] == "copy" else 1
+    n_groups = max(groups) + 1 if groups is not None else 1
+    codes = []
+    for g in range(n_groups):
+        sets = [set(), set(), set(), set(), set()]
+        for t, gi in zip(tokens, at_group):
+            if gi != g:
+                continue
+            if t[0] == "lit":
+                p = t[1]
+                for k, v in enumerate(((p >> 8) & 255, (p >> 16) & 255, p & 255, p >> 24)):
+                    sets[k].add(v)
+            elif t[0] == "cache":
+                sets[0].add(280 + t[1])
+            else:
+                sets[0].add(256 + _prefix(t[1])[0])
+                sets[4].add(_prefix(t[2])[0])
+        alphabets = (280 + ((1 << cache_bits) if cache_bits else 0), 256, 256, 256, 40)
+        codes.append([put_vp8l_code(bits, s or {0}, a, simple) for s, a in zip(sets, alphabets)])
+    for t, g in zip(tokens, at_group):
+        green, red, blue, alpha, dist = codes[g]
+        if t[0] == "lit":
+            p = t[1]
+            bits.put(*green[(p >> 8) & 255])
+            bits.put(*red[(p >> 16) & 255])
+            bits.put(*blue[p & 255])
+            bits.put(*alpha[p >> 24])
+        elif t[0] == "cache":
+            bits.put(*green[280 + t[1]])
+        else:
+            sym, extra, n = _prefix(t[1])
+            bits.put(*green[256 + sym])
+            bits.put(extra, n)
+            sym, extra, n = _prefix(t[2])
+            bits.put(*dist[sym])
+            bits.put(extra, n)
+
+
+def _argb(c) -> int:
+    a, r, g, b = (int(v) & 255 for v in c)
+    return (a << 24) | (r << 16) | (g << 8) | b
+
+
+def _vp8l_predict(mode: int, L, T, TR, TL):
+    """RFC 9649's predictors on (a, r, g, b) tuples, one pixel."""
+    avg = lambda u, v: tuple((p + q) >> 1 for p, q in zip(u, v))  # noqa: E731
+    clip = lambda v: min(255, max(0, v))  # noqa: E731
+    if mode == 0:
+        return (255, 0, 0, 0)
+    if mode <= 4:
+        return (L, T, TR, TL)[mode - 1]
+    if mode == 5:
+        return avg(avg(L, TR), T)
+    if mode == 6:
+        return avg(L, TL)
+    if mode == 7:
+        return avg(L, T)
+    if mode == 8:
+        return avg(TL, T)
+    if mode == 9:
+        return avg(T, TR)
+    if mode == 10:
+        return avg(avg(L, TL), avg(T, TR))
+    if mode == 11:
+        pl = sum(abs(t - tl) for t, tl in zip(T, TL))
+        pt = sum(abs(l_ - tl) for l_, tl in zip(L, TL))
+        return L if pl < pt else T
+    if mode == 12:
+        return tuple(clip(l_ + t - tl) for l_, t, tl in zip(L, T, TL))
+    a = avg(L, T)
+    return tuple(clip(v + int((v - tl) / 2)) for v, tl in zip(a, TL))
+
+
+def vp8l_bytes(argb: np.ndarray, transforms=(), cache_bits: int = 0, lz77: bool = True,
+               group_bits: int = 0, groups=None, alpha_hint: bool = False,
+               simple: bool = True, header: bool = True) -> bytes:
+    """A VP8L bitstream of (h, w, 4) uint8 (a, r, g, b) pixels written by
+    this script's own encoder, so that each feature of RFC 9649 can be held
+    to cv2 on its own. ``transforms``, applied in turn and written in that
+    order: ('green',), ('colour', bits, (n, 3) int8 multipliers (green to
+    red, green to blue, red to blue) a block), ('predict', bits, modes a
+    block), ('palette',) (every colour of the image, at most 256, in order
+    of first use; pixels bundled by the palette's size). ``groups``: meta
+    prefix codes, a group a block of ``group_bits``. ``header``: the 0x2f
+    signature and the size fields (False: an ALPH chunk's stream)."""
+    img = np.asarray(argb, np.int64)
+    h, w = img.shape[:2]
+    bits = LsbBits()
+    if header:
+        bits.put(0x2F, 8)
+        bits.put(w - 1, 14)
+        bits.put(h - 1, 14)
+        bits.put(int(alpha_hint), 1)
+        bits.put(0, 3)
+    cur, width = img.copy(), w
+    for t in transforms:
+        bits.put(1, 1)
+        if t[0] == "green":
+            bits.put(2, 2)
+            cur[..., 1] = (cur[..., 1] - cur[..., 2]) & 255
+            cur[..., 3] = (cur[..., 3] - cur[..., 2]) & 255
+        elif t[0] == "colour":
+            _, tb, mult = t
+            bits.put(1, 2)
+            bits.put(tb - 2, 3)
+            bw = -(-width // (1 << tb))
+            mult = np.asarray(mult, np.int64).reshape(-1, 3)
+            _put_vp8l_image(bits, [_argb((255, m[2], m[1], m[0])) for m in mult], bw)
+            s8 = lambda v: ((int(v) + 128) & 255) - 128  # noqa: E731
+            for y in range(h):
+                for x in range(width):
+                    g2r, g2b, r2b = mult[(y >> tb) * bw + (x >> tb)]
+                    _, r, g, b = (int(v) for v in cur[y, x])
+                    cur[y, x, 1] = (r - ((s8(g2r) * s8(g)) >> 5)) & 255
+                    cur[y, x, 3] = (b - ((s8(g2b) * s8(g)) >> 5) - ((s8(r2b) * s8(r)) >> 5)) & 255
+        elif t[0] == "predict":
+            _, tb, modes = t
+            bits.put(0, 2)
+            bits.put(tb - 2, 3)
+            bw = -(-width // (1 << tb))
+            _put_vp8l_image(bits, [_argb((255, 0, m, 0)) for m in modes], bw)
+            orig = [tuple(int(v) for v in p) for p in cur.reshape(-1, 4)]
+            res = cur.reshape(-1, 4)
+            for i, p in enumerate(orig):
+                y, x = divmod(i, width)
+                mode = 0 if i == 0 else 1 if y == 0 else 2 if x == 0 else \
+                    modes[(y >> tb) * bw + (x >> tb)]
+                tr = orig[i - width + 1] if y else None
+                pred = _vp8l_predict(mode, orig[i - 1] if i else None,
+                                     orig[i - width] if y else None, tr,
+                                     orig[i - width - 1] if y and x else None)
+                res[i] = [(v - q) & 255 for v, q in zip(p, pred)]
+            cur = res.reshape(cur.shape)
+        elif t[0] == "palette":
+            flat = [tuple(int(v) for v in p) for p in cur.reshape(-1, 4)]
+            palette = list(dict.fromkeys(flat))
+            n = len(palette)
+            bits.put(3, 2)
+            bits.put(n - 1, 8)
+            deltas = [palette[0]] + [tuple((c - p) & 255 for c, p in zip(palette[k],
+                                                                        palette[k - 1]))
+                                     for k in range(1, n)]
+            _put_vp8l_image(bits, [_argb(d) for d in deltas], n)
+            wb = 0 if n > 16 else 1 if n > 4 else 2 if n > 2 else 3
+            index = {c: k for k, c in enumerate(palette)}
+            idx = np.array([index[p] for p in flat]).reshape(h, width)
+            per, depth = 1 << wb, 8 >> wb
+            packed_w = -(-width // per)
+            packed = np.zeros((h, packed_w, 4), np.int64)
+            packed[..., 0] = 255
+            for x in range(width):
+                packed[:, x >> wb, 2] |= idx[:, x] << ((x & (per - 1)) * depth)
+            cur, width = packed, packed_w
+    bits.put(0, 1)
+    _put_vp8l_image(bits, [_argb(p) for p in cur.reshape(-1, 4)], width, cache_bits, lz77,
+                    groups, group_bits, simple, level0=True)
+    return bits.data()
+
+
 def cv2_decode(data: bytes, path: str = None):
     """cv2's RGB decode of a file (``path``) or of bytes, or None."""
     bgr = (cv2.imread(path, cv2.IMREAD_COLOR) if path
@@ -1125,7 +1810,7 @@ def digest(img) -> dict:
 
 EXTENSIONS = {b"\x89P": ".png", b"\xff\xd8": ".jpg", b"BM": ".bmp", b"P1": ".pbm",
               b"P4": ".pbm", b"P2": ".pgm", b"P5": ".pgm", b"P3": ".ppm", b"P6": ".ppm",
-              b"GI": ".gif", b"II": ".tif", b"MM": ".tif"}
+              b"GI": ".gif", b"II": ".tif", b"MM": ".tif", b"RI": ".webp"}
 
 
 def main(argv=None) -> int:
@@ -1145,6 +1830,10 @@ def main(argv=None) -> int:
                  for make in (jpeg_cut_cases, gif_cases, tiff_cases)
                  for name, data in make(rng).items()})
     todo.update({f"pages/{name}": data for name, data in cut_pages().items()})
+    rng = np.random.default_rng(25)  # the files above stay as they were
+    todo.update({f"cases/{name}{EXTENSIONS.get(data[:2], '.webp')}": data
+                 for make in (webp_cases, tiff_jpeg_cases) for name, data in make(rng).items()})
+    todo.update({f"pages/{name}": data for name, data in webp_jpeg_tiff_pages().items()})
     for rel, data in todo.items():
         path = os.path.join(args.out, rel)
         os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -1158,7 +1847,7 @@ def main(argv=None) -> int:
             entry["imdecode"] = None if from_bytes is None else digest(from_bytes)
         files[rel] = entry
     build = [line.strip() for line in cv2.getBuildInformation().splitlines()
-             if line.strip().startswith(("JPEG:", "PNG:", "TIFF:"))]
+             if line.strip().startswith(("JPEG:", "PNG:", "TIFF:", "WEBP:"))]
     with open(os.path.join(args.out, "manifest.json"), "w") as f:
         json.dump({"made_by": "scripts/make_port_image_assets.py",
                    "decoder": f"cv2 {cv2.__version__} ({'; '.join(build)})",

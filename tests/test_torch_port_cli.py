@@ -252,18 +252,23 @@ def _png(tmp_path, ihdr):
 
 
 def test_read_image_refuses_other_formats(tmp_path):
-    # PNG, JPEG (baseline and progressive), BMP, PNM, GIF and TIFF are read
-    # (test_torch_port_jpeg*.py, test_torch_port_imageio_formats.py,
-    # test_torch_port_gif_tiff.py); a WebP and a PNG header the standard
-    # does not allow are refused by name
+    # PNG, JPEG (baseline and progressive), BMP, PNM, GIF, TIFF and WebP are
+    # read (test_torch_port_jpeg*.py, test_torch_port_imageio_formats.py,
+    # test_torch_port_gif_tiff.py, test_torch_port_webp.py); a Sun raster and
+    # a PNG header the standard does not allow are refused by name
     tif = tmp_path / "x.tif"
     cv2.imwrite(str(tif), np.arange(8 * 8 * 3, dtype=np.uint8).reshape(8, 8, 3))
     np.testing.assert_array_equal(imageio.read_image(str(tif)), cv2.cvtColor(
         cv2.imread(str(tif), cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))  # TIFF is read
     webp = tmp_path / "x.webp"
-    cv2.imwrite(str(webp), np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="not PNG, JPEG, BMP, PNM, GIF or TIFF"):
-        imageio.read_image(str(webp))
+    cv2.imwrite(str(webp), np.arange(8 * 8 * 3, dtype=np.uint8).reshape(8, 8, 3))
+    np.testing.assert_array_equal(imageio.read_image(str(webp)), cv2.cvtColor(
+        cv2.imread(str(webp), cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))  # WebP is read
+    ras = tmp_path / "x.ras"
+    cv2.imwrite(str(ras), np.zeros((8, 8, 3), np.uint8))
+    assert cv2.imread(str(ras), cv2.IMREAD_COLOR) is not None
+    with pytest.raises(NotImplementedError, match="not PNG, JPEG, BMP, PNM, GIF, TIFF or WebP"):
+        imageio.read_image(str(ras))
     bmp = tmp_path / "x.bmp"
     cv2.imwrite(str(bmp), np.arange(8 * 8 * 3, dtype=np.uint8).reshape(8, 8, 3))
     np.testing.assert_array_equal(imageio.read_image(str(bmp)), cv2.cvtColor(

@@ -331,7 +331,10 @@ def test_tiff_refusals_name_what_they_met(cv):
         Image.fromarray(img, mode).save(buf, "TIFF", **kw)
         return buf.getvalue()
 
-    for data, what in ((pil(rgb, compression="jpeg"), "JPEG \\(7\\)"),
+    data = pil(rgb, compression="jpeg")  # JPEG (7) is read (test_torch_port_tiff_jpeg.py)
+    np.testing.assert_array_equal(imageio.decode_image(data), cv2.cvtColor(cv2.imdecode(
+        np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))
+    for data, what in ((assets.tiff_bytes(rgb, 8, 2, 6), "old-style JPEG \\(6\\)"),
                        (pil(rgb[..., 0] > 128, "1", compression="group4"), "Group 4"),
                        (pil(rgb[..., 0] > 128, "1", compression="group3"), "Group 3"),
                        (pil(np.asarray(Image.fromarray(rgb).convert("YCbCr")), "YCbCr"),
@@ -340,7 +343,7 @@ def test_tiff_refusals_name_what_they_met(cv):
                        (assets.tiff_bytes(rgb, 8, 2, 34925), "LZMA"),
                        (assets.tiff_bytes(rgb, 8, 8, 1), "L\\*a\\*b\\*")):
         assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is not None \
-            or what in ("LZMA", "floating point")
+            or what in ("LZMA", "floating point", "old-style JPEG \\(6\\)")
         with pytest.raises(NotImplementedError, match=what):
             imageio.decode_image(data)
     for data in (assets.tiff_bytes(rgb[..., 0] >> 6, 2, 1, 1),
