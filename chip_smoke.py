@@ -5056,9 +5056,12 @@ def phase_jpeg():
     1280x720 pages beside the PNG decode of the same page (``write_png``'s
     Sub rows). Then every file of ``assets/images/`` (PNG, BMP, PNM, JPEG
     variants, JPEGs cut short and progressive files left unrefined, GIF,
-    TIFF, JPEG-compressed TIFF and WebP) through ``read_image`` and
+    TIFF, JPEG-compressed, CCITT and YCbCr TIFF, WebP, Radiance HDR, PFM
+    and Sun raster) through ``read_image`` and
     ``decode_image`` against cv2's two routes, each refusing where cv2
-    returns None; ms a file by format, each page on its own."""
+    returns None; ms a file by format, each page on its own, and on a line
+    of their own the formats CCITT fax TIFF, YCbCr TIFF, Radiance HDR, PFM
+    and Sun raster and the 640x640 CCITT Group 4 page."""
     from megreader_tpu_torch.data.imageio import decode_image, read_image, write_png
 
     t_phase = time.perf_counter()
@@ -5133,6 +5136,12 @@ def phase_jpeg():
         f"file on one host thread by format (mean, max, files) "
         + json.dumps({k: [statistics.mean(v), max(v), len(v)] for k, v in ms.items()})
         + f" [{CARD}]; {time.perf_counter() - t_formats:.1f} s (host clock)")
+    names = {"fax": "CCITT fax TIFF", "ycbcr": "YCbCr TIFF", "hdr": "Radiance HDR",
+             "pfm": "PFM", "ras": "Sun raster", "pages/page_g4.tif": "640x640 CCITT G4 page"}
+    log("jpeg phase, CCITT fax and YCbCr TIFF, Radiance HDR, PFM and Sun raster: read_image ms "
+        "a file on one host thread (mean, max, files) " + json.dumps(
+            {names[k]: [statistics.mean(ms[k]), max(ms[k]), len(ms[k])] for k in names})
+        + f" [{CARD}]")
     if bad:
         raise AssertionError(f"jpeg phase: the port's decode differs from cv2's on {bad}")
 
@@ -5584,7 +5593,8 @@ def format_pages(tmp: str):
     PNG, a 16-bit Adam7 PNG, an RLE8 BMP, a baseline JPEG cut at 60% of its
     bytes, a progressive JPEG cut inside its first AC scan, a GIF, an LZW
     TIFF with Predictor 2, a lossless and a lossy WebP, a JPEG-compressed
-    TIFF), each read by ``read_image`` with cv2's digest (the manifest), and
+    TIFF, a CCITT Group 4 TIFF), each read by ``read_image`` with cv2's
+    digest (the manifest), and
     a PNG twin of each written from that decode: (the pages' paths, the
     twins' paths)."""
     from megreader_tpu_torch.data.imageio import read_image, write_png

@@ -1,8 +1,11 @@
-"""BMP and PNM (PBM, PGM, PPM) in numpy, bit-equal to ``cv2.imread`` /
-``cv2.imdecode`` with ``IMREAD_COLOR`` then ``cv2.cvtColor(BGR2RGB)``.
+"""BMP, PNM (PBM, PGM, PPM), PFM and Sun raster in numpy, bit-equal to
+``cv2.imread`` / ``cv2.imdecode`` with ``IMREAD_COLOR`` then
+``cv2.cvtColor(BGR2RGB)``.
 
-cv2 reads both with decoders of its own (``grfmt_bmp.cpp``,
-``grfmt_pxm.cpp``), whose rules these copy, as probed on cv2 5.0.0:
+cv2 reads these with decoders of its own (``grfmt_bmp.cpp``,
+``grfmt_pxm.cpp``, ``grfmt_pfm.cpp``, ``grfmt_sunras.cpp``), whose rules
+these copy, as probed on cv2 5.0.0 (``decode_pfm`` and ``decode_sunras``
+say theirs):
 
 * **BMP** (``decode_bmp``): the OS/2 header of 12 bytes and the Windows
   headers of 40 bytes and more; bottom-up rows or top-down (a negative
@@ -313,3 +316,115 @@ def decode_pnm(data: bytes, path: str = "<bytes>") -> np.ndarray:
         px = px.astype(np.uint8)
     px = px.reshape(h, w, ch)
     return np.ascontiguousarray(px if ch == 3 else np.repeat(px, 3, axis=2))
+
+
+# ----------------------------------------------------------------------- PFM
+_PFM_INT = re.compile(rb"[+-]?[0-9]+")
+_PFM_FLOATS = (re.compile(rb"[+-]?0[xX]([0-9a-fA-F]+\.?[0-9a-fA-F]*|\.[0-9a-fA-F]+)"
+                          rb"([pP][+-]?[0-9]+)?"),
+               re.compile(rb"[+-]?([0-9]+\.?[0-9]*|\.[0-9]+)([eE][+-]?[0-9]+)?"),
+               re.compile(rb"[+-]?(infinity|inf|nan)", re.IGNORECASE))
+
+
+def is_pfm(data: bytes) -> bool:
+    return len(data) > 2 and data[0] == 80 and data[1] in b"Ff" and data[2] in _SPACE
+
+
+def _pfm_token(data: bytes, pos: int, path: str) -> Tuple[bytes, int]:
+    """cv2's PFM ``read_number`` token: up to 2048 bytes before one
+    whitespace byte, which it consumes (so two in a row end an empty
+    token); -> (token, position after it)."""
+    for end in range(pos, pos + 2048):
+        if end >= len(data) or data[end] >= 128:
+            raise ValueError(f"{path}: PFM header cut short or not ASCII")
+        if data[end] in _SPACE:
+            return data[pos:end], end + 1
+    return data[pos:pos + 2048], pos + 2048
+
+
+def _pfm_float(token: bytes) -> float:
+    """C's ``strtod`` of the token's longest leading number (0 if none)."""
+    hexa, dec, special = (p.match(token) for p in _PFM_FLOATS)
+    if hexa:
+        return float.fromhex(hexa.group(0).decode())
+    if dec:
+        return float(dec.group(0))
+    return float(special.group(0)) if special else 0.0
+
+
+def decode_pfm(data: bytes, path: str = "<bytes>", from_file: bool = True) -> np.ndarray:
+    """PFM bytes (``PF`` colour, ``Pf`` grey) -> (H, W, 3) uint8 RGB as cv2
+    5 reads them: header numbers as C's ``atoi`` and ``strtod`` read the
+    tokens ``_pfm_token`` cuts; float32 rows bottom to top, little-endian
+    where the scale is negative; each sample times float32(1 / |scale|) in
+    float32, rounded half to even, clipped to 0..255, and 0 where it is not
+    finite or from 2^31 up (no x255). ``cv2.imread`` refuses a grey PFM
+    (``from_file``); ``cv2.imdecode`` reads it, and ``BGR2RGB`` puts the
+    grey in all three channels."""
+    if not is_pfm(data) or data[2] != 10:
+        raise ValueError(f"{path}: PFM header not 'PF' or 'Pf' and a line break")
+    ch = 3 if data[1] == 70 else 1
+    if ch == 1 and from_file:
+        raise ValueError(f"{path}: grey PFM (cv2.imread refuses it; cv2.imdecode reads it)")
+    pos, dims = 3, []
+    for _ in range(2):
+        token, pos = _pfm_token(data, pos, path)
+        m = _PFM_INT.match(token)
+        dims.append(int(m.group(0)) if m else 0)
+    w, h = dims
+    token, pos = _pfm_token(data, pos, path)
+    scale = _pfm_float(token)
+    if not (0 < w <= 1 << 20 and 0 < h <= 1 << 20):
+        raise ValueError(f"{path}: PFM of {w}x{h}")
+    if not abs(scale) > 0:
+        raise ValueError(f"{path}: PFM scale {token!r} (cv2 refuses it)")
+    n = w * h * ch
+    raw = data[pos:pos + 4 * n]
+    if len(raw) != 4 * n:
+        raise ValueError(f"{path}: PFM data cut short")
+    x = np.frombuffer(raw, "<f4" if scale < 0 else ">f4").reshape(h, w, ch)[::-1]
+    with np.errstate(over="ignore", invalid="ignore"):
+        v = x.astype(np.float32) * np.array(1.0 / abs(scale)).astype(np.float32)
+        ok = np.isfinite(v) & (v < 2.0 ** 31)
+        px = np.where(ok, np.clip(np.rint(np.where(ok, v, 0)), 0, 255), 0).astype(np.uint8)
+    return np.ascontiguousarray(np.repeat(px, 3, 2) if ch == 1 else px)
+
+
+# ---------------------------------------------------------------- Sun raster
+SUNRAS_SIGNATURE = b"\x59\xa6\x6a\x95"
+
+
+def decode_sunras(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """Sun raster bytes -> (H, W, 3) uint8 RGB as cv2 5 reads them: types 0
+    (old) and 1 (standard) only (cv2's header test compares the image type
+    where it means the encoding, which refuses byte-encoded (2) and RGB (3)
+    files); 1 and 8 bits through an RGB colour map (an index past it reads
+    black) or, without one, grey (1 bit: 0 black, 1 white); 24 bits as B,
+    G, R and 32 as X, B, G, R; rows padded to 16 bits, all of them present;
+    the header's length field ignored."""
+    if len(data) < 32 or not data.startswith(SUNRAS_SIGNATURE):
+        raise ValueError(f"{path}: not a Sun raster, or its header cut short")
+    _, w, h, bpp, _, kind, maptype, maplen = struct.unpack(">8I", data[:32])
+    palsize = 3 << bpp if bpp <= 8 else 0
+    if not (0 < w < 1 << 31 and 0 < h < 1 << 31 and bpp in (1, 8, 24, 32) and kind in (0, 1)
+            and ((maptype == 0 and maplen == 0)
+                 or (maptype == 1 and 0 < maplen <= palsize))):
+        raise ValueError(f"{path}: Sun raster of {bpp} bits, type {kind}, colour map type "
+                         f"{maptype} of {maplen} bytes (cv2 refuses it)")
+    pitch = ((w * bpp + 7) // 8 + 1) & ~1
+    at = 32 + maplen
+    raw = data[at:at + h * pitch]
+    if len(data) < at or len(raw) != h * pitch:
+        raise ValueError(f"{path}: Sun raster data cut short")
+    rows = np.frombuffer(raw, np.uint8).reshape(h, pitch)
+    if bpp > 8:
+        step = bpp // 8
+        return rows[:, :w * step].reshape(h, w, step)[..., [step - 1, step - 2, step - 3]]
+    palette = np.zeros((256, 3), np.uint8)
+    if maplen:
+        n = maplen // 3
+        palette[:n] = np.frombuffer(data[32:32 + 3 * n], np.uint8).reshape(3, n).T
+    else:
+        palette[:1 << bpp] = (np.arange(1 << bpp) * 255 // ((1 << bpp) - 1))[:, None]
+    idx = np.unpackbits(rows, axis=1)[:, :w] if bpp == 1 else rows[:, :w]
+    return palette[idx]

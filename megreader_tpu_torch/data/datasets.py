@@ -7,9 +7,10 @@ with the word in its top-left ``size`` region; a detection item is a page with
 its words' polygons and, unless ``gt_maps`` is off, its host GT maps.
 
 * ``RecognitionListDataset`` and ``DetectionICDARDataset`` read their images
-  with ``imageio.read_image`` (PNG, JPEG, BMP, PNM, GIF or TIFF, chosen by
-  the file's signature, bit-equal to ``cv2.imread``: the card's machine has
-  no cv2; a JPEG cut short reads as cv2 reads it) and resize with ``imageio.resize_linear``
+  with ``imageio.read_image`` (PNG, JPEG, BMP, PNM, PFM, Sun raster,
+  Radiance HDR, GIF, TIFF or WebP, chosen by the file's signature,
+  bit-equal to ``cv2.imread``: the card's machine has no cv2; a JPEG cut
+  short reads as cv2 reads it) and resize with ``imageio.resize_linear``
   (cv2's bilinear resize, bit for bit); their items equal the JAX items.
 * ``MixtureDataset`` interleaves its parts by fractional position.
 * The synthetic datasets draw the same words from the same per-index

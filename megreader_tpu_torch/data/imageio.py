@@ -1,5 +1,5 @@
-"""Page images without cv2: PNG, JPEG, BMP, PNM, GIF, TIFF and WebP in, PNG
-out, and cv2's resizes.
+"""Page images without cv2: PNG, JPEG, BMP, PNM, PFM, Sun raster, Radiance
+HDR, GIF, TIFF and WebP in, PNG out, and cv2's resizes.
 
 The reference reads pages with ``cv2.imread(path, cv2.IMREAD_COLOR)``,
 LMDB crops with ``cv2.imdecode(buf, cv2.IMREAD_COLOR)``, and resizes with
@@ -12,21 +12,24 @@ with the standard library's ``zlib`` and numpy:
   (``data/jpeg.py``: baseline, extended sequential in one scan or several,
   progressive Huffman; grey, YCbCr, RGB, CMYK and YCCK; markers after the
   last scan; block smoothing of unrefined progressive scans; an EXIF
-  orientation), BMP and PNM (``data/bitmap.py``), GIF (``data/gif.py``: the
-  first image), TIFF (``data/tiff.py``: the first image, uncompressed,
-  LZW, Deflate, PackBits or JPEG) and WebP (``data/webp.py``: lossless
-  ``data/vp8l.py`` and lossy ``data/vp8.py`` bitstreams, simple or VP8X
-  containers with ALPH and EXIF, the first frame of an animation; any data
-  whose first 32 bytes libwebp takes for WebP, as cv2 tells it by them).
+  orientation), BMP, PNM, PFM and Sun raster (``data/bitmap.py``), Radiance
+  HDR (``data/radiance.py``: run-length or flat RGBE, scaled by 255 as cv2
+  converts it), GIF (``data/gif.py``: the first image), TIFF
+  (``data/tiff.py``: the first image, uncompressed, CCITT fax
+  (``data/fax.py``), LZW, Deflate, PackBits or JPEG; YCbCr as libtiff
+  converts it) and WebP (``data/webp.py``: lossless ``data/vp8l.py`` and
+  lossy ``data/vp8.py`` bitstreams, simple or VP8X containers with ALPH and
+  EXIF, the first frame of an animation; any data whose first 32 bytes
+  libwebp takes for WebP, as cv2 tells it by them).
   Each -> (H, W, 3) uint8 RGB, bit-equal to ``cv2.imread``/``cv2.imdecode``
   then ``cv2.cvtColor(BGR2RGB)``. The two differ on a JPEG that runs to the
   end of the file without EOI, whole or cut inside its data: ``read_image``
   reads it, as ``cv2.imread`` does (libjpeg's grey rest), and
   ``decode_image`` only where ``cv2.imdecode`` does (``jpeg.decode_jpeg``);
-  and on a TIFF of uncompressed tiles, which ``cv2.imdecode`` refuses
-  unless a tile holds a multiple of 1024 pixels. Any other format raises
-  ``NotImplementedError``; a damaged file, or one that cv2 refuses,
-  ``ValueError``.
+  on a TIFF of uncompressed tiles, which ``cv2.imdecode`` refuses unless a
+  tile holds a multiple of 1024 bytes; and on a grey PFM, which only
+  ``cv2.imdecode`` reads. Any other format raises ``NotImplementedError``;
+  a damaged file, or one that cv2 refuses, ``ValueError``.
 * ``encode_png`` / ``write_png`` (``data/png.py``): (H, W) grey,
   (H, W, 3) RGB or (H, W, 4) RGBA uint8 -> PNG bytes / a PNG file, each
   row with a filter from ``filters`` in turn.
@@ -45,10 +48,11 @@ from typing import Tuple
 
 import numpy as np
 
-from .bitmap import decode_bmp, decode_pnm
+from .bitmap import SUNRAS_SIGNATURE, decode_bmp, decode_pfm, decode_pnm, decode_sunras, is_pfm
 from .gif import SIGNATURES as _GIF, decode_gif
 from .jpeg import decode_jpeg
 from .png import SIGNATURE as _PNG, decode_png, encode_png, write_png
+from .radiance import decode_hdr, is_hdr
 from .tiff import SIGNATURES as _TIFF, decode_tiff
 from .webp import decode_webp, is_webp
 
@@ -77,18 +81,24 @@ def _decode(data: bytes, path: str, from_file: bool) -> np.ndarray:
         return decode_png(data, path)
     if data.startswith(b"BM"):
         return decode_bmp(data, path)
+    if is_hdr(data):
+        return decode_hdr(data, path)
     if is_webp(data):  # cv2 asks libwebp before its PNM, TIFF, PNG and GIF readers
         return decode_webp(data, path)
+    if data.startswith(SUNRAS_SIGNATURE):
+        return decode_sunras(data, path)
     if len(data) > 2 and data[0] == 80 and 49 <= data[1] <= 54 and data[2] in b" \t\n\v\f\r":
         return decode_pnm(data, path)
+    if is_pfm(data):
+        return decode_pfm(data, path, from_file)
     if data[:6] in _GIF:
         return decode_gif(data, path)
     if data[:4] in _TIFF:
         return decode_tiff(data, path, from_file)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return decode_webp(data, path)  # refused: fewer than 32 bytes, or a broken header
-    raise NotImplementedError(f"{path}: not PNG, JPEG, BMP, PNM, GIF, TIFF or WebP (only those "
-                              "are read)")
+    raise NotImplementedError(f"{path}: not PNG, JPEG, BMP, PNM, PFM, Sun raster, Radiance HDR, "
+                              "GIF, TIFF or WebP (only those are read)")
 
 
 def _taps(n_out: int, n_in: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -9,8 +9,10 @@ RGBA interface (``TIFFReadRGBAStrip`` / ``TIFFReadRGBATile``), whose rules
 * the first IFD of a classic (``II*\\0``, ``MM\\0*``) or BigTIFF (``II+\\0``,
   ``MM\\0+``) file; strips or tiles, PlanarConfiguration 1 (contiguous) or
   2 (one plane a sample); FillOrder 2 (bits reversed in each byte);
-* compressions 1 (none), 5 (LZW, codes most significant bit first, one bit
-  wider one code early), 8 and 32946 (Deflate) and 32773 (PackBits);
+* compressions 1 (none), 2, 3 and 4 (CCITT modified Huffman, T.4 and
+  T.6 of 1-bit samples, decoded by ``data/fax.py`` as libtiff decodes them,
+  damaged data included), 5 (LZW, codes most significant bit first, one
+  bit wider one code early), 8 and 32946 (Deflate) and 32773 (PackBits);
   Predictor 2 (horizontal differencing of 8- or 16-bit samples) undone
   after LZW and Deflate only, as libtiff ignores it with the others;
 * compression 7 (JPEG): each strip or tile a JPEG stream read after the
@@ -28,15 +30,18 @@ RGBA interface (``TIFFReadRGBAStrip`` / ``TIFFReadRGBATile``), whose rules
   its high byte). An RGB alpha sample (ExtraSamples: unassociated 2, or
   associated 1, or unspecified with four samples or more, or none at all
   with exactly four) is dropped, unassociated alpha after premultiplying
-  each colour ``(c * a + 127) // 255``;
+  each colour ``(c * a + 127) // 255``; 6 (YCbCr, not JPEG-compressed)
+  at 8 bits, three samples, by libtiff's ``TIFFYCbCrToRGB`` tables
+  (YCbCrCoefficients and ReferenceBlackWhite in float32, chroma weights in
+  16-bit fixed point), its units read as ``_ycbcr_samples`` says;
 * the Orientation tag applied as cv2 applies an EXIF orientation.
 
 Depths and photometric interpretations that cv2 refuses (2-bit samples,
 4-bit grey, 16-bit palette or CMYK, ...) and damaged files raise
 ``ValueError``; compressions, photometric interpretations and sample
-formats that cv2 reads and these do not (old-style JPEG, CCITT, YCbCr
-without JPEG, CIE L*a*b*, floating point, ...) raise ``NotImplementedError``
-naming what was met.
+formats that these do not read (old-style JPEG, CIE L*a*b*, signed or
+floating-point samples, Predictor 2 on subsampled YCbCr, ...) raise
+``NotImplementedError`` naming what was met.
 ``cv2.imdecode`` alone also refuses uncompressed tiles whose pixel count
 is not a multiple of 1024 (``decode_tiff(from_file=False)``).
 """
@@ -49,6 +54,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from . import fax
 from .jpeg import apply_orientation, decode_tiff_strip
 
 SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
@@ -58,16 +64,16 @@ _INTEGER_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1), 8: ("h", 2
                   9: ("i", 4), 13: ("I", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
 _TYPE_SIZES = {2: 1, 5: 8, 7: 1, 10: 8, 11: 4, 12: 8}
 
-_COMPRESSIONS = {2: "CCITT modified Huffman RLE", 3: "CCITT Group 3 fax",
-                 4: "CCITT Group 4 fax", 6: "old-style JPEG", 32766: "NeXT RLE",
+_COMPRESSIONS = {6: "old-style JPEG", 32766: "NeXT RLE",
                  32771: "CCITT RLEW", 32809: "ThunderScan RLE", 34676: "SGI LogL",
                  34677: "SGI LogLuv", 34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA",
                  50000: "Zstandard", 50001: "WebP", 50002: "JPEG XL"}
-_PHOTOMETRICS = {4: "transparency mask", 6: "YCbCr", 8: "CIE L*a*b*", 9: "ICC L*a*b*",
+_PHOTOMETRICS = {4: "transparency mask", 8: "CIE L*a*b*", 9: "ICC L*a*b*",
                  10: "ITU L*a*b*", 32803: "colour filter array", 32844: "SGI LogL",
                  32845: "SGI LogLuv", 34892: "linear raw"}
 _SAMPLE_FORMATS = {2: "signed integer", 3: "IEEE floating point", 4: "untyped",
                    5: "complex signed integer", 6: "complex floating point"}
+_YCBCR_SAMPLINGS = ((1, 1), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), (1, 2))
 _REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
 
@@ -106,6 +112,10 @@ def _ifd(data: bytes, path: str) -> Tuple[Dict[int, list], str]:
                 tags[tag] = list(struct.unpack(order + code * count, value[:count * size]))
             elif kind == 7:  # UNDEFINED bytes (JPEGTables)
                 tags[tag] = list(value[:count])
+            elif kind == 5:  # RATIONAL, as libtiff reads a float field (x / 0 reads 0)
+                pairs = struct.unpack(order + "II" * count, value[:8 * count])
+                tags[tag] = [float(np.float32(a) / np.float32(b)) if b else 0.0
+                             for a, b in zip(pairs[::2], pairs[1::2])]
     except struct.error:
         raise ValueError(f"{path}: TIFF cut short inside its first IFD") from None
     return tags, order
@@ -303,11 +313,14 @@ def _samples(data: bytes, tags: Dict[int, list], order: str, h: int, w: int, spp
         raise NotImplementedError(f"{path}: TIFF Predictor {predictor}")
     if predictor == 2 and bps not in (8, 16):
         raise ValueError(f"{path}: TIFF horizontal differencing of {bps}-bit samples")
-    decode = _DECODERS[compression]
     flip = tags.get(266, [1])[0] == 2
     planes = spp if planar == 2 and spp > 1 else 1
     per_plane = spp // planes
     tiled, tw, tl, offsets, counts = _layout(tags, h, w, planes, path)
+    if compression in fax.COMPRESSIONS:
+        decode = fax.strip_decoder(compression, tags.get(292, [0])[0], tw * per_plane)
+    else:
+        decode = _DECODERS[compression]
     tile_bytes = tl * -(-tw * per_plane * bps // 8)
     if tiled and not from_file and compression == 1 and tile_bytes % 1024:
         raise ValueError(f"{path}: uncompressed TIFF tiles of {tile_bytes} bytes "
@@ -332,6 +345,99 @@ def _samples(data: bytes, tags: Dict[int, list], order: str, h: int, w: int, spp
                     s = _drifted(s, w - tx * tw, bps)
                 out[ty * tl:ty * tl + rows, tx * tw:(tx + 1) * tw,
                     p * per_plane:(p + 1) * per_plane] = s
+    return out[:h, :w]
+
+
+def _fix(x: np.float32) -> int:
+    """libtiff's FIX: a float32 times 2^16, rounded half up."""
+    return int(np.floor(float(x * np.float32(65536)) + 0.5))
+
+
+def _code2v(c: np.ndarray, black: np.float32, white: np.float32, top: int) -> np.ndarray:
+    """libtiff's Code2V in float32, then CLAMPw to +-4096 and a cast to int
+    (toward zero)."""
+    span = white - black if white - black != 0 else np.float32(1)
+    v = (c - int(black)).astype(np.float32) * np.float32(top) / span
+    return np.clip(v, -4096, 4096).astype(np.int64)
+
+
+def _ycbcr_to_rgb(ycc: np.ndarray, tags: Dict[int, list], path: str) -> np.ndarray:
+    """(..., 3) Y, Cb, Cr bytes -> uint8 RGB by libtiff's ``TIFFYCbCrToRGBInit``
+    tables and ``TIFFYCbCrtoRGB``: YCbCrCoefficients (tag 529, default
+    0.299, 0.587, 0.114) and ReferenceBlackWhite (532, default 0 255 128 255
+    128 255) in float32, the chroma weights in 16-bit fixed point."""
+    f32 = np.float32
+    luma, rbw = tags.get(529, []), tags.get(532, [])
+    red, green, blue = (f32(v) for v in (luma if len(luma) == 3 else (0.299, 0.587, 0.114)))
+    rbw = [f32(v) for v in (rbw if len(rbw) == 6 else (0, 255, 128, 255, 128, 255))]
+    if not np.isfinite([red, green, blue]).all() or abs(green) < 1e-7:
+        raise ValueError(f"{path}: TIFF YCbCrCoefficients {red, green, blue} (cv2 refuses them)")
+
+    def weight(f):
+        return _fix(min(max(f, f32(0)), f32(2)))
+
+    d1, d3 = weight(f32(2) - f32(2) * red), weight(f32(2) - f32(2) * blue)
+    d2 = -weight(red * (f32(2) - f32(2) * red) / green)
+    d4 = -weight(blue * (f32(2) - f32(2) * blue) / green)
+    x = np.arange(256) - 128
+    cr = _code2v(x, rbw[4] - f32(128), rbw[5] - f32(128), 127)
+    cb = _code2v(x, rbw[2] - f32(128), rbw[3] - f32(128), 127)
+    y_tab = _code2v(x + 128, rbw[0], rbw[1], 255)
+    y, b, r = y_tab[ycc[..., 0]], ycc[..., 1], ycc[..., 2]
+    rgb = np.stack([y + ((d1 * cr + 32768) >> 16)[r],
+                    y + (((d4 * cb + 32768)[b] + (d2 * cr)[r]) >> 16),
+                    y + ((d3 * cb + 32768) >> 16)[b]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _ycbcr_samples(data: bytes, tags: Dict[int, list], h: int, w: int, sampling: tuple,
+                   from_file: bool, path: str) -> np.ndarray:
+    """Every strip or tile of subsampled YCbCr -> (h, w, 3) Y, Cb, Cr: units
+    of ``hs x vs`` luma samples, then Cb and Cr, row after row of units
+    padded at the right and bottom edges, read as libtiff's RGBA reader
+    reads them. A strip is read as so many rows of ``TIFFScanlineSize``,
+    which rounds a row of units divided by ``vs`` down, so a 4x4 strip of
+    an odd number of units a row loses its last bytes (read as zero). In a
+    tile clipped at the right edge, ``putcontig8bitYCbCr44tile`` skips the
+    units past the edge as 10 bytes each, not 18."""
+    hs, vs = sampling
+    unit = hs * vs + 2
+    compression = tags.get(259, [1])[0]
+    decode = _DECODERS[compression]
+    flip = tags.get(266, [1])[0] == 2
+    tiled, tw, tl, offsets, counts = _layout(tags, h, w, 1, path)
+    across, down = -(-w // tw), -(-h // tl)
+    units_across = -(-tw // hs)
+    tile_bytes = -(-tl // vs) * units_across * unit
+    if tiled and not from_file and compression == 1 and tile_bytes % 1024:
+        raise ValueError(f"{path}: uncompressed TIFF tiles of {tile_bytes} bytes "
+                         "(cv2.imdecode refuses them unless a multiple of 1024)")
+    out = np.zeros((down * tl + vs, across * tw + hs, 3), np.int64)
+    for k in range(across * down):
+        ty, tx = divmod(k, across)
+        rows = min(tl, h - ty * tl)
+        units_down = -(-rows // vs)
+        chunk = data[offsets[k]:offsets[k] + counts[k]]
+        if flip:
+            chunk = chunk.translate(_REVERSED_BITS)
+        if tiled:
+            raw = np.frombuffer(decode(chunk, tile_bytes, path), np.uint8)
+            used = -(-min(tw, w - tx * tw) // hs)
+            skip = (units_across - used) * (10 if sampling == (4, 4) else unit)
+            at = np.arange(units_down)[:, None] * (used * unit + skip) + np.arange(used * unit)
+            u = raw[at]
+        else:
+            used = units_across
+            want = units_down * vs * (units_across * unit // vs)
+            u = np.zeros(units_down * units_across * unit, np.uint8)
+            u[:want] = np.frombuffer(decode(chunk, want, path), np.uint8)
+        u = u.reshape(units_down, used, unit).astype(np.int64)
+        block = np.empty((units_down * vs, used * hs, 3), np.int64)
+        block[..., 0] = u[..., :hs * vs].reshape(units_down, used, vs, hs).transpose(
+            0, 2, 1, 3).reshape(units_down * vs, used * hs)
+        for c in (1, 2):
+            block[..., c] = np.repeat(np.repeat(u[..., hs * vs + c - 1], vs, 0), hs, 1)
+        out[ty * tl:ty * tl + len(block), tx * tw:tx * tw + block.shape[1]] = block
     return out[:h, :w]
 
 
@@ -400,10 +506,13 @@ def decode_tiff(data: bytes, path: str = "<bytes>", from_file: bool = True) -> n
         raise ValueError(f"{path}: TIFF without its PhotometricInterpretation")
     photometric = tags[262][0]
     fmt = tags.get(339, [1])[0]
-    if compression not in _DECODERS and compression != 7:
+    if compression not in _DECODERS and compression not in fax.COMPRESSIONS + (7,):
         raise NotImplementedError(f"{path}: TIFF compression "
                                   f"{_COMPRESSIONS.get(compression, 'unknown')} ({compression}): "
-                                  "only none, LZW, Deflate, PackBits and JPEG are read")
+                                  "only none, CCITT, LZW, Deflate, PackBits and JPEG are read")
+    if compression in fax.COMPRESSIONS and (bps != 1 or spp != 1):
+        raise ValueError(f"{path}: CCITT-compressed TIFF of {bps} bits, {spp} samples a pixel "
+                         "(cv2 refuses it)")
     if compression == 7:
         return _jpeg_tiff(data, tags, w, h, spp, bps, photometric, fmt, from_file, path)
     if photometric in _PHOTOMETRICS:
@@ -413,6 +522,8 @@ def decode_tiff(data: bytes, path: str = "<bytes>", from_file: bool = True) -> n
         raise NotImplementedError(f"{path}: TIFF {_SAMPLE_FORMATS[fmt]} samples")
     if not w or not h:
         raise ValueError(f"{path}: TIFF of no size")
+    if photometric == 6:
+        return _ycbcr_tiff(data, tags, order, w, h, spp, bps, from_file, path)
     allowed = {0: (1, 8, 16), 1: (1, 8, 16), 2: (8, 16), 3: (1, 4, 8), 5: (8,)}
     if (photometric not in allowed or bps not in allowed[photometric] or spp > 4
             or (bps == 1 and spp > 1)):
@@ -422,9 +533,7 @@ def decode_tiff(data: bytes, path: str = "<bytes>", from_file: bool = True) -> n
     if photometric == 5 and (tags.get(332, [1])[0] != 1 or spp < 4 or (separate and spp != 4)):
         raise ValueError(f"{path}: TIFF separated image of InkSet {tags.get(332, [1])[0]}, "
                          f"{spp} samples (cv2 refuses it)")
-    if from_file and tags.get(274, [1])[0] in (5, 6, 7, 8) and h != w:
-        raise ValueError(f"{path}: TIFF Orientation {tags[274][0]} transposes a {w}x{h} image "
-                         "(cv2.imread refuses a size that differs from the header's)")
+    _refuse_transposed(tags, w, h, from_file, path)
     drift = photometric in (0, 1) and (bps == 16 or (bps == 8 and spp > 1))
     s = _samples(data, tags, order, h, w, spp, bps, from_file, drift, path)
     img = _rgb(s, tags, photometric, bps, spp, separate, path)
@@ -450,15 +559,44 @@ def _jpeg_tiff(data: bytes, tags: Dict[int, list], w: int, h: int, spp: int, bps
     if bps != 8 or spp != (1 if photometric in (0, 1) else 3):
         raise ValueError(f"{path}: JPEG-compressed TIFF of photometric {photometric}, {bps} "
                          f"bits, {spp} samples a pixel (cv2 refuses it)")
-    if from_file and tags.get(274, [1])[0] in (5, 6, 7, 8) and h != w:
-        raise ValueError(f"{path}: TIFF Orientation {tags[274][0]} transposes a {w}x{h} image "
-                         "(cv2.imread refuses a size that differs from the header's)")
+    _refuse_transposed(tags, w, h, from_file, path)
     s = _jpeg_samples(data, tags, h, w, spp, photometric == 6, path)
     if photometric == 6:
         img = s.astype(np.uint8)
     else:
         img = _rgb(s, tags, photometric, 8, spp, False, path)
     return _oriented(img, tags, w)
+
+
+def _ycbcr_tiff(data: bytes, tags: Dict[int, list], order: str, w: int, h: int, spp: int,
+                bps: int, from_file: bool, path: str) -> np.ndarray:
+    """A YCbCr TIFF not JPEG-compressed, as libtiff's RGBA reader converts
+    it: 8-bit samples, three a pixel; YCbCrSubsampling (tag 530, default
+    2x2) of 1x1, 2x1, 2x2, 4x1, 4x2, 4x4 or 1x2 with contiguous samples, 1x1
+    with separate planes; YCbCrPositioning ignored."""
+    sampling = tuple(tags.get(530, [2, 2])[:2])
+    separate = tags.get(284, [1])[0] == 2
+    if (bps != 8 or spp != 3 or sampling not in _YCBCR_SAMPLINGS
+            or (separate and sampling != (1, 1))):
+        raise ValueError(f"{path}: TIFF YCbCr of {bps} bits, {spp} samples, subsampling "
+                         f"{sampling}{', separate planes' if separate else ''} (cv2 refuses it)")
+    _refuse_transposed(tags, w, h, from_file, path)
+    if sampling != (1, 1) and tags.get(317, [1])[0] != 1 and tags.get(259, [1])[0] in (5, 8,
+                                                                                      32946):
+        raise NotImplementedError(f"{path}: TIFF Predictor {tags[317][0]} on YCbCr subsampled "
+                                  f"{sampling}")
+    if sampling == (1, 1):
+        ycc = _samples(data, tags, order, h, w, 3, 8, from_file, False, path)
+    else:
+        ycc = _ycbcr_samples(data, tags, h, w, sampling, from_file, path)
+    return _oriented(_ycbcr_to_rgb(ycc, tags, path), tags, w)
+
+
+def _refuse_transposed(tags: Dict[int, list], w: int, h: int, from_file: bool,
+                       path: str) -> None:
+    if from_file and tags.get(274, [1])[0] in (5, 6, 7, 8) and h != w:
+        raise ValueError(f"{path}: TIFF Orientation {tags[274][0]} transposes a {w}x{h} image "
+                         "(cv2.imread refuses a size that differs from the header's)")
 
 
 def _oriented(img: np.ndarray, tags: Dict[int, list], w: int) -> np.ndarray:

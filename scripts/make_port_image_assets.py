@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Write ``assets/images/``: the PNG, JPEG, BMP, PNM, GIF, TIFF and WebP
-files beyond baseline and progressive YCbCr JPEG and 8-bit PNG that the
-port's readers (``megreader_tpu_torch/data/``) are held to.
+"""Write ``assets/images/``: the PNG, JPEG, BMP, PNM, GIF, TIFF, WebP,
+Radiance HDR, PFM and Sun raster files beyond baseline and progressive
+YCbCr JPEG and 8-bit PNG that the port's readers
+(``megreader_tpu_torch/data/``) are held to.
 
 The card's machine has no encoder for these (no cv2, no PIL), so the files
 are committed. This script makes them with cv2, PIL and writers of its own
@@ -45,10 +46,20 @@ where cv2.imdecode returns None). Files, under ``cases/`` unless named:
 * JPEG-compressed TIFF (``tiff_jpeg_cases``, ``tiff_jpeg_bytes``): cv2's
   JPEGs as strips or tiles, whole or abbreviated with ``JPEGTables``, YCbCr
   at each sampling, grey, RGB, PIL's files;
+* CCITT and YCbCr TIFF (``fax_ycbcr_cases``): libtiff's own modified
+  Huffman, T.4 (1-D, 2-D, fill bits) and T.6 strips through PIL
+  (``fax_strip``, ``fax_tiff``: photometric, fill order, strips, tiles,
+  a cut and a damaged strip), YCbCr units at every subsampling, tiles and
+  other coefficients and reference range (``ycbcr_tiff``);
+* Radiance HDR (``hdr_bytes``: run-length and flat scanlines, cv2's file),
+  PFM (``pfm_bytes``: both byte orders, a scale, grey) and Sun raster
+  (``sunras_bytes``: 1, 8, 24 and 32 bits, colour maps, cv2's file, a
+  byte-encoded file cv2 refuses) (``hdr_pfm_ras_cases``);
 * ``pages/``: 640x640 pages drawn by ``chip_smoke.TextPages``: a CMYK
   JPEG, a palette PNG, a 16-bit Adam7 PNG and an RLE8 BMP, cut JPEGs, a
-  GIF and an LZW TIFF, a lossless and a lossy WebP and a JPEG-compressed
-  TIFF, for ``chip_smoke.py``'s ``cli.pipeline`` run.
+  GIF and an LZW TIFF, a lossless and a lossy WebP, a JPEG-compressed
+  TIFF and a CCITT Group 4 TIFF, for ``chip_smoke.py``'s ``cli.pipeline``
+  run.
 
 Each size runs from 1x1 to odd sizes such as 33x50 and 37x100. The script
 is deterministic:
@@ -895,7 +906,7 @@ def gif_cases(rng) -> dict:
 
 
 # ------------------------------------------------------------------- TIFF
-_TIFF_TYPES = {3: "H", 4: "I", 7: "B", 16: "Q"}
+_TIFF_TYPES = {3: "H", 4: "I", 5: "I", 7: "B", 16: "Q"}  # RATIONAL: numerator, denominator
 
 
 def tiff_lzw(data: bytes) -> bytes:
@@ -1049,12 +1060,13 @@ def tiff_file(chunks, fields: dict, tiled: bool, order: str = "<", big: bool = F
     for tag in sorted(fields):
         kind, vals = fields[tag]
         raw = struct.pack(order + _TIFF_TYPES[kind] * len(vals), *vals)
+        count = len(vals) // 2 if kind == 5 else len(vals)
         if len(raw) > inline:
-            entries.append((tag, kind, len(vals), struct.pack(
+            entries.append((tag, kind, count, struct.pack(
                 order + ("Q" if big else "I"), start + len(body) + len(values))))
             values += raw + b"\0" * (len(raw) % 2)
         else:
-            entries.append((tag, kind, len(vals), raw + b"\0" * (inline - len(raw))))
+            entries.append((tag, kind, count, raw + b"\0" * (inline - len(raw))))
     ifd = start + len(body) + len(values)
     head = (b"II" if order == "<" else b"MM") + (struct.pack(order + "HHHQ", 43, 8, 0, ifd) if big
                                                  else struct.pack(order + "HI", 42, ifd))
@@ -1797,6 +1809,232 @@ def vp8l_bytes(argb: np.ndarray, transforms=(), cache_bits: int = 0, lz77: bool 
     return bits.data()
 
 
+# ---------------------------------------------------- CCITT and YCbCr TIFF
+_FAX_NAMES = {2: "tiff_ccitt", 3: "group3", 4: "group4"}
+
+
+def fax_strip(bits: np.ndarray, compression: int, options: int = 0) -> bytes:
+    """The CCITT data of one strip of (h, w) 0/1 ``bits`` (1: a black run),
+    as libtiff's encoder writes it (through PIL): compression 2, 3 (with
+    T4Options ``options``: 1 2-D rows, 4 fill bits before each EOL) or 4."""
+    buf = io.BytesIO()
+    info = {278: bits.shape[0], **({292: options} if compression == 3 else {})}
+    Image.fromarray(np.asarray(bits, bool)).save(buf, "TIFF", compression=_FAX_NAMES[compression],
+                                                tiffinfo=info)
+    data = buf.getvalue()
+    tags = Image.open(io.BytesIO(data)).tag_v2
+    return data[tags[273][0]:tags[273][0] + tags[279][0]]
+
+
+def fax_tiff(bits: np.ndarray, compression: int, options: int = 0, photometric: int = 0,
+             fill_order: int = 1, rows_per_strip: int = None, tile=None, colormap=None,
+             chunks=None, order: str = "<") -> bytes:
+    """A 1-bit CCITT TIFF of (h, w) 0/1 ``bits``: strips of
+    ``rows_per_strip`` rows or (width, length) ``tile``s, each encoded on
+    its own by ``fax_strip`` (or given as ``chunks``), FillOrder 2 reversing
+    the bits of each byte after."""
+    h, w = bits.shape
+    if chunks is None:
+        if tile:
+            tw, tl = tile
+            padded = np.zeros((-(-h // tl) * tl, -(-w // tw) * tw), np.uint8)
+            padded[:h, :w] = bits
+            chunks = [fax_strip(padded[y:y + tl, x:x + tw], compression, options)
+                      for y in range(0, h, tl) for x in range(0, w, tw)]
+        else:
+            rows = rows_per_strip or h
+            chunks = [fax_strip(bits[y:y + rows], compression, options) for y in range(0, h, rows)]
+    if fill_order == 2:
+        chunks = [c.translate(bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))) for c in chunks]
+    fields = {256: (4, [w]), 257: (4, [h]), 258: (3, [1]), 259: (3, [compression]),
+              262: (3, [photometric]), 277: (3, [1])}
+    fields.update({322: (3, [tile[0]]), 323: (3, [tile[1]])} if tile
+                  else {278: (4, [rows_per_strip or h])})
+    if compression == 3 and options:
+        fields[292] = (4, [options])
+    if fill_order != 1:
+        fields[266] = (3, [fill_order])
+    if colormap is not None:
+        fields[320] = (3, np.asarray(colormap).T.reshape(-1).tolist())
+    return tiff_file(chunks, fields, bool(tile), order)
+
+
+def ycbcr_units(ycc: np.ndarray, hs: int, vs: int) -> bytes:
+    """(h, w, 3) Y, Cb, Cr samples -> TIFF's YCbCr data units: ``hs x vs``
+    luma samples then the block's Cb and Cr (its top-left pixel's), the
+    edges padded by repeating the last row and column."""
+    h, w, _ = ycc.shape
+    bh, bw = -(-h // vs), -(-w // hs)
+    pad = np.pad(np.asarray(ycc), ((0, bh * vs - h), (0, bw * hs - w), (0, 0)), mode="edge")
+    blocks = pad.reshape(bh, vs, bw, hs, 3).transpose(0, 2, 1, 3, 4).reshape(bh, bw, vs * hs, 3)
+    units = np.concatenate([blocks[..., 0], blocks[:, :, :1, 1], blocks[:, :, :1, 2]], -1)
+    return units.astype(np.uint8).tobytes()
+
+
+def ycbcr_tiff(ycc: np.ndarray, sampling=(2, 2), compression: int = 1,
+               rows_per_strip: int = None, tile=None, planar: int = 1, fields: dict = None,
+               subsampling_tag: bool = True, order: str = "<") -> bytes:
+    """An 8-bit YCbCr TIFF (photometric 6, not JPEG) of (h, w, 3) Y, Cb, Cr
+    samples: units of ``sampling`` (YCbCrSubsampling, tag 530, written
+    unless ``subsampling_tag`` is False) in strips of ``rows_per_strip``
+    rows or in (width, length) ``tile``s, or separate planes (``planar``
+    2, 1x1 only); ``fields``: more tags (tag -> (type, values))."""
+    h, w, _ = ycc.shape
+    hs, vs = sampling
+    rows = rows_per_strip or h
+    if planar == 2:
+        chunks = [_tiff_compress(np.asarray(ycc)[y:y + rows, :, c].astype(np.uint8).tobytes(),
+                                 compression) for c in range(3) for y in range(0, h, rows)]
+    elif tile:
+        tw, tl = tile
+        chunks = []
+        for y in range(0, h, tl):
+            for x in range(0, w, tw):
+                block = np.zeros((tl, tw, 3), np.int64)
+                part = ycc[y:y + tl, x:x + tw]
+                block[:part.shape[0], :part.shape[1]] = part
+                chunks.append(_tiff_compress(ycbcr_units(block, hs, vs), compression))
+    else:
+        chunks = [_tiff_compress(ycbcr_units(ycc[y:y + rows], hs, vs), compression)
+                  for y in range(0, h, rows)]
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]), 259: (3, [compression]),
+            262: (3, [6]), 277: (3, [3]), 284: (3, [planar])}
+    tags.update({322: (3, [tile[0]]), 323: (3, [tile[1]])} if tile else {278: (4, [rows])})
+    if subsampling_tag:
+        tags[530] = (3, [hs, vs])
+    tags.update(fields or {})
+    return tiff_file(chunks, tags, bool(tile), order)
+
+
+def fax_ycbcr_cases(rng) -> dict:
+    """Small CCITT and YCbCr TIFFs for the card's phase jpeg."""
+    out = {}
+    bits = (smooth(rng, 7, 13, 1) > 128).astype(np.uint8)
+    for comp, options, name in ((2, 0, "mh"), (3, 0, "g3_1d"), (3, 5, "g3_2d_fill"),
+                                (4, 0, "g4")):
+        out[f"fax_{name}_7x13"] = fax_tiff(bits, comp, options)
+    page = (smooth(rng, 33, 50, 1) > 128).astype(np.uint8)
+    out["fax_g4_black_is_zero_fill_order2_strips_33x50"] = fax_tiff(
+        page, 4, photometric=1, fill_order=2, rows_per_strip=10)
+    out["fax_g3_2d_tiles_33x50"] = fax_tiff(page, 3, 1, tile=(32, 16))
+    strip = fax_strip(page, 4)
+    out["fax_g4_cut_33x50"] = fax_tiff(page, 4, chunks=[strip[:len(strip) // 2]])
+    strip = bytearray(fax_strip(page, 3, 1))
+    strip[len(strip) // 3] ^= 0x24
+    out["fax_g3_2d_damaged_33x50"] = fax_tiff(page, 3, 1, chunks=[bytes(strip)])
+    ycc = smooth(rng, 7, 13)
+    for sampling, comp in (((1, 1), 32773), ((2, 1), 5), ((2, 2), 1), ((4, 1), 8),
+                           ((4, 2), 5), ((4, 4), 8), ((1, 2), 32773)):
+        out[f"ycbcr_{sampling[0]}{sampling[1]}_{comp}_7x13"] = ycbcr_tiff(ycc, sampling, comp)
+    out["ycbcr_44_tiles_clipped_19x21"] = ycbcr_tiff(smooth(rng, 19, 21), (4, 4), 5,
+                                                     tile=(16, 16))
+    out["ycbcr_rec709_studio_range_7x13"] = ycbcr_tiff(
+        ycc, (2, 2), 5, fields={529: (5, [2126, 10000, 7152, 10000, 722, 10000]),
+                                532: (5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1])})
+    return out
+
+
+def fax_pages() -> dict:
+    """A 640x640 CCITT Group 4 page: a ``chip_smoke.TextPages`` page's text
+    (grey 128 and above) as white on black (BlackIsZero)."""
+    import chip_smoke as cs
+
+    img = cs.TextPages(1, 61, (640, 640), noise=4)[0]["image"]
+    return {"page_g4.tif": fax_tiff((img.mean(-1) >= 128).astype(np.uint8), 4, photometric=1)}
+
+
+# ------------------------------------------------ Radiance, PFM, Sun raster
+def _rgbe_channel(values: np.ndarray) -> bytes:
+    """One channel of a Radiance scanline in new-style run-length form: a
+    run of 3 to 127 equal bytes as 128 + count and the byte, else up to 128
+    bytes as count and the bytes."""
+    out, i, n = bytearray(), 0, len(values)
+    while i < n:
+        j = i
+        while j < n and j - i < 127 and values[j] == values[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([128 + j - i, int(values[i])])
+            i = j
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 2 < n and values[j] == values[j + 1]
+                                             == values[j + 2]):
+            j += 1
+        out += bytes([j - i]) + bytes(values[i:j].astype(np.uint8))
+        i = j
+    return bytes(out)
+
+
+def hdr_bytes(rgbe: np.ndarray, rle: bool = True, header: bytes = None,
+              resolution: bytes = None, flat_from: int = None) -> bytes:
+    """A Radiance file of (h, w, 4) R, G, B, E bytes: ``header`` (by default
+    cv2's: ``#?RADIANCE``, the FORMAT line, a blank line), the resolution
+    line, then each scanline run-length coded (``rle``, for widths 8 to
+    32767) or flat (from row ``flat_from`` on, all of them flat)."""
+    h, w, _ = rgbe.shape
+    out = bytearray(header if header is not None
+                    else b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+    out += resolution if resolution is not None else f"-Y {h} +X {w}\n".encode()
+    for y in range(h):
+        if rle and 8 <= w <= 0x7FFF and (flat_from is None or y < flat_from):
+            out += bytes([2, 2, w >> 8, w & 255])
+            out += b"".join(_rgbe_channel(rgbe[y, :, c]) for c in range(4))
+        else:
+            out += np.asarray(rgbe[y], np.uint8).tobytes()
+    return bytes(out)
+
+
+def pfm_bytes(values: np.ndarray, scale: float = -1.0, header: bytes = None) -> bytes:
+    """A PFM of (h, w, 3) (``PF``) or (h, w) (``Pf``) float32 ``values``:
+    rows bottom to top, little-endian where ``scale`` is negative."""
+    x = np.asarray(values, np.float32)
+    h, w = x.shape[:2]
+    head = header if header is not None else (
+        f"P{'F' if x.ndim == 3 else 'f'}\n{w} {h}\n{scale!r}\n".encode())
+    return head + x[::-1].astype("<f4" if scale < 0 else ">f4").tobytes()
+
+
+def sunras_bytes(rows: np.ndarray, width: int, bpp: int, kind: int = 1, colormap=None,
+                 maptype: int = None) -> bytes:
+    """A Sun raster of ``rows`` (h, bytes a row) of ``width`` pixels at
+    ``bpp`` bits, each row padded to 16 bits; ``colormap``: (n, 3) RGB,
+    stored as all reds, then greens, then blues."""
+    rows = np.asarray(rows, np.uint8)
+    h = len(rows)
+    pitch = ((width * bpp + 7) // 8 + 1) & ~1
+    body = np.zeros((h, pitch), np.uint8)
+    body[:, :rows.shape[1]] = rows
+    cmap = b"" if colormap is None else np.asarray(colormap, np.uint8).T.tobytes()
+    maptype = (1 if len(cmap) else 0) if maptype is None else maptype
+    return (struct.pack(">8I", 0x59A66A95, width, h, bpp, body.size, kind, maptype, len(cmap))
+            + cmap + body.tobytes())
+
+
+def hdr_pfm_ras_cases(rng) -> dict:
+    """Small Radiance, PFM and Sun raster files for the card's phase jpeg."""
+    out = {}
+    rgbe = rng.integers(0, 256, (7, 13, 4))
+    rgbe[..., 3] = rng.integers(125, 140, (7, 13))
+    rgbe[2:5, 3:11] = rgbe[2:5, 3:4]  # runs
+    out["hdr_rle_7x13"] = hdr_bytes(rgbe)
+    out["hdr_flat_exposure_7x5"] = hdr_bytes(rgbe[:, :5], header=b"#?RGBE\nEXPOSURE=2.0\n"
+                                             b"FORMAT=32-bit_rle_rgbe\n\n")
+    out["hdr_cv2_9x10"] = cv_encode(".hdr", (smooth(rng, 9, 10) / 200).astype(np.float32))
+    x = (rng.random((5, 7, 3)) * 300 - 20).astype(np.float32)
+    out["pfm_le_5x7"] = pfm_bytes(x)
+    out["pfm_be_scale2_5x7"] = pfm_bytes(x, 2.0)
+    out["pfm_grey_5x7"] = pfm_bytes(x[..., 0], -0.5)
+    out["ras_cv2_7x13"] = cv_encode(".ras", smooth(rng, 7, 13))
+    out["ras_1bit_map_7x13"] = sunras_bytes(rng.integers(0, 256, (7, 2)), 13, 1, 0,
+                                            colormap=rng.integers(0, 256, (2, 3)))
+    out["ras_8bit_short_map_7x13"] = sunras_bytes(rng.integers(0, 12, (7, 13)), 13, 8,
+                                                  colormap=rng.integers(0, 256, (10, 3)))
+    out["ras_32bit_7x13"] = sunras_bytes(rng.integers(0, 256, (7, 52)), 13, 32)
+    out["ras_rle_refused_7x13"] = sunras_bytes(rng.integers(0, 256, (7, 13)), 13, 8, 2)
+    return out
+
+
 def cv2_decode(data: bytes, path: str = None):
     """cv2's RGB decode of a file (``path``) or of bytes, or None."""
     bgr = (cv2.imread(path, cv2.IMREAD_COLOR) if path
@@ -1810,7 +2048,8 @@ def digest(img) -> dict:
 
 EXTENSIONS = {b"\x89P": ".png", b"\xff\xd8": ".jpg", b"BM": ".bmp", b"P1": ".pbm",
               b"P4": ".pbm", b"P2": ".pgm", b"P5": ".pgm", b"P3": ".ppm", b"P6": ".ppm",
-              b"GI": ".gif", b"II": ".tif", b"MM": ".tif", b"RI": ".webp"}
+              b"GI": ".gif", b"II": ".tif", b"MM": ".tif", b"RI": ".webp", b"#?": ".hdr",
+              b"PF": ".pfm", b"Pf": ".pfm", b"\x59\xa6": ".ras"}
 
 
 def main(argv=None) -> int:
@@ -1834,6 +2073,10 @@ def main(argv=None) -> int:
     todo.update({f"cases/{name}{EXTENSIONS.get(data[:2], '.webp')}": data
                  for make in (webp_cases, tiff_jpeg_cases) for name, data in make(rng).items()})
     todo.update({f"pages/{name}": data for name, data in webp_jpeg_tiff_pages().items()})
+    rng = np.random.default_rng(26)  # the files above stay as they were
+    todo.update({f"cases/{name}{EXTENSIONS[data[:2]]}": data
+                 for make in (fax_ycbcr_cases, hdr_pfm_ras_cases) for name, data in make(rng).items()})
+    todo.update({f"pages/{name}": data for name, data in fax_pages().items()})
     for rel, data in todo.items():
         path = os.path.join(args.out, rel)
         os.makedirs(os.path.dirname(path), exist_ok=True)

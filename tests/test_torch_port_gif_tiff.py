@@ -334,11 +334,14 @@ def test_tiff_refusals_name_what_they_met(cv):
     data = pil(rgb, compression="jpeg")  # JPEG (7) is read (test_torch_port_tiff_jpeg.py)
     np.testing.assert_array_equal(imageio.decode_image(data), cv2.cvtColor(cv2.imdecode(
         np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))
+    # CCITT (2-4) and YCbCr are read (test_torch_port_fax_tiff.py)
+    signed = assets.tiff_file([rgb[..., 0].tobytes()], {
+        256: (4, [24]), 257: (4, [16]), 258: (3, [8]), 259: (3, [1]), 262: (3, [1]),
+        277: (3, [1]), 278: (4, [16]), 339: (3, [2])}, False)
     for data, what in ((assets.tiff_bytes(rgb, 8, 2, 6), "old-style JPEG \\(6\\)"),
-                       (pil(rgb[..., 0] > 128, "1", compression="group4"), "Group 4"),
-                       (pil(rgb[..., 0] > 128, "1", compression="group3"), "Group 3"),
-                       (pil(np.asarray(Image.fromarray(rgb).convert("YCbCr")), "YCbCr"),
-                        "YCbCr"),
+                       (signed, "signed integer"),
+                       (assets.ycbcr_tiff(rgb, (2, 2), 5, fields={317: (3, [2])}),
+                        "Predictor 2 on YCbCr subsampled"),
                        (pil(rgb.astype(np.float32)[..., 0], "F"), "floating point"),
                        (assets.tiff_bytes(rgb, 8, 2, 34925), "LZMA"),
                        (assets.tiff_bytes(rgb, 8, 8, 1), "L\\*a\\*b\\*")):

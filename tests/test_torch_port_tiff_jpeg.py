@@ -142,8 +142,9 @@ def test_abbreviated_strip_reads_its_tables_from_outside():
 
 
 def test_jpeg_tiff_refusals_name_what_they_met(tmp_path):
-    """Old-style JPEG (6), CCITT and CMYK under JPEG raise
-    ``NotImplementedError`` naming them; a grey strip in a file that says
+    """Old-style JPEG (6) and CMYK under JPEG raise ``NotImplementedError``
+    naming them (CCITT is read: test_torch_port_fax_tiff.py); a grey strip
+    in a file that says
     RGB is refused as cv2 refuses it; one sample in PlanarConfiguration 2
     reads as contiguous."""
     from PIL import Image
@@ -157,9 +158,6 @@ def test_jpeg_tiff_refusals_name_what_they_met(tmp_path):
         return buf.getvalue()
 
     for data, what in ((assets.tiff_bytes(rgb, 8, 2, 6), "old-style JPEG \\(6\\)"),
-                       (pil(rgb[..., 0] > 128, "1", compression="group3"), "Group 3"),
-                       (pil(rgb[..., 0] > 128, "1", compression="tiff_ccitt"),
-                        "CCITT modified Huffman"),
                        (pil(np.concatenate([rgb, rgb[..., :1]], -1), "CMYK",
                             compression="jpeg"), "photometric CMYK")):
         with pytest.raises(NotImplementedError, match=what):
