@@ -5056,12 +5056,13 @@ def phase_jpeg():
     1280x720 pages beside the PNG decode of the same page (``write_png``'s
     Sub rows). Then every file of ``assets/images/`` (PNG, BMP, PNM, JPEG
     variants, JPEGs cut short and progressive files left unrefined, GIF,
-    TIFF, JPEG-compressed, CCITT and YCbCr TIFF, WebP, Radiance HDR, PFM
-    and Sun raster) through ``read_image`` and
+    TIFF, JPEG-compressed, CCITT and YCbCr TIFF, WebP, Radiance HDR, PFM,
+    Sun raster and JPEG 2000) through ``read_image`` and
     ``decode_image`` against cv2's two routes, each refusing where cv2
-    returns None; ms a file by format, each page on its own, and on a line
+    returns None; ms a file by format, each page on its own, and on lines
     of their own the formats CCITT fax TIFF, YCbCr TIFF, Radiance HDR, PFM
-    and Sun raster and the 640x640 CCITT Group 4 page."""
+    and Sun raster and the 640x640 CCITT Group 4 page, then each JPEG 2000
+    file (JP2 and raw codestreams, the 640x640 9/7 page among them)."""
     from megreader_tpu_torch.data.imageio import decode_image, read_image, write_png
 
     t_phase = time.perf_counter()
@@ -5096,7 +5097,7 @@ def phase_jpeg():
 
     t_formats = time.perf_counter()
     files = image_files()
-    bad, ms, refused = [], {}, 0
+    bad, ms, refused, jpeg2000_ms = [], {}, 0, {}
     for rel, want in sorted(files.items()):
         path = os.path.join(IMAGE_ASSETS, rel)
         t0 = time.perf_counter()
@@ -5105,6 +5106,8 @@ def phase_jpeg():
         except ValueError:
             img = None
         dt = (time.perf_counter() - t0) * 1e3
+        if rel.endswith((".jp2", ".j2k")):
+            jpeg2000_ms[rel] = dt
         name = rel.split("/")[1]
         key = (rel if rel.startswith("pages/") else
                "_".join(name.split("_")[:2]) if name.startswith(("jpeg_cut", "jpeg_unrefined"))
@@ -5142,6 +5145,8 @@ def phase_jpeg():
         "a file on one host thread (mean, max, files) " + json.dumps(
             {names[k]: [statistics.mean(ms[k]), max(ms[k]), len(ms[k])] for k in names})
         + f" [{CARD}]")
+    log("jpeg phase, JPEG 2000: read_image ms a file on one host thread (a refusal's ms is "
+        "that of raising ValueError) " + json.dumps(jpeg2000_ms) + f" [{CARD}]")
     if bad:
         raise AssertionError(f"jpeg phase: the port's decode differs from cv2's on {bad}")
 
@@ -5593,8 +5598,8 @@ def format_pages(tmp: str):
     PNG, a 16-bit Adam7 PNG, an RLE8 BMP, a baseline JPEG cut at 60% of its
     bytes, a progressive JPEG cut inside its first AC scan, a GIF, an LZW
     TIFF with Predictor 2, a lossless and a lossy WebP, a JPEG-compressed
-    TIFF, a CCITT Group 4 TIFF), each read by ``read_image`` with cv2's
-    digest (the manifest), and
+    TIFF, a CCITT Group 4 TIFF, a grey 9/7 JPEG 2000), each read by
+    ``read_image`` with cv2's digest (the manifest), and
     a PNG twin of each written from that decode: (the pages' paths, the
     twins' paths)."""
     from megreader_tpu_torch.data.imageio import read_image, write_png

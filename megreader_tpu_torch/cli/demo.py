@@ -11,8 +11,8 @@ in the page's own pixels, to ``<out without its extension>.png``
 ``--step``) checkpoint, the module's weights only: a port checkpoint through
 ``CheckpointManager.restore_variables``, else a JAX package msgpack
 checkpoint through ``restore_jax_variables``. Images are any file
-``read_image`` reads (PNG, JPEG, BMP, PNM, PFM, Sun raster, Radiance HDR,
-GIF, TIFF, WebP).
+``read_image`` reads (PNG, JPEG, JPEG 2000, BMP, PNM, PFM, Sun raster,
+Radiance HDR, GIF, TIFF, WebP).
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ each page's word quads and strings, one JSON line a page.
         --images page1.png page2.png [--rectify box|deskew|perspective] [--bucketed] \
         [--out-dir vis/] [--experiment.<key> value ...]
 
-Pages are PNG, JPEG, BMP, PNM, PFM, Sun raster, Radiance HDR, GIF, TIFF or
-WebP files (``data/imageio.py``: the card's machine has no cv2),
+Pages are PNG, JPEG, JPEG 2000 (JP2 or a raw codestream), BMP, PNM, PFM,
+Sun raster, Radiance HDR, GIF, TIFF or WebP files (``data/imageio.py``:
+the card's machine has no cv2),
 resized to ``--page-size`` square with cv2's bilinear geometry, or with
 ``--bucketed`` each scaled (never up) into the smallest of the default
 canvases that keeps it largest (``pipelines/bucketed.py``); quads come back

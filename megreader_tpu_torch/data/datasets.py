@@ -7,8 +7,8 @@ with the word in its top-left ``size`` region; a detection item is a page with
 its words' polygons and, unless ``gt_maps`` is off, its host GT maps.
 
 * ``RecognitionListDataset`` and ``DetectionICDARDataset`` read their images
-  with ``imageio.read_image`` (PNG, JPEG, BMP, PNM, PFM, Sun raster,
-  Radiance HDR, GIF, TIFF or WebP, chosen by the file's signature,
+  with ``imageio.read_image`` (PNG, JPEG, JPEG 2000, BMP, PNM, PFM, Sun
+  raster, Radiance HDR, GIF, TIFF or WebP, chosen by the file's signature,
   bit-equal to ``cv2.imread``: the card's machine has no cv2; a JPEG cut
   short reads as cv2 reads it) and resize with ``imageio.resize_linear``
   (cv2's bilinear resize, bit for bit); their items equal the JAX items.

@@ -1,5 +1,5 @@
-"""Page images without cv2: PNG, JPEG, BMP, PNM, PFM, Sun raster, Radiance
-HDR, GIF, TIFF and WebP in, PNG out, and cv2's resizes.
+"""Page images without cv2: PNG, JPEG, JPEG 2000, BMP, PNM, PFM, Sun raster,
+Radiance HDR, GIF, TIFF and WebP in, PNG out, and cv2's resizes.
 
 The reference reads pages with ``cv2.imread(path, cv2.IMREAD_COLOR)``,
 LMDB crops with ``cv2.imdecode(buf, cv2.IMREAD_COLOR)``, and resizes with
@@ -12,7 +12,10 @@ with the standard library's ``zlib`` and numpy:
   (``data/jpeg.py``: baseline, extended sequential in one scan or several,
   progressive Huffman; grey, YCbCr, RGB, CMYK and YCCK; markers after the
   last scan; block smoothing of unrefined progressive scans; an EXIF
-  orientation), BMP, PNM, PFM and Sun raster (``data/bitmap.py``), Radiance
+  orientation), JPEG 2000 (``data/jp2.py``: JP2 files and raw codestreams
+  as OpenJPEG decodes them, ``data/j2k.py``, ``data/ebcot.py``,
+  ``data/dwt.py``; then cv2's step to 8 bits), BMP, PNM, PFM and Sun
+  raster (``data/bitmap.py``), Radiance
   HDR (``data/radiance.py``: run-length or flat RGBE, scaled by 255 as cv2
   converts it), GIF (``data/gif.py``: the first image), TIFF
   (``data/tiff.py``: the first image, uncompressed, CCITT fax
@@ -50,6 +53,7 @@ import numpy as np
 
 from .bitmap import SUNRAS_SIGNATURE, decode_bmp, decode_pfm, decode_pnm, decode_sunras, is_pfm
 from .gif import SIGNATURES as _GIF, decode_gif
+from .jp2 import decode_jpeg2000, is_jpeg2000
 from .jpeg import decode_jpeg
 from .png import SIGNATURE as _PNG, decode_png, encode_png, write_png
 from .radiance import decode_hdr, is_hdr
@@ -77,6 +81,8 @@ def decode_image(data: bytes, path: str = "<bytes>") -> np.ndarray:
 def _decode(data: bytes, path: str, from_file: bool) -> np.ndarray:
     if data.startswith(b"\xff\xd8"):
         return decode_jpeg(data, path, from_file)
+    if is_jpeg2000(data):
+        return decode_jpeg2000(data, path)
     if data.startswith(_PNG):
         return decode_png(data, path)
     if data.startswith(b"BM"):
@@ -97,8 +103,8 @@ def _decode(data: bytes, path: str, from_file: bool) -> np.ndarray:
         return decode_tiff(data, path, from_file)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return decode_webp(data, path)  # refused: fewer than 32 bytes, or a broken header
-    raise NotImplementedError(f"{path}: not PNG, JPEG, BMP, PNM, PFM, Sun raster, Radiance HDR, "
-                              "GIF, TIFF or WebP (only those are read)")
+    raise NotImplementedError(f"{path}: not PNG, JPEG, JPEG 2000, BMP, PNM, PFM, Sun raster, "
+                              "Radiance HDR, GIF, TIFF or WebP (only those are read)")
 
 
 def _taps(n_out: int, n_in: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -59,11 +59,12 @@ decompression this module reproduces step for step:
   colour space that of the TIFF, no orientation.
 
 Anything else raises ``NotImplementedError`` naming what it met: lossless,
-arithmetic-coded, hierarchical, 12-bit, 2- or 5-component files, and a
-component coded in two sequential scans. A damaged file that cv2 refuses
-(a bad Huffman code, a missing table or marker, progressive scans out of
-order, a file cut inside its headers or, through ``decode_image``, inside
-its data) raises ``ValueError``.
+arithmetic-coded and hierarchical files, and a component coded in two
+sequential scans. A file that cv2 refuses raises ``ValueError``: samples
+of other than 8 bits (12-bit, 16-bit), other than 1, 3 or 4 components
+(with an Adobe segment or without), and damage (a bad Huffman code, a
+missing table or marker, progressive scans out of order, a file cut inside
+its headers or, through ``decode_image``, inside its data).
 """
 
 from __future__ import annotations
@@ -521,9 +522,9 @@ def _frame(body: bytes, name: str):
         raise ValueError(f"{name}: bad frame header")
     precision, h, w, nc = struct.unpack(">BHHB", body[:6])
     if precision != 8:
-        raise NotImplementedError(f"{name}: {precision}-bit JPEG samples (only 8-bit)")
+        raise ValueError(f"{name}: {precision}-bit JPEG samples (cv2 reads 8-bit ones only)")
     if nc not in (1, 3, 4):
-        raise NotImplementedError(f"{name}: a JPEG of {nc} components")
+        raise ValueError(f"{name}: a JPEG of {nc} components (cv2 reads 1, 3 or 4)")
     if h == 0:
         raise NotImplementedError(f"{name}: a JPEG whose height comes in a DNL marker")
     if len(body) < 6 + 3 * nc:
@@ -1042,7 +1043,7 @@ def _parse(data: bytes, name: str, from_file: bool = False):
         data += _STDIO_END
     try:
         return _parse_from(data, name, from_file, real_end)
-    except NotImplementedError:
+    except (NotImplementedError, ValueError):
         if headers_cut:  # the stdio source's EOI read as header fields
             raise ValueError(f"{name}: truncated JPEG: the file ends inside its "
                              "headers") from None

@@ -36,12 +36,13 @@ RGBA interface (``TIFFReadRGBAStrip`` / ``TIFFReadRGBATile``), whose rules
   16-bit fixed point), its units read as ``_ycbcr_samples`` says;
 * the Orientation tag applied as cv2 applies an EXIF orientation.
 
-Depths and photometric interpretations that cv2 refuses (2-bit samples,
-4-bit grey, 16-bit palette or CMYK, ...) and damaged files raise
-``ValueError``; compressions, photometric interpretations and sample
-formats that these do not read (old-style JPEG, CIE L*a*b*, signed or
-floating-point samples, Predictor 2 on subsampled YCbCr, ...) raise
-``NotImplementedError`` naming what was met.
+Depths, photometric interpretations, sample formats and predictors that
+cv2 refuses (2-bit samples, 4-bit grey, 16-bit palette or CMYK, ICC and
+ITU L*a*b*, floating-point samples, the floating-point Predictor 3, ...)
+and damaged files raise ``ValueError``; compressions, photometric
+interpretations and sample formats that cv2 reads and these do not
+(old-style JPEG, CIE L*a*b*, signed samples, Predictor 2 on subsampled
+YCbCr, ...) raise ``NotImplementedError`` naming what was met.
 ``cv2.imdecode`` alone also refuses uncompressed tiles whose pixel count
 is not a multiple of 1024 (``decode_tiff(from_file=False)``).
 """
@@ -68,11 +69,13 @@ _COMPRESSIONS = {6: "old-style JPEG", 32766: "NeXT RLE",
                  32771: "CCITT RLEW", 32809: "ThunderScan RLE", 34676: "SGI LogL",
                  34677: "SGI LogLuv", 34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA",
                  50000: "Zstandard", 50001: "WebP", 50002: "JPEG XL"}
-_PHOTOMETRICS = {4: "transparency mask", 8: "CIE L*a*b*", 9: "ICC L*a*b*",
-                 10: "ITU L*a*b*", 32803: "colour filter array", 32844: "SGI LogL",
-                 32845: "SGI LogLuv", 34892: "linear raw"}
-_SAMPLE_FORMATS = {2: "signed integer", 3: "IEEE floating point", 4: "untyped",
-                   5: "complex signed integer", 6: "complex floating point"}
+_PHOTOMETRICS = {4: "transparency mask", 8: "CIE L*a*b*", 32803: "colour filter array",
+                 32844: "SGI LogL", 32845: "SGI LogLuv", 34892: "linear raw"}
+_SAMPLE_FORMATS = {2: "signed integer", 4: "untyped", 5: "complex signed integer",
+                   6: "complex floating point"}
+# what cv2 refuses (its libtiff RGBA reader does): ValueError
+_REFUSED_PHOTOMETRICS = {9: "ICC L*a*b*", 10: "ITU L*a*b*"}
+_REFUSED_SAMPLE_FORMATS = {3: "IEEE floating point"}
 _YCBCR_SAMPLINGS = ((1, 1), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), (1, 2))
 _REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
@@ -309,6 +312,8 @@ def _samples(data: bytes, tags: Dict[int, list], order: str, h: int, w: int, spp
     compression = tags.get(259, [1])[0]
     planar = tags.get(284, [1])[0]
     predictor = tags.get(317, [1])[0] if compression in (5, 8, 32946) else 1
+    if predictor == 3:
+        raise ValueError(f"{path}: TIFF floating point Predictor 3 (cv2 refuses it)")
     if predictor not in (1, 2):
         raise NotImplementedError(f"{path}: TIFF Predictor {predictor}")
     if predictor == 2 and bps not in (8, 16):
@@ -515,11 +520,13 @@ def decode_tiff(data: bytes, path: str = "<bytes>", from_file: bool = True) -> n
                          "(cv2 refuses it)")
     if compression == 7:
         return _jpeg_tiff(data, tags, w, h, spp, bps, photometric, fmt, from_file, path)
+    if photometric in _REFUSED_PHOTOMETRICS:
+        raise ValueError(f"{path}: TIFF photometric interpretation "
+                         f"{_REFUSED_PHOTOMETRICS[photometric]} ({photometric}; cv2 refuses it)")
     if photometric in _PHOTOMETRICS:
         raise NotImplementedError(f"{path}: TIFF photometric interpretation "
                                   f"{_PHOTOMETRICS[photometric]} ({photometric})")
-    if fmt in _SAMPLE_FORMATS:
-        raise NotImplementedError(f"{path}: TIFF {_SAMPLE_FORMATS[fmt]} samples")
+    _refuse_sample_format(fmt, path)
     if not w or not h:
         raise ValueError(f"{path}: TIFF of no size")
     if photometric == 6:
@@ -540,6 +547,14 @@ def decode_tiff(data: bytes, path: str = "<bytes>", from_file: bool = True) -> n
     return _oriented(img, tags, w)
 
 
+def _refuse_sample_format(fmt: int, path: str) -> None:
+    if fmt in _REFUSED_SAMPLE_FORMATS:
+        raise ValueError(f"{path}: TIFF {_REFUSED_SAMPLE_FORMATS[fmt]} samples (cv2 refuses "
+                         "them)")
+    if fmt in _SAMPLE_FORMATS:
+        raise NotImplementedError(f"{path}: TIFF {_SAMPLE_FORMATS[fmt]} samples")
+
+
 def _jpeg_tiff(data: bytes, tags: Dict[int, list], w: int, h: int, spp: int, bps: int,
                photometric: int, fmt: int, from_file: bool, path: str) -> np.ndarray:
     """A JPEG-compressed TIFF (compression 7) as libtiff's RGBA interface
@@ -547,11 +562,11 @@ def _jpeg_tiff(data: bytes, tags: Dict[int, list], w: int, h: int, spp: int, bps
     sets ``JPEGCOLORMODE_RGB``), grey and RGB as coded, then as the other
     compressions' samples."""
     if photometric not in (0, 1, 2, 6):
-        name = _PHOTOMETRICS.get(photometric, {3: "palette", 5: "CMYK"}.get(photometric, "?"))
+        name = {**_PHOTOMETRICS, **_REFUSED_PHOTOMETRICS, 3: "palette", 5: "CMYK"}.get(
+            photometric, "?")
         raise NotImplementedError(f"{path}: JPEG-compressed TIFF of photometric {name} "
                                   f"({photometric})")
-    if fmt in _SAMPLE_FORMATS:
-        raise NotImplementedError(f"{path}: TIFF {_SAMPLE_FORMATS[fmt]} samples")
+    _refuse_sample_format(fmt, path)
     if not w or not h:
         raise ValueError(f"{path}: TIFF of no size")
     if tags.get(284, [1])[0] == 2 and spp > 1:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Write ``assets/images/``: the PNG, JPEG, BMP, PNM, GIF, TIFF, WebP,
-Radiance HDR, PFM and Sun raster files beyond baseline and progressive
+Radiance HDR, PFM, Sun raster and JPEG 2000 files beyond baseline and progressive
 YCbCr JPEG and 8-bit PNG that the port's readers
 (``megreader_tpu_torch/data/``) are held to.
 
@@ -55,11 +55,15 @@ where cv2.imdecode returns None). Files, under ``cases/`` unless named:
   PFM (``pfm_bytes``: both byte orders, a scale, grey) and Sun raster
   (``sunras_bytes``: 1, 8, 24 and 32 bits, colour maps, cv2's file, a
   byte-encoded file cv2 refuses) (``hdr_pfm_ras_cases``);
+* JPEG 2000 (``jpeg2000_cases``): PIL's 5/3 RGB JP2, a raw 9/7
+  codestream, layers over precincts in RPCL order, a palette with channel
+  definitions (``jp2_file``, the script's own box writer, over a codestream
+  of libopenjp2's encoder through ``ctypes``: ``openjpeg``), a cut file;
 * ``pages/``: 640x640 pages drawn by ``chip_smoke.TextPages``: a CMYK
   JPEG, a palette PNG, a 16-bit Adam7 PNG and an RLE8 BMP, cut JPEGs, a
   GIF and an LZW TIFF, a lossless and a lossy WebP, a JPEG-compressed
-  TIFF and a CCITT Group 4 TIFF, for ``chip_smoke.py``'s ``cli.pipeline``
-  run.
+  TIFF, a CCITT Group 4 TIFF and a grey 9/7 JPEG 2000, for
+  ``chip_smoke.py``'s ``cli.pipeline`` run.
 
 Each size runs from 1x1 to odd sizes such as 33x50 and 37x100. The script
 is deterministic:
@@ -419,6 +423,69 @@ def jpeg_rescan(data: bytes, groups, restart: int = 0) -> bytes:
                 t = select[comps[c][0]]
                 pred[c] = _encode_block(bits, zz[c][by, bx], pred.get(c, 0), tables[0, t >> 4],
                                         tables[1, t & 15])
+        bits.flush()
+        out += bits.out
+    return bytes(out) + b"\xff\xd9"
+
+
+def _fdct_matrix() -> np.ndarray:
+    u = np.arange(8)[:, None]
+    m = np.cos((2 * np.arange(8)[None] + 1) * u * np.pi / 16) * np.sqrt(2 / 8)
+    m[0] /= np.sqrt(2)
+    return m
+
+
+def jpeg_frame_file(planes, precision: int = 8, sof: int = 0xC0, sampling=None,
+                    transform: int = None) -> bytes:
+    """A sequential JPEG of any component count and sample precision, which
+    no library encoder here writes (2 or 5 components, 12 or 16 bits): each
+    plane's level-shifted 8x8 blocks through the DCT, quantised by 1, coded
+    with the script's Huffman writer and flat tables that hold every DC size
+    to 15 and every AC run/size to 15. ``sampling``: (h, v) a component,
+    1x1 by default; the planes' sizes must be what the frame gives them.
+    One interleaved scan of up to four components, else one scan each;
+    ``transform`` adds an Adobe segment of that transform."""
+    nc = len(planes)
+    sampling = sampling or [(1, 1)] * nc
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    height = max(p.shape[0] * vmax // v for p, (_, v) in zip(planes, sampling))
+    width = max(p.shape[1] * hmax // h for p, (h, _) in zip(planes, sampling))
+    dc = _codes(bytes([0, 0, 0, 0, 16] + [0] * 11), bytes(range(16)))
+    ac_symbols = bytes([0x00, 0xF0] + [(r << 4) | s for r in range(16) for s in range(1, 16)])
+    ac = _codes(bytes([0] * 7 + [len(ac_symbols)] + [0] * 8), ac_symbols)
+    m = _fdct_matrix()
+    zz = []
+    for p in planes:
+        h8, w8 = p.shape[0] // 8, p.shape[1] // 8
+        blocks = p.astype(np.float64).reshape(h8, 8, w8, 8).transpose(0, 2, 1, 3)
+        coef = np.rint(m @ (blocks - (1 << (precision - 1))) @ m.T).astype(np.int64)
+        zz.append(coef.reshape(h8, w8, 64)[..., ZIGZAG])
+    ids = list(range(1, nc + 1))
+    out = bytearray(b"\xff\xd8")
+    if transform is not None:
+        out += adobe(transform)
+    out += segment(0xDB, b"\x00" + bytes([1] * 64))
+    out += segment(sof, struct.pack(">BHHB", precision, height, width, nc) + b"".join(
+        bytes([ids[c], (sampling[c][0] << 4) | sampling[c][1], 0]) for c in range(nc)))
+    dht = b"\x00" + bytes([0, 0, 0, 0, 16] + [0] * 11) + bytes(range(16))
+    dht += b"\x10" + bytes([0] * 7 + [len(ac_symbols)] + [0] * 8) + ac_symbols
+    out += segment(0xC4, dht)
+    groups = [list(range(nc))] if nc <= 4 else [[c] for c in range(nc)]
+    for group in groups:
+        out += segment(0xDA, bytes([len(group)]) + b"".join(bytes([ids[c], 0x00]) for c in group)
+                       + b"\x00\x3f\x00")
+        if len(group) == 1:
+            c = group[0]
+            mcus = [[(c, by, bx)] for by in range(zz[c].shape[0]) for bx in range(zz[c].shape[1])]
+        else:
+            my, mx = -(-height // (8 * vmax)), -(-width // (8 * hmax))
+            mcus = [[(c, y * sampling[c][1] + by, x * sampling[c][0] + bx) for c in group
+                     for by in range(sampling[c][1]) for bx in range(sampling[c][0])]
+                    for y in range(my) for x in range(mx)]
+        bits, pred = _Bits(), {}
+        for mcu in mcus:
+            for c, by, bx in mcu:
+                pred[c] = _encode_block(bits, zz[c][by, bx], pred.get(c, 0), dc, ac)
         bits.flush()
         out += bits.out
     return bytes(out) + b"\xff\xd9"
@@ -2046,10 +2113,114 @@ def digest(img) -> dict:
     return {"sha256": hashlib.sha256(img.tobytes()).hexdigest(), "shape": list(img.shape)}
 
 
+# ------------------------------------------------------------- JPEG 2000
+def jp2_box(kind: bytes, body: bytes, xl: bool = False, length: int = None) -> bytes:
+    """A JP2 box: LBox, TBox, body; ``xl`` writes LBox 1 and a 64-bit
+    XLBox, ``length`` overrides LBox (0: the box runs to the file's end)."""
+    if xl:
+        return struct.pack(">I4sQ", 1, kind, 16 + len(body)) + body
+    return struct.pack(">I4s", 8 + len(body) if length is None else length, kind) + body
+
+
+def jp2_file(codestream: bytes, colour=17, pclr=None, cmap=None, cdef=None, xl: bool = False,
+             to_end: bool = False, before=(), inside=()) -> bytes:
+    """A JP2 file around a raw codestream, with the header boxes no encoder
+    here writes: ``colour`` an enumerated colour space (16 sRGB, 17 grey,
+    18 sYCC, ...) or an ICC profile's bytes; ``pclr`` (entries (n, columns)
+    ints, bit depths a column, negative for signed); ``cmap`` [(component,
+    mapping type, palette column)]; ``cdef`` [(channel, type, association)];
+    ``xl``: the codestream box with a 64-bit length, ``to_end``: with LBox 0;
+    ``before``/``inside``: extra boxes before jp2h and inside it."""
+    (h, w), comps = _j2k_siz(codestream)
+    bpc = comps[0] if all(c == comps[0] for c in comps) else 255
+    ihdr = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, len(comps), bpc, 7, 0, 0))
+    colr = jp2_box(b"colr", b"\x02\x00\x00" + colour if isinstance(colour, bytes)
+                   else struct.pack(">BBBI", 1, 0, 0, colour))
+    boxes = [ihdr, colr, *inside]
+    if pclr is not None:
+        entries, bits = pclr
+        entries = np.asarray(entries, np.int64)
+        body = struct.pack(">HB", *entries.shape) + bytes(
+            (abs(b) - 1) | (0x80 if b < 0 else 0) for b in bits)
+        for row in entries:
+            body += b"".join(int(v).to_bytes((abs(b) + 7) // 8, "big", signed=b < 0)
+                             for v, b in zip(row, bits))
+        boxes.append(jp2_box(b"pclr", body))
+    if cmap is not None:
+        boxes.append(jp2_box(b"cmap", b"".join(struct.pack(">HBB", *m) for m in cmap)))
+    if cdef is not None:
+        boxes.append(jp2_box(b"cdef", struct.pack(">H", len(cdef)) + b"".join(
+            struct.pack(">HHH", *d) for d in cdef)))
+    return (jp2_box(b"jP  ", b"\r\n\x87\n") + jp2_box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + b"".join(before) + jp2_box(b"jp2h", b"".join(boxes))
+            + jp2_box(b"jp2c", codestream, xl=xl, length=0 if to_end else None))
+
+
+def _j2k_siz(codestream: bytes):
+    """((height, width), [Ssiz of each component]) of a codestream's SIZ."""
+    x1, y1, x0, y0 = struct.unpack_from(">IIII", codestream, 8)
+    nc = struct.unpack_from(">H", codestream, 40)[0]
+    return (y1 - y0, x1 - x0), [codestream[42 + 3 * c] for c in range(nc)]
+
+
+def pil_jpeg2000(img: np.ndarray, **kw) -> bytes:
+    """PIL's JPEG 2000 writer (its bundled OpenJPEG) on a uint8 (h, w) L,
+    (h, w, 2) LA, RGB or RGBA image, or a uint16 (h, w) I;16 one: a JP2
+    file, or a raw codestream with ``no_jp2=True``."""
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(img)).save(buf, "JPEG2000", **kw)
+    return buf.getvalue()
+
+
+def openjpeg(planes, **kw) -> bytes:
+    """libopenjp2's own encoder through ``ctypes`` (``scripts/openjpeg_ctypes.py``):
+    the code-block styles, SOP/EPH, POC, ROI, subsampling, precisions and
+    tile-parts PIL does not expose."""
+    import openjpeg_ctypes
+
+    return openjpeg_ctypes.encode([np.asarray(p, np.int64) for p in planes], **kw)
+
+
+def jpeg2000_cases(rng) -> dict:
+    """A few small JPEG 2000 files for the card's phase jpeg (the tests make
+    many more from seeds): PIL's 5/3 RGB JP2 (the reversible component
+    transform), a raw 9/7 codestream, a grey JP2 of three quality layers
+    over 8x8 precincts in RPCL order, a JP2 palette (``pclr``/``cmap``)
+    with channel definitions, and a JP2 cut at 60% of its bytes (refused)."""
+    out = {}
+    img = smooth(rng, 7, 13)
+    out["jp2_53_rgb_7x13"] = pil_jpeg2000(img, num_resolutions=2)
+    out["j2k_97_rgb_7x13"] = pil_jpeg2000(smooth(rng, 7, 13), num_resolutions=2, irreversible=True,
+                                          no_jp2=True)
+    out["jp2_layers_precincts_rpcl_33x50"] = pil_jpeg2000(
+        smooth(rng, 33, 50, 1), num_resolutions=3, irreversible=True, quality_mode="rates",
+        quality_layers=[24, 12, 6], progression="RPCL", precinct_size=(16, 16),
+        codeblock_size=(8, 8))
+    idx = rng.integers(0, 5, (7, 13))
+    palette = rng.integers(0, 256, (5, 3))
+    out["jp2_pclr_cdef_7x13"] = jp2_file(
+        openjpeg([idx], numresolution=2), 16, pclr=(palette, [8, 8, 8]),
+        cmap=[(0, 1, 0), (0, 1, 1), (0, 1, 2)], cdef=[(0, 0, 3), (1, 0, 2), (2, 0, 1)])
+    data = out["jp2_53_rgb_7x13"]
+    out["jp2_cut_7x13"] = data[:int(len(data) * 0.6)]
+    return out
+
+
+def jpeg2000_page() -> dict:
+    """A 640x640 grey JPEG 2000 page: ``chip_smoke.TextPages``' page of
+    ``page_palette.png``, its first channel, as PIL writes it in one 9/7
+    layer at a rate of 160:1."""
+    import chip_smoke as cs
+
+    img = cs.TextPages(1, 32, (640, 640), noise=4)[0]["image"][..., 0]
+    return {"page_97.jp2": pil_jpeg2000(img, irreversible=True, quality_mode="rates",
+                                        quality_layers=[160])}
+
+
 EXTENSIONS = {b"\x89P": ".png", b"\xff\xd8": ".jpg", b"BM": ".bmp", b"P1": ".pbm",
               b"P4": ".pbm", b"P2": ".pgm", b"P5": ".pgm", b"P3": ".ppm", b"P6": ".ppm",
               b"GI": ".gif", b"II": ".tif", b"MM": ".tif", b"RI": ".webp", b"#?": ".hdr",
-              b"PF": ".pfm", b"Pf": ".pfm", b"\x59\xa6": ".ras"}
+              b"PF": ".pfm", b"Pf": ".pfm", b"\x59\xa6": ".ras", b"\0\0": ".jp2", b"\xffO": ".j2k"}
 
 
 def main(argv=None) -> int:
@@ -2077,6 +2248,10 @@ def main(argv=None) -> int:
     todo.update({f"cases/{name}{EXTENSIONS[data[:2]]}": data
                  for make in (fax_ycbcr_cases, hdr_pfm_ras_cases) for name, data in make(rng).items()})
     todo.update({f"pages/{name}": data for name, data in fax_pages().items()})
+    rng = np.random.default_rng(27)  # the files above stay as they were
+    todo.update({f"cases/{name}{EXTENSIONS[data[:2]]}": data
+                 for name, data in jpeg2000_cases(rng).items()})
+    todo.update({f"pages/{name}": data for name, data in jpeg2000_page().items()})
     for rel, data in todo.items():
         path = os.path.join(args.out, rel)
         os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -2090,7 +2265,7 @@ def main(argv=None) -> int:
             entry["imdecode"] = None if from_bytes is None else digest(from_bytes)
         files[rel] = entry
     build = [line.strip() for line in cv2.getBuildInformation().splitlines()
-             if line.strip().startswith(("JPEG:", "PNG:", "TIFF:", "WEBP:"))]
+             if line.strip().startswith(("JPEG:", "PNG:", "TIFF:", "WEBP:", "JPEG 2000:"))]
     with open(os.path.join(args.out, "manifest.json"), "w") as f:
         json.dump({"made_by": "scripts/make_port_image_assets.py",
                    "decoder": f"cv2 {cv2.__version__} ({'; '.join(build)})",

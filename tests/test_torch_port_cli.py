@@ -255,8 +255,9 @@ def test_read_image_refuses_other_formats(tmp_path):
     # PNG, JPEG (baseline and progressive), BMP, PNM, PFM, Sun raster,
     # Radiance HDR, GIF, TIFF and WebP are read (test_torch_port_jpeg*.py,
     # test_torch_port_imageio_formats.py, test_torch_port_gif_tiff.py,
-    # test_torch_port_webp.py, test_torch_port_hdr_pfm_ras.py); a JPEG 2000
-    # file and a PNG header the standard does not allow are refused by name
+    # test_torch_port_webp.py, test_torch_port_hdr_pfm_ras.py) and so is JPEG 2000
+    # (test_torch_port_jpeg2000.py); an AVIF file and a PNG header the standard
+    # does not allow are refused by name
     tif = tmp_path / "x.tif"
     cv2.imwrite(str(tif), np.arange(8 * 8 * 3, dtype=np.uint8).reshape(8, 8, 3))
     np.testing.assert_array_equal(imageio.read_image(str(tif)), cv2.cvtColor(
@@ -267,10 +268,14 @@ def test_read_image_refuses_other_formats(tmp_path):
         cv2.imread(str(webp), cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))  # WebP is read
     jp2 = tmp_path / "x.jp2"
     cv2.imwrite(str(jp2), np.zeros((64, 64, 3), np.uint8))
-    assert cv2.imread(str(jp2), cv2.IMREAD_COLOR) is not None
-    with pytest.raises(NotImplementedError, match="not PNG, JPEG, BMP, PNM, PFM, Sun raster, "
-                                                  "Radiance HDR, GIF, TIFF or WebP"):
-        imageio.read_image(str(jp2))
+    np.testing.assert_array_equal(imageio.read_image(str(jp2)), cv2.cvtColor(
+        cv2.imread(str(jp2), cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))  # JPEG 2000 is read
+    avif = tmp_path / "x.avif"
+    cv2.imwrite(str(avif), np.zeros((64, 64, 3), np.uint8))
+    assert cv2.imread(str(avif), cv2.IMREAD_COLOR) is not None
+    with pytest.raises(NotImplementedError, match="not PNG, JPEG, JPEG 2000, BMP, PNM, PFM, Sun "
+                                                  "raster, Radiance HDR, GIF, TIFF or WebP"):
+        imageio.read_image(str(avif))
     bmp = tmp_path / "x.bmp"
     cv2.imwrite(str(bmp), np.arange(8 * 8 * 3, dtype=np.uint8).reshape(8, 8, 3))
     np.testing.assert_array_equal(imageio.read_image(str(bmp)), cv2.cvtColor(

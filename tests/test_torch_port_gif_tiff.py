@@ -315,7 +315,7 @@ def test_tiff_quirks_the_port_copies(cv, tmp_path):
     np.testing.assert_array_equal(img, rgb)
 
 
-def test_tiff_refusals_name_what_they_met(cv):
+def test_tiff_refusals_name_what_they_met(cv, tmp_path):
     """What cv2 reads and the port does not raises NotImplementedError
     naming it; what cv2 refuses raises ValueError."""
     import io
@@ -342,13 +342,26 @@ def test_tiff_refusals_name_what_they_met(cv):
                        (signed, "signed integer"),
                        (assets.ycbcr_tiff(rgb, (2, 2), 5, fields={317: (3, [2])}),
                         "Predictor 2 on YCbCr subsampled"),
-                       (pil(rgb.astype(np.float32)[..., 0], "F"), "floating point"),
                        (assets.tiff_bytes(rgb, 8, 2, 34925), "LZMA"),
                        (assets.tiff_bytes(rgb, 8, 8, 1), "L\\*a\\*b\\*")):
         assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is not None \
-            or what in ("LZMA", "floating point", "old-style JPEG \\(6\\)")
+            or what in ("LZMA", "old-style JPEG \\(6\\)")
         with pytest.raises(NotImplementedError, match=what):
             imageio.decode_image(data)
+    # cv2 refuses these through both routes, so the port raises ValueError naming them
+    path = tmp_path / "x.tif"
+    for data, what in ((pil(rgb.astype(np.float32)[..., 0], "F"), "floating point samples"),
+                       (pil(rgb.astype(np.float32)[..., 0], "F", compression="tiff_adobe_deflate",
+                            tiffinfo={317: 3}), "floating point samples"),
+                       (assets.tiff_bytes(rgb, 8, 2, 5, predictor=3), "Predictor 3"),
+                       (assets.tiff_bytes(rgb, 8, 9, 1), "ICC L\\*a\\*b\\*"),
+                       (assets.tiff_bytes(rgb, 8, 10, 1), "ITU L\\*a\\*b\\*")):
+        path.write_bytes(data)
+        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
+        assert cv2.imread(str(path), cv2.IMREAD_COLOR) is None
+        for read in (lambda: imageio.decode_image(data), lambda: imageio.read_image(str(path))):
+            with pytest.raises(ValueError, match=what):
+                read()
     for data in (assets.tiff_bytes(rgb[..., 0] >> 6, 2, 1, 1),
                  assets.tiff_bytes(rgb[..., 0] >> 4, 4, 0, 1),
                  assets.tiff_bytes(rgb[..., 0].astype(np.int64) * 257, 16, 3, 1,

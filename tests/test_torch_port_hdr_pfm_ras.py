@@ -268,7 +268,13 @@ def test_new_signatures_dispatch_and_others_are_refused_by_name(tmp_path):
     assert radiance.is_hdr(b"#?RADIANCE\n") and radiance.is_hdr(b"#?RGBE")
     assert not radiance.is_hdr(b"#?RGB")
     with pytest.raises(NotImplementedError, match="PFM, Sun raster, Radiance HDR, GIF, TIFF"):
-        imageio.decode_image(b"\0\0\0\x0cjP  \r\n\x87\n")  # JPEG 2000
+        imageio.decode_image(b"\0\0\0\x20ftypavif\0\0\0\0")  # AVIF
+    # JPEG 2000 is read (test_torch_port_jpeg2000.py): its signature box alone, no
+    # jp2h, is a damaged file cv2 refuses
+    assert cv2.imdecode(np.frombuffer(b"\0\0\0\x0cjP  \r\n\x87\n", np.uint8),
+                        cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match="JP2"):
+        imageio.decode_image(b"\0\0\0\x0cjP  \r\n\x87\n")
 
 
 # ------------------------------------------------- the JAX package's datasets

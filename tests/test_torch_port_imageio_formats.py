@@ -383,7 +383,7 @@ def test_committed_image_assets_match_their_manifest_cv2_and_the_port():
         manifest = json.load(f)
     files = manifest["files"]
     assert manifest["made_by"] == "scripts/make_port_image_assets.py"
-    assert sum(rel.startswith("pages/") for rel in files) == 12
+    assert sum(rel.startswith("pages/") for rel in files) == 13
     assert sum(v["bytes"] for v in files.values()) < 2_000_000
 
     def sha(img):

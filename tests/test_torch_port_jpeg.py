@@ -158,7 +158,7 @@ def test_read_image_and_decode_image_dispatch_on_the_signature(tmp_path):
     np.testing.assert_array_equal(imageio.read_image(str(odd)), imageio.read_image(str(jpg)))
 
 
-def test_refusals_name_what_they_met():
+def test_refusals_name_what_they_met(tmp_path):
     img = _image(11, 24, 40)
     prog = _encode(img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     _assert_equal_to_cv2(prog)  # progressive is read: test_torch_port_jpeg_progressive.py
@@ -169,14 +169,18 @@ def test_refusals_name_what_they_met():
         data[sof + 1] = marker
         with pytest.raises(NotImplementedError, match=what):
             decode_jpeg(bytes(data))
-    data = bytearray(base)
-    data[sof + 4] = 12  # sample precision
-    with pytest.raises(NotImplementedError, match="12-bit"):
-        decode_jpeg(bytes(data))
-    data = bytearray(base)
-    data[sof + 9] = 2  # two components (CMYK/YCCK's four are read: test_torch_port_jpeg_colour.py)
-    with pytest.raises(NotImplementedError, match="2 components"):
-        decode_jpeg(bytes(data))
+    # cv2 refuses 12-bit samples and two components (CMYK/YCCK's four are read:
+    # test_torch_port_jpeg_colour.py), so the port raises ValueError through both routes
+    path = tmp_path / "x.jpg"
+    for at, value, what in ((sof + 4, 12, "12-bit"), (sof + 9, 2, "2 components")):
+        data = bytearray(base)
+        data[at] = value
+        path.write_bytes(bytes(data))
+        assert cv2.imdecode(np.frombuffer(bytes(data), np.uint8), cv2.IMREAD_COLOR) is None
+        assert cv2.imread(str(path), cv2.IMREAD_COLOR) is None
+        for read in (lambda: decode_jpeg(bytes(data)), lambda: imageio.read_image(str(path))):
+            with pytest.raises(ValueError, match=what):
+                read()
 
 
 def test_damaged_files_raise_value_error():

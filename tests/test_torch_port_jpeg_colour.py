@@ -235,6 +235,53 @@ def test_files_without_eoi_follow_each_route(tmp_path):
             decode_jpeg(data[:-2])
 
 
+FRAMES = {  # name -> (planes (h, w, top or offset), precision, SOF, sampling, Adobe transform)
+    "2_components": ([(16, 24)] * 2, 8, 0xC0, None, None),
+    "2_components_adobe": ([(16, 24)] * 2, 8, 0xC0, None, 0),
+    "2_components_2x2_1x1": ([(32, 32), (16, 16)], 8, 0xC0, [(2, 2), (1, 1)], None),
+    "5_components": ([(16, 24)] * 5, 8, 0xC0, None, None),
+    "5_components_adobe": ([(16, 24)] * 5, 8, 0xC1, None, 2),
+    "12_bit_sof0": ([(16, 24)] * 3, 12, 0xC0, None, None),
+    "12_bit_sof1": ([(16, 24)] * 3, 12, 0xC1, None, None),
+    "12_bit_grey_sof1": ([(16, 24)], 12, 0xC1, None, None),
+    "16_bit_sof1": ([(16, 24)], 16, 0xC1, None, None),
+}
+
+
+def _frame_file(rng, name):
+    shapes, precision, sof, sampling, transform = FRAMES[name]
+    planes = [assets.smooth(rng, h, w, 1).astype(np.int64) for h, w in shapes]
+    if precision == 12:
+        planes = [p * 16 + rng.integers(0, 16, p.shape) for p in planes]
+    elif precision == 16:  # near mid-range, so the flat tables' 15 DC sizes hold the blocks
+        planes = [32000 + p * 4 for p in planes]
+    return assets.jpeg_frame_file(planes, precision, sof, sampling, transform)
+
+
+@pytest.mark.parametrize("name", sorted(FRAMES))
+def test_frames_cv2_refuses_raise_value_error(name, tmp_path):
+    """Hand-made files with real content (the asset script's Huffman
+    writer): 2 and 5 components, with an Adobe segment or without, 12-bit
+    and 16-bit samples. cv2 returns None through both routes; the port
+    raises ``ValueError`` naming what it met."""
+    data = _frame_file(np.random.default_rng(sorted(FRAMES).index(name)), name)
+    assert assert_like_cv2(data, tmp_path) == [None, None]
+    what = f"{FRAMES[name][1]}-bit" if FRAMES[name][1] != 8 else f"{len(FRAMES[name][0])} comp"
+    with pytest.raises(ValueError, match=what):
+        decode_jpeg(data)
+
+
+def test_frame_writer_makes_files_cv2_reads(tmp_path):
+    """The same writer's 8-bit grey and three-component files are read, by
+    cv2 and the port alike, so the refusals above come from what the frames
+    hold."""
+    rng = np.random.default_rng(31)
+    for planes in ([assets.smooth(rng, 16, 24, 1)],
+                   [assets.smooth(rng, 16, 24, 1) for _ in range(3)]):
+        data = assets.jpeg_frame_file([p.astype(np.int64) for p in planes])
+        assert all(img is not None for img in assert_like_cv2(data, tmp_path))
+
+
 def test_refusals_name_what_they_met(tmp_path):
     rng = np.random.default_rng(9)
     data = _ycc(rng, 16, 16, "444")
@@ -244,7 +291,8 @@ def test_refusals_name_what_they_met(tmp_path):
     sof = data.index(b"\xff\xc0")
     two = bytearray(data)
     two[sof + 9] = 2
-    with pytest.raises(NotImplementedError, match="2 components"):
+    assert assert_like_cv2(bytes(two), tmp_path) == [None, None]  # cv2 refuses: ValueError
+    with pytest.raises(ValueError, match="2 components"):
         decode_jpeg(bytes(two))
     cut = _ycc(rng, 64, 80, "420")
     # cut inside the scan: cv2.imread greys the rest (test_torch_port_jpeg_cut.py holds
