@@ -5062,7 +5062,8 @@ def phase_jpeg():
     returns None; ms a file by format, each page on its own, and on lines
     of their own the formats CCITT fax TIFF, YCbCr TIFF, Radiance HDR, PFM
     and Sun raster and the 640x640 CCITT Group 4 page, then each JPEG 2000
-    file (JP2 and raw codestreams, the 640x640 9/7 page among them)."""
+    file (JP2 and raw codestreams, the 640x640 9/7 page among them), then
+    the CIE L*a*b*, signed 16-bit and old-style LZW TIFFs."""
     from megreader_tpu_torch.data.imageio import decode_image, read_image, write_png
 
     t_phase = time.perf_counter()
@@ -5147,6 +5148,11 @@ def phase_jpeg():
         + f" [{CARD}]")
     log("jpeg phase, JPEG 2000: read_image ms a file on one host thread (a refusal's ms is "
         "that of raising ValueError) " + json.dumps(jpeg2000_ms) + f" [{CARD}]")
+    variants = {"tifflab": "CIE L*a*b* TIFF", "tiffsigned": "signed 16-bit RGB TIFF",
+                "tifflzwold": "old-style LZW TIFF"}
+    log("jpeg phase, TIFF variants: read_image ms a file on one host thread (mean, max, files) "
+        + json.dumps({variants[k]: [statistics.mean(ms[k]), max(ms[k]), len(ms[k])]
+                      for k in variants}) + f" [{CARD}]")
     if bad:
         raise AssertionError(f"jpeg phase: the port's decode differs from cv2's on {bad}")
 

@@ -19,8 +19,9 @@ with the standard library's ``zlib`` and numpy:
   HDR (``data/radiance.py``: run-length or flat RGBE, scaled by 255 as cv2
   converts it), GIF (``data/gif.py``: the first image), TIFF
   (``data/tiff.py``: the first image, uncompressed, CCITT fax
-  (``data/fax.py``), LZW, Deflate, PackBits or JPEG; YCbCr as libtiff
-  converts it) and WebP (``data/webp.py``: lossless ``data/vp8l.py`` and
+  (``data/fax.py``), LZW (old-style too), Deflate, PackBits or JPEG;
+  YCbCr and CIE L*a*b* (``data/cielab.py``) as libtiff converts them,
+  signed samples as unsigned) and WebP (``data/webp.py``: lossless ``data/vp8l.py`` and
   lossy ``data/vp8.py`` bitstreams, simple or VP8X containers with ALPH and
   EXIF, the first frame of an animation; any data whose first 32 bytes
   libwebp takes for WebP, as cv2 tells it by them).

@@ -9,17 +9,25 @@ RGBA interface (``TIFFReadRGBAStrip`` / ``TIFFReadRGBATile``), whose rules
 * the first IFD of a classic (``II*\\0``, ``MM\\0*``) or BigTIFF (``II+\\0``,
   ``MM\\0+``) file; strips or tiles, PlanarConfiguration 1 (contiguous) or
   2 (one plane a sample); FillOrder 2 (bits reversed in each byte);
+  BitsPerSample and SampleFormat one value, or one a sample all equal;
 * compressions 1 (none), 2, 3 and 4 (CCITT modified Huffman, T.4 and
   T.6 of 1-bit samples, decoded by ``data/fax.py`` as libtiff decodes them,
   damaged data included), 5 (LZW, codes most significant bit first, one
-  bit wider one code early), 8 and 32946 (Deflate) and 32773 (PackBits);
-  Predictor 2 (horizontal differencing of 8- or 16-bit samples) undone
-  after LZW and Deflate only, as libtiff ignores it with the others;
+  bit wider one code early; or old-style, least significant bit first, no
+  early change), 8 and 32946 (Deflate) and 32773 (PackBits); Predictor 2
+  (horizontal differencing of 8- or 16-bit samples) undone after LZW and
+  Deflate only, as libtiff ignores it with the others, and on subsampled
+  YCbCr blind to its units (``_ycbcr_samples``). A strip or tile whose data
+  ends or breaks early reads as what its codec decoded, zeros after it,
+  neither its predictor undone nor its 16-bit samples swapped (libtiff
+  fails the strip and the RGBA reader keeps its zeroed buffer); a
+  compression libtiff does not know reads as zero samples;
 * compression 7 (JPEG): each strip or tile a JPEG stream read after the
   ``JPEGTables`` tag, decoded by ``data/jpeg.py``; photometric YCbCr to RGB
-  by libjpeg (libtiff's ``JPEGCOLORMODE_RGB``), grey and RGB as coded; the
-  first component's sampling that of YCbCrSubsampling (or, without the tag,
-  of the first strip) and 1x1 for the others, as libtiff checks;
+  by libjpeg (libtiff's ``JPEGCOLORMODE_RGB``), grey, RGB and CIE L*a*b*
+  as coded; the first component's sampling that of YCbCrSubsampling (or,
+  without the tag, of the first strip) and 1x1 for the others, as libtiff
+  checks;
 * photometric 0 and 1 (grey, min-is-white inverted) at 1, 8 and 16 bits,
   16 bits by their high byte, with any extra samples ignored; 2 (RGB) at
   8 or 16 bits, 16 bits rounded to 8 (``(v + 128) // 257``); 3 (palette)
@@ -33,18 +41,25 @@ RGBA interface (``TIFFReadRGBAStrip`` / ``TIFFReadRGBATile``), whose rules
   each colour ``(c * a + 127) // 255``; 6 (YCbCr, not JPEG-compressed)
   at 8 bits, three samples, by libtiff's ``TIFFYCbCrToRGB`` tables
   (YCbCrCoefficients and ReferenceBlackWhite in float32, chroma weights in
-  16-bit fixed point), its units read as ``_ycbcr_samples`` says;
+  16-bit fixed point), its units read as ``_ycbcr_samples`` says; 8 (CIE
+  L*a*b*) at 8 or 16 bits, three contiguous samples, by libtiff's
+  ``TIFFCIELabToXYZ`` and ``TIFFXYZToRGB`` (``data/cielab.py``) against
+  the WhitePoint tag or D50;
+* signed samples (SampleFormat 2) at any depth read as unsigned ones, as
+  the RGBA reader reads them (L*a*b* takes its a* and b* as signed anyway);
 * the Orientation tag applied as cv2 applies an EXIF orientation.
 
 Depths, photometric interpretations, sample formats and predictors that
 cv2 refuses (2-bit samples, 4-bit grey, 16-bit palette or CMYK, ICC and
-ITU L*a*b*, floating-point samples, the floating-point Predictor 3, ...)
-and damaged files raise ``ValueError``; compressions, photometric
-interpretations and sample formats that cv2 reads and these do not
-(old-style JPEG, CIE L*a*b*, signed samples, Predictor 2 on subsampled
-YCbCr, ...) raise ``NotImplementedError`` naming what was met.
-``cv2.imdecode`` alone also refuses uncompressed tiles whose pixel count
-is not a multiple of 1024 (``decode_tiff(from_file=False)``).
+ITU L*a*b*, L*a*b* of other than three contiguous samples, floating-point,
+untyped and complex samples, the floating-point Predictor 3, ...), the
+codecs cv2's libtiff lacks (old-style JPEG, JBIG, LZMA, Zstandard, WebP,
+LERC, PixarLog) and damaged files raise ``ValueError``; compressions that
+cv2 reads and these do not (CCITT RLEW, ThunderScan, SGI Log) and an image
+whose first LZW strip is old-style and a later one not raise
+``NotImplementedError`` naming what was met. The two routes differ on uncompressed tiles whose byte count
+is not a tile's (``_chunks``; ``decode_tiff(from_file=False)`` reads as
+``cv2.imdecode`` does).
 """
 
 from __future__ import annotations
@@ -55,7 +70,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from . import fax
+from . import cielab, fax
 from .jpeg import apply_orientation, decode_tiff_strip
 
 SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
@@ -65,17 +80,26 @@ _INTEGER_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1), 8: ("h", 2
                   9: ("i", 4), 13: ("I", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
 _TYPE_SIZES = {2: 1, 5: 8, 7: 1, 10: 8, 11: 4, 12: 8}
 
-_COMPRESSIONS = {6: "old-style JPEG", 32766: "NeXT RLE",
-                 32771: "CCITT RLEW", 32809: "ThunderScan RLE", 34676: "SGI LogL",
-                 34677: "SGI LogLuv", 34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA",
-                 50000: "Zstandard", 50001: "WebP", 50002: "JPEG XL"}
-_PHOTOMETRICS = {4: "transparency mask", 8: "CIE L*a*b*", 32803: "colour filter array",
-                 32844: "SGI LogL", 32845: "SGI LogLuv", 34892: "linear raw"}
-_SAMPLE_FORMATS = {2: "signed integer", 4: "untyped", 5: "complex signed integer",
-                   6: "complex floating point"}
-# what cv2 refuses (its libtiff RGBA reader does): ValueError
-_REFUSED_PHOTOMETRICS = {9: "ICC L*a*b*", 10: "ITU L*a*b*"}
-_REFUSED_SAMPLE_FORMATS = {3: "IEEE floating point"}
+# libtiff's codecs that cv2 5's build has and these do not: name, and what
+# the codec and cv2 need to read a file (NotImplementedError; else ValueError)
+_COMPRESSIONS = {32771: ("CCITT RLEW",
+                         lambda bps, spp, ph: (bps, spp) == (1, 1) and ph in (0, 1, 3)),
+                 32809: ("ThunderScan RLE", lambda bps, spp, ph: (bps, spp, ph) == (4, 1, 3)),
+                 34676: ("SGI LogL", lambda bps, spp, ph: bps in (8, 16) and ph in (32844, 32845)),
+                 34677: ("SGI LogLuv", lambda bps, spp, ph: bps in (8, 16) and ph == 32845)}
+# codecs cv2 5 reads nothing with (ValueError): left out of its libtiff
+# ("... compression support is not configured"), or NeXT's, which decodes
+# only the 2-bit samples cv2 refuses. A compression libtiff does not know
+# at all reads as zero samples (``_TIFFNoStripDecode``, ``_no_codec``).
+_UNREAD = {6: "old-style JPEG", 32766: "NeXT RLE", 32909: "PixarLog", 34661: "JBIG",
+           34887: "LERC", 34925: "LZMA", 50000: "Zstandard", 50001: "WebP"}
+# what cv2 refuses (its libtiff RGBA reader does): ValueError. SGI LogL and
+# LogLuv are read only under their own compressions (NotImplementedError)
+_REFUSED_PHOTOMETRICS = {4: "transparency mask", 9: "ICC L*a*b*", 10: "ITU L*a*b*",
+                         32803: "colour filter array", 32844: "SGI LogL", 32845: "SGI LogLuv",
+                         34892: "linear raw"}
+_REFUSED_SAMPLE_FORMATS = {3: "IEEE floating point", 4: "untyped",
+                           5: "complex signed integer", 6: "complex floating point"}
 _YCBCR_SAMPLINGS = ((1, 1), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), (1, 2))
 _REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
@@ -124,12 +148,19 @@ def _ifd(data: bytes, path: str) -> Tuple[Dict[int, list], str]:
     return tags, order
 
 
+def _old_style(data: bytes) -> bool:
+    """libtiff's test for old-style LZW (``LZWPreDecode``): a strip whose
+    first code, read least significant bit first, is a clear code."""
+    return len(data) >= 2 and data[0] == 0 and bool(data[1] & 1)
+
+
 def _lzw(data: bytes, size: int, path: str) -> bytes:
-    """TIFF LZW (libtiff's ``LZWDecode``) -> at least ``size`` bytes: codes
+    """TIFF LZW (libtiff's ``LZWDecode``) -> up to ``size`` bytes: codes
     most significant bit first, 9 to 12 bits, one bit wider when the next
-    free entry reaches 2^bits - 1; a clear code first and after every reset."""
-    if len(data) >= 2 and data[0] == 0 and data[1] & 1:
-        raise NotImplementedError(f"{path}: old-style (LSB-first) TIFF LZW")
+    free entry reaches 2^bits - 1; a clear code first and after every reset.
+    Where the data ends or breaks first, what was decoded (libtiff keeps it
+    and fails the strip). An image whose first strip is old-style is read
+    by ``_lzw_old_style`` instead (``_decoder``)."""
     table: List[bytes] = [bytes([i]) for i in range(256)] + [b"", b""]
     width, prev = 9, -1  # -1: before the first clear code
     out = bytearray()
@@ -146,14 +177,14 @@ def _lzw(data: bytes, size: int, path: str) -> bytes:
                 width, prev = 9, None
                 continue
             if code == 257:
-                return _enough(out, size, path)
+                return bytes(out[:size])
             if prev is None:
                 if code > 256:
-                    raise ValueError(f"{path}: corrupted TIFF LZW data")
+                    return bytes(out[:size])
                 out += table[code]
             else:
                 if prev < 0 or len(table) >= 4096:
-                    raise ValueError(f"{path}: corrupted TIFF LZW data")
+                    return bytes(out[:size])
                 if code < len(table):
                     s = table[code]
                     table.append(table[prev] + s[:1])
@@ -161,51 +192,114 @@ def _lzw(data: bytes, size: int, path: str) -> bytes:
                     s = table[prev] + table[prev][:1]
                     table.append(s)
                 else:
-                    raise ValueError(f"{path}: corrupted TIFF LZW data")
+                    return bytes(out[:size])
                 if len(table) == (1 << width) - 1 and width < 12:
                     width += 1
                 out += s
             prev = code
             if len(out) >= size:
                 return bytes(out[:size])
-    return _enough(out, size, path)
+    return bytes(out[:size])
 
 
-def _enough(out: bytearray, size: int, path: str) -> bytes:
-    if len(out) < size:
-        raise ValueError(f"{path}: TIFF strip or tile data ends early")
+def _lzw_old_style(data: bytes, size: int, path: str = "<bytes>") -> bytes:
+    """Old-style TIFF LZW (libtiff's ``LZWDecodeCompat``) -> up to ``size``
+    bytes: codes least significant bit first, 9 to 12 bits, one bit wider
+    once the table holds 2^bits entries (no early change), the table
+    growing past 4096 entries until 5119 without a clear code; what was
+    decoded where the data ends or breaks first."""
+    table: List[bytes] = [bytes([i]) for i in range(256)] + [b"", b""]
+    width, prev = 9, None
+    out = bytearray()
+    bits = 8 * len(data)
+    acc = left = at = 0
+    while len(out) < size and bits >= width:
+        while left < width:
+            acc |= data[at] << left
+            at += 1
+            left += 8
+        code = acc & ((1 << width) - 1)
+        acc >>= width
+        left -= width
+        bits -= width
+        if code == 257:
+            break
+        if code == 256:
+            del table[258:]
+            width, prev = 9, None
+            continue
+        if prev is None:
+            if code > 256:
+                break
+            out.append(code)
+        else:
+            if len(table) >= 5119 or code > len(table):
+                break
+            first = table[code][:1] if code < len(table) else table[prev][:1]
+            table.append(table[prev] + first)
+            if len(table) >= 1 << width and width < 12:
+                width += 1
+            out += table[code]
+        prev = code
     return bytes(out[:size])
 
 
 def _packbits(data: bytes, size: int, path: str) -> bytes:
+    """PackBits (libtiff's ``PackBitsDecode``) -> up to ``size`` bytes; a
+    run cut short by the data's end is dropped whole."""
     out = bytearray()
     i = 0
-    while len(out) < size:
-        if i >= len(data):
-            raise ValueError(f"{path}: TIFF PackBits data ends early")
+    while len(out) < size and i < len(data):
         n = data[i]
         i += 1
         if n < 128:
-            out += data[i:i + n + 1]
+            m = min(n + 1, size - len(out))
+            if i + m > len(data):
+                break
+            out += data[i:i + m]
             i += n + 1
         elif n > 128:
             if i >= len(data):
-                raise ValueError(f"{path}: TIFF PackBits data ends early")
+                break
             out += data[i:i + 1] * (257 - n)
             i += 1
     return bytes(out[:size])
 
 
 def _inflate(data: bytes, size: int, path: str) -> bytes:
+    """Deflate (libtiff's ``ZIPDecode``) -> up to ``size`` bytes: where the
+    stream is damaged, what zlib's inflate wrote before the damage."""
     try:
-        out = zlib.decompressobj().decompress(data, size)
+        return zlib.decompressobj().decompress(data, size)
     except zlib.error:
-        raise ValueError(f"{path}: TIFF Deflate data is damaged") from None
-    return _enough(bytearray(out), size, path)
+        pass
+    good, bad = 0, len(data)  # the longest prefix that inflates without an error
+    while bad - good > 1:
+        mid = (good + bad) // 2
+        try:
+            zlib.decompressobj().decompress(data[:mid], size)
+            good = mid
+        except zlib.error:
+            bad = mid
+    return zlib.decompressobj().decompress(data[:good], size)
 
 
-_DECODERS = {1: lambda d, n, p: _enough(bytearray(d[:n]), n, p), 5: _lzw, 8: _inflate,
+def _no_codec(data: bytes, size: int, path: str) -> bytes:
+    """A compression libtiff has no codec for: its strips fail to decode
+    and the RGBA reader's zeroed buffer stays as it was."""
+    return b""
+
+
+_DECODERS = {1: lambda d, n, p: d[:n] if len(d) >= n else b"", 5: _lzw, 8: _inflate,
              32946: _inflate, 32773: _packbits}
+
+
+def _decoder(compression: int, first: bytes):
+    """The decoder of an image's strips or tiles: libtiff chooses old-style
+    LZW by the first one it reads (``LZWPreDecode``) and keeps it."""
+    if compression == 5 and _old_style(first):
+        return _lzw_old_style
+    return _DECODERS.get(compression, _no_codec)
 
 
 def _layout(tags: Dict[int, list], h: int, w: int, planes: int, path: str):
@@ -225,6 +319,60 @@ def _layout(tags: Dict[int, list], h: int, w: int, planes: int, path: str):
     return tiled, tw, tl, offsets, counts
 
 
+def _chunks(data: bytes, tags: Dict[int, list], offsets: list, counts: list, n: int,
+            tiled: bool, estimate: int, from_file: bool, path: str) -> List[bytes]:
+    """The first ``n`` strips' or tiles' bytes, bits reversed for FillOrder
+    2, as libtiff reads them. A chunk of no bytes or past the file's end is
+    refused (``TIFFFillStrip``). Uncompressed, libtiff replaces byte counts
+    it takes for wrong (``TIFFReadDirectory``) by ``estimate`` bytes each
+    (``EstimateStripByteCounts``): the one strip's count where it is short
+    or runs past the file's end, and, with more than two contiguous strips
+    or tiles, every count where the first two differ. Then cv2 refuses an
+    uncompressed tile of other than ``estimate`` bytes (a tile's size):
+    ``cv2.imread`` any other count, ``cv2.imdecode`` a larger one, or a
+    first tile's count that does not round up to a tile in steps of 1024
+    (so also any tile size not a multiple of 1024); a shorter tile reads as
+    zeros. libtiff decodes every LZW strip of an image as it decodes the
+    first (``_decoder``); old-style, the others must be so too."""
+    counts = list(counts[:n])
+    compression = tags.get(259, [1])[0]
+    if compression == 1 and n == 1 and not tiled and (
+            counts[0] < estimate or counts[0] > len(data) - offsets[0]):
+        counts[0] = estimate
+    elif (compression == 1 and n > 2 and tags.get(284, [1])[0] == 1
+          and 0 != counts[0] != counts[1] != 0):
+        counts = [estimate] * n
+    out = []
+    for k, (offset, count) in enumerate(zip(offsets[:n], counts)):
+        if not count or offset + count > len(data):
+            raise ValueError(f"{path}: TIFF strip or tile of {count} bytes at {offset}, the file "
+                             f"has {len(data)} (cv2 refuses it)")
+        if compression == 1 and tiled and (
+                count != estimate if from_file
+                else count > estimate or (k == 0 and -(-count // 1024) * 1024 != estimate)):
+            raise ValueError(f"{path}: uncompressed TIFF tile of {count} bytes, {estimate} a "
+                             f"tile (cv2.{'imread' if from_file else 'imdecode'} refuses it)")
+        chunk = data[offset:offset + count]
+        out.append(chunk.translate(_REVERSED_BITS) if tags.get(266, [1])[0] == 2 else chunk)
+    if compression == 5 and _old_style(out[0]) and not all(
+            _old_style(c) or len(c) < 2 for c in out[1:]):  # one byte: zeros either way
+        raise NotImplementedError(f"{path}: TIFF LZW strips old-style (LSB-first), then not")
+    return out
+
+
+def _decoded(decode, chunk: bytes, size: int, predictor, path: str) -> Tuple[bytes, bool]:
+    """(``size`` bytes of a strip or tile as the RGBA reader's zeroed buffer
+    holds them, whether the codec succeeded): what the codec decoded, zeros
+    after it, the predictor (a function of the bytes) undone only where the
+    codec succeeded. libtiff swaps 16-bit samples to the host's order only
+    then too, so a failed big-endian chunk reads little-endian."""
+    raw = decode(chunk, size, path)
+    ok = len(raw) == size
+    if predictor is not None and ok:
+        raw = predictor(raw)
+    return raw.ljust(size, b"\0"), ok
+
+
 def _jpeg_samples(data: bytes, tags: Dict[int, list], h: int, w: int, spp: int, ycc: bool,
                   path: str) -> np.ndarray:
     """Every strip or tile of a JPEG-compressed TIFF (compression 7,
@@ -236,16 +384,13 @@ def _jpeg_samples(data: bytes, tags: Dict[int, list], h: int, w: int, spp: int, 
     1x1; a strip or tile as large as its segment, or a last strip that is
     taller."""
     tables = bytes(tags.get(347, []))
-    flip = tags.get(266, [1])[0] == 2
     tiled, tw, tl, offsets, counts = _layout(tags, h, w, 1, path)
     across, down = -(-w // tw), -(-h // tl)
     sampling = tuple(tags[530][:2]) if ycc and 530 in tags else None
     out = np.zeros((down * tl, across * tw, 3 if ycc else spp), np.int64)
-    for k in range(across * down):
+    for k, chunk in enumerate(_chunks(data, tags, offsets, counts, across * down, tiled, 0,
+                                      False, path)):
         ty, tx = divmod(k, across)
-        chunk = data[offsets[k]:offsets[k] + counts[k]]
-        if flip:
-            chunk = chunk.translate(_REVERSED_BITS)
         img, factors = decode_tiff_strip(chunk, tables, ycc, path)
         if len(factors) != spp:
             raise ValueError(f"{path}: TIFF JPEG strip of {len(factors)} components, {spp} "
@@ -318,34 +463,34 @@ def _samples(data: bytes, tags: Dict[int, list], order: str, h: int, w: int, spp
         raise NotImplementedError(f"{path}: TIFF Predictor {predictor}")
     if predictor == 2 and bps not in (8, 16):
         raise ValueError(f"{path}: TIFF horizontal differencing of {bps}-bit samples")
-    flip = tags.get(266, [1])[0] == 2
     planes = spp if planar == 2 and spp > 1 else 1
     per_plane = spp // planes
     tiled, tw, tl, offsets, counts = _layout(tags, h, w, planes, path)
-    if compression in fax.COMPRESSIONS:
-        decode = fax.strip_decoder(compression, tags.get(292, [0])[0], tw * per_plane)
-    else:
-        decode = _DECODERS[compression]
-    tile_bytes = tl * -(-tw * per_plane * bps // 8)
-    if tiled and not from_file and compression == 1 and tile_bytes % 1024:
-        raise ValueError(f"{path}: uncompressed TIFF tiles of {tile_bytes} bytes "
-                         "(cv2.imdecode refuses them unless a multiple of 1024)")
+    per_row = tw * per_plane
+    row_bytes = -(-per_row * bps // 8)
+    tile_bytes = tl * row_bytes
     across, down = -(-w // tw), -(-h // tl)
+    n = across * down * planes
+    chunks = _chunks(data, tags, offsets, counts, n, tiled,
+                     tile_bytes if tiled else h // n * row_bytes, from_file, path)
+    if compression in fax.COMPRESSIONS:
+        decode = fax.strip_decoder(compression, tags.get(292, [0])[0], per_row)
+    else:
+        decode = _decoder(compression, chunks[0])
     out = np.zeros((down * tl, across * tw, spp), np.int64)
     k = 0
     for p in range(planes):
         for ty in range(down):
             rows = tl if tiled else min(tl, h - ty * tl)
+            undo = None
+            if predictor == 2:
+                def undo(raw, rows=rows):
+                    return _undo_predictor(raw, rows, per_row, per_plane, bps, order)
             for tx in range(across):
-                chunk = data[offsets[k]:offsets[k] + counts[k]]
+                raw, ok = _decoded(decode, chunks[k], rows * row_bytes, undo, path)
                 k += 1
-                if flip:
-                    chunk = chunk.translate(_REVERSED_BITS)
-                per_row = tw * per_plane
-                raw = decode(chunk, rows * -(-per_row * bps // 8), path)
-                if predictor == 2:
-                    raw = _undo_predictor(raw, rows, per_row, per_plane, bps, order)
-                s = _unpack(raw, rows, per_row, bps, order).reshape(rows, tw, per_plane)
+                s = _unpack(raw, rows, per_row, bps, order if ok else "<").reshape(rows, tw,
+                                                                                    per_plane)
                 if drift and tiled and planes == 1 and (tx + 1) * tw > w:
                     s = _drifted(s, w - tx * tw, bps)
                 out[ty * tl:ty * tl + rows, tx * tw:(tx + 1) * tw,
@@ -404,38 +549,44 @@ def _ycbcr_samples(data: bytes, tags: Dict[int, list], h: int, w: int, sampling:
     which rounds a row of units divided by ``vs`` down, so a 4x4 strip of
     an odd number of units a row loses its last bytes (read as zero). In a
     tile clipped at the right edge, ``putcontig8bitYCbCr44tile`` skips the
-    units past the edge as 10 bytes each, not 18."""
+    units past the edge as 10 bytes each, not 18.
+
+    Predictor 2 (after LZW or Deflate) is undone as libtiff's ``horAcc8``
+    undoes it, blind to the units: 3-byte samples summed along rows of
+    ``TIFFScanlineSize`` bytes in a strip and of ``TIFFTileRowSize`` (the
+    tile's width times 3) in a tile. Where those rows do not divide into
+    3-byte samples, or a tile into rows, libtiff fails the strip or tile
+    and the RGBA reader takes its bytes as decoded, not undone."""
     hs, vs = sampling
     unit = hs * vs + 2
     compression = tags.get(259, [1])[0]
-    decode = _DECODERS[compression]
-    flip = tags.get(266, [1])[0] == 2
     tiled, tw, tl, offsets, counts = _layout(tags, h, w, 1, path)
     across, down = -(-w // tw), -(-h // tl)
     units_across = -(-tw // hs)
     tile_bytes = -(-tl // vs) * units_across * unit
-    if tiled and not from_file and compression == 1 and tile_bytes % 1024:
-        raise ValueError(f"{path}: uncompressed TIFF tiles of {tile_bytes} bytes "
-                         "(cv2.imdecode refuses them unless a multiple of 1024)")
+    scan = units_across * unit // vs  # TIFFScanlineSize
+    predictor = tags.get(317, [1])[0] == 2 and compression in (5, 8, 32946)
+    chunks = _chunks(data, tags, offsets, counts, across * down, tiled,
+                     tile_bytes if tiled else h // (across * down) * scan, from_file, path)
+    decode = _decoder(compression, chunks[0])
     out = np.zeros((down * tl + vs, across * tw + hs, 3), np.int64)
-    for k in range(across * down):
+    for k, chunk in enumerate(chunks):
         ty, tx = divmod(k, across)
         rows = min(tl, h - ty * tl)
         units_down = -(-rows // vs)
-        chunk = data[offsets[k]:offsets[k] + counts[k]]
-        if flip:
-            chunk = chunk.translate(_REVERSED_BITS)
         if tiled:
-            raw = np.frombuffer(decode(chunk, tile_bytes, path), np.uint8)
+            undo = _ycbcr_undo(tw * 3, tile_bytes) if predictor else None
+            raw = np.frombuffer(_decoded(decode, chunk, tile_bytes, undo, path)[0], np.uint8)
             used = -(-min(tw, w - tx * tw) // hs)
             skip = (units_across - used) * (10 if sampling == (4, 4) else unit)
             at = np.arange(units_down)[:, None] * (used * unit + skip) + np.arange(used * unit)
             u = raw[at]
         else:
             used = units_across
-            want = units_down * vs * (units_across * unit // vs)
+            want = units_down * vs * scan
+            undo = _ycbcr_undo(scan, want) if predictor else None
             u = np.zeros(units_down * units_across * unit, np.uint8)
-            u[:want] = np.frombuffer(decode(chunk, want, path), np.uint8)
+            u[:want] = np.frombuffer(_decoded(decode, chunk, want, undo, path)[0], np.uint8)
         u = u.reshape(units_down, used, unit).astype(np.int64)
         block = np.empty((units_down * vs, used * hs, 3), np.int64)
         block[..., 0] = u[..., :hs * vs].reshape(units_down, used, vs, hs).transpose(
@@ -444,6 +595,21 @@ def _ycbcr_samples(data: bytes, tags: Dict[int, list], h: int, w: int, sampling:
             block[..., c] = np.repeat(np.repeat(u[..., hs * vs + c - 1], vs, 0), hs, 1)
         out[ty * tl:ty * tl + len(block), tx * tw:tx * tw + block.shape[1]] = block
     return out[:h, :w]
+
+
+def _ycbcr_undo(row: int, size: int):
+    """Predictor 2 on ``size`` bytes of subsampled YCbCr as libtiff's
+    ``horAcc8`` undoes it: 3-byte samples summed along rows of ``row``
+    bytes, or None where ``row`` does not divide into samples or ``size``
+    into rows (libtiff fails the strip or tile and leaves it as decoded)."""
+    if row % 3 or size % row:
+        return None
+
+    def undo(raw: bytes) -> bytes:
+        s = np.frombuffer(raw, np.uint8).reshape(-1, row // 3, 3)
+        return np.cumsum(s, 1, dtype=np.uint8).astype(np.uint8).tobytes()
+
+    return undo
 
 
 def _premultiplied(c: np.ndarray, a: np.ndarray, bps: int) -> np.ndarray:
@@ -505,32 +671,43 @@ def decode_tiff(data: bytes, path: str = "<bytes>", from_file: bool = True) -> n
         raise ValueError(f"{path}: TIFF without its image size")
     w, h = tags[256][0], tags[257][0]
     spp = tags.get(277, [1])[0]
-    bps = tags.get(258, [1])[0]
+    bps = _per_sample(tags, 258, spp, "BitsPerSample", path)
+    fmt = _per_sample(tags, 339, spp, "SampleFormat", path)
+    if fmt not in (1, 2):  # signed samples read as unsigned ones: libtiff's RGBA reader does
+        raise ValueError(f"{path}: TIFF {_REFUSED_SAMPLE_FORMATS.get(fmt, f'SampleFormat {fmt}')} "
+                         "samples (cv2 refuses them)")
     compression = tags.get(259, [1])[0]
     if 262 not in tags:
         raise ValueError(f"{path}: TIFF without its PhotometricInterpretation")
     photometric = tags[262][0]
-    fmt = tags.get(339, [1])[0]
-    if compression not in _DECODERS and compression not in fax.COMPRESSIONS + (7,):
-        raise NotImplementedError(f"{path}: TIFF compression "
-                                  f"{_COMPRESSIONS.get(compression, 'unknown')} ({compression}): "
-                                  "only none, CCITT, LZW, Deflate, PackBits and JPEG are read")
+    if compression in _UNREAD:
+        raise ValueError(f"{path}: TIFF compression {_UNREAD[compression]} ({compression}): cv2 "
+                         "reads no such file")
+    if compression in _COMPRESSIONS:
+        name, readable = _COMPRESSIONS[compression]
+        if not readable(bps, spp, photometric):
+            raise ValueError(f"{path}: TIFF compression {name} ({compression}) of {bps}-bit "
+                             f"samples, {spp} a pixel, photometric {photometric} (cv2 refuses "
+                             "it)")
+        raise NotImplementedError(f"{path}: TIFF compression {name} ({compression}): only none, "
+                                  "CCITT, LZW, Deflate, PackBits and JPEG are read")
     if compression in fax.COMPRESSIONS and (bps != 1 or spp != 1):
         raise ValueError(f"{path}: CCITT-compressed TIFF of {bps} bits, {spp} samples a pixel "
                          "(cv2 refuses it)")
     if compression == 7:
-        return _jpeg_tiff(data, tags, w, h, spp, bps, photometric, fmt, from_file, path)
+        return _jpeg_tiff(data, tags, w, h, spp, bps, photometric, from_file, path)
     if photometric in _REFUSED_PHOTOMETRICS:
         raise ValueError(f"{path}: TIFF photometric interpretation "
                          f"{_REFUSED_PHOTOMETRICS[photometric]} ({photometric}; cv2 refuses it)")
-    if photometric in _PHOTOMETRICS:
-        raise NotImplementedError(f"{path}: TIFF photometric interpretation "
-                                  f"{_PHOTOMETRICS[photometric]} ({photometric})")
-    _refuse_sample_format(fmt, path)
     if not w or not h:
         raise ValueError(f"{path}: TIFF of no size")
     if photometric == 6:
         return _ycbcr_tiff(data, tags, order, w, h, spp, bps, from_file, path)
+    if photometric == 8:
+        white = _check_lab(tags, spp, bps, path)
+        _refuse_transposed(tags, w, h, from_file, path)
+        s = _samples(data, tags, order, h, w, 3, bps, from_file, False, path)
+        return _oriented(_lab_to_rgb(s, bps, white), tags, w)
     allowed = {0: (1, 8, 16), 1: (1, 8, 16), 2: (8, 16), 3: (1, 4, 8), 5: (8,)}
     if (photometric not in allowed or bps not in allowed[photometric] or spp > 4
             or (bps == 1 and spp > 1)):
@@ -547,28 +724,58 @@ def decode_tiff(data: bytes, path: str = "<bytes>", from_file: bool = True) -> n
     return _oriented(img, tags, w)
 
 
-def _refuse_sample_format(fmt: int, path: str) -> None:
-    if fmt in _REFUSED_SAMPLE_FORMATS:
-        raise ValueError(f"{path}: TIFF {_REFUSED_SAMPLE_FORMATS[fmt]} samples (cv2 refuses "
-                         "them)")
-    if fmt in _SAMPLE_FORMATS:
-        raise NotImplementedError(f"{path}: TIFF {_SAMPLE_FORMATS[fmt]} samples")
+def _per_sample(tags: Dict[int, list], tag: int, spp: int, name: str, path: str) -> int:
+    """A tag of one value a sample (BitsPerSample, SampleFormat) as libtiff
+    reads it (``TIFFReadDirEntryPersampleShort``): one value, or at least
+    ``spp`` of which the first ``spp`` are equal."""
+    values = tags.get(tag, [1])
+    if len(values) != 1 and (len(values) < spp or len(set(values[:spp])) > 1):
+        raise ValueError(f"{path}: TIFF {name} {values} for {spp} samples a pixel (cv2 refuses "
+                         "it)")
+    return values[0]
+
+
+def _check_lab(tags: Dict[int, list], spp: int, bps: int, path: str):
+    """What libtiff's RGBA reader asks of CIE L*a*b* (``TIFFRGBAImageOK``,
+    ``PickContigCase``, ``initCIELabConversion``): three samples a pixel,
+    none of them extra, of 8 or 16 bits, contiguous, a WhitePoint whose y
+    is not 0 -> the WhitePoint (x, y), or None for libtiff's default."""
+    colour = spp - len(tags.get(338, []))
+    if spp != 3 or colour != 3 or bps not in (8, 16) or tags.get(284, [1])[0] == 2:
+        raise ValueError(f"{path}: TIFF CIE L*a*b* of {spp} samples ({colour} colour), {bps} "
+                         f"bits, PlanarConfiguration {tags.get(284, [1])[0]} (cv2 refuses it)")
+    white = tags.get(318, [])
+    if len(white) != 2:  # libtiff ignores a WhitePoint of another count
+        return None
+    if white[1] == 0:
+        raise ValueError(f"{path}: TIFF CIE L*a*b* WhitePoint {white} (cv2 refuses it)")
+    return tuple(white)
+
+
+def _lab_to_rgb(s: np.ndarray, bps: int, white) -> np.ndarray:
+    """(h, w, 3) L*, a*, b* samples as read unsigned -> uint8 RGB."""
+    if bps == 8:
+        return cielab.lab8_to_rgb(s, white)
+    ab = s[..., 1:] - ((s[..., 1:] & 0x8000) << 1)  # int16
+    return cielab.lab16_to_rgb(np.concatenate([s[..., :1], ab], -1), white)
 
 
 def _jpeg_tiff(data: bytes, tags: Dict[int, list], w: int, h: int, spp: int, bps: int,
-               photometric: int, fmt: int, from_file: bool, path: str) -> np.ndarray:
+               photometric: int, from_file: bool, path: str) -> np.ndarray:
     """A JPEG-compressed TIFF (compression 7) as libtiff's RGBA interface
     reads it: photometric YCbCr through libjpeg's conversion to RGB (libtiff
-    sets ``JPEGCOLORMODE_RGB``), grey and RGB as coded, then as the other
-    compressions' samples."""
-    if photometric not in (0, 1, 2, 6):
-        name = {**_PHOTOMETRICS, **_REFUSED_PHOTOMETRICS, 3: "palette", 5: "CMYK"}.get(
-            photometric, "?")
+    sets ``JPEGCOLORMODE_RGB``); grey, RGB and CIE L*a*b* as coded (libjpeg's
+    ``JCS_UNKNOWN``), then as the other compressions' samples."""
+    if photometric in _REFUSED_PHOTOMETRICS:
+        raise ValueError(f"{path}: TIFF photometric interpretation "
+                         f"{_REFUSED_PHOTOMETRICS[photometric]} ({photometric}; cv2 refuses it)")
+    if photometric not in (0, 1, 2, 6, 8):
+        name = {3: "palette", 5: "CMYK"}.get(photometric, "?")
         raise NotImplementedError(f"{path}: JPEG-compressed TIFF of photometric {name} "
                                   f"({photometric})")
-    _refuse_sample_format(fmt, path)
     if not w or not h:
         raise ValueError(f"{path}: TIFF of no size")
+    white = _check_lab(tags, spp, bps, path) if photometric == 8 else None
     if tags.get(284, [1])[0] == 2 and spp > 1:
         raise NotImplementedError(f"{path}: JPEG-compressed TIFF with separate planes")
     if bps != 8 or spp != (1 if photometric in (0, 1) else 3):
@@ -578,6 +785,8 @@ def _jpeg_tiff(data: bytes, tags: Dict[int, list], w: int, h: int, spp: int, bps
     s = _jpeg_samples(data, tags, h, w, spp, photometric == 6, path)
     if photometric == 6:
         img = s.astype(np.uint8)
+    elif photometric == 8:
+        img = cielab.lab8_to_rgb(s, white)
     else:
         img = _rgb(s, tags, photometric, 8, spp, False, path)
     return _oriented(img, tags, w)
@@ -596,13 +805,14 @@ def _ycbcr_tiff(data: bytes, tags: Dict[int, list], order: str, w: int, h: int, 
         raise ValueError(f"{path}: TIFF YCbCr of {bps} bits, {spp} samples, subsampling "
                          f"{sampling}{', separate planes' if separate else ''} (cv2 refuses it)")
     _refuse_transposed(tags, w, h, from_file, path)
-    if sampling != (1, 1) and tags.get(317, [1])[0] != 1 and tags.get(259, [1])[0] in (5, 8,
-                                                                                      32946):
-        raise NotImplementedError(f"{path}: TIFF Predictor {tags[317][0]} on YCbCr subsampled "
-                                  f"{sampling}")
     if sampling == (1, 1):
         ycc = _samples(data, tags, order, h, w, 3, 8, from_file, False, path)
     else:
+        predictor = tags.get(317, [1])[0] if tags.get(259, [1])[0] in (5, 8, 32946) else 1
+        if predictor == 3:
+            raise ValueError(f"{path}: TIFF floating point Predictor 3 (cv2 refuses it)")
+        if predictor not in (1, 2):
+            raise NotImplementedError(f"{path}: TIFF Predictor {predictor}")
         ycc = _ycbcr_samples(data, tags, h, w, sampling, from_file, path)
     return _oriented(_ycbcr_to_rgb(ycc, tags, path), tags, w)
 

@@ -59,6 +59,8 @@ where cv2.imdecode returns None). Files, under ``cases/`` unless named:
   codestream, layers over precincts in RPCL order, a palette with channel
   definitions (``jp2_file``, the script's own box writer, over a codestream
   of libopenjp2's encoder through ``ctypes``: ``openjpeg``), a cut file;
+* TIFF variants (``tiff_variant_cases``): CIE L*a*b*, signed 16-bit RGB
+  and old-style LZW (``tiff_lzw_old_style``, the script's own writer);
 * ``pages/``: 640x640 pages drawn by ``chip_smoke.TextPages``: a CMYK
   JPEG, a palette PNG, a 16-bit Adam7 PNG and an RLE8 BMP, cut JPEGs, a
   GIF and an LZW TIFF, a lossless and a lossy WebP, a JPEG-compressed
@@ -1025,6 +1027,65 @@ def tiff_lzw(data: bytes) -> bytes:
     return bytes(out)
 
 
+def tiff_lzw_old_style(data: bytes, clear_after: int = 0, eoi: bool = True,
+                       clear_when_full: bool = True) -> bytes:
+    """Old-style TIFF LZW as libtiff's ``LZWDecodeCompat`` reads it (no
+    encoder here writes it): codes least significant bit first, 9 to 12
+    bits, one bit wider once the decoder's table holds 2^bits entries (the
+    decoder adds an entry for each code but the first after a clear), a
+    clear code first, at 4094 entries (unless ``clear_when_full`` is False:
+    then the table stops at 4096 and the decoder's grows on, to its limit
+    of 5119) and, with ``clear_after``, after that many codes; the EOI code
+    last unless ``eoi`` is False."""
+    out, acc, n = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, n
+        acc |= code << n
+        n += width
+        while n >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            n -= 8
+
+    def reset():
+        return {bytes([i]): i for i in range(256)}, 258, 9, 258, 0
+
+    table, nxt, width, held, codes = reset()  # held: the decoder's table size
+    put(256, width)
+
+    def emit(code):
+        nonlocal width, held, codes
+        put(code, width)
+        if codes:
+            held += 1
+            if held >= 1 << width and width < 12:
+                width += 1
+        codes += 1
+
+    w = b""
+    for ch in data:
+        c = bytes([ch])
+        if w + c in table:
+            w += c
+            continue
+        emit(table[w])
+        if nxt < 4096:
+            table[w + c] = nxt
+            nxt += 1
+        if (nxt == 4094 and clear_when_full) or codes == clear_after:
+            put(256, width)
+            table, nxt, width, held, codes = reset()
+        w = c
+    if w:
+        emit(table[w])
+    if eoi:
+        put(257, width)
+    if n:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
 def packbits(data: bytes) -> bytes:
     out, i = bytearray(), 0
     while i < len(data):
@@ -1043,9 +1104,9 @@ def packbits(data: bytes) -> bytes:
     return bytes(out)
 
 
-def _tiff_compress(raw: bytes, compression: int) -> bytes:
+def _tiff_compress(raw: bytes, compression: int, old_lzw: bool = False) -> bytes:
     if compression == 5:
-        return tiff_lzw(raw)
+        return tiff_lzw_old_style(raw) if old_lzw else tiff_lzw(raw)
     if compression in (8, 32946):
         return zlib.compress(raw, 6)
     if compression == 32773:
@@ -1056,11 +1117,14 @@ def _tiff_compress(raw: bytes, compression: int) -> bytes:
 def tiff_bytes(samples, bps: int, photometric: int, compression: int = 1, order: str = "<",
                planar: int = 1, rows_per_strip: int = None, tile=None, predictor: int = 1,
                colormap=None, extra=None, orientation: int = None, big: bool = False,
-               fill_order: int = 1) -> bytes:
+               fill_order: int = 1, old_lzw: bool = False, more: dict = None) -> bytes:
     """A TIFF of (h, w) or (h, w, samples) integer ``samples``: strips of
     ``rows_per_strip`` rows or (width, length) ``tile``s, each compressed on
     its own (Predictor 2 differencing each row first; FillOrder 2 reversing
-    the bits of each byte after), then the IFD. ``big``: BigTIFF."""
+    the bits of each byte after), then the IFD. ``big``: BigTIFF;
+    ``old_lzw``: LZW strips old-style (``tiff_lzw_old_style``); ``more``:
+    more tags (tag -> (type, values)), SampleFormat (339) or WhitePoint
+    (318) say."""
     s = np.asarray(samples, np.int64)
     s = s[..., None] if s.ndim == 2 else s
     h, w, spp = s.shape
@@ -1077,7 +1141,7 @@ def tiff_bytes(samples, bps: int, photometric: int, compression: int = 1, order:
             raw = flat.astype(np.uint8).tobytes()
         else:
             raw = _pack(flat, bps).tobytes()
-        out = _tiff_compress(raw, compression)
+        out = _tiff_compress(raw, compression, old_lzw)
         return out if fill_order == 1 else bytes(int(f"{b:08b}"[::-1], 2) for b in out)
 
     planes = [s] if planar == 1 else [s[..., k:k + 1] for k in range(spp)]
@@ -1106,7 +1170,7 @@ def tiff_bytes(samples, bps: int, photometric: int, compression: int = 1, order:
         fields[320] = (3, np.asarray(colormap).T.reshape(-1).tolist())
     if extra is not None:
         fields[338] = (3, list(extra))
-    return tiff_file(chunks, fields, bool(tile), order, big)
+    return tiff_file(chunks, {**fields, **(more or {})}, bool(tile), order, big)
 
 
 def tiff_file(chunks, fields: dict, tiled: bool, order: str = "<", big: bool = False) -> bytes:
@@ -2217,6 +2281,18 @@ def jpeg2000_page() -> dict:
                                         quality_layers=[160])}
 
 
+def tiff_variant_cases(rng) -> dict:
+    """Three small TIFFs for the card's phase jpeg (the tests make many
+    more from seeds): CIE L*a*b* with Predictor 2 under LZW, signed 16-bit
+    RGB (SampleFormat 2, big-endian), and old-style LZW (``old_lzw``)."""
+    return {
+        "tifflab_lzw_predictor_7x13": tiff_bytes(smooth(rng, 7, 13), 8, 8, 5, predictor=2),
+        "tiffsigned_rgb16_be_5x7": tiff_bytes(smooth(rng, 5, 7, 3, 65536), 16, 2, 8, ">",
+                                              more={339: (3, [2] * 3)}),
+        "tifflzwold_rgb_7x13": tiff_bytes(smooth(rng, 7, 13), 8, 2, 5, old_lzw=True),
+    }
+
+
 EXTENSIONS = {b"\x89P": ".png", b"\xff\xd8": ".jpg", b"BM": ".bmp", b"P1": ".pbm",
               b"P4": ".pbm", b"P2": ".pgm", b"P5": ".pgm", b"P3": ".ppm", b"P6": ".ppm",
               b"GI": ".gif", b"II": ".tif", b"MM": ".tif", b"RI": ".webp", b"#?": ".hdr",
@@ -2252,6 +2328,8 @@ def main(argv=None) -> int:
     todo.update({f"cases/{name}{EXTENSIONS[data[:2]]}": data
                  for name, data in jpeg2000_cases(rng).items()})
     todo.update({f"pages/{name}": data for name, data in jpeg2000_page().items()})
+    rng = np.random.default_rng(28)  # the files above stay as they were
+    todo.update({f"cases/{name}.tif": data for name, data in tiff_variant_cases(rng).items()})
     for rel, data in todo.items():
         path = os.path.join(args.out, rel)
         os.makedirs(os.path.dirname(path), exist_ok=True)

@@ -422,7 +422,11 @@ def test_ycbcr_refusals(tmp_path):
                  assets.ycbcr_tiff(ycc, (2, 2), 1, fields={258: (3, [16, 16, 16])}),
                  assets.ycbcr_tiff(ycc, (2, 2), 1, fields={529: (5, [1, 2, 0, 1, 1, 2])})):
         assert assert_like_cv2(data, tmp_path) == [None, None]
+    # Predictor 2 on subsampled YCbCr is read (test_torch_port_tiff_signed_lzw.py); the
+    # floating point Predictor 3 is refused there too
     data = assets.ycbcr_tiff(ycc, (2, 2), 5, fields={317: (3, [2])})
-    assert _cv2(data) is not None
-    with pytest.raises(NotImplementedError, match="Predictor 2 on YCbCr subsampled"):
+    assert assert_like_cv2(data, tmp_path)[0] is not None
+    data = assets.ycbcr_tiff(ycc, (2, 2), 5, fields={317: (3, [3])})
+    assert assert_like_cv2(data, tmp_path) == [None, None]
+    with pytest.raises(ValueError, match="Predictor 3"):
         imageio.decode_image(data)

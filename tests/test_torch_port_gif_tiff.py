@@ -331,21 +331,32 @@ def test_tiff_refusals_name_what_they_met(cv, tmp_path):
         Image.fromarray(img, mode).save(buf, "TIFF", **kw)
         return buf.getvalue()
 
+    def relabelled(data, compression):  # the strips stay uncompressed
+        return data.replace(b"\x03\x01\x03\x00\x01\x00\x00\x00\x01\x00",
+                            b"\x03\x01\x03\x00\x01\x00\x00\x00" + compression.to_bytes(2, "little"))
+
     data = pil(rgb, compression="jpeg")  # JPEG (7) is read (test_torch_port_tiff_jpeg.py)
     np.testing.assert_array_equal(imageio.decode_image(data), cv2.cvtColor(cv2.imdecode(
         np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))
-    # CCITT (2-4) and YCbCr are read (test_torch_port_fax_tiff.py)
-    signed = assets.tiff_file([rgb[..., 0].tobytes()], {
-        256: (4, [24]), 257: (4, [16]), 258: (3, [8]), 259: (3, [1]), 262: (3, [1]),
-        277: (3, [1]), 278: (4, [16]), 339: (3, [2])}, False)
-    for data, what in ((assets.tiff_bytes(rgb, 8, 2, 6), "old-style JPEG \\(6\\)"),
-                       (signed, "signed integer"),
-                       (assets.ycbcr_tiff(rgb, (2, 2), 5, fields={317: (3, [2])}),
-                        "Predictor 2 on YCbCr subsampled"),
-                       (assets.tiff_bytes(rgb, 8, 2, 34925), "LZMA"),
-                       (assets.tiff_bytes(rgb, 8, 8, 1), "L\\*a\\*b\\*")):
-        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is not None \
-            or what in ("LZMA", "old-style JPEG \\(6\\)")
+    # CCITT (2-4) and YCbCr are read (test_torch_port_fax_tiff.py); signed samples, CIE
+    # L*a*b*, old-style LZW and Predictor 2 on subsampled YCbCr too
+    # (test_torch_port_tiff_lab.py, test_torch_port_tiff_signed_lzw.py)
+    bits = rgb[..., 0] & 1
+    cmap = rng.integers(0, 256, (16, 3))
+    strips = []
+    for k, old in enumerate((True, False)):  # strip 0 old-style, strip 1 not
+        data = assets.tiff_bytes(rgb, 8, 2, 5, rows_per_strip=8, old_lzw=old)
+        tags, _ = tiff._ifd(data, "x")
+        strips.append(data[tags[273][k]:tags[273][k] + tags[279][k]])
+    mixed = assets.tiff_file(strips, {256: (4, [24]), 257: (4, [16]), 258: (3, [8, 8, 8]),
+                                      259: (3, [5]), 262: (3, [2]), 277: (3, [3]),
+                                      278: (4, [8])}, False)
+    for data, what in ((relabelled(assets.tiff_bytes(bits, 1, 1, 1), 32771), "CCITT RLEW"),
+                       (relabelled(assets.tiff_bytes(rgb[..., 0] >> 4, 4, 3, 1, colormap=cmap),
+                                   32809), "ThunderScan"),
+                       (relabelled(assets.tiff_bytes(rgb[..., 0], 8, 32844, 1), 34676), "SGI LogL"),
+                       (mixed, "old-style \\(LSB-first\\), then not")):
+        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is not None
         with pytest.raises(NotImplementedError, match=what):
             imageio.decode_image(data)
     # cv2 refuses these through both routes, so the port raises ValueError naming them
@@ -355,7 +366,19 @@ def test_tiff_refusals_name_what_they_met(cv, tmp_path):
                             tiffinfo={317: 3}), "floating point samples"),
                        (assets.tiff_bytes(rgb, 8, 2, 5, predictor=3), "Predictor 3"),
                        (assets.tiff_bytes(rgb, 8, 9, 1), "ICC L\\*a\\*b\\*"),
-                       (assets.tiff_bytes(rgb, 8, 10, 1), "ITU L\\*a\\*b\\*")):
+                       (assets.tiff_bytes(rgb, 8, 10, 1), "ITU L\\*a\\*b\\*"),
+                       (assets.tiff_bytes(rgb, 8, 2, 6), "old-style JPEG \\(6\\)"),
+                       (assets.tiff_bytes(rgb, 8, 2, 34925), "LZMA"),
+                       (relabelled(assets.tiff_bytes(rgb, 8, 2, 1), 32909), "PixarLog"),
+                       (relabelled(assets.tiff_bytes(rgb[..., 0] >> 6, 2, 1, 1), 32766),
+                        "NeXT RLE"),
+                       (relabelled(assets.tiff_bytes(rgb[..., 0], 8, 1, 1), 34676), "SGI LogL"),
+                       (assets.tiff_bytes(rgb, 8, 2, 1, more={339: (3, [4] * 3)}), "untyped"),
+                       (assets.tiff_bytes(rgb, 8, 2, 1, more={339: (3, [1, 2, 1])}),
+                        "SampleFormat \\[1, 2, 1\\]"),
+                       (assets.tiff_bytes(rgb[..., 0], 8, 4, 1), "transparency mask"),
+                       (assets.tiff_bytes(rgb[..., 0], 8, 32844, 5), "SGI LogL"),
+                       (assets.tiff_bytes(rgb[..., 0], 8, 8, 1), "CIE L\\*a\\*b\\* of 1 samples")):
         path.write_bytes(data)
         assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
         assert cv2.imread(str(path), cv2.IMREAD_COLOR) is None
